@@ -6,14 +6,17 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the CUDA kernels from ``conan_fgw_tpu_torch/csrc`` and print the
-   build time, each kernel's registers and spills, and the card's name and
-   power limit.
+   build time, each kernel's registers and spills (a cfconv kernel that
+   spills fails the run), and the card's name and power limit.
 2. Kernel against plain version, on the card: K1 (cfconv forward), K2
    (cfconv backward: dx, dW1, db1, dW2, db2) and K3 (FGW couplings: T and
    the diverged flags) at the slice shape (G = S = 120 conformer graphs,
    N = 32, F = 128, 50 Gaussians) and at N = 64 with the 32-neighbour cap
    active; inputs are synthetic molecules and seeded tensors. Prints each
-   one's max error against its tolerance and its time (CUDA events).
+   one's max error against its tolerance and its time (CUDA events). K2 is
+   launched twice on the same inputs and must give bit-identical results.
+   K1/K2 get two bounds: the filter MLP over the TF32 tensor-core peak
+   (the one in the result line) and everything over the f32 CUDA-core peak.
 3. Training, the main path: ``fit`` on 48 synthetic molecules (K = 5
    conformers, B = 24, full width), stage 1 for 2 epochs, then stage 2 for
    2 epochs on the same model. Launch counts are zeroed just before and read
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,8 +44,10 @@ B, K = 24, 5
 CUTOFF, GAUSS, CAP, F = 10.0, 50, 32, 128
 FGW_KW = dict(alpha=0.1, epsilon=0.1, pgd_iters=5, pgd_tol=1e-4, sinkhorn_iters=5,
               sinkhorn_thr=1e-2)
-# published H100 SXM peaks: f32 on the CUDA cores, HBM3 bandwidth
+# published H100 SXM peaks: f32 on the CUDA cores, TF32 on the tensor cores
+# (dense), HBM3 bandwidth
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # tolerances of the kernel checks
 CFCONV_RTOL = 5e-4  # max |kernel - plain| / max |plain|, the TPU kernel's contract
@@ -90,8 +96,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
+    """Least ms for the work: the bytes over the memory rate against the
+    operations, ``tc_flops`` of them over the TF32 tensor-core peak and the
+    rest over the f32 CUDA-core peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, tc_flops / PEAK_TF32 + (flops - tc_flops) / PEAK_F32
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -113,9 +122,16 @@ def phase_build():
     print(f"[build] {path.name}: nvcc {built_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
     report = _build.BUILD_DIR / path.name.replace("libconan_kernels_", "ptxas_").replace(".so", ".txt")
     if report.exists():
+        entry, spills = "", {}
         for line in report.read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("[ptxas]", line.strip())
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line and "cfconv" in entry:
+                spills[entry] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        print(f"[ptxas] cfconv spill bytes (stores + loads) by kernel: {spills}")
+        require(spills and not any(spills.values()), "a cfconv kernel spills registers")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -155,6 +171,12 @@ def check_cfconv(label, pos, mask, gen, rows):
     cot = rnd(G, N, F)
     out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP)
     grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
+    grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
+    torch.cuda.synchronize()
+    same = [n for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_again)
+            if torch.equal(a, b)]
+    print(f"[cfconv {label}] bwd twice on the same inputs: bit-identical {same}")
+    require(len(same) == 5, f"cfconv {label} backward is not deterministic")
     leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
     out_p = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP)
     grads_p = torch.autograd.grad(out_p, leaves, cot)
@@ -187,14 +209,20 @@ def check_cfconv(label, pos, mask, gen, rows):
     w_bytes = 4 * (GAUSS * F + F * F + 2 * F)
     io_fwd = 4 * (G * N * 3 + G * N + 2 * G * N * F) + w_bytes
     io_bwd = 4 * (G * N * 3 + G * N + 3 * G * N * F) + 2 * w_bytes
-    flops_fwd = edges * (2 * (GAUSS * F + F * F) + 2 * F)
-    flops_bwd = edges * (4 * GAUSS * F + 6 * F * F + 4 * F)
+    # the filter MLP's products (tensor cores in the kernels) and the rest
+    mlp_fwd, mlp_bwd = edges * 2 * (GAUSS * F + F * F), edges * (4 * GAUSS * F + 6 * F * F)
+    flops_fwd, flops_bwd = mlp_fwd + edges * 2 * F, mlp_bwd + edges * 4 * F
     print(f"[cfconv {label}] G={G} N={N} edges={edges}: fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}),"
           f" bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f})")
-    rows["cfconv_fwd"][label] = dict(max_abs_err=err_fwd, ms=fwd_ms, plain_ms=plain_fwd_ms,
-                                     bound=bound(io_fwd, flops_fwd))
-    rows["cfconv_bwd"][label] = dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=plain_bwd_ms,
-                                     bound=bound(io_bwd, flops_bwd))
+    for name, ms, plain_ms, err, io, flops, mlp in (
+        ("cfconv_fwd", fwd_ms, plain_fwd_ms, err_fwd, io_fwd, flops_fwd, mlp_fwd),
+        ("cfconv_bwd", bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd, mlp_bwd),
+    ):
+        tc, f32 = bound(io, flops, mlp), bound(io, flops)
+        print(f"[cfconv {label}] {name}: bound {tc[0]:.5f} ms on the tensor cores"
+              f" ({100 * tc[0] / ms:.1f}% reached), {f32[0]:.5f} ms in f32 on the CUDA cores"
+              f" ({100 * f32[0] / ms:.1f}%); {flops / ms / 1e9:.1f} TFLOP/s")
+        rows[name][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=tc, bound_f32=f32)
 
 
 def check_fgw(label, pos, mask, gen, rows):
@@ -414,6 +442,10 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None,
             "n64": {k: rows[name]["N64"][k] for k in ("ms", "plain_ms")},
         })
+        if "bound_f32" in r:
+            kernels[-1]["bound_f32_ms"] = r["bound_f32"][0]
+            kernels[-1]["n64"]["bound_ms"] = rows[name]["N64"]["bound"][0]
+            kernels[-1]["n64"]["bound_f32_ms"] = rows[name]["N64"]["bound_f32"][0]
     print(f"[done] {time.perf_counter() - t0:.1f} s; stage 2 {stage_rows[2]['step_ms']:.2f} ms/step")
     print(json.dumps({"kernels": kernels, "train": stage_rows}))
     print(card)
