@@ -6,17 +6,26 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the CUDA kernels from ``conan_fgw_tpu_torch/csrc`` and print the
-   build time, each kernel's registers and spills (a cfconv kernel that
-   spills fails the run), and the card's name and power limit.
+   build time, each kernel's registers and spills (a cfconv or K3 kernel
+   that spills fails the run), and the card's name and power limit.
 2. Kernel against plain version, on the card: K1 (cfconv forward), K2
    (cfconv backward: dx, dW1, db1, dW2, db2) and K3 (FGW couplings: T and
    the diverged flags) at the slice shape (G = S = 120 conformer graphs,
    N = 32, F = 128, 50 Gaussians) and at N = 64 with the 32-neighbour cap
-   active; inputs are synthetic molecules and seeded tensors. Prints each
-   one's max error against its tolerance and its time (CUDA events). K2 is
-   launched twice on the same inputs and must give bit-identical results.
-   K1/K2 get two bounds: the filter MLP over the TF32 tensor-core peak
-   (the one in the result line) and everything over the f32 CUDA-core peak.
+   active; inputs are synthetic molecules and seeded tensors. K3 is also
+   held on the barycenter's second outer iteration at N = 32 and 64 (dense
+   C1, warm-started plans: its multi-iteration, freeze and rollback paths)
+   and, alone, at N = 96 and N = 128, where it reads C1 and C2 through L2.
+   A NaN planted
+   in one solve's T0 must flag that solve as diverged, as the plain version
+   does. Prints each one's max error against its tolerance, its time (CUDA
+   events over eager back-to-back calls; for K3 also over CUDA-graph
+   replays, ``graph_ms``, which leave out the wrapper's host time) and its
+   bound, and K3's Sinkhorn iterations. K2 is launched twice on the same
+   inputs and must give bit-identical results. Each kernel gets two bounds:
+   its tensor-core products (K1/K2's filter MLP, K3's two N^3 products)
+   over the TF32 tensor-core peak (the one in the result line), and
+   everything over the f32 CUDA-core peak.
 3. Training, the main path: ``fit`` on 48 synthetic molecules (K = 5
    conformers, B = 24, full width), stage 1 for 2 epochs, then stage 2 for
    2 epochs on the same model. Launch counts are zeroed just before and read
@@ -96,6 +105,27 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
+    """Mean milliseconds per call with the host out of the way: ``reps``
+    calls captured in one CUDA graph, replayed ``replays`` times between
+    CUDA events. ``fn`` must have been called before (warm-up)."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
     """Least ms for the work: the bytes over the memory rate against the
     operations, ``tc_flops`` of them over the TF32 tensor-core peak and the
@@ -128,10 +158,11 @@ def phase_build():
                 print("[ptxas]", line.strip())
             if "Compiling entry" in line:
                 entry = line.split("'")[1]
-            elif "spill" in line and "cfconv" in entry:
+            elif "spill" in line and ("cfconv" in entry or "fgw_couplings_kernel" in entry):
                 spills[entry] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
-        print(f"[ptxas] cfconv spill bytes (stores + loads) by kernel: {spills}")
-        require(spills and not any(spills.values()), "a cfconv kernel spills registers")
+        print(f"[ptxas] spill bytes (stores + loads) by kernel: {spills}")
+        require(any("fgw_couplings_kernel" in e for e in spills), "no ptxas report for K3")
+        require(spills and not any(spills.values()), "a kernel spills registers")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -153,14 +184,9 @@ def count_edges(pos, mask, cap):
     return int(radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, cap).sum())
 
 
-def check_cfconv(label, pos, mask, gen, rows):
+def cfconv_params(G, N, gen, dev):
+    """Seeded features, filter weights and cotangent: ``x, w1, b1, w2, b2, cot``."""
     import torch
-
-    from conan_fgw_tpu_torch.ops.cuda.cfconv import _cfconv_plain, cfconv_backward, cfconv_forward
-
-    dev = pos.device
-    G, N, _ = pos.shape
-    maskf = mask.to(torch.float32).contiguous()
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cpu") * scale).to(dev)
@@ -168,7 +194,17 @@ def check_cfconv(label, pos, mask, gen, rows):
     x = rnd(G, N, F)
     w1, b1 = rnd(GAUSS, F, scale=(6 / (GAUSS + F)) ** 0.5), rnd(F, scale=0.1)
     w2, b2 = rnd(F, F, scale=(3 / F) ** 0.5), rnd(F, scale=0.1)
-    cot = rnd(G, N, F)
+    return x, w1, b1, w2, b2, rnd(G, N, F)
+
+
+def check_cfconv(label, pos, mask, gen, rows):
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda.cfconv import _cfconv_plain, cfconv_backward, cfconv_forward
+
+    G, N, _ = pos.shape
+    maskf = mask.to(torch.float32).contiguous()
+    x, w1, b1, w2, b2, cot = cfconv_params(G, N, gen, pos.device)
     out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP)
     grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
     grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
@@ -225,11 +261,14 @@ def check_cfconv(label, pos, mask, gen, rows):
         rows[name][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=tc, bound_f32=f32)
 
 
-def check_fgw(label, pos, mask, gen, rows):
-    """The first outer iteration's coupling call of the barycenter."""
+def fgw_problem(pos, mask, gen):
+    """K3's inputs at the barycenter's first outer iteration: ``(Ms, C1, C2,
+    ps, qs, T0)`` over ``S = B*K`` solves, with the conformer graphs' 0/1
+    neighbour structure as C2 and the first conformer's as C1, random
+    features, uniform marginals and the product plan as T0. Also returns
+    the features ``Ys (B, K, N, D)`` and structures ``Cs (B, K, N, N)``."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
     from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
     from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 
@@ -245,46 +284,131 @@ def check_fgw(label, pos, mask, gen, rows):
     ps = p[:, None].expand(-1, K, N).reshape(S, N).contiguous()
     qs = ps.clone()
     T0 = (ps[:, :, None] * qs[:, None, :]).contiguous()
-    args = (Ms, C1, C2, ps, qs, T0)
+    return (Ms, C1, C2, ps, qs, T0), Ys, Cs
+
+
+def second_outer_inputs(args, Ys, Cs):
+    """K3's inputs at the barycenter's second outer iteration: one plain
+    coupling call on the first iteration's ``args``, then the feature and
+    structure update of ``ops/fgw/barycenter.py`` (uniform weights and
+    marginals): M from the updated features, the dense updated structure as
+    C1, and the first iteration's plans as T0."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda.fgw import fgw_couplings_plain
+    from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
+
+    _, _, C2, ps, qs, _ = args
+    Bm, Km, N, _ = Cs.shape
+    T, _ = fgw_couplings_plain(*args, **FGW_KW)
+    T = T.reshape(Bm, Km, N, N)
+    p = ps.reshape(Bm, Km, N)[:, 0]
+    lambdas = torch.full((Bm, Km), 1.0 / Km, device=Ys.device)
+    Y = (1.0 / p)[:, :, None] * torch.einsum("bk,bknm,bkmd->bnd", lambdas, T, Ys)
+    Ms = sqdist(Y[:, None], Ys).reshape(-1, N, N).contiguous()
+    C = torch.einsum("bk,bknm,bkmj,bklj->bnl", lambdas, T, Cs, T) / (p[:, :, None] * p[:, None, :])
+    C1 = C[:, None].expand(Bm, Km, N, N).reshape(-1, N, N).contiguous()
+    return Ms, C1, C2, ps, qs, T.reshape(-1, N, N).contiguous()
+
+
+def fgw_bound(S, N, sk_run):
+    """Least ms for ``S`` solves at ``N`` that ran ``sk_run`` Sinkhorn
+    iterations in all, with the two products on the tensor cores (as the
+    kernel runs them) and, second, all in f32 on the CUDA cores. Per solve
+    and PGD step: two N^3 products (2 flops per FMA), then about 15
+    operations per element for the gradient assembly, the first Sinkhorn
+    iteration's marginal check and the candidate plan; per Sinkhorn
+    iteration run, two log-sum-exp sweeps of 5 operations per element.
+    Bytes: M, C1, C2, T0 and T, p and q, the two flags."""
+    products = S * FGW_KW["pgd_iters"] * 4 * N**3
+    flops = products + S * FGW_KW["pgd_iters"] * 15 * N * N + sk_run * 10 * N * N
+    nbytes = 4 * (5 * S * N * N + 2 * S * N) + 2 * 4 * S
+    return bound(nbytes, flops, products), bound(nbytes, flops)
+
+
+def check_fgw(label, args, rows):
+    """K3 against its plain version on one set of coupling inputs."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
+
+    S, N, _ = args[0].shape
     T_k, div_k, sk_iters = _launch(*args, **FGW_KW)
     T_p, div_p = fgw_couplings_plain(*args, **FGW_KW)
     torch.cuda.synchronize()
     err = float((T_k - T_p).abs().max())
     flags_equal = bool(torch.equal(div_k, div_p))
+    sk_run = int(sk_iters.sum())
     print(f"[fgw {label}] T max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel "
-          f"{int(div_k.sum())} plain {int(div_p.sum())}")
+          f"{int(div_k.sum())} plain {int(div_p.sum())}; {sk_run} Sinkhorn iterations run of "
+          f"{S * FGW_KW['pgd_iters'] * FGW_KW['sinkhorn_iters']} budgeted")
     require(err <= FGW_ATOL, f"fgw {label} plans disagree: {err}")
     require(flags_equal, f"fgw {label} diverged flags disagree")
+    # eager calls leave the card waiting for the host between launches once
+    # the kernel is shorter than the wrapper's host time: graph replays give
+    # the kernel's own time beside the eager one
     ms = cuda_ms(lambda: _launch(*args, **FGW_KW))
+    replay_ms = graph_ms(lambda: _launch(*args, **FGW_KW))
     plain_ms = cuda_ms(lambda: fgw_couplings_plain(*args, **FGW_KW), reps=3, warmup=1)
-    pgd, sk_run = FGW_KW["pgd_iters"], int(sk_iters.sum())
-    # per solve and PGD step: two N^3 products (2 flops per FMA), then about
-    # 15 operations per element for the gradient assembly, the first
-    # Sinkhorn iteration's marginal check and the candidate plan; per
-    # Sinkhorn iteration this run's solves actually ran, two log-sum-exp
-    # sweeps of 5 operations per element
-    flops = S * pgd * (4 * N**3 + 15 * N * N) + sk_run * 10 * N * N
-    nbytes = 4 * (5 * S * N * N + 2 * S * N) + 2 * 4 * S
-    print(f"[fgw {label}] S={S} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
-          f" {sk_run} Sinkhorn iterations run of {S * pgd * FGW_KW['sinkhorn_iters']} budgeted")
-    rows["fgw_couplings"][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        bound=bound(nbytes, flops))
+    tc, f32 = fgw_bound(S, N, sk_run)
+    print(f"[fgw {label}] S={S} N={N}: kernel {ms:.4f} ms (eager calls; graph replays"
+          f" {replay_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {tc[0]:.5f} ms on the tensor"
+          f" cores ({tc[1]}, {100 * tc[0] / ms:.1f}% reached, {100 * tc[0] / replay_ms:.1f}% of"
+          f" the replays), {f32[0]:.5f} ms in f32 on the CUDA cores")
+    rows["fgw_couplings"][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms, plain_ms=plain_ms,
+                                        bound=tc, bound_f32=f32, sinkhorn_iters=sk_run)
+
+
+def check_fgw_nan(args):
+    """K3 against its plain version with a NaN (the bits 0x7fffffff, the
+    card's own NaN) planted in solve 0's T0: the products must carry it, so
+    that the solve rolls back and is flagged as diverged."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
+
+    T0 = args[5].clone()
+    T0.view(torch.int32)[0, 0, 0] = 0x7FFFFFFF
+    args = (*args[:5], T0)
+    T_k, div_k, _ = _launch(*args, **FGW_KW)
+    T_p, div_p = fgw_couplings_plain(*args, **FGW_KW)
+    torch.cuda.synchronize()
+    same_nan = bool(torch.equal(T_k.isnan(), T_p.isnan()))
+    err = float((T_k - T_p).nan_to_num(0.0).abs().max())
+    print(f"[fgw N32-nan] NaN in solve 0's T0: diverged kernel {div_k.tolist()[:3]}"
+          f" plain {div_p.tolist()[:3]} (first three); NaN positions equal {same_nan};"
+          f" T max_abs_err elsewhere {err:.3e} (tol {FGW_ATOL})")
+    require(int(div_p[0]) == 1, "the plain version does not flag the NaN solve")
+    require(bool(torch.equal(div_k, div_p)), "fgw N32-nan diverged flags disagree")
+    require(same_nan and err <= FGW_ATOL, "fgw N32-nan plans disagree")
+
+
+# K3's checks: (label, heavy atoms per molecule, bucket). N=96 and N=128
+# run K3 only; N=128 is the route that reads C1 and C2 through L2.
+FGW_SHAPES = (("N32", (8, 13), 32), ("N64", (20, 26), 64), ("N96", (48, 54), 96),
+              ("N128", (60, 66), 128))
 
 
 def phase_kernels(device):
     import torch
 
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
     rows = {name: {} for name in REPLACES}
     gen = torch.Generator().manual_seed(SEED)
-    for label, heavy, n_atoms in (("N32", (8, 13), 32), ("N64", (20, 26), 64)):
+    for label, heavy, n_atoms in FGW_SHAPES:
         pos, mask = packed_geometry(SEED + n_atoms, B, heavy, n_atoms, device)
         if n_atoms == 64:
-            from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
-
             within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
             require(bool((within > CAP).any()), "N=64 inputs never engage the neighbour cap")
-        check_cfconv(label, pos, mask, gen, rows)
-        check_fgw(label, pos, mask, gen, rows)
+        if n_atoms <= 64:
+            check_cfconv(label, pos, mask, gen, rows)
+        args, Ys, Cs = fgw_problem(pos, mask, gen)
+        check_fgw(label, args, rows)
+        if n_atoms == 32:
+            check_fgw_nan(args)
+        if n_atoms <= 64:
+            check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
     return rows
 
 
@@ -430,6 +554,11 @@ def main() -> int:
     profile_stage2(model, device)
     phase_parity(model, device)
 
+    def extra(row):
+        out = {"bound_f32_ms": row["bound_f32"][0]} if "bound_f32" in row else {}
+        out.update({k: row[k] for k in ("graph_ms", "sinkhorn_iters") if k in row})
+        return out
+
     kernels = []
     for name in REPLACES:
         r = rows[name]["N32"]
@@ -439,13 +568,13 @@ def main() -> int:
             "launches": totals[name],
             "max_abs_err": max(rows[name][lab]["max_abs_err"] for lab in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "n64": {k: rows[name]["N64"][k] for k in ("ms", "plain_ms")},
+            "bound_by": bound_by, "library_ms": None, **extra(r),
         })
-        if "bound_f32" in r:
-            kernels[-1]["bound_f32_ms"] = r["bound_f32"][0]
-            kernels[-1]["n64"]["bound_ms"] = rows[name]["N64"]["bound"][0]
-            kernels[-1]["n64"]["bound_f32_ms"] = rows[name]["N64"]["bound_f32"][0]
+        for lab, other in rows[name].items():
+            if lab != "N32":
+                kernels[-1][lab.lower()] = dict(
+                    ms=other["ms"], plain_ms=other["plain_ms"], bound_ms=other["bound"][0],
+                    **extra(other))
     print(f"[done] {time.perf_counter() - t0:.1f} s; stage 2 {stage_rows[2]['step_ms']:.2f} ms/step")
     print(json.dumps({"kernels": kernels, "train": stage_rows}))
     print(card)

@@ -13,202 +13,417 @@
 // also counts as a failure, and the PGD update error (checked on it % 10 == 0)
 // freezes the solve. Semantics are those of conan_fgw_tpu/ops/fgw/coupling.py.
 //
-// What bounds it on this card: a serial chain of small N x N matrix products
-// and reductions per solve; the bytes are ~6 N^2 floats per solve and the
-// flops 2*2N^3 per PGD step plus ~5 exp per element per Sinkhorn iteration.
-// At N=32 neither the memory nor the f32 peak is near: the chain's latency
-// bounds it. The design gives each solve one CTA that keeps T, the work
-// matrices and the vectors in shared memory for the whole solve (C1, C2 and
-// M too where they fit, N <= 96; at N = 128 they are read through L2), so
-// no iterate goes back to device memory. constC is the rank-1 sum
-// c1p_i + c2q_j, built in the kernel from two vectors. f32 with FMA, no TF32.
+// What bounds it on this card. The bytes are ~5 N^2 floats per solve and the
+// flops 2*2N^3 per PGD step plus ~5 exp per element per Sinkhorn iteration:
+// at N=32 neither memory nor any peak is near. One solve is a serial chain
+// of small products, reductions and barriers, and S = 120 solves fill 120 of
+// the 132 SMs with one block each, so the time is one solve's latency. The
+// design shortens that chain:
+// - one CTA of 256 threads per solve keeps T, C1 T (then the candidate plan)
+//   and mr in shared memory for the whole solve, and C1 and C2 too where
+//   they fit (N <= 96). At N = 128 C1 and C2 are read through L2 by the
+//   same fragment code. M is read once, into registers at the places where
+//   product 2's epilogue needs it.
+// - set-up issues every load of M, C1, C2, T0 (16-byte loads), p and q
+//   before its first shared store; c1p and c2q (constC is their rank-1 sum)
+//   are row reductions over all threads with warp shuffles.
+// - both products run on the tensor cores (mma.m16n8k8 TF32) with each f32
+//   operand split on load into x_big = tf32(x) and x_small = tf32(x - x_big),
+//   summing a_small b_big + a_big b_small + a_big b_big in f32: as accurate
+//   as the f32 products (one TF32 pass is not). The rounding is that of
+//   cvt.rna.tf32.f32, done with an integer add and mask at full rate, which
+//   would turn a NaN into -0. A NaN in C1 or C2 still reaches mr through
+//   c1p or c2q, on the rows or columns the f32 products would make NaN; a
+//   NaN anywhere in T0 makes every entry of the f32 C1 T (2 C2)^T NaN, so
+//   set-up makes c1p NaN instead, and with it all of mr. Each warp owns
+//   an (N/2) x (N/4) block of the output, (N/32)^2 tiles of 16 x 8. Product
+//   2 reads (2 C2)^T straight from C2's rows (C2 need not be symmetric) and
+//   assembles mr from its accumulators.
+// - the log-sum-exp sweeps and the column-marginal check use all threads,
+//   TPR lanes per line with shuffles; the finiteness test rides on the
+//   sweeps' barrier; the potentials ping-pong between two buffers.
+// What is left (clock64 phase split, scripts/torch_fgw_probe.py, H100 80GB
+// HBM3 at 700 W):
+// at N = 32 a solve takes ~25k cycles, a third in the products, a third in
+// the Sinkhorn sweeps (shuffle and barrier latency, and precise expf/logf,
+// about a quarter of a sweep), the rest in the marginal checks, candidate
+// plans and set-up; a solve that runs more Sinkhorn iterations spends more
+// than half of its time in the sweeps.
+// Padded row strides (floats; N is a multiple of 32):
+//   LDA = N + 4 for C1, C2, C1 T and mr: an m16n8k8 fragment of a row-major
+//     operand reads (row g, col t), g < 8, t < 4: bank 4g + t, conflict-free;
+//     so does product 2's B fragment, read from C2's rows. The column walks
+//     of the Sinkhorn sweeps are conflict-free at N = 32 and the row walks at
+//     N = 64; the other walks, and product 1's float2 stores, are 2-way.
+//   LDT = N + 8 for T, read as product 1's k-major B operand at (row t,
+//     col g): bank 8t + g, conflict-free.
 // The TPU's lane packing, block-diagonal operands and selector matmuls are
 // dropped: they served the TPU layout only.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr float LOG_EPS = 1e-30f;
+constexpr int MAX_DEVICES = 64;
+constexpr size_t MAX_SMEM_BYTES = 232448;  // a block's dynamic shared memory on Hopper
 
+// shared floats of one solve: T, C1 T and mr, the vectors, and C1 and C2
+// when resident
+__host__ __device__ constexpr size_t smem_floats(int n, int resident) {
+  return (size_t)n * (n + 8) + (size_t)(2 + 2 * resident) * n * (n + 4) + 10 * n + 32;
+}
+
+// lanes that share one line (row or column) of a log-sum-exp sweep: the
+// largest power of two <= 32 that leaves a line for every lane group
+__host__ __device__ constexpr int lse_tpr(int n) {
+  int t = 1;
+  while (t < 32 && t * 2 * n <= THREADS) t *= 2;
+  return t;
+}
+
+// lanes per row of the c1p / c2q reductions (2 N rows in all)
+__host__ __device__ constexpr int const_lanes(int n) {
+  int t = 1;
+  while (t < 32 && t * 4 * n <= THREADS) t *= 2;
+  return t;
+}
+
+// The block's sum of v, on every thread. Callers pass a barrier between two
+// calls (every reader of red is done before the next call writes it).
 __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  __syncthreads();
   if (l == 0) red[w] = v;
   __syncthreads();
   float s = 0.f;
-  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) s += red[k];
+  for (int k = 0; k < THREADS / 32; ++k) s += red[k];
   return s;
 }
 
-// out[r] = base[r] - LSE_c(A[r, c] + vec[c]) over c (rows = true) or
-// out[c] = base[c] - LSE_r(A[r, c] + vec[r])     (rows = false).
-// `tpr` lanes (a power of two <= 32) share each line. As jax.nn.logsumexp,
-// a non-finite max is replaced by 0 before the shift.
-__device__ void lse_update(const float* A, int ld, const float* vec, const float* base, float* out,
-                           int n, int tpr, bool rows) {
-  const int lines = blockDim.x / tpr;
-  const int sub = threadIdx.x % tpr;
-  for (int l0 = 0; l0 < n; l0 += lines) {
-    const int line = l0 + threadIdx.x / tpr;
-    const bool active = (threadIdx.x / tpr) < lines && line < n;
-    float m = -INFINITY;
-    if (active) {
-      for (int o = sub; o < n; o += tpr) {
-        float x = rows ? A[line * ld + o] + vec[o] : A[o * ld + line] + vec[o];
-        m = fmaxf(m, x);
-      }
+// TF32 rounding of cvt.rna.tf32.f32 (to nearest, ties away from zero) on
+// the bits of a float that is not NaN: add half of the 13 dropped bits,
+// clear them. Two integer instructions at full rate. A NaN such as the
+// card's own 0x7fffffff would carry into the sign bit and come out as -0;
+// the kernel's set-up sees to it that no NaN is lost that way.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small with both rounded to TF32, as the tensor cores take them
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's (N/2) x (N/4) block of a @ b on the tensor cores, 3xTF32:
+// acc[mt][nt] is the 16 x 8 tile at rows r0 + 16 mt, columns c0 + 8 nt
+// (m16n8k8 accumulator layout). a is row-major with stride lda; b(k, j) is
+// b[k * ldb + j] when KMAJOR, else b[j * ldb + k]. Generic pointers: the
+// same code reads shared memory or, through L2, device memory. Each k-step
+// adds a_small b_big, a_big b_small, then a_big b_big.
+template <int N, bool KMAJOR>
+__device__ __forceinline__ void warp_product(const float* a, int lda, const float* b, int ldb,
+                                             int r0, int c0, float (&acc)[N / 32][N / 32][4]) {
+  constexpr int MT = N / 32, NT = N / 32;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  // k-steps of 8, unrolled in full up to N = 96 and by 2 at N = 128 (registers)
+  constexpr int KS = N / 8, KU = N <= 96 ? KS : 2;
+#pragma unroll 1
+  for (int kc = 0; kc < KS; kc += KU)
+#pragma unroll
+  for (int ku = 0; ku < KU; ++ku) {
+    const int k0 = 8 * (kc + ku);
+    uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* ra = a + (r0 + 16 * mt + g) * lda + k0 + t;
+      split_tf32(ra[0], ab[mt][0], as[mt][0]);
+      split_tf32(ra[8 * lda], ab[mt][1], as[mt][1]);
+      split_tf32(ra[4], ab[mt][2], as[mt][2]);
+      split_tf32(ra[8 * lda + 4], ab[mt][3], as[mt][3]);
     }
-    for (int s = tpr >> 1; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
-    const float mm = isfinite(m) ? m : 0.f;
-    float acc = 0.f;
-    if (active) {
-      for (int o = sub; o < n; o += tpr) {
-        float x = rows ? A[line * ld + o] + vec[o] : A[o * ld + line] + vec[o];
-        acc += expf(x - mm);
-      }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int j = c0 + 8 * nt + g;
+      const float y0 = KMAJOR ? b[(k0 + t) * ldb + j] : b[j * ldb + k0 + t];
+      const float y1 = KMAJOR ? b[(k0 + t + 4) * ldb + j] : b[j * ldb + k0 + t + 4];
+      split_tf32(y0, bb[nt][0], bs[nt][0]);
+      split_tf32(y1, bb[nt][1], bs[nt][1]);
     }
-    for (int s = tpr >> 1; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (active && sub == 0) out[line] = base[line] - (logf(acc) + mm);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_tf32(acc[mt][nt], as[mt], bb[nt]);
+        mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
+        mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
+      }
   }
 }
 
-__global__ void fgw_couplings_kernel(const float* __restrict__ Ms, const float* __restrict__ C1s,
-                                     const float* __restrict__ C2s, const float* __restrict__ ps,
-                                     const float* __restrict__ qs, const float* __restrict__ T0s,
-                                     float* __restrict__ Tout, int* __restrict__ div_out,
-                                     int* __restrict__ iters_out, int n,
-                                     int resident, float alpha, float epsilon, int pgd_iters,
-                                     float pgd_tol, int sinkhorn_iters, float sinkhorn_thr) {
+// out[l] = base[l] - LSE_c(mr[l, c] + vec[c]) over a row (ROWS) or
+// out[l] = base[l] - LSE_r(mr[r, l] + vec[r]) over a column of mr.
+// TPR lanes share each line. As jax.nn.logsumexp, a non-finite max is
+// replaced by 0 before the shift. Returns 1 where this thread wrote a
+// non-finite value.
+template <int N, bool ROWS>
+__device__ __forceinline__ int lse_update(const float* mr, const float* vec, const float* base,
+                                          float* out) {
+  constexpr int TPR = lse_tpr(N), LINES = THREADS / TPR, LDA = N + 4, PER = N / TPR;
+  const int sub = threadIdx.x % TPR;
+  int bad = 0;
+#pragma unroll
+  for (int l0 = 0; l0 < N; l0 += LINES) {
+    const int line = l0 + threadIdx.x / TPR;
+    const bool active = line < N;
+    float x[PER];
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < PER; ++c) {
+      const int o = sub + c * TPR;
+      x[c] = active ? (ROWS ? mr[line * LDA + o] : mr[o * LDA + line]) + vec[o] : -INFINITY;
+      m = fmaxf(m, x[c]);
+    }
+    for (int s = TPR >> 1; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
+    const float mm = isfinite(m) ? m : 0.f;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < PER; ++c) acc += active ? expf(x[c] - mm) : 0.f;
+    for (int s = TPR >> 1; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    if (active && sub == 0) {
+      const float r = base[line] - (logf(acc) + mm);
+      out[line] = r;
+      bad |= !isfinite(r);
+    }
+  }
+  return bad;
+}
+
+// this thread's part of sum_j (sum_i exp(mr[i, j] + un[i] + vn[j]) - q[j])^2,
+// the column marginal of the would-be plan against q, TPR lanes a column
+template <int N>
+__device__ __forceinline__ float col_marginal_err2(const float* mr, const float* un, const float* vn,
+                                                   const float* q) {
+  constexpr int TPR = lse_tpr(N), LINES = THREADS / TPR, LDA = N + 4, PER = N / TPR;
+  const int sub = threadIdx.x % TPR;
+  float e2 = 0.f;
+#pragma unroll
+  for (int l0 = 0; l0 < N; l0 += LINES) {
+    const int j = l0 + threadIdx.x / TPR;
+    const bool active = j < N;
+    float col = 0.f;
+    if (active) {
+      const float vj = vn[j];
+#pragma unroll
+      for (int c = 0; c < PER; ++c) {
+        const int i = sub + c * TPR;
+        col += expf(mr[i * LDA + j] + un[i] + vj);
+      }
+    }
+    for (int s = TPR >> 1; s > 0; s >>= 1) col += __shfl_xor_sync(0xffffffffu, col, s);
+    if (active && sub == 0) {
+      const float dlt = col - q[j];
+      e2 += dlt * dlt;
+    }
+  }
+  return e2;
+}
+
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+    fgw_couplings_kernel(const float* __restrict__ Ms, const float* __restrict__ C1s,
+                         const float* __restrict__ C2s, const float* __restrict__ ps,
+                         const float* __restrict__ qs, const float* __restrict__ T0s,
+                         float* __restrict__ Tout, int* __restrict__ div_out,
+                         int* __restrict__ iters_out, int resident, float alpha, float epsilon,
+                         int pgd_iters, float pgd_tol, int sinkhorn_iters, float sinkhorn_thr) {
+  constexpr int LDA = N + 4, LDT = N + 8;
+  constexpr int MT = N / 32, NT = N / 32;   // a warp's tiles: MT x NT of 16 x 8
+  constexpr int V4 = N * N / 4 / THREADS;   // float4 loads per thread per matrix
+  constexpr int PE = N * N / THREADS;       // elements per thread, row-major order
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x, tid = threadIdx.x;
-  const int ld = n + 1;  // padded stride: row and column walks are conflict-free
-  const size_t nn = (size_t)n * n;
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int r0 = (warp >> 2) * (N / 2), c0 = (warp & 3) * (N / 4);  // the warp's output block
+  const size_t nn = (size_t)N * N;
   float* T = smem;
-  float* A = T + n * ld;   // C1 @ T, then the candidate plan
-  float* B = A + n * ld;   // mr = -G / eps
-  float* vecs = B + n * ld;
-  float* logp = vecs;
-  float* logq = logp + n;
-  float* q = logq + n;
-  float* c1p = q + n;
-  float* c2q = c1p + n;
-  float* u = c2q + n;
-  float* v = u + n;
-  float* un = v + n;
-  float* vn = un + n;
-  float* red = vn + n;  // 32
-  float* mats = red + 32;
+  float* A = T + N * LDT;  // C1 @ T
+  float* mr = A + N * LDA; // -G / eps
+  float* p = mr + N * LDA;
+  float* logp = p + N;
+  float* q = logp + N;
+  float* logq = q + N;
+  float* c1p = logq + N;
+  float* c2q = c1p + N;
+  float* u = c2q + N;      // potentials: u, v accepted, un, vn the sweep's, swapped on accept
+  float* un = u + N;
+  float* v = un + N;
+  float* vn = v + N;
+  float* red = vn + N;     // 32
+  float* mats = red + 32;  // C1, C2 when resident
 
-  const float* Mg = Ms + s * nn;
   const float* C1g = C1s + s * nn;
   const float* C2g = C2s + s * nn;
-  const float *M, *C1, *C2;
-  int ldi;
-  if (resident) {
-    float* Ms_ = mats;
-    float* C1_ = Ms_ + n * ld;
-    float* C2_ = C1_ + n * ld;
-    for (int idx = tid; idx < n * n; idx += blockDim.x) {
-      int i = idx / n, j = idx % n;
-      Ms_[i * ld + j] = Mg[idx];
-      C1_[i * ld + j] = C1g[idx];
-      C2_[i * ld + j] = C2g[idx];
-    }
-    M = Ms_, C1 = C1_, C2 = C2_, ldi = ld;
-  } else {
-    M = Mg, C1 = C1g, C2 = C2g, ldi = n;
-  }
-  for (int idx = tid; idx < n * n; idx += blockDim.x) T[(idx / n) * ld + idx % n] = T0s[s * nn + idx];
-  for (int i = tid; i < n; i += blockDim.x) {
-    logp[i] = logf(fmaxf(ps[(size_t)s * n + i], LOG_EPS));
-    q[i] = qs[(size_t)s * n + i];
-    logq[i] = logf(fmaxf(q[i], LOG_EPS));
-  }
-  __syncthreads();
-  // constC[i][j] = sum_k C1[i][k]^2 p[k] + sum_k C2[j][k]^2 q[k]
-  for (int i = tid; i < n; i += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int k = 0; k < n; ++k) {
-      float c1 = C1[i * ldi + k], c2 = C2[i * ldi + k];
-      a = fmaf(c1 * c1, ps[(size_t)s * n + k], a);
-      b = fmaf(c2 * c2, q[k], b);
-    }
-    c1p[i] = a;
-    c2q[i] = b;
-  }
-  __syncthreads();
+  // C1 and C2 in shared memory where they fit beside the rest (N <= 96)
+  const bool res = smem_floats(N, 1) * sizeof(float) <= MAX_SMEM_BYTES && resident;
+  const float* C1 = res ? mats : C1g;
+  const float* C2 = res ? mats + N * LDA : C2g;
+  const int ldc = res ? LDA : N;
 
-  int tpr = 1;
-  while (tpr < 32 && tpr * 2 * n <= (int)blockDim.x) tpr *= 2;
+  // set-up: every load issued before the first shared store
+  const float* Mg = Ms + s * nn;
+  int t0_nan = 0;  // a NaN in T0: every product entry is NaN in f32
+  float Mr[MT][NT][4];  // M at this thread's accumulator positions, for the whole solve
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* mp = Mg + (r0 + 16 * mt + g) * N + c0 + 8 * nt + 2 * t;
+      const float2 lo = __ldg(reinterpret_cast<const float2*>(mp));
+      const float2 hi = __ldg(reinterpret_cast<const float2*>(mp + 8 * N));
+      Mr[mt][nt][0] = lo.x, Mr[mt][nt][1] = lo.y, Mr[mt][nt][2] = hi.x, Mr[mt][nt][3] = hi.y;
+    }
+  {
+    const float4* T0v = reinterpret_cast<const float4*>(T0s + s * nn);
+    const float4* C1v = reinterpret_cast<const float4*>(C1g);
+    const float4* C2v = reinterpret_cast<const float4*>(C2g);
+    float4 t0[V4], c1[V4], c2[V4];
+#pragma unroll
+    for (int r = 0; r < V4; ++r) t0[r] = __ldg(T0v + tid + r * THREADS);
+#pragma unroll
+    for (int r = 0; r < V4; ++r)
+      t0_nan |= isnan(t0[r].x) | isnan(t0[r].y) | isnan(t0[r].z) | isnan(t0[r].w);
+    if (res) {
+#pragma unroll
+      for (int r = 0; r < V4; ++r) c1[r] = __ldg(C1v + tid + r * THREADS), c2[r] = __ldg(C2v + tid + r * THREADS);
+    }
+    const float pv = tid < N ? __ldg(ps + (size_t)s * N + tid) : 0.f;
+    const float qv = tid < N ? __ldg(qs + (size_t)s * N + tid) : 0.f;
+#pragma unroll
+    for (int r = 0; r < V4; ++r) {
+      const int idx = tid + r * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+      *reinterpret_cast<float4*>(T + i * LDT + j) = t0[r];
+      if (res) {
+        *reinterpret_cast<float4*>(mats + i * LDA + j) = c1[r];
+        *reinterpret_cast<float4*>(mats + N * LDA + i * LDA + j) = c2[r];
+      }
+    }
+    if (tid < N) {
+      p[tid] = pv;
+      logp[tid] = logf(fmaxf(pv, LOG_EPS));
+      q[tid] = qv;
+      logq[tid] = logf(fmaxf(qv, LOG_EPS));
+    }
+  }
+  t0_nan = __syncthreads_or(t0_nan);
+  // constC[i][j] = c1p[i] + c2q[j]: c1p[i] = sum_k C1[i][k]^2 p[k],
+  // c2q[j] = sum_k C2[j][k]^2 q[k]; CL lanes a row over the 2N rows
+  {
+    constexpr int CL = const_lanes(N), PER = N / CL;
+    const int line = tid / CL, sub = tid % CL;
+    const bool active = line < 2 * N;
+    const bool second = line >= N;
+    const float* row = (second ? C2 + (line - N) * ldc : C1 + line * ldc);
+    const float* w = second ? q : p;
+    float acc = 0.f;
+    if (active) {
+#pragma unroll 16
+      for (int c = 0; c < PER; ++c) {
+        const int k = sub + c * CL;
+        const float x = row[k];
+        acc = fmaf(x * x, w[k], acc);
+      }
+    }
+    for (int o = CL >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (active && sub == 0) {
+      if (second) c2q[line - N] = acc;
+      else c1p[line] = t0_nan ? __int_as_float(0x7fc00000) : acc;  // all of mr NaN
+    }
+  }
+  __syncthreads();
 
   bool frozen = false, diverged = false;  // uniform across the block
   int sk_run = 0;                         // Sinkhorn iterations run, all PGD steps
   for (int it = 0; it < pgd_iters; ++it) {
+    float acc[MT][NT][4];
     // A = C1 @ T
-    for (int idx = tid; idx < n * n; idx += blockDim.x) {
-      int i = idx / n, j = idx % n;
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) acc = fmaf(C1[i * ldi + k], T[k * ld + j], acc);
-      A[i * ld + j] = acc;
-    }
+    warp_product<N, true>(C1, ldc, T, LDT, r0, c0, acc);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float* a = A + (r0 + 16 * mt + g) * LDA + c0 + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(a) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(a + 8 * LDA) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+    if (tid < N) u[tid] = 0.f, v[tid] = 0.f;
     __syncthreads();
-    // B = -(2 alpha (constC - A (2 C2)^T) + (1 - alpha) M) / eps
-    for (int idx = tid; idx < n * n; idx += blockDim.x) {
-      int i = idx / n, j = idx % n;
-      float h = 0.f;
-      for (int k = 0; k < n; ++k) h = fmaf(A[i * ld + k], C2[j * ldi + k], h);
-      h *= 2.f;
-      float tens = alpha * (2.f * ((c1p[i] + c2q[j]) - h)) + (1.f - alpha) * M[i * ldi + j];
-      B[i * ld + j] = -tens / epsilon;
-    }
-    for (int i = tid; i < n; i += blockDim.x) u[i] = 0.f, v[i] = 0.f;
+    // mr = -(2 alpha (constC - A (2 C2)^T) + (1 - alpha) M) / eps
+    warp_product<N, false>(A, LDA, C2, ldc, r0, c0, acc);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int i = r0 + 16 * mt + g, j = c0 + 8 * nt + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ie = i + 8 * (e >> 1), je = j + (e & 1);
+          const float h = 2.f * acc[mt][nt][e];
+          const float tens = alpha * (2.f * ((c1p[ie] + c2q[je]) - h)) + (1.f - alpha) * Mr[mt][nt][e];
+          mr[ie * LDA + je] = -tens / epsilon;
+        }
+      }
     __syncthreads();
 
     // log-domain Sinkhorn
     bool sfrozen = false, sdiv = false;
     for (int si = 0; si < sinkhorn_iters && !sfrozen; ++si) {
-      lse_update(B, ld, u, logq, vn, n, tpr, false);  // columns
+      int bad = lse_update<N, false>(mr, u, logq, vn);  // columns
       __syncthreads();
-      lse_update(B, ld, vn, logp, un, n, tpr, true);  // rows
-      __syncthreads();
-      int bad_local = 0;
-      for (int i = tid; i < n; i += blockDim.x) bad_local |= !isfinite(un[i]) || !isfinite(vn[i]);
-      const bool newly_div = __syncthreads_or(bad_local) != 0;  // sfrozen is false here
+      bad |= lse_update<N, true>(mr, vn, logp, un);     // rows
+      const bool newly_div = __syncthreads_or(bad) != 0;  // sfrozen is false here
       bool newly_frozen = newly_div;
       if (si % 10 == 0) {
         // column marginal of the would-be plan against q
-        float e2 = 0.f;
-        for (int j = tid; j < n; j += blockDim.x) {
-          float col = 0.f;
-          for (int i = 0; i < n; ++i) col += expf(B[i * ld + j] + un[i] + vn[j]);
-          float dlt = col - q[j];
-          e2 += dlt * dlt;
-        }
-        e2 = block_sum(e2, red);
+        const float e2 = block_sum(col_marginal_err2<N>(mr, un, vn, q), red);
         newly_frozen = newly_frozen || sqrtf(e2) < sinkhorn_thr;
       }
       if (!newly_div) {
-        for (int i = tid; i < n; i += blockDim.x) u[i] = un[i], v[i] = vn[i];
+        float* x = u;
+        u = un, un = x;
+        x = v;
+        v = vn, vn = x;
       }
-      __syncthreads();
       sfrozen = newly_frozen;
       sdiv = sdiv || newly_div;
       ++sk_run;
     }
 
     // candidate plan, its finiteness and its distance to T
+    float cand[PE];
     int nonfinite = 0;
     float e2 = 0.f;
-    for (int idx = tid; idx < n * n; idx += blockDim.x) {
-      int i = idx / n, j = idx % n;
-      float tn = expf(B[i * ld + j] + u[i] + v[j]);
-      A[i * ld + j] = tn;
-      nonfinite |= !isfinite(tn);
-      float dlt = tn - T[i * ld + j];
+#pragma unroll
+    for (int r = 0; r < PE; ++r) {
+      const int idx = tid + r * THREADS, i = idx / N, j = idx % N;
+      cand[r] = expf(mr[i * LDA + j] + u[i] + v[j]);
+      nonfinite |= !isfinite(cand[r]);
+      const float dlt = cand[r] - T[i * LDT + j];
       e2 += dlt * dlt;
     }
     const bool bad = sdiv || (__syncthreads_or(nonfinite) != 0);
@@ -218,49 +433,81 @@ __global__ void fgw_couplings_kernel(const float* __restrict__ Ms, const float* 
       newly_frozen = newly_frozen || sqrtf(e2) <= pgd_tol;
     }
     if (!(frozen || bad)) {
-      for (int idx = tid; idx < n * n; idx += blockDim.x) {
-        int i = idx / n, j = idx % n;
-        T[i * ld + j] = A[i * ld + j];
+#pragma unroll
+      for (int r = 0; r < PE; ++r) {
+        const int idx = tid + r * THREADS;
+        T[(idx / N) * LDT + idx % N] = cand[r];
       }
     }
     __syncthreads();
     frozen = frozen || newly_frozen;
     diverged = diverged || bad;
   }
-  for (int idx = tid; idx < n * n; idx += blockDim.x) Tout[s * nn + idx] = T[(idx / n) * ld + idx % n];
+#pragma unroll
+  for (int r = 0; r < V4; ++r) {
+    const int idx = tid + r * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+    reinterpret_cast<float4*>(Tout + s * nn)[idx] = *reinterpret_cast<const float4*>(T + i * LDT + j);
+  }
   if (tid == 0) {
     div_out[s] = diverged ? 1 : 0;
     iters_out[s] = sk_run;
   }
 }
 
-size_t smem_floats(int n, int resident) {
-  return (size_t)(3 + 3 * resident) * n * (n + 1) + 9 * n + 32;
+template <int N>
+int launch(const float* Ms, const float* C1s, const float* C2s, const float* ps, const float* qs,
+           const float* T0s, float* Tout, int* div_out, int* iters_out, int S, int resident,
+           float alpha, float epsilon, int pgd_iters, float pgd_tol, int sinkhorn_iters,
+           float sinkhorn_thr, cudaStream_t stream) {
+  // the dynamic shared-memory limit is raised once per device and size
+  static size_t raised[MAX_DEVICES];
+  const size_t smem = smem_floats(N, resident) * sizeof(float);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || raised[dev] < smem) {
+    err = cudaFuncSetAttribute(fgw_couplings_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) raised[dev] = smem;
+  }
+  fgw_couplings_kernel<N><<<S, THREADS, smem, stream>>>(Ms, C1s, C2s, ps, qs, T0s, Tout, div_out,
+                                                        iters_out, resident, alpha, epsilon,
+                                                        pgd_iters, pgd_tol, sinkhorn_iters,
+                                                        sinkhorn_thr);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes of one solve; resident = 1 keeps M, C1 and C2 there too.
+// Shared-memory bytes of one solve; resident = 1 keeps C1 and C2 there too.
 size_t fgw_smem(int n, int resident) { return smem_floats(n, resident) * sizeof(float); }
 
-// K3. Ms, C1s, C2s, T0s (S,N,N), ps, qs (S,N), f32 contiguous on the device
-// -> Tout (S,N,N) f32, div_out (S,) int32 per-solve divergence flags and
-// iters_out (S,) int32, the Sinkhorn iterations each solve ran (a frozen solve
-// leaves its Sinkhorn loop early).
+// K3. Ms, C1s, C2s, T0s (S,N,N), ps, qs (S,N), f32 contiguous on the device,
+// 16-byte aligned, N one of 32, 64, 96, 128 -> Tout (S,N,N) f32, div_out
+// (S,) int32 per-solve divergence flags and iters_out (S,) int32, the
+// Sinkhorn iterations each solve ran (a frozen solve leaves its Sinkhorn
+// loop early). Another N returns cudaErrorInvalidValue.
 int fgw_couplings(const float* Ms, const float* C1s, const float* C2s, const float* ps,
                   const float* qs, const float* T0s, float* Tout, int* div_out, int* iters_out,
                   int S, int N, int resident, float alpha, float epsilon, int pgd_iters,
                   float pgd_tol, int sinkhorn_iters, float sinkhorn_thr, void* stream) {
-  size_t smem = fgw_smem(N, resident);
-  cudaError_t err = cudaFuncSetAttribute(fgw_couplings_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fgw_couplings_kernel<<<S, THREADS, smem, (cudaStream_t)stream>>>(
-      Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, N, resident, alpha, epsilon, pgd_iters,
-      pgd_tol, sinkhorn_iters, sinkhorn_thr);
-  return (int)cudaGetLastError();
+  switch (N) {
+#define FGW_CASE(n)                                                                               \
+  case n:                                                                                         \
+    return launch<n>(Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, S, resident, alpha,     \
+                     epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr,                   \
+                     (cudaStream_t)stream);
+    FGW_CASE(32)
+    FGW_CASE(64)
+    FGW_CASE(96)
+    FGW_CASE(128)
+#undef FGW_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -11,6 +11,9 @@ without gradient.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from conan_fgw_tpu_torch.data.packing import DEFAULT_BUCKETS
@@ -18,6 +21,7 @@ from conan_fgw_tpu_torch.ops.cuda import _build, launches
 from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 
 MAX_ATOMS = DEFAULT_BUCKETS[-1]
+_NAMES = ("Ms", "C1s", "C2s", "ps", "qs", "T0s")
 
 
 def fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, **solver):
@@ -26,39 +30,58 @@ def fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, **solver):
     return T, div.to(torch.int32)
 
 
-def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
-            sinkhorn_iters, sinkhorn_thr):
-    """Launch K3: ``(T, diverged, sinkhorn_iters_run)``, the last an ``(S,)``
-    int32 count of the Sinkhorn iterations each solve ran over all its PGD
-    steps (a frozen solve leaves its Sinkhorn loop early)."""
-    S, N, _ = Ms.shape
-    named = dict(Ms=Ms, C1s=C1s, C2s=C2s, ps=ps, qs=qs, T0s=T0s)
-    for name, t in named.items():
-        if not t.is_cuda or t.device != Ms.device:
-            raise ValueError(f"fgw kernel: {name} must lie on {Ms.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"fgw kernel: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"fgw kernel: {name} must be contiguous")
-        want = (S, N) if name in ("ps", "qs") else (S, N, N)
-        if tuple(t.shape) != want:
-            raise ValueError(f"fgw kernel: {name} has shape {tuple(t.shape)}, want {want}")
-    if N > MAX_ATOMS:
-        raise ValueError(f"fgw kernel: N={N} exceeds the largest bucket {MAX_ATOMS}")
+@functools.cache
+def _resident(N: int) -> int:
+    """1 where C1 and C2 fit in shared memory beside the solve's own
+    matrices (N <= 96), else 0: the kernel then reads them through L2."""
     lib = _build.load_library()
     resident = int(lib.fgw_smem(N, 1) <= _build.MAX_SMEM_BYTES)
     if lib.fgw_smem(N, resident) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"fgw kernel: N={N} does not fit in shared memory")
+    return resident
+
+
+def _complaint(name, t, dev, want):
+    if not t.is_cuda or t.device != dev:
+        return f"{name} must lie on {dev}"
+    if t.dtype != torch.float32:
+        return f"{name} must be float32, got {t.dtype}"
+    if not t.is_contiguous():
+        return f"{name} must be contiguous"
+    if tuple(t.shape) != want:
+        return f"{name} has shape {tuple(t.shape)}, want {want}"
+    return f"{name} must start on a 16-byte boundary"
+
+
+def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
+            sinkhorn_iters, sinkhorn_thr):
+    """Launch K3: ``(T, diverged, sinkhorn_iters_run)``, the last an ``(S,)``
+    int32 count of the Sinkhorn iterations each solve ran over all its PGD
+    steps (a frozen solve leaves its Sinkhorn loop early). ``N`` must be a
+    bucket size (a multiple of 32 up to ``MAX_ATOMS``)."""
+    S, N, _ = Ms.shape
+    dev = Ms.device
+    idx = Ms.get_device()  # -1 off the card
+    for name, t in zip(_NAMES, (Ms, C1s, C2s, ps, qs, T0s)):
+        want = (S, N) if name in ("ps", "qs") else (S, N, N)
+        if (idx < 0 or t.get_device() != idx or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != want or t.data_ptr() % 16):
+            raise ValueError(f"fgw kernel: {_complaint(name, t, dev, want)}")
+    if N % 32 or N > MAX_ATOMS:
+        raise ValueError(f"fgw kernel: N={N} is not a multiple of 32 up to {MAX_ATOMS}")
+    resident = _resident(N)
     T = torch.empty_like(Ms)
-    div = torch.empty((S,), dtype=torch.int32, device=Ms.device)
-    iters = torch.empty_like(div)
-    with torch.cuda.device(Ms.device):
-        stream = torch.cuda.current_stream(Ms.device).cuda_stream
-        code = lib.fgw_couplings(
+    flags = torch.empty((2, S), dtype=torch.int32, device=dev)
+    div, iters = flags[0], flags[1]
+    switch = contextlib.nullcontext() if idx == torch.cuda.current_device() else torch.cuda.device(idx)
+    with switch:
+        code = _build.load_library().fgw_couplings(
             Ms.data_ptr(), C1s.data_ptr(), C2s.data_ptr(), ps.data_ptr(), qs.data_ptr(),
             T0s.data_ptr(), T.data_ptr(), div.data_ptr(), iters.data_ptr(), S, N, resident,
             float(alpha), float(epsilon), int(pgd_iters), float(pgd_tol),
-            int(sinkhorn_iters), float(sinkhorn_thr), stream,
+            int(sinkhorn_iters), float(sinkhorn_thr),
+            # the current stream's raw handle, without building a Stream object
+            torch._C._cuda_getCurrentRawStream(idx),
         )
     _build.check(code, "fgw_couplings")
     launches["fgw_couplings"] += 1
@@ -71,13 +94,15 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
 
     Args: ``Ms``/``C1s``/``C2s``/``T0s`` ``(S, N, N)``, ``ps``/``qs`` ``(S, N)``.
     Returns ``(T (S, N, N) f32, diverged (S,) int32 per-solve flags)``.
-    CUDA tensors go to the kernel, CPU tensors to ``fgw_couplings_plain``.
+    CUDA tensors go to the kernel, CPU tensors to ``fgw_couplings_plain``;
+    a mix of the two raises.
     """
     solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,
                   sinkhorn_iters=sinkhorn_iters, sinkhorn_thr=sinkhorn_thr)
-    if Ms.device.type == "cpu":
+    if all(t.device.type == "cpu" for t in (Ms, C1s, C2s, ps, qs, T0s)):
         return fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, **solver)
     if Ms.is_cuda:
         T, div, _ = _launch(Ms, C1s, C2s, ps, qs, T0s, **solver)
         return T, div
-    raise ValueError(f"fgw_couplings_flat: unsupported device {Ms.device}")
+    devices = sorted({str(t.device) for t in (Ms, C1s, C2s, ps, qs, T0s)})
+    raise ValueError(f"fgw_couplings_flat: unsupported device {', '.join(devices)}")

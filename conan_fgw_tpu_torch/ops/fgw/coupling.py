@@ -37,12 +37,16 @@ def fgw_coupling(
     pgd_tol: float = 1e-4,
     sinkhorn_iters: int = 5,
     sinkhorn_thr: float = 1e-2,
+    mm=torch.matmul,
 ):
     """Solve FGW couplings between ``(C1, p)`` and ``(C2, q)``.
 
     Shapes: ``M, C1, C2, T0`` ``(..., N, N)``; ``p, q`` ``(..., N)``.
     Returns ``(T (..., N, N), diverged (...) bool)``: diverged is True where
-    an inner Sinkhorn solve hit non-finite values and rolled back.
+    an inner Sinkhorn solve hit non-finite values and rolled back. ``mm``
+    computes the two products of each PGD step, ``(C1 T) (2 C2)^T``; the
+    CPU tests pass ``ops/cuda/cfconv.py::split_mm`` to emulate the kernel's
+    tensor-core arithmetic.
     """
     constC = square_loss_const(C1, C2, p, q)
     hC2T = (2.0 * C2).transpose(-1, -2)
@@ -51,7 +55,7 @@ def fgw_coupling(
     frozen = torch.zeros(batch, dtype=torch.bool, device=M.device)
     diverged = torch.zeros_like(frozen)
     for it in range(pgd_iters):
-        tens = alpha * (2.0 * (constC - C1 @ T @ hC2T)) + (1.0 - alpha) * M
+        tens = alpha * (2.0 * (constC - mm(mm(C1, T), hC2T))) + (1.0 - alpha) * M
         T_new, div = sinkhorn_log(
             p, q, tens, epsilon, num_iters=sinkhorn_iters, stop_thr=sinkhorn_thr
         )

@@ -150,3 +150,19 @@ def test_barycenter_values_and_grad(masked):
     g_t, g_j = Ys_t.grad.numpy(), np.asarray(g_j)
     assert np.linalg.norm(g_t - g_j) <= GRAD_RTOL * np.linalg.norm(g_j)
     assert int(n_t) == int(n_j)
+
+
+@pytest.mark.parametrize("where", ["cpu", "meta", "mixed"])
+def test_kernel_refuses_what_is_not_on_the_card(where):
+    """No tensor off the card reaches the kernel's launch, and the wrapper
+    sends nothing but CPU tensors to the plain solver: a bad input raises."""
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch
+
+    args = _t(*_solves(s=2, n=32, seed=7))
+    args = [t.to("meta" if where == "meta" or (where == "mixed" and i == 2) else "cpu")
+            for i, t in enumerate(args)]
+    with pytest.raises(ValueError, match="fgw kernel"):
+        _launch(*args, **KW)
+    if where != "cpu":
+        with pytest.raises(ValueError, match="unsupported device"):
+            fgw_couplings_flat(*args, **KW)
