@@ -34,6 +34,19 @@ Phases (any failure exits non-zero and prints no result line):
    time by kernel and the device's busy share.
 4. Step parity: one stage-2 training step from identical weights through
    the kernels on the card and through the plain versions on the CPU.
+5. The runner on the repo's ``data/sol250``: ``train/runner.py``'s
+   ``main`` trains stage 1 (``config/schnet/sol250_5.yaml``) and then stage
+   2 (``sol250_5_bc.yaml``), each for 2 epochs, on the card, with its
+   checkpoints in a temporary directory. Launch counts are zeroed before
+   each stage and read after it: K1 and K2 must grow in both, K3 in stage 2
+   only, and no plain version may run. The stage-2 weights right after the
+   warm start must equal stage 1's ``best`` file bit for bit; both stages
+   must run steps in the N=32 and the N=64 bucket; every loss and
+   ``test_rmse`` must be finite. A ``--resume`` run of stage 2 with 3
+   epochs must start at epoch 2 and add one row, and ``predict.main`` on
+   stage 2's ``best`` must give the test RMSE the runner reported, to 1e-6
+   relative. Prints each stage's epoch times, steps per epoch, ms per step
+   by bucket and ``fgw_diverged``.
 
 Then it prints the per-kernel JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -41,12 +54,17 @@ Then it prints the per-kernel JSON line, the card line and, last,
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 SEED = 0
 B, K = 24, 5
@@ -526,6 +544,184 @@ def phase_parity(model, device):
     model.zero_grad(set_to_none=True)
 
 
+# ---------------------------------------------------------------- phase 5
+RUNNER_STAGES = (("conan_fgw_pre", "config/schnet/sol250_5.yaml"),
+                 ("conan_fgw", "config/schnet/sol250_5_bc.yaml"))
+RUNNER_EPOCHS = 2
+PREDICT_RTOL = 1e-6
+
+
+def config_copy(src: str, out_dir: Path, epochs: int) -> str:
+    """A copy of the YAML config ``src`` with ``num_epochs: epochs``."""
+    text, n = re.subn(r"(?m)^num_epochs: \d+$", f"num_epochs: {epochs}", Path(src).read_text())
+    require(n == 1, f"{src}: no num_epochs line to set")
+    path = out_dir / f"{Path(src).stem}_{epochs}ep.yaml"
+    path.write_text(text)
+    return str(path)
+
+
+@contextlib.contextmanager
+def runner_spies():
+    """Count calls of the kernels' plain versions, and record the weights
+    each checkpoint restore leaves in the model: ``(plain_calls, restores)``,
+    ``restores`` a list of ``(directory, which, state_dict on the host)``."""
+    from conan_fgw_tpu_torch.ops.cuda import cfconv as cfconv_mod
+    from conan_fgw_tpu_torch.ops.cuda import fgw as fgw_mod
+    from conan_fgw_tpu_torch.train.checkpoints import RunCheckpointer
+
+    plain_calls, restores = collections.Counter(), []
+    saved = [(cfconv_mod, "_cfconv_plain"), (fgw_mod, "fgw_couplings_plain"),
+             (RunCheckpointer, "restore_params")]
+    originals = [getattr(owner, name) for owner, name in saved]
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def restore_params(self, model, which="best"):
+        out = originals[2](self, model, which)
+        restores.append((self.directory, which,
+                         {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}))
+        return out
+
+    cfconv_mod._cfconv_plain = counted("cfconv", originals[0])
+    fgw_mod.fgw_couplings_plain = counted("fgw", originals[1])
+    RunCheckpointer.restore_params = restore_params
+    try:
+        yield plain_calls, restores
+    finally:
+        for (owner, name), fn in zip(saved, originals):
+            setattr(owner, name, fn)
+
+
+def run_main(main, argv):
+    """``main(argv)`` with its printed output kept off this script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def runner_stage(label, stage, cfg, ctx, *extra, start=0):
+    """One runner run with the launch counts zeroed before it; checks and
+    prints it, returns ``(summary, history, launches)``. ``ctx`` holds the
+    common arguments, the temporary directory, the plain-call counts, the
+    device and the card line; ``start`` is the first epoch this run trains."""
+    import numpy as np
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.train import runner
+
+    common, tmp, plain_calls, device, card = ctx
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = run_main(runner.main, ["--config", cfg, "--stage", stage, *common, *extra])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grew = {k: launches[k] for k in REPLACES}
+    run_dir = tmp / "models" / "smoke" / "0" / f"run_{stage}:0"
+    history = json.loads((run_dir / "last_state.meta.json").read_text())["loop"]["history"]
+    steps = sum(r["train_steps"] for r in history)
+    require(not plain_calls, f"runner {label}: plain versions ran: {dict(plain_calls)}")
+    for r in history:
+        require(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]),
+                f"runner {label} epoch {r['epoch']} has a non-finite loss")
+        require(r.get("steps_n32", 0) > 0 and r.get("steps_n64", 0) > 0,
+                f"runner {label} epoch {r['epoch']} did not run both buckets: {r}")
+    require(np.isfinite(summary["test_rmse"]["mean"]), f"runner {label}: test_rmse not finite")
+    new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
+    require(grew["cfconv_fwd"] >= 3 * new_steps, f"runner {label}: K1 launched {grew['cfconv_fwd']}")
+    require(grew["cfconv_bwd"] >= 3 * new_steps, f"runner {label}: K2 launched {grew['cfconv_bwd']}")
+    if stage == "conan_fgw":
+        require(grew["fgw_couplings"] >= 5 * new_steps, f"runner {label}: K3 launched "
+                f"{grew['fgw_couplings']}")
+    else:
+        require(grew["fgw_couplings"] == 0, f"runner {label}: K3 launched in stage 1")
+    for r in history:
+        n64 = r["steps_n64"] / r["train_steps"]
+        print(f"[runner {label}] epoch {r['epoch']}: {r['epoch_time_s']:.3f} s, {r['train_steps']}"
+              f" steps ({r['steps_n32']} at N=32, {r['steps_n64']} at N=64: {100 * n64:.1f}%),"
+              f" {1e3 * r['train_s_n32'] / r['steps_n32']:.2f} ms/step at N=32,"
+              f" {1e3 * r['train_s_n64'] / r['steps_n64']:.2f} ms/step at N=64,"
+              f" fgw_diverged {r['fgw_diverged']}, train_loss {r['train_loss']:.5f},"
+              f" val_mse {r['val_mse']:.5f}")
+    print(f"[runner {label}] {steps} steps in all, {new_steps} in this run: {wall:.1f} s wall with"
+          f" data and test on {card}; test_rmse {summary['test_rmse']['mean']:.6f}; launches {grew}")
+    return summary, history, grew
+
+
+def phase_runner(device, card):
+    """Phase 5: the runner's two stages, a resume and predict on sol250."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.train import predict
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as name, \
+            runner_spies() as (plain_calls, restores):
+        tmp = Path(name)
+        common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        ctx = (common, tmp, plain_calls, device, card)
+        cfgs, totals = {}, collections.Counter()
+        for stage, src in RUNNER_STAGES:
+            first_restore = len(restores)  # stage 1 restores its own best for its test
+            cfgs[stage] = config_copy(src, tmp, RUNNER_EPOCHS)
+            label = "stage 1" if stage == "conan_fgw_pre" else "stage 2"
+            summary, history, grew = runner_stage(label, stage, cfgs[stage], ctx)
+            totals.update(grew)
+            last = history[-1]
+            out[label] = dict(
+                epoch_s=[r["epoch_time_s"] for r in history],
+                steps=last["train_steps"], steps_n64=last["steps_n64"],
+                ms_n32=1e3 * last["train_s_n32"] / last["steps_n32"],
+                ms_n64=1e3 * last["train_s_n64"] / last["steps_n64"],
+                fgw_diverged=[r["fgw_diverged"] for r in history],
+                test_rmse=summary["test_rmse"]["mean"])
+
+        pre_dir = tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0"
+        warm = [s for d, which, s in restores[first_restore:]
+                if Path(d) == pre_dir and which == "best"]
+        require(len(warm) == 1, f"stage 2 restored stage 1's best {len(warm)} times")
+        with np.load(pre_dir / "best.npz") as best:
+            differ = [k for k, v in warm[0].items()
+                      if not np.array_equal(best[k].view(np.uint32), v.numpy().view(np.uint32))]
+            require(set(best.files) == set(warm[0]), "stage 1's best and the model differ in keys")
+        print(f"[runner] warm start: {len(warm[0])} tensors equal stage 1's best bit for bit,"
+              f" {len(differ)} differ")
+        require(not differ, f"the warm start differs from stage 1's best in {differ[:3]}")
+
+        metrics_csv = tmp / "metrics" / "smoke" / "0" / "run_conan_fgw:0" / "metrics.csv"
+        before = metrics_csv.read_text().splitlines()
+        resume_cfg = config_copy(RUNNER_STAGES[1][1], tmp, RUNNER_EPOCHS + 1)
+        summary, history, _ = runner_stage("stage 2 resume", "conan_fgw", resume_cfg, ctx,
+                                           "--resume", start=RUNNER_EPOCHS)
+        after = metrics_csv.read_text().splitlines()
+        require([r["epoch"] for r in history] == list(range(RUNNER_EPOCHS + 1)),
+                f"resume history epochs {[r['epoch'] for r in history]}")
+        require(after[: len(before)] == before and len(after) == len(before) + 1,
+                f"resume: metrics.csv went from {len(before)} to {len(after)} rows, or its"
+                " earlier rows changed")
+        print(f"[runner] resume: started at epoch {RUNNER_EPOCHS}, metrics.csv {len(before)} ->"
+              f" {len(after)} rows, the earlier ones unchanged")
+
+        stage2_dir = tmp / "models" / "smoke" / "0" / "run_conan_fgw:0"
+        reported = summary["test_rmse"]["mean"]
+        rmse = run_main(predict.main, ["--config", resume_cfg, "--checkpoint", str(stage2_dir),
+                                       "--data_root", ".", "--device", device,
+                                       "--out", str(tmp / "preds.csv")])
+        rel = abs(rmse - reported) / abs(reported)
+        print(f"[runner] predict on stage 2's best: test RMSE {rmse!r}, the runner's {reported!r},"
+              f" rel {rel:.3e} (tol {PREDICT_RTOL})")
+        require(rel <= PREDICT_RTOL, "predict's test RMSE disagrees with the runner's")
+        require(not plain_calls, f"plain versions ran: {dict(plain_calls)}")
+    out["launches"] = dict(totals)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -553,6 +749,7 @@ def main() -> int:
     model, totals, stage_rows = phase_train(device, card)
     profile_stage2(model, device)
     phase_parity(model, device)
+    stage_rows["runner"] = phase_runner(device, card)
 
     def extra(row):
         out = {"bound_f32_ms": row["bound_f32"][0]} if "bound_f32" in row else {}
@@ -565,7 +762,7 @@ def main() -> int:
         bound_ms, bound_by = r["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": totals[name],
+            "launches": totals[name], "runner_launches": stage_rows["runner"]["launches"][name],
             "max_abs_err": max(rows[name][lab]["max_abs_err"] for lab in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, **extra(r),

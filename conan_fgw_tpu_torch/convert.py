@@ -5,6 +5,8 @@
 ``(in, out)`` and become torch ``Linear`` weights ``(out, in)``; embedding
 tables, the raw cfconv filter parameters and the GAT attention vectors are
 copied as they are. A leaf that no rule maps raises.
+``state_dict_from_flax_checkpoint`` does the same for a parameter
+checkpoint file of the JAX package, reading it with numpy alone.
 """
 
 from __future__ import annotations
@@ -58,3 +60,21 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"flax parameter {path!r} has no counterpart in the port")
     return state
+
+
+def state_dict_from_flax_checkpoint(npz_path: str) -> dict[str, torch.Tensor]:
+    """Return a ``state_dict`` for ``ConanModel`` from a parameter
+    checkpoint of the JAX package's ``RunCheckpointer`` (its ``best.npz`` or
+    ``last.npz``), whose entries are keyed by their path in the flax tree,
+    e.g. ``['params']['backbone']['blocks_0']['filter_w1']``."""
+    tree: dict = {}
+    with np.load(npz_path, allow_pickle=False) as data:
+        for key in data.files:
+            parts = re.findall(r"\['([^']*)'\]", key)
+            if not parts or "".join(f"['{p}']" for p in parts) != key:
+                raise KeyError(f"{npz_path}: entry {key!r} is not a flax parameter path")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return params_from_flax(tree)

@@ -18,6 +18,20 @@ from __future__ import annotations
 NUM_ATOM_FEATURES = 9
 NUM_BOND_FEATURES = 3
 
+CHIRALITY = [
+    "CHI_UNSPECIFIED",
+    "CHI_TETRAHEDRAL_CW",
+    "CHI_TETRAHEDRAL_CCW",
+    "CHI_OTHER",
+    "CHI_TETRAHEDRAL",
+    "CHI_ALLENE",
+    "CHI_SQUAREPLANAR",
+    "CHI_TRIGONALBIPYRAMIDAL",
+    "CHI_OCTAHEDRAL",
+]
+
+HYBRIDIZATION = ["UNSPECIFIED", "S", "SP", "SP2", "SP3", "SP3D", "SP3D2", "OTHER"]
+
 BOND_TYPES = [
     "UNSPECIFIED",
     "SINGLE",
@@ -46,6 +60,9 @@ BOND_TYPES = [
 FORMAL_CHARGE_OFFSET = 5  # formal_charge index = charge + 5, range(-5, 7)
 
 BOND_SINGLE = BOND_TYPES.index("SINGLE")
+BOND_DOUBLE = BOND_TYPES.index("DOUBLE")
+BOND_TRIPLE = BOND_TYPES.index("TRIPLE")
+BOND_AROMATIC = BOND_TYPES.index("AROMATIC")
 
 
 def atom_features(

@@ -101,7 +101,9 @@ class ConanModel(nn.Module):
         y_bary, _, n_div = fgw_barycenter_batch(ys, cs, ps=ps, p=p, config=self.fgw)
         return y_bary.sum(-2), n_div  # sum-readout (pads included, as the reference)
 
-    def forward(self, batch, use_barycenter: bool = False):
+    def _readouts(self, batch, use_barycenter: bool):
+        """Per-conformer 3D readouts ``x3d (B, K, C)``, the barycenter
+        readout ``x_bary (B, C)`` (None without the branch) and ``n_div``."""
         B, K, N = batch.z.shape
         zf = batch.z.reshape(B * K, N)
         posf = batch.pos.reshape(B * K, N, 3)
@@ -114,8 +116,21 @@ class ConanModel(nn.Module):
             )
         else:
             h3 = self.backbone(zf, posf, maskf)
+            x_bary = None
             n_div = torch.zeros((), dtype=torch.int64, device=posf.device)
-        x3d = masked_sum(h3, maskf).reshape(B, K, -1)
+        return masked_sum(h3, maskf).reshape(B, K, -1), x_bary, n_div
+
+    def embeddings(self, batch) -> dict:
+        """The branches' embeddings before fusion, for visualisation (the
+        reference's ``EmbeddingsVisualizationBaryCenter``,
+        ``schnet_based_models.py:372-417``): ``{"x3d": (B, K, C), "x_bary":
+        (B, C), "x_cov": (B, C)}``."""
+        x3d, x_bary, _ = self._readouts(batch, use_barycenter=True)
+        x_cov = self.gat(batch.x2d, batch.bond_adj, batch.bond_attr, batch.atom_mask)
+        return {"x3d": x3d, "x_bary": x_bary, "x_cov": x_cov}
+
+    def forward(self, batch, use_barycenter: bool = False):
+        x3d, x_bary, n_div = self._readouts(batch, use_barycenter)
         x_cov = self.gat(batch.x2d, batch.bond_adj, batch.bond_attr, batch.atom_mask)
         x = self.t3d(x3d.mean(1)) + self.tcov(x_cov)
         if use_barycenter:

@@ -5,17 +5,20 @@ One train step: forward (including the batched FGW barycenter in stage 2),
 masked MSE, backward, global-norm clip at 1.0 written as
 ``optax.clip_by_global_norm``, and Adam (``torch.optim.Adam``, whose update
 equals optax's). ``fit`` runs epochs over atom-count-bucketed batches with the
-LR plateau schedule and early stopping on ``val_loss``. Checkpoint files
-come later: ``fit(..., model=m)`` continues from the weights ``m`` holds, which
-is the in-memory warm start from stage 1 to stage 2.
+LR plateau schedule and early stopping on ``val_loss``, keeps the ``best``
+checkpoint by ``TrainSettings.monitor`` and the ``last`` and ``last_state``
+ones every epoch, and resumes from ``last_state``. ``fit(..., model=m)``
+continues from the weights ``m`` holds; the runner loads stage 1's ``best``
+into ``m`` for the stage-2 warm start.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +29,11 @@ from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.train import metrics as metrics_lib
 
 log = logging.getLogger("conan_fgw_tpu_torch")
+
+# eval-guard outlier threshold, in label standard deviations (the JAX
+# package's GUARD_SIGMAS: far outside any legitimate regressor output, and
+# never reached by ordinary bad fits)
+GUARD_SIGMAS = 50.0
 
 
 @dataclasses.dataclass
@@ -41,7 +49,11 @@ class TrainSettings:
     es_patience: int = 50
     es_min_delta: float = 1e-4
     use_barycenter: bool = False
+    monitor: str = "val_mse"  # the history key, lower is better, that picks `best`
     seed: int = 5
+    max_atoms: int | None = None  # the largest bucket; None: the data's
+    # flag non-finite and outlier predictions in `evaluate` (pred_outliers)
+    eval_guard: bool = False
 
 
 def masked_mse(pred: torch.Tensor, batch) -> torch.Tensor:
@@ -113,11 +125,26 @@ def evaluate(model, records, settings: TrainSettings, max_atoms: int, device):
     if n_div:
         log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                     "during evaluation", n_div)
-    out = {
-        "loss": float(torch.stack(losses).mean()),
-        "mse": metrics_lib.mse(pred, y),
-        "rmse": metrics_lib.rmse(pred, y),
-    }
+    out = {"loss": float(torch.stack(losses).mean())}
+    if settings.eval_guard:
+        # the JAX package's divergence detector: report outliers, keep them
+        # in the unguarded metrics
+        bad = ~np.isfinite(pred)
+        bad |= np.abs(pred - float(np.mean(y))) > GUARD_SIGMAS * max(float(np.std(y)), 1e-6)
+        out["pred_outliers"] = int(bad.sum())
+        if bad.any():
+            log.warning(
+                "eval guard: %d outlier prediction(s) at split indices %s "
+                "(max |pred| %.3e vs label scale %.3e) — guarded metrics "
+                "exclude them, unguarded metrics keep them",
+                int(bad.sum()), np.flatnonzero(bad)[:16].tolist(),
+                float(np.max(np.abs(pred[bad]))), float(np.std(y)),
+            )
+            if (~bad).any():
+                out["mse_guarded"] = metrics_lib.mse(pred[~bad], y[~bad])
+                out["rmse_guarded"] = metrics_lib.rmse(pred[~bad], y[~bad])
+    out["mse"] = metrics_lib.mse(pred, y)
+    out["rmse"] = metrics_lib.rmse(pred, y)
     return out, pred, y
 
 
@@ -129,14 +156,48 @@ class FitResult:
     model: torch.nn.Module
 
 
-def fit(settings: TrainSettings, train_records: Sequence[MoleculeRecord],
-        val_records: Sequence[MoleculeRecord], *, model=None, device="cuda") -> FitResult:
-    """Epoch loop with plateau LR and early stopping on ``val_loss``.
+def _train_epoch(model, optimizer, records, settings: TrainSettings, buckets, dev):
+    """One epoch of train steps: ``(losses, n_divs, timing)``. The buckets'
+    batches come one bucket after another; ``timing`` holds each bucket's
+    steps (``steps_n32``) and host seconds up to a synchronise at its end
+    (``train_s_n32``)."""
+    losses, divs, timing = [], [], {}
+    batches = bucketed_batches(records, settings.batch_size, buckets=buckets)
+    for n, group in itertools.groupby(batches, key=lambda pb: pb.max_atoms):
+        t0, steps = time.perf_counter(), 0
+        for pb in group:
+            loss, n_div = train_step(model, optimizer, pb.to(dev), settings)
+            losses.append(loss)
+            divs.append(n_div)
+            steps += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timing[f"steps_n{n}"] = steps
+        timing[f"train_s_n{n}"] = time.perf_counter() - t0
+    return losses, divs, timing
+
+
+def fit(settings: TrainSettings,
+        train_records: Sequence[MoleculeRecord] | Callable[[int], Sequence[MoleculeRecord]],
+        val_records: Sequence[MoleculeRecord], *, model=None, device="cuda",
+        checkpointer=None, resume: bool = False) -> FitResult:
+    """Epoch loop with plateau LR, early stopping on ``val_loss`` and
+    best-checkpoint tracking on ``settings.monitor``.
 
     ``model`` defaults to a fresh flagship ``ConanModel`` seeded from
     ``settings.seed``; pass a model holding stage-1 weights to warm-start
-    stage 2. Each history row carries ``train_steps`` and ``train_s``, the
-    host time of the epoch's training steps ending in a device synchronise.
+    stage 2. ``train_records`` may be a callable taking the epoch and
+    returning that epoch's records: it is called once per epoch, so a
+    ``ConformerDataset`` draws a fresh K-subset of conformers every epoch.
+
+    With a ``checkpointer`` (``train/checkpoints.py``) every epoch saves
+    ``last`` and ``last_state``, and an improved monitor saves ``best``;
+    ``resume=True`` restores the weights, Adam and the loop's state from
+    ``last_state`` and continues at the epoch after it.
+
+    Each history row carries ``train_steps`` and ``train_s``, the host time
+    of the epoch's training steps ending in a device synchronise, and the
+    same by bucket (``steps_n32``, ``train_s_n32``, ...).
     """
     dev = resolve_device(device)
     if model is None:
@@ -145,24 +206,38 @@ def fit(settings: TrainSettings, train_records: Sequence[MoleculeRecord],
         model = ConanModel(seed=settings.seed, device=dev)
     model.to(dev)
     optimizer = make_optimizer(model, settings)
-    max_atoms = dataset_max_atoms(list(train_records) + list(val_records))
+    epoch_records = train_records(0) if callable(train_records) else train_records
+    max_atoms = settings.max_atoms or dataset_max_atoms(list(epoch_records) + list(val_records))
     buckets = bucket_boundaries(max_atoms)
     plateau = metrics_lib.ReduceLROnPlateau(
         settings.learning_rate, settings.plateau_factor, settings.plateau_patience
     )
     stopper = metrics_lib.EarlyStopping(settings.es_patience, settings.es_min_delta)
-    best, best_epoch, history = np.inf, -1, []
+    best, best_epoch, history, start_epoch = np.inf, -1, [], 0
 
-    for epoch in range(settings.num_epochs):
+    if resume and checkpointer is not None and checkpointer.has("last_state"):
+        meta = checkpointer.restore_state(model, optimizer)
+        loop_meta = meta.get("loop", {})
+        start_epoch = meta["epoch"] + 1
+        plateau.lr = loop_meta.get("lr", plateau.lr)
+        plateau.best = loop_meta.get("plateau_best", plateau.best)
+        plateau.num_bad = loop_meta.get("plateau_num_bad", plateau.num_bad)
+        stopper.best = loop_meta.get("stopper_best", stopper.best)
+        stopper.num_bad = loop_meta.get("stopper_num_bad", stopper.num_bad)
+        best = loop_meta.get("best", best)
+        best_epoch = loop_meta.get("best_epoch", best_epoch)
+        history = loop_meta.get("history", [])
+        set_learning_rate(optimizer, plateau.lr)
+        log.info("resumed from epoch %d (lr=%.2e)", start_epoch, plateau.lr)
+
+    for epoch in range(start_epoch, settings.num_epochs):
         t0 = time.perf_counter()
-        losses, divs = [], []
-        for pb in bucketed_batches(train_records, settings.batch_size, buckets=buckets):
-            loss, n_div = train_step(model, optimizer, pb.to(dev), settings)
-            losses.append(loss)
-            divs.append(n_div)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        train_s = time.perf_counter() - t0
+        if epoch != 0 and callable(train_records):
+            # keyed on the epoch, so a resumed run redraws any epoch's subsets
+            epoch_records = train_records(epoch)
+        t_train = time.perf_counter()
+        losses, divs, timing = _train_epoch(model, optimizer, epoch_records, settings, buckets, dev)
+        train_s = time.perf_counter() - t_train
         train_loss = float(torch.stack(losses).mean())
         epoch_divs = int(torch.stack(divs).sum())
         if epoch_divs:
@@ -177,6 +252,7 @@ def fit(settings: TrainSettings, train_records: Sequence[MoleculeRecord],
             "fgw_diverged": epoch_divs,
             "train_steps": len(losses),
             "train_s": train_s,
+            **timing,
             "epoch_time_s": time.perf_counter() - t0,
             **{f"val_{k}": v for k, v in val_metrics.items() if k != "loss"},
             "val_loss": val_loss,
@@ -185,10 +261,26 @@ def fit(settings: TrainSettings, train_records: Sequence[MoleculeRecord],
         log.info("epoch %d train_loss=%.5f val_loss=%.5f val_rmse=%.5f lr=%.2e (%.1fs)",
                  epoch, train_loss, val_loss, val_metrics["rmse"], plateau.lr,
                  row["epoch_time_s"])
-        if row["val_mse"] < best:  # the regression monitor, val_mse
-            best, best_epoch = row["val_mse"], epoch
+        monitored = row.get(settings.monitor)
+        if monitored is not None and monitored < best:
+            best, best_epoch = monitored, epoch
+            if checkpointer is not None:
+                checkpointer.save_best(model, epoch, {settings.monitor: monitored})
         set_learning_rate(optimizer, plateau.step(val_loss))
-        if stopper.step(val_loss):
+        should_stop = stopper.step(val_loss)
+        if checkpointer is not None:
+            checkpointer.save_last(model, epoch)
+            checkpointer.save_state(model, optimizer, epoch, {
+                "lr": plateau.lr,
+                "plateau_best": plateau.best,
+                "plateau_num_bad": plateau.num_bad,
+                "stopper_best": stopper.best,
+                "stopper_num_bad": stopper.num_bad,
+                "best": float(best),
+                "best_epoch": best_epoch,
+                "history": history,
+            })
+        if should_stop:
             log.info("early stopping at epoch %d", epoch)
             break
     return FitResult(float(best), best_epoch, history, model)

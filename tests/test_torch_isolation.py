@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-kernel modules import without a CUDA toolkit, and its entry points refuse
-to fall back to the CPU silently."""
+"""The port stands alone: it imports neither JAX, the JAX package nor
+PyYAML (the card's machine has none of them), its kernel modules import
+without a CUDA toolkit, and its entry points refuse to fall back to the CPU
+silently."""
 
 import os
 import re
@@ -15,8 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "conan_fgw_tpu_torch"
 # anywhere in a line: the word jax or a dotted path into the JAX package
 NAMED = re.compile(r"\bjax\b|\bconan_fgw_tpu\.")
-# in an import statement: any of the JAX stack or the JAX package itself
-IMPORTED = re.compile(r"\b(jax|flax|optax)\b|\bconan_fgw_tpu\b(?!_)")
+# in an import statement: any of the JAX stack, PyYAML or the JAX package
+IMPORTED = re.compile(r"\b(jax|flax|optax|yaml)\b|\bconan_fgw_tpu\b(?!_)")
 
 
 def _sources():
@@ -39,7 +40,7 @@ def test_package_imports_with_jax_blocked():
     )
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax', 'conan_fgw_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'yaml', 'conan_fgw_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
