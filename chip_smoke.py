@@ -18,7 +18,13 @@ Phases (any failure exits non-zero and prints no result line):
    and, alone, at N = 96 and N = 128, where it reads C1 and C2 through L2.
    A NaN planted
    in one solve's T0 must flag that solve as diverged, as the plain version
-   does. Prints each one's max error against its tolerance, its time (CUDA
+   does. K3 is also held on zero-mass marginals (``bary_pad_mode: masked``)
+   and on the deep budget of ``config/schnet/sol1k_5_bc_deep.yaml``
+   (epsilon 0.05, 10 PGD x 10 Sinkhorn), both at N = 32. K1 and K2 are
+   also held at the classification width (256 filters, 10 Gaussians; the
+   kernels' second instantiation, counted as ``cfconv_fwd_f256`` and
+   ``cfconv_bwd_f256``) on G = 90 graphs (sol1k_class's 18 molecules x 5
+   conformers) at N = 32 and N = 64 with the cap active. Prints each one's max error against its tolerance, its time (CUDA
    events over eager back-to-back calls; for K3 also over CUDA-graph
    replays, ``graph_ms``, which leave out the wrapper's host time) and its
    bound, and K3's Sinkhorn iterations. K2 is launched twice on the same
@@ -47,9 +53,24 @@ Phases (any failure exits non-zero and prints no result line):
    stage 2's ``best`` must give the test RMSE the runner reported, to 1e-6
    relative. Prints each stage's epoch times, steps per epoch, ms per step
    by bucket and ``fgw_diverged``.
+6. The classification path on the repo's ``data/sol1k_class``: the
+   runner's ``main`` trains stage 1 (``config/schnet/sol1k_class_5.yaml``)
+   and then stage 2 (``sol1k_class_5_bc.yaml``), each for 2 epochs, at the
+   full classification width (hidden 512, 256 filters, 10 Gaussians): the
+   F=256 K1/K2 launches must grow in both stages and K3's in stage 2 only,
+   no other width's kernel and no plain version may run, both buckets must
+   run, the warm start must be bit-exact, losses finite, ``val_auroc`` and
+   ``test_auroc`` in [0, 1], ``best`` at the epoch of the highest
+   ``val_auroc``, and the AUROC of ``predict.main``'s probabilities must
+   equal the runner's ``test_auroc`` to 1e-6.
+7. Reproducibility: two fresh processes run the same seeded stage-1 and
+   stage-2 steps on ``data/sol250`` and must give bit-identical batches,
+   losses, gradients and weights; a third runs them under
+   ``torch.use_deterministic_algorithms(True)`` (with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish.
 
-Then it prints the per-kernel JSON line, the card line and, last,
-``{"ok": true, "device": {...}}``.
+Then it prints the per-kernel JSON line (every kernel, each width and
+shape held), the card line and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,6 +92,12 @@ B, K = 24, 5
 CUTOFF, GAUSS, CAP, F = 10.0, 50, 32, 128
 FGW_KW = dict(alpha=0.1, epsilon=0.1, pgd_iters=5, pgd_tol=1e-4, sinkhorn_iters=5,
               sinkhorn_thr=1e-2)
+# the deep budget of config/schnet/sol1k_5_bc_deep.yaml: epsilon 0.05, 10 PGD
+# steps of 10 Sinkhorn iterations
+FGW_DEEP_KW = dict(FGW_KW, epsilon=0.05, pgd_iters=10, sinkhorn_iters=10)
+# the classification model's cfconv: 256 filters, 10 Gaussians, and
+# sol1k_class's batch of 18 molecules of K = 5 conformers (G = 90 graphs)
+F_CLS, GAUSS_CLS, B_CLS = 256, 10, 18
 # published H100 SXM peaks: f32 on the CUDA cores, TF32 on the tensor cores
 # (dense), HBM3 bandwidth
 PEAK_F32 = 67e12
@@ -90,12 +117,20 @@ REPLACES = {
     "cfconv_fwd": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     "fgw_couplings": "conan_fgw_tpu/ops/pallas/fgw.py:362",
+    "cfconv_fwd_f256": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
+    "cfconv_bwd_f256": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
 }
 SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "fgw_couplings": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "cfconv_fwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_bwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
 }
+# the kernels of the regression path (phases 3 and 5) and of the
+# classification path (phase 6)
+REGRESSION = ("cfconv_fwd", "cfconv_bwd", "fgw_couplings")
+CLASSIFICATION = ("cfconv_fwd_f256", "cfconv_bwd_f256", "fgw_couplings")
 
 
 class SmokeFailure(RuntimeError):
@@ -202,7 +237,7 @@ def count_edges(pos, mask, cap):
     return int(radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, cap).sum())
 
 
-def cfconv_params(G, N, gen, dev):
+def cfconv_params(G, N, gen, dev, F=F, GAUSS=GAUSS):
     """Seeded features, filter weights and cotangent: ``x, w1, b1, w2, b2, cot``."""
     import torch
 
@@ -215,21 +250,29 @@ def cfconv_params(G, N, gen, dev):
     return x, w1, b1, w2, b2, rnd(G, N, F)
 
 
-def check_cfconv(label, pos, mask, gen, rows):
+def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS):
+    """K1 and K2 against the plain version at one shape; ``F``/``GAUSS``
+    pick the width (the classification model's is 256 filters and 10
+    Gaussians), whose rows go under its launch-count names."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.cfconv import _cfconv_plain, cfconv_backward, cfconv_forward
+    from conan_fgw_tpu_torch.ops.cuda.cfconv import (
+        _cfconv_plain,
+        cfconv_backward,
+        cfconv_forward,
+        kernel_name,
+    )
 
     G, N, _ = pos.shape
     maskf = mask.to(torch.float32).contiguous()
-    x, w1, b1, w2, b2, cot = cfconv_params(G, N, gen, pos.device)
+    x, w1, b1, w2, b2, cot = cfconv_params(G, N, gen, pos.device, F, GAUSS)
     out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP)
     grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
     grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
     torch.cuda.synchronize()
     same = [n for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_again)
             if torch.equal(a, b)]
-    print(f"[cfconv {label}] bwd twice on the same inputs: bit-identical {same}")
+    print(f"[cfconv {label} F{F}] bwd twice on the same inputs: bit-identical {same}")
     require(len(same) == 5, f"cfconv {label} backward is not deterministic")
     leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
     out_p = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP)
@@ -243,8 +286,8 @@ def check_cfconv(label, pos, mask, gen, rows):
     rel_fwd = rel(out_k, out_p.detach())
     rels_bwd = {n: rel(a, b) for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_p)}
     err_bwd = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
-    print(f"[cfconv {label}] fwd max_abs_err {err_fwd:.3e} rel {rel_fwd:.3e} (tol {CFCONV_RTOL})")
-    print(f"[cfconv {label}] bwd rel errors "
+    print(f"[cfconv {label} F{F}] fwd max_abs_err {err_fwd:.3e} rel {rel_fwd:.3e} (tol {CFCONV_RTOL})")
+    print(f"[cfconv {label} F{F}] bwd rel errors "
           + " ".join(f"{n} {v:.3e}" for n, v in rels_bwd.items()) + f" (tol {CFCONV_RTOL})")
     require(rel_fwd <= CFCONV_RTOL, f"cfconv {label} forward disagrees: {rel_fwd}")
     for n, v in rels_bwd.items():
@@ -266,25 +309,28 @@ def check_cfconv(label, pos, mask, gen, rows):
     # the filter MLP's products (tensor cores in the kernels) and the rest
     mlp_fwd, mlp_bwd = edges * 2 * (GAUSS * F + F * F), edges * (4 * GAUSS * F + 6 * F * F)
     flops_fwd, flops_bwd = mlp_fwd + edges * 2 * F, mlp_bwd + edges * 4 * F
-    print(f"[cfconv {label}] G={G} N={N} edges={edges}: fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}),"
-          f" bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f})")
+    print(f"[cfconv {label} F{F}] G={G} N={N} F={F} Gs={GAUSS} edges={edges}: fwd {fwd_ms:.4f} ms"
+          f" (plain {plain_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f})")
     for name, ms, plain_ms, err, io, flops, mlp in (
-        ("cfconv_fwd", fwd_ms, plain_fwd_ms, err_fwd, io_fwd, flops_fwd, mlp_fwd),
-        ("cfconv_bwd", bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd, mlp_bwd),
+        (kernel_name("cfconv_fwd", F), fwd_ms, plain_fwd_ms, err_fwd, io_fwd, flops_fwd, mlp_fwd),
+        (kernel_name("cfconv_bwd", F), bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd, mlp_bwd),
     ):
         tc, f32 = bound(io, flops, mlp), bound(io, flops)
-        print(f"[cfconv {label}] {name}: bound {tc[0]:.5f} ms on the tensor cores"
+        print(f"[cfconv {label} F{F}] {name}: bound {tc[0]:.5f} ms on the tensor cores"
               f" ({100 * tc[0] / ms:.1f}% reached), {f32[0]:.5f} ms in f32 on the CUDA cores"
               f" ({100 * f32[0] / ms:.1f}%); {flops / ms / 1e9:.1f} TFLOP/s")
         rows[name][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=tc, bound_f32=f32)
 
 
-def fgw_problem(pos, mask, gen):
+def fgw_problem(pos, mask, gen, masked=False):
     """K3's inputs at the barycenter's first outer iteration: ``(Ms, C1, C2,
     ps, qs, T0)`` over ``S = B*K`` solves, with the conformer graphs' 0/1
     neighbour structure as C2 and the first conformer's as C1, random
-    features, uniform marginals and the product plan as T0. Also returns
-    the features ``Ys (B, K, N, D)`` and structures ``Cs (B, K, N, N)``."""
+    features, uniform marginals and the product plan as T0. ``masked``
+    gives the marginals and features of ``bary_pad_mode: masked``
+    (``models/heads.py``): mass 1/n on a molecule's n atoms and none on its
+    padding rows, whose features are 0. Also returns the features ``Ys (B,
+    K, N, D)`` and structures ``Cs (B, K, N, N)``."""
     import torch
 
     from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
@@ -296,6 +342,10 @@ def fgw_problem(pos, mask, gen):
     Cs = nbr.transpose(-1, -2).to(torch.float32).reshape(-1, K, N, N)
     Ys = (torch.rand(S // K, K, N, F // 2, generator=gen) * 1.9 + 0.1).to(dev)
     p = torch.full((S // K, N), 1.0 / N, device=dev)
+    if masked:
+        atoms = mask.reshape(-1, K, N)[:, 0].to(torch.float32)
+        p = atoms / atoms.sum(-1, keepdim=True).clamp(min=1.0)
+        Ys = Ys * atoms[:, None, :, None]
     Ms = sqdist(torch.zeros_like(Ys[:, 0])[:, None], Ys).reshape(S, N, N).contiguous()
     C1 = Cs[:, :1].expand(-1, K, N, N).reshape(S, N, N).contiguous()
     C2 = Cs.reshape(S, N, N).contiguous()
@@ -329,7 +379,7 @@ def second_outer_inputs(args, Ys, Cs):
     return Ms, C1, C2, ps, qs, T.reshape(-1, N, N).contiguous()
 
 
-def fgw_bound(S, N, sk_run):
+def fgw_bound(S, N, sk_run, kw=FGW_KW):
     """Least ms for ``S`` solves at ``N`` that ran ``sk_run`` Sinkhorn
     iterations in all, with the two products on the tensor cores (as the
     kernel runs them) and, second, all in f32 on the CUDA cores. Per solve
@@ -338,37 +388,38 @@ def fgw_bound(S, N, sk_run):
     iteration's marginal check and the candidate plan; per Sinkhorn
     iteration run, two log-sum-exp sweeps of 5 operations per element.
     Bytes: M, C1, C2, T0 and T, p and q, the two flags."""
-    products = S * FGW_KW["pgd_iters"] * 4 * N**3
-    flops = products + S * FGW_KW["pgd_iters"] * 15 * N * N + sk_run * 10 * N * N
+    products = S * kw["pgd_iters"] * 4 * N**3
+    flops = products + S * kw["pgd_iters"] * 15 * N * N + sk_run * 10 * N * N
     nbytes = 4 * (5 * S * N * N + 2 * S * N) + 2 * 4 * S
     return bound(nbytes, flops, products), bound(nbytes, flops)
 
 
-def check_fgw(label, args, rows):
-    """K3 against its plain version on one set of coupling inputs."""
+def check_fgw(label, args, rows, kw=FGW_KW):
+    """K3 against its plain version on one set of coupling inputs, with the
+    solver budget ``kw``."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
 
     S, N, _ = args[0].shape
-    T_k, div_k, sk_iters = _launch(*args, **FGW_KW)
-    T_p, div_p = fgw_couplings_plain(*args, **FGW_KW)
+    T_k, div_k, sk_iters = _launch(*args, **kw)
+    T_p, div_p = fgw_couplings_plain(*args, **kw)
     torch.cuda.synchronize()
     err = float((T_k - T_p).abs().max())
     flags_equal = bool(torch.equal(div_k, div_p))
     sk_run = int(sk_iters.sum())
     print(f"[fgw {label}] T max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel "
           f"{int(div_k.sum())} plain {int(div_p.sum())}; {sk_run} Sinkhorn iterations run of "
-          f"{S * FGW_KW['pgd_iters'] * FGW_KW['sinkhorn_iters']} budgeted")
+          f"{S * kw['pgd_iters'] * kw['sinkhorn_iters']} budgeted")
     require(err <= FGW_ATOL, f"fgw {label} plans disagree: {err}")
     require(flags_equal, f"fgw {label} diverged flags disagree")
     # eager calls leave the card waiting for the host between launches once
     # the kernel is shorter than the wrapper's host time: graph replays give
     # the kernel's own time beside the eager one
-    ms = cuda_ms(lambda: _launch(*args, **FGW_KW))
-    replay_ms = graph_ms(lambda: _launch(*args, **FGW_KW))
-    plain_ms = cuda_ms(lambda: fgw_couplings_plain(*args, **FGW_KW), reps=3, warmup=1)
-    tc, f32 = fgw_bound(S, N, sk_run)
+    ms = cuda_ms(lambda: _launch(*args, **kw))
+    replay_ms = graph_ms(lambda: _launch(*args, **kw))
+    plain_ms = cuda_ms(lambda: fgw_couplings_plain(*args, **kw), reps=3, warmup=1)
+    tc, f32 = fgw_bound(S, N, sk_run, kw)
     print(f"[fgw {label}] S={S} N={N}: kernel {ms:.4f} ms (eager calls; graph replays"
           f" {replay_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {tc[0]:.5f} ms on the tensor"
           f" cores ({tc[1]}, {100 * tc[0] / ms:.1f}% reached, {100 * tc[0] / replay_ms:.1f}% of"
@@ -427,6 +478,18 @@ def phase_kernels(device):
             check_fgw_nan(args)
         if n_atoms <= 64:
             check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
+        if n_atoms == 32:
+            # the two inputs the runner accepts beyond the default: zero-mass
+            # marginals (bary_pad_mode: masked) and the deep budget
+            check_fgw(f"{label}-masked", fgw_problem(pos, mask, gen, masked=True)[0], rows)
+            check_fgw(f"{label}-deep", args, rows, FGW_DEEP_KW)
+    # the classification width at sol1k_class's batch, N=64 with the cap active
+    for label, heavy, n_atoms in FGW_SHAPES[:2]:
+        pos, mask = packed_geometry(SEED + 1000 + n_atoms, B_CLS, heavy, n_atoms, device)
+        if n_atoms == 64:
+            within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
+            require(bool((within > CAP).any()), "N=64 inputs never engage the neighbour cap")
+        check_cfconv(label, pos, mask, gen, rows, F_CLS, GAUSS_CLS)
     return rows
 
 
@@ -448,7 +511,7 @@ def phase_train(device, card):
         res = fit(settings, train, val, model=model, device=device)
         model = res.model
         steps = sum(r["train_steps"] for r in res.history)
-        grew = {k: launches[k] - before.get(k, 0) for k in REPLACES}
+        grew = {k: launches[k] - before.get(k, 0) for k in REGRESSION}
         for r in res.history:
             require(all(v == v and abs(v) != float("inf") for v in (r["train_loss"], r["val_loss"])),
                     f"stage {stage} epoch {r['epoch']} has a non-finite loss")
@@ -463,7 +526,7 @@ def phase_train(device, card):
               + ", ".join(f"{r['train_loss']:.4f}/{r['val_loss']:.4f}" for r in res.history)
               + f"; epoch 2: {step_ms:.2f} ms/step, {gps:.1f} graphs/s on {card}; launches {grew}")
         stage_rows[stage] = dict(step_ms=step_ms, graphs_per_s=gps, steps=steps)
-    totals = {k: launches[k] for k in REPLACES}
+    totals = {k: launches[k] for k in REGRESSION}
     print(f"[train] main-path launches {totals}")
     for k, v in totals.items():
         require(v > 0, f"kernel {k} was never launched on the main path")
@@ -602,11 +665,13 @@ def run_main(main, argv):
         return main(argv)
 
 
-def runner_stage(label, stage, cfg, ctx, *extra, start=0):
+def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, metric="rmse"):
     """One runner run with the launch counts zeroed before it; checks and
     prints it, returns ``(summary, history, launches)``. ``ctx`` holds the
     common arguments, the temporary directory, the plain-call counts, the
-    device and the card line; ``start`` is the first epoch this run trains."""
+    device and the card line; ``start`` is the first epoch this run trains;
+    ``kernels`` names the path's K1, K2 and K3 counts, and ``metric`` its
+    validation and test metric (``rmse``, or ``auroc`` for classification)."""
     import numpy as np
     import torch
 
@@ -614,6 +679,7 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0):
     from conan_fgw_tpu_torch.train import runner
 
     common, tmp, plain_calls, device, card = ctx
+    k1, k2, k3 = kernels
     reset_launches()
     t0 = time.perf_counter()
     summary = run_main(runner.main, ["--config", cfg, "--stage", stage, *common, *extra])
@@ -624,21 +690,23 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0):
     run_dir = tmp / "models" / "smoke" / "0" / f"run_{stage}:0"
     history = json.loads((run_dir / "last_state.meta.json").read_text())["loop"]["history"]
     steps = sum(r["train_steps"] for r in history)
+    val_key = "val_mse" if metric == "rmse" else f"val_{metric}"
     require(not plain_calls, f"runner {label}: plain versions ran: {dict(plain_calls)}")
     for r in history:
         require(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]),
                 f"runner {label} epoch {r['epoch']} has a non-finite loss")
         require(r.get("steps_n32", 0) > 0 and r.get("steps_n64", 0) > 0,
                 f"runner {label} epoch {r['epoch']} did not run both buckets: {r}")
-    require(np.isfinite(summary["test_rmse"]["mean"]), f"runner {label}: test_rmse not finite")
+    require(np.isfinite(summary[f"test_{metric}"]["mean"]), f"runner {label}: test_{metric} not finite")
     new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
-    require(grew["cfconv_fwd"] >= 3 * new_steps, f"runner {label}: K1 launched {grew['cfconv_fwd']}")
-    require(grew["cfconv_bwd"] >= 3 * new_steps, f"runner {label}: K2 launched {grew['cfconv_bwd']}")
+    require(grew[k1] >= 3 * new_steps, f"runner {label}: K1 launched {grew[k1]}")
+    require(grew[k2] >= 3 * new_steps, f"runner {label}: K2 launched {grew[k2]}")
+    others = [k for k in REPLACES if k not in kernels and grew[k]]
+    require(not others, f"runner {label}: kernels of another width launched: {others}")
     if stage == "conan_fgw":
-        require(grew["fgw_couplings"] >= 5 * new_steps, f"runner {label}: K3 launched "
-                f"{grew['fgw_couplings']}")
+        require(grew[k3] >= 5 * new_steps, f"runner {label}: K3 launched {grew[k3]}")
     else:
-        require(grew["fgw_couplings"] == 0, f"runner {label}: K3 launched in stage 1")
+        require(grew[k3] == 0, f"runner {label}: K3 launched in stage 1")
     for r in history:
         n64 = r["steps_n64"] / r["train_steps"]
         print(f"[runner {label}] epoch {r['epoch']}: {r['epoch_time_s']:.3f} s, {r['train_steps']}"
@@ -646,16 +714,42 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0):
               f" {1e3 * r['train_s_n32'] / r['steps_n32']:.2f} ms/step at N=32,"
               f" {1e3 * r['train_s_n64'] / r['steps_n64']:.2f} ms/step at N=64,"
               f" fgw_diverged {r['fgw_diverged']}, train_loss {r['train_loss']:.5f},"
-              f" val_mse {r['val_mse']:.5f}")
+              f" {val_key} {r[val_key]:.5f}")
     print(f"[runner {label}] {steps} steps in all, {new_steps} in this run: {wall:.1f} s wall with"
-          f" data and test on {card}; test_rmse {summary['test_rmse']['mean']:.6f}; launches {grew}")
+          f" data and test on {card}; test_{metric} {summary[f'test_{metric}']['mean']:.6f};"
+          f" launches {grew}")
     return summary, history, grew
+
+
+def stage_row(history, summary, metric):
+    """What the result line keeps of one runner stage."""
+    last = history[-1]
+    return dict(epoch_s=[r["epoch_time_s"] for r in history],
+                steps=last["train_steps"], steps_n64=last["steps_n64"],
+                ms_n32=1e3 * last["train_s_n32"] / last["steps_n32"],
+                ms_n64=1e3 * last["train_s_n64"] / last["steps_n64"],
+                fgw_diverged=[r["fgw_diverged"] for r in history],
+                **{f"test_{metric}": summary[f"test_{metric}"]["mean"]})
+
+
+def check_warm_start(restores, first_restore, pre_dir):
+    """The stage-2 weights right after the warm start equal stage 1's
+    ``best`` file bit for bit."""
+    import numpy as np
+
+    warm = [st for d, which, st in restores[first_restore:] if Path(d) == pre_dir and which == "best"]
+    require(len(warm) == 1, f"stage 2 restored stage 1's best {len(warm)} times")
+    with np.load(pre_dir / "best.npz") as best:
+        differ = [k for k, v in warm[0].items()
+                  if not np.array_equal(best[k].view(np.uint32), v.numpy().view(np.uint32))]
+        require(set(best.files) == set(warm[0]), "stage 1's best and the model differ in keys")
+    print(f"[runner] warm start: {len(warm[0])} tensors equal stage 1's best bit for bit,"
+          f" {len(differ)} differ")
+    require(not differ, f"the warm start differs from stage 1's best in {differ[:3]}")
 
 
 def phase_runner(device, card):
     """Phase 5: the runner's two stages, a resume and predict on sol250."""
-    import numpy as np
-
     from conan_fgw_tpu_torch.train import predict
 
     out = {}
@@ -673,26 +767,9 @@ def phase_runner(device, card):
             label = "stage 1" if stage == "conan_fgw_pre" else "stage 2"
             summary, history, grew = runner_stage(label, stage, cfgs[stage], ctx)
             totals.update(grew)
-            last = history[-1]
-            out[label] = dict(
-                epoch_s=[r["epoch_time_s"] for r in history],
-                steps=last["train_steps"], steps_n64=last["steps_n64"],
-                ms_n32=1e3 * last["train_s_n32"] / last["steps_n32"],
-                ms_n64=1e3 * last["train_s_n64"] / last["steps_n64"],
-                fgw_diverged=[r["fgw_diverged"] for r in history],
-                test_rmse=summary["test_rmse"]["mean"])
+            out[label] = stage_row(history, summary, "rmse")
 
-        pre_dir = tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0"
-        warm = [s for d, which, s in restores[first_restore:]
-                if Path(d) == pre_dir and which == "best"]
-        require(len(warm) == 1, f"stage 2 restored stage 1's best {len(warm)} times")
-        with np.load(pre_dir / "best.npz") as best:
-            differ = [k for k, v in warm[0].items()
-                      if not np.array_equal(best[k].view(np.uint32), v.numpy().view(np.uint32))]
-            require(set(best.files) == set(warm[0]), "stage 1's best and the model differ in keys")
-        print(f"[runner] warm start: {len(warm[0])} tensors equal stage 1's best bit for bit,"
-              f" {len(differ)} differ")
-        require(not differ, f"the warm start differs from stage 1's best in {differ[:3]}")
+        check_warm_start(restores, first_restore, tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
 
         metrics_csv = tmp / "metrics" / "smoke" / "0" / "run_conan_fgw:0" / "metrics.csv"
         before = metrics_csv.read_text().splitlines()
@@ -720,6 +797,195 @@ def phase_runner(device, card):
         require(not plain_calls, f"plain versions ran: {dict(plain_calls)}")
     out["launches"] = dict(totals)
     return out
+
+
+# ---------------------------------------------------------------- phase 6
+CLASS_STAGES = (("conan_fgw_pre", "config/schnet/sol1k_class_5.yaml"),
+                ("conan_fgw", "config/schnet/sol1k_class_5_bc.yaml"))
+
+
+def phase_classification(device, card):
+    """Phase 6: the classification model's two stages and predict on
+    ``data/sol1k_class`` through the runner, at full width (hidden 512, 256
+    filters, 10 Gaussians): the F=256 kernels and K3."""
+    import csv
+
+    import numpy as np
+
+    from conan_fgw_tpu_torch.train import metrics as metrics_lib
+    from conan_fgw_tpu_torch.train import predict
+
+    out, totals = {}, collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_class_") as name, \
+            runner_spies() as (plain_calls, restores):
+        tmp = Path(name)
+        common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        ctx = (common, tmp, plain_calls, device, card)
+        for stage, src in CLASS_STAGES:
+            first_restore = len(restores)
+            cfg = config_copy(src, tmp, RUNNER_EPOCHS)
+            label = "class stage 1" if stage == "conan_fgw_pre" else "class stage 2"
+            summary, history, grew = runner_stage(label, stage, cfg, ctx, kernels=CLASSIFICATION,
+                                                  metric="auroc")
+            totals.update(grew)
+            out[label] = stage_row(history, summary, "auroc")
+            aurocs = [r["val_auroc"] for r in history]
+            require(all(0.0 <= v <= 1.0 for v in aurocs + [summary["test_auroc"]["mean"]]),
+                    f"{label}: an AUROC outside [0, 1]: {aurocs}, {summary['test_auroc']}")
+            run_dir = tmp / "models" / "smoke" / "0" / f"run_{stage}:0"
+            best_epoch = json.loads((run_dir / "best.meta.json").read_text())["epoch"]
+            require(best_epoch == int(np.argmax(aurocs)),
+                    f"{label}: best is epoch {best_epoch}, the highest val_auroc is at"
+                    f" {int(np.argmax(aurocs))} ({aurocs})")
+            print(f"[runner {label}] best: epoch {best_epoch} of val_auroc {aurocs} (higher is better)")
+        check_warm_start(restores, first_restore, tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+
+        preds = tmp / "class_preds.csv"
+        run_main(predict.main, ["--config", cfg, "--checkpoint",
+                                str(tmp / "models" / "smoke" / "0" / "run_conan_fgw:0"),
+                                "--data_root", ".", "--device", device, "--out", str(preds)])
+        with open(preds) as f:
+            rows = list(csv.DictReader(f))
+        prob = np.asarray([float(r["prediction"]) for r in rows])
+        target = np.asarray([float(r["target"]) for r in rows])
+        require(bool(np.all((prob >= 0) & (prob <= 1))), "predict's probabilities leave [0, 1]")
+        auroc = metrics_lib.roc_auc(target.astype(np.int64), prob)
+        reported = summary["test_auroc"]["mean"]
+        print(f"[runner] predict on class stage 2's best: test AUROC from its probabilities"
+              f" {auroc!r}, the runner's {reported!r}, diff {abs(auroc - reported):.3e}"
+              f" (tol {PREDICT_RTOL})")
+        require(abs(auroc - reported) <= PREDICT_RTOL, "predict's test AUROC disagrees with the runner's")
+        require(not plain_calls, f"plain versions ran: {dict(plain_calls)}")
+    out["launches"] = dict(totals)
+    return out
+
+
+# ---------------------------------------------------------------- determinism
+DET_STEPS = 3  # stage-1 steps, then as many stage-2 steps, from the same weights
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def determinism_worker(out_path: str, deterministic: bool) -> int:
+    """One fresh process's run of the seeded steps: ``DET_STEPS`` stage-1
+    steps at batch 96 and ``DET_STEPS`` stage-2 steps at batch 24 on
+    ``data/sol250``'s first train records, from the seeded flagship model.
+    Writes, per step, the batch's digest, the loss's bits, each gradient's
+    digest before the clip and each weight's digest after the update, to
+    ``out_path`` (JSON). ``deterministic`` runs it under
+    ``torch.use_deterministic_algorithms(True)``, which raises naming an
+    operation that has no deterministic implementation."""
+    import os
+
+    if deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # before CUDA starts
+    import struct
+
+    import torch
+
+    from conan_fgw_tpu_torch.data.datasets import ConformerDataset
+    from conan_fgw_tpu_torch.data.loader import bucketed_batches
+    from conan_fgw_tpu_torch.device import pin_full_f32
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.train.loop import (
+        TrainSettings,
+        clip_by_global_norm_,
+        make_optimizer,
+        masked_mse,
+    )
+
+    pin_full_f32()
+    torch.use_deterministic_algorithms(deterministic)
+    records = ConformerDataset("train", "data", "sol250", "logS_surrogate", K).records()[:192]
+    model = ConanModel(seed=SEED, device="cuda")
+    rows, t_steps = [], []
+    for bary, batch_size in ((False, 96), (True, 24)):
+        settings = TrainSettings(batch_size=batch_size, use_barycenter=bary)
+        opt = make_optimizer(model, settings)
+        batches = bucketed_batches(records, batch_size, buckets=(32, 64))
+        for _, pb in zip(range(DET_STEPS), batches):
+            row = {"stage": 2 if bary else 1,
+                   "batch": _digest(*(getattr(pb, f) for f in ("z", "pos", "atom_mask", "y")))}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = pb.to("cuda")
+            opt.zero_grad(set_to_none=True)
+            pred, _ = model(batch, use_barycenter=bary)
+            loss = masked_mse(pred, batch)
+            loss.backward()
+            row["loss"] = struct.pack("<f", float(loss.detach())).hex()
+            row["grads"] = {k: _digest(p.grad.cpu().numpy()) for k, p in model.named_parameters()
+                            if p.grad is not None}
+            clip_by_global_norm_(list(model.parameters()), settings.grad_clip)
+            opt.step()
+            torch.cuda.synchronize()
+            t_steps.append(time.perf_counter() - t0)
+            row["weights"] = {k: _digest(p.detach().cpu().numpy()) for k, p in model.named_parameters()}
+            rows.append(row)
+    Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps}))
+    return 0
+
+
+def _run_worker(path: Path, deterministic: bool) -> dict:
+    proc = subprocess.run([sys.executable, __file__, "--determinism-worker", str(path),
+                           "1" if deterministic else "0"], capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0, f"determinism worker (deterministic={deterministic}) failed:\n"
+            + (proc.stdout + proc.stderr)[-3000:])
+    return json.loads(path.read_text())
+
+
+def _first_difference(a: dict, b: dict):
+    """``(step, stage, what differs)`` of two workers' runs, or None."""
+    for k, (ra, rb) in enumerate(zip(a["steps"], b["steps"])):
+        diff = {key: [n for n in ra[key] if ra[key][n] != rb[key].get(n)]
+                for key in ("grads", "weights")}
+        diff.update({key: ra[key] != rb[key] for key in ("batch", "loss")})
+        if any(diff.values()):
+            return k, ra["stage"], diff
+    return None
+
+
+def phase_determinism():
+    """Reproducibility across processes: two fresh processes run
+    ``determinism_worker`` as a user's run does, and their batches, losses,
+    gradients and weights must agree bit for bit; a third runs it under
+    ``torch.use_deterministic_algorithms(True)`` and must finish (torch
+    raises on an operation of the path that has no deterministic
+    implementation). Prints the first difference, if any, and the step
+    times of both modes."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as name:
+        tmp = Path(name)
+        a, b = (_run_worker(tmp / f"run{i}.json", False) for i in range(2))
+        strict = _run_worker(tmp / "strict.json", True)
+    first = _first_difference(a, b)
+    ms = [1e3 * min(x, y) for x, y in zip(a["step_s"], b["step_s"])]
+    print(f"[determinism] step ms (the faster process): " + ", ".join(f"{v:.2f}" for v in ms)
+          + "; under deterministic algorithms: "
+          + ", ".join(f"{1e3 * v:.2f}" for v in strict["step_s"]))
+    same_strict = _first_difference(a, strict) is None
+    print(f"[determinism] deterministic-algorithms run finished; bit-identical to the default"
+          f" runs: {same_strict}")
+    if first is not None:
+        k, stage, diff = first
+        print(f"[determinism] first difference at step {k} (stage {stage}): batch {diff['batch']},"
+              f" loss {diff['loss']}, gradients {diff['grads'][:8]}, weights {diff['weights'][:8]}")
+    require(first is None, "two processes of the same seeded steps differ")
+    print(f"[determinism] two processes: batches, losses, gradients and weights bit-identical over"
+          f" {len(a['steps'])} steps (stage 1 and stage 2)")
+    return dict(steps=len(a["steps"]), step_ms=ms, strict_step_ms=[1e3 * v for v in strict["step_s"]],
+                strict_identical=same_strict)
 
 
 def main() -> int:
@@ -750,19 +1016,26 @@ def main() -> int:
     profile_stage2(model, device)
     phase_parity(model, device)
     stage_rows["runner"] = phase_runner(device, card)
+    stage_rows["classification"] = phase_classification(device, card)
+    stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
         out = {"bound_f32_ms": row["bound_f32"][0]} if "bound_f32" in row else {}
         out.update({k: row[k] for k in ("graph_ms", "sinkhorn_iters") if k in row})
         return out
 
+    # launches: the regression kernels on the main path (phase 3), the F=256
+    # ones on the classification path (phase 6); each also by runner path
+    class_launches = stage_rows["classification"]["launches"]
     kernels = []
     for name in REPLACES:
         r = rows[name]["N32"]
         bound_ms, bound_by = r["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": totals[name], "runner_launches": stage_rows["runner"]["launches"][name],
+            "launches": totals[name] if name in REGRESSION else class_launches[name],
+            "runner_launches": stage_rows["runner"]["launches"][name],
+            "classification_launches": class_launches[name],
             "max_abs_err": max(rows[name][lab]["max_abs_err"] for lab in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, **extra(r),
@@ -781,4 +1054,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--determinism-worker":
+        sys.exit(determinism_worker(sys.argv[2], sys.argv[3] == "1"))
     sys.exit(main())

@@ -4,7 +4,10 @@
 (with or without the top-level ``"params"`` key). Flax ``Dense`` kernels are
 ``(in, out)`` and become torch ``Linear`` weights ``(out, in)``; embedding
 tables, the raw cfconv filter parameters and the GAT attention vectors are
-copied as they are. A leaf that no rule maps raises.
+copied as they are. A classification tree (its head has ``Dense_1``) maps
+``head/Dense_i`` to ``head.lins.i`` and ``self_attention/Dense_i`` to
+``self_attention.qkv.i``; a regression tree's ``head/Dense_0`` is ``head``.
+A leaf that no rule maps raises.
 ``state_dict_from_flax_checkpoint`` does the same for a parameter
 checkpoint file of the JAX package, reading it with numpy alone.
 """
@@ -32,8 +35,16 @@ _RULES = (
     (r"gat/DenseGATConv_(\d+)/(att_src|att_dst|att_edge|bias)", "gat.convs.{0}.{1}", False),
     (r"(t3d|tcov|tbary)/kernel", "{0}.weight", True),
     (r"(t3d|tcov|tbary)/bias", "{0}.bias", False),
+)
+_REGRESSION_HEAD = (
     (r"head/Dense_0/kernel", "head.weight", True),
     (r"head/Dense_0/bias", "head.bias", False),
+)
+_CLASSIFICATION_HEAD = (
+    (r"head/Dense_([0-2])/kernel", "head.lins.{0}.weight", True),
+    (r"head/Dense_([0-2])/bias", "head.lins.{0}.bias", False),
+    (r"self_attention/Dense_([0-2])/kernel", "self_attention.qkv.{0}.weight", True),
+    (r"self_attention/Dense_([0-2])/bias", "self_attention.qkv.{0}.bias", False),
 )
 
 
@@ -49,9 +60,10 @@ def _flatten(tree, prefix=""):
 def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
     """Return a ``state_dict`` for ``ConanModel`` from flax parameters."""
     tree = flax_params.get("params", flax_params)
+    head = _CLASSIFICATION_HEAD if "Dense_1" in tree.get("head", {}) else _REGRESSION_HEAD
     state = {}
     for path, leaf in _flatten(tree):
-        for pattern, template, transpose in _RULES:
+        for pattern, template, transpose in _RULES + head:
             m = re.fullmatch(pattern, path)
             if m:
                 arr = np.asarray(leaf, dtype=np.float32)

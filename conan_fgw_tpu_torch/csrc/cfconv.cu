@@ -32,25 +32,44 @@
 //   dense list in shared memory. Only the last tile of an item carries
 //   padding.
 // - Teams of 8 warps work on one item at a time, in tiles of ET = 32 edges;
-//   Gs is zero-padded to KG = 64. W1 and W2 stay in shared memory for the
-//   block's life, split to hi/lo once when they are staged; the edge tiles
-//   are split as their fragments are loaded.
+//   Gs is zero-padded to KG, a multiple of 16. The weights a block needs
+//   stay in shared memory for its life, split to hi/lo once when they are
+//   staged; the edge tiles are split as their fragments are loaded.
 // - Row sums into out / dx: a sixth product on the tensor cores, the 0/1
 //   selection of the item's rows times the message tile, accumulated over
 //   the item's tiles in registers: fixed order, no branches.
-// - Scheduling: a persistent grid of one block per SM. K1 runs two teams a
-//   block (16 warps an SM) that share the weights; K2 needs more registers
-//   and shared memory and runs one. A first small kernel counts each item's
-//   tiles; each team then takes one contiguous run of nearly equal length of
-//   the tile sequence, so an item may be computed in two parts, added into
-//   the zeroed output (plan_tiles). The partition depends only on the data,
-//   so every sum either kernel forms is the same on every run.
+// - Scheduling: a persistent grid of about one block per SM. A first small
+//   kernel counts each item's tiles; each team then takes one contiguous run
+//   of nearly equal length of the tile sequence, so an item may be computed
+//   in two parts, added into the zeroed output (plan_tiles). The partition
+//   depends only on the data, so every sum either kernel forms is the same
+//   on every run.
 // - K2 weight gradients: each block keeps its dW2 / dW1 partials in MMA
-//   accumulators (registers) and db1 / db2 in one register per channel,
-//   writes them to a (P, .) scratch, and cfconv_reduce sums the P partials
-//   in a fixed order. K1 and K2 are bit-identical run to run.
+//   accumulators (registers) and db1 / db2 in registers, writes them to a
+//   (P, .) scratch, and cfconv_reduce sums the P partials in a fixed order.
+//   K1 and K2 are bit-identical run to run.
 //
-// Limits: F = 128 filters, 2 <= Gs <= 64 Gaussians, N <= 128 atoms.
+// Two widths are compiled (Cfg below):
+// - F = 128 filters, Gs <= KG = 64: the regression model. Every block holds
+//   all of W1 and W2. K1 runs two teams a block (16 warps an SM) that share
+//   the weights; K2 needs more registers and shared memory and runs one.
+// - F = 256 filters, Gs <= KG = 16: the classification model. W2 split to
+//   hi/lo is 256 KiB, more than a block's 227 KB, so the blocks split it in
+//   slabs. K1 splits the output filters in two slabs of 128: a block holds
+//   all of W1 and the columns W2[:, slab], recomputes h = ssp(rbf W1 + b1)
+//   for every edge (Gs F = 2,560 MACs an edge against F 128 = 32,768 for
+//   its slab of the second product) and writes its own columns of out; one
+//   team a block. K2 splits the input filters c of h in four slabs of 64: a
+//   block holds W1[:, slab] and the rows W2[slab, :] and computes on its own
+//   h[:, slab], dpre[:, slab] = (dW W2[slab, :]^T) * ssp'(pre[:, slab]),
+//   dW1[:, slab] and dW2[slab, :] (64 x 256 partials: as many registers as
+//   F = 128's 128 x 128). Only dx, a sum over c through W = h W2 + b2, needs
+//   the four slabs' parts: each slab writes its own (G, N, F) part and
+//   cfconv_dx_reduce sums them in slab order. The edge list and the
+//   gathers are built once per slab.
+//
+// Limits: F = 128 with 2 <= Gs <= 64, or F = 256 with 2 <= Gs <= 16;
+// N <= 128 atoms.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,8 +77,6 @@
 
 namespace {
 
-constexpr int F = 128;        // filters (the only width compiled)
-constexpr int KG = 64;        // Gaussians, zero-padded to a multiple of 16
 constexpr int ET = 32;        // edges per tile
 constexpr int R1 = 4;         // rows per K1 work item
 constexpr int R2 = 8;         // sources per K2 work item
@@ -67,22 +84,49 @@ constexpr int R = 8;          // the larger, for buffers
 constexpr int MAXN = 128;     // atoms per graph
 constexpr int NWORD = MAXN / 32;
 constexpr int THREADS = 256;  // 8 warps
-// Row strides (floats) of the shared tiles. A fragment reads element pairs
-// (k, k+1): along a row as one 8-byte load at [g][2t] (conflict-free when
-// stride % 32 is 8 or 24), or down a column as two loads at [2t][g] and
-// [2t+1][g] (conflict-free when stride % 8 is 4). A tile read both ways
-// takes the first; its column reads see 2-way conflicts.
-constexpr int SR = 72;   // rbf  [e][k]: P1 A by row, P5 B by column
-constexpr int SH = 136;  // h    [e][c]: P2 A by row, P4 A by column
-constexpr int SD = 136;  // dWf  [e][c]: P3 A by row, P4 B by column
-constexpr int SX = 132;  // msg / dx message / dpre [e][c]: row sums B and P5 A by column
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float LOG2_F = 0.69314718055994530942f;
 static_assert(R1 <= R && R2 <= R && R <= THREADS / 32, "one warp per row / source of an item");
-static_assert(ET == 32 && F == 128, "the warp tilings below cover a 32 x 128 edge tile");
+
+// What one kernel of one width holds. F filters, KG padded Gaussians.
+// K1 (BWD false): a block computes FO = 128 output filters (its slab of
+// NS = F / 128) from all SC = F channels of h. K2 (BWD true): a block
+// computes all FO = F output filters' terms from its slab of SC channels of
+// h (NS = F / SC slabs). Row strides (floats) of the shared tiles: a
+// fragment reads element pairs (k, k+1) along a row as one 8-byte load at
+// [g][2t] (conflict-free when stride % 32 is 8 or 24), or down a column as
+// two loads at [2t][g] and [2t+1][g] (conflict-free when stride % 8 is 4).
+// A tile read both ways takes the first; its column reads see 2-way
+// conflicts. Packed weights hold pairs (uint2), conflict-free for 8-byte
+// reads when the pair stride % 16 is 4.
+template <int F_, int KG_, bool BWD>
+struct Cfg {
+  static constexpr int F = F_, KG = KG_;
+  static constexpr int SC = BWD && F == 256 ? 64 : F;  // channels of h a block computes
+  static constexpr int FO = BWD ? F : 128;             // output filters a block computes
+  static constexpr int NS = BWD ? F / SC : F / FO;     // slabs
+  static constexpr int TEAMS = !BWD && F == 128 ? 2 : 1;
+  static constexpr int SW1 = SC + 4;                   // W1[:, slab] pairs (KG/2 rows)
+  static constexpr int W2_ROWS = BWD ? SC : F;         // W2[rows, cols] staged
+  static constexpr int SW2 = FO + 4;                   // W2 pairs (W2_ROWS/2 rows)
+  static constexpr int SR = KG + 8;   // rbf  [e][k]: P1 A by row, P5 B by column
+  static constexpr int SH = SC + 8;   // h    [e][c]: P2 A by row, P4 A by column
+  static constexpr int SD = F + 8;    // dWf  [e][c]: P3 A by row, P4 B by column (K2)
+  static constexpr int SX = FO + 4;   // msg / dx message / dpre [e][c]: row sums B, P5 A by column
+  static constexpr int WEIGHT_FLOATS = KG * SW1 + W2_ROWS * SW2;
+  static constexpr int TEAM_FLOATS = ET * SR + ET * SH + (BWD ? ET * SD : 0) + ET * SX + 5 * MAXN +
+                                     4 * R * MAXN + MAXN * NWORD + 16;
+  static constexpr size_t SMEM = (size_t)(WEIGHT_FLOATS + TEAMS * TEAM_FLOATS) * sizeof(float);
+  // K2's partials per block: dW2[slab, :] (SC x F), dW1[:, slab] (gs x SC),
+  // db1[slab] (SC), db2 (F)
+  __host__ __device__ static constexpr int partial_floats(int gs) { return SC * F + gs * SC + SC + F; }
+  static_assert(F % 128 == 0 && KG % 16 == 0 && SC % 64 == 0, "the warp tilings below");
+  static_assert(SMEM <= MAX_SMEM, "shared memory of one block");
+};
 
 // A team is THREADS threads (8 warps) that work on one item at a time with
-// their own shared buffers and barrier; K2 runs one team a block, K1 two,
+// their own shared buffers and barrier; K1 at F = 128 runs two teams a block,
 // which share the block's copy of the weights.
 __device__ __forceinline__ int tid() { return threadIdx.x % THREADS; }
 __device__ __forceinline__ int team() { return threadIdx.x / THREADS; }
@@ -152,7 +196,7 @@ struct F32Tile {
 // Weights split once when staged: p[(k/2)*SWP + n] holds the pair (k, k+1)
 // of column n as {hi, lo}. PackedW reads B(k, n) = W(k, n) in one load;
 // PackedWT reads B(k, n) = W(n, k) from the halves of two entries.
-constexpr int SWP = 132;  // row stride in pairs: conflict-free 8-byte reads
+template <int SWP>
 struct PackedW {
   const uint2* p;
   __device__ __forceinline__ void load(int n, int k, uint32_t& hi, uint32_t& lo) const {
@@ -161,6 +205,7 @@ struct PackedW {
     lo = v.y;
   }
 };
+template <int SWP>
 struct PackedWT {
   const uint2* p;
   __device__ __forceinline__ void load(int n, int k, uint32_t& hi, uint32_t& lo) const {
@@ -252,8 +297,8 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 
 // ------------------------------------------------------------ shared memory
 struct Smem {
-  uint2* w1;      // KG/2 x SWP, split pairs (PackedW)
-  uint2* w2;      // F/2 x SWP
+  uint2* w1;      // KG/2 x SW1, split pairs (PackedW)
+  uint2* w2;      // W2_ROWS/2 x SW2
   float* rbf;     // ET x SR
   float* h;       // ET x SH
   float* dwf;     // ET x SD (K2 only)
@@ -270,24 +315,17 @@ struct Smem {
                   // plan_tiles' scratch before the first item
 };
 
-// Floats of shared memory: the weights, shared by the block's teams, then
-// each team's own buffers.
-constexpr int WEIGHT_FLOATS = KG * SWP + F * SWP;
-__host__ __device__ constexpr int team_floats(bool bwd) {
-  return ET * SR + ET * SH + (bwd ? ET * SD : 0) + ET * SX + 5 * MAXN + 4 * R * MAXN +
-         MAXN * NWORD + 16;
-}
-
-// The calling thread's view: the shared weights and its team's buffers.
-__device__ Smem carve(float* p, bool bwd) {
+// The calling thread's view: the shared weights, then its team's buffers.
+template <class C, bool BWD>
+__device__ Smem carve(float* p) {
   Smem s;
-  s.w1 = reinterpret_cast<uint2*>(p); p += KG * SWP;
-  s.w2 = reinterpret_cast<uint2*>(p); p += F * SWP;
-  p += team() * team_floats(bwd);
-  s.rbf = p; p += ET * SR;
-  s.h = p; p += ET * SH;
-  s.dwf = p; if (bwd) p += ET * SD;
-  s.xs = p; p += ET * SX;
+  s.w1 = reinterpret_cast<uint2*>(p); p += C::KG * C::SW1;
+  s.w2 = reinterpret_cast<uint2*>(p); p += C::W2_ROWS * C::SW2;
+  p += team() * C::TEAM_FLOATS;
+  s.rbf = p; p += ET * C::SR;
+  s.h = p; p += ET * C::SH;
+  s.dwf = p; if (BWD) p += ET * C::SD;
+  s.xs = p; p += ET * C::SX;
   s.pos = p; p += 3 * MAXN;
   s.sq = p; p += MAXN;
   s.mask = p; p += MAXN;
@@ -300,23 +338,22 @@ __device__ Smem carve(float* p, bool bwd) {
   return s;
 }
 
-// Stages W (rows x F, rows >= valid are zero) split into pairs along its
-// rows: dst[(k/2)*SWP + n] = {hi, lo} of W(k, n), W(k+1, n). Done once per
-// block; the split is the one fragment loads of f32 tiles make.
-__device__ void stage_weights(uint2* dst, const float* w, int rows, int valid) {
-  for (int idx = threadIdx.x; idx < rows / 2 * F; idx += blockDim.x) {
-    const int k = 2 * (idx / F), n = idx % F;
-    const float a = k < valid ? __ldg(w + k * F + n) : 0.f;
-    const float b = k + 1 < valid ? __ldg(w + (k + 1) * F + n) : 0.f;
+// Stages rows [row0, row0 + rows) and columns [col0, col0 + COLS) of W (row
+// stride ld; rows >= valid are zero) split into pairs along its rows:
+// dst[(k/2)*SWP + n] = {hi, lo} of W(row0 + k, col0 + n), W(row0 + k + 1,
+// col0 + n). Done once per block; the split is the one fragment loads of
+// f32 tiles make.
+template <int COLS, int SWP>
+__device__ void stage_weights(uint2* dst, const float* w, int ld, int rows, int valid, int row0,
+                              int col0) {
+  for (int idx = threadIdx.x; idx < rows / 2 * COLS; idx += blockDim.x) {
+    const int k = 2 * (idx / COLS), n = idx % COLS;
+    const float a = k < valid ? __ldg(w + (size_t)(row0 + k) * ld + col0 + n) : 0.f;
+    const float b = k + 1 < valid ? __ldg(w + (size_t)(row0 + k + 1) * ld + col0 + n) : 0.f;
     uint2 v;
     split_bf16x2(a, b, v.x, v.y);
     dst[(k / 2) * SWP + n] = v;
   }
-}
-
-__device__ void load_weights(const Smem& s, const float* w1, const float* w2, int gs) {
-  stage_weights(s.w1, w1, KG, gs);
-  stage_weights(s.w2, w2, F, F);
 }
 
 __device__ void load_graph(const Smem& s, const float* pos, const float* mask, int g, int n) {
@@ -410,92 +447,125 @@ __device__ int build_edges(const Smem& s, int n, float cutoff, int a0) {
 }
 
 // RBF tile [e][k] of edges e0 .. e0+ne-1; padding edges and k >= gs are 0.
+template <class C>
 __device__ void rbf_tile(const Smem& s, int e0, int ne, int gs, float step, float coeff) {
-  for (int idx = tid(); idx < ET * KG; idx += THREADS) {
-    const int e = idx / KG, k = idx % KG;
+  for (int idx = tid(); idx < ET * C::KG; idx += THREADS) {
+    const int e = idx / C::KG, k = idx % C::KG;
     float v = 0.f;
     if (e < ne && k < gs) {
       const float diff = s.ed[e0 + e] - k * step;
       v = __expf(coeff * diff * diff);
     }
-    s.rbf[e * SR + k] = v;
+    s.rbf[e * C::SR + k] = v;
   }
 }
 
-// Warp tiling of the (ET x F) edge-by-channel products P1, P2, P3: warp w
-// takes edge rows 16 (w % 2) .. +15 and channels 32 (w / 2) .. +31.
-constexpr int EW_NT = 4;
+// Warp tiling of an (ET x W) edge-by-channel product: warp w takes edge
+// rows 16 (w % 2) .. +15 and channels (W/4) (w / 2) .. +W/4-1, W/32 mma
+// columns of 8.
 __device__ __forceinline__ int ew_row0() { return 16 * ((tid() >> 5) & 1); }
-__device__ __forceinline__ int ew_col0() { return 32 * (tid() >> 6); }
+template <int W>
+__device__ __forceinline__ int ew_col0() { return (W / 4) * (tid() >> 6); }
 
-// P1: pre = rbf W1 + b1 into acc (bias added).
-__device__ __forceinline__ void layer1(const Smem& s, const float* b1, float (&acc)[1][EW_NT][4]) {
-  const int r0 = ew_row0(), c0 = ew_col0(), t = tid() & 3;
-  zero(acc);
-  warp_mma<1, EW_NT, KG>(acc, F32Tile<SR, 1>{s.rbf}, PackedW{s.w1}, r0, c0);
+// Adds the bias b (indexed by the tile's channel) to an ew accumulator.
+template <int W>
+__device__ __forceinline__ void add_bias(const float* b, float (&acc)[1][W / 32][4]) {
+  const int c0 = ew_col0<W>(), t = tid() & 3;
 #pragma unroll
-  for (int nt = 0; nt < EW_NT; ++nt) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c0 + nt * 8 + 2 * t));
+  for (int nt = 0; nt < W / 32; ++nt) {
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c0 + nt * 8 + 2 * t));
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[0][nt][r] += (r & 1) ? bb.y : bb.x;
   }
 }
 
+// P1: pre = rbf W1[:, slab] + b1[slab] into acc (SC channels).
+template <class C>
+__device__ __forceinline__ void layer1(const Smem& s, const float* b1,
+                                       float (&acc)[1][C::SC / 32][4]) {
+  zero(acc);
+  warp_mma<1, C::SC / 32, C::KG>(acc, F32Tile<C::SR, 1>{s.rbf}, PackedW<C::SW1>{s.w1}, ew_row0(),
+                                 ew_col0<C::SC>());
+  add_bias<C::SC>(b1, acc);
+}
+
 // h = ssp(pre) into the h tile.
-__device__ __forceinline__ void store_h(const Smem& s, const float (&acc)[1][EW_NT][4]) {
+template <class C>
+__device__ __forceinline__ void store_h(const Smem& s, const float (&acc)[1][C::SC / 32][4]) {
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = ew_row0(), c0 = ew_col0();
+  const int r0 = ew_row0(), c0 = ew_col0<C::SC>();
 #pragma unroll
-  for (int nt = 0; nt < EW_NT; ++nt)
+  for (int nt = 0; nt < C::SC / 32; ++nt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int e = r0 + g + 8 * half, c = c0 + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(s.h + e * SH + c) =
+      *reinterpret_cast<float2*>(s.h + e * C::SH + c) =
           make_float2(ssp(acc[0][nt][2 * half]), ssp(acc[0][nt][2 * half + 1]));
     }
 }
 
-// Rows key[e] of a graph's (N, F) tensor at this thread's fragment positions
-// of the edge tile (edge e, channels c, c+1); 0 for padding edges. Issued a
-// phase before the values are used, so the loads' latency hides behind a
-// product.
+// Rows key[e] of a graph's (N, ld) tensor, columns of an (ET x W) tile, at
+// this thread's fragment positions of the edge tile (edge e, channels c,
+// c+1); 0 for padding edges. Issued a phase before the values are used, so
+// the loads' latency hides behind a product.
+template <int W, int LD>
 __device__ __forceinline__ void gather_rows(const float* base, const int* key, int e0, int ne,
-                                            float2 (&v)[EW_NT][2]) {
+                                            float2 (&v)[W / 32][2]) {
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = ew_row0(), c0 = ew_col0();
+  const int r0 = ew_row0(), c0 = ew_col0<W>();
 #pragma unroll
-  for (int nt = 0; nt < EW_NT; ++nt)
+  for (int nt = 0; nt < W / 32; ++nt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int e = r0 + g + 8 * half, c = c0 + nt * 8 + 2 * t;
-      v[nt][half] = e < ne ? __ldg(reinterpret_cast<const float2*>(base + (size_t)key[e0 + e] * F + c))
+      v[nt][half] = e < ne ? __ldg(reinterpret_cast<const float2*>(base + (size_t)key[e0 + e] * LD + c))
                            : make_float2(0.f, 0.f);
     }
 }
 
-// P2: W = h W2 + b2 into acc (bias added).
-__device__ __forceinline__ void layer2(const Smem& s, const float* b2, float (&acc)[1][EW_NT][4]) {
-  const int r0 = ew_row0(), c0 = ew_col0(), t = tid() & 3;
+// dW_e = gate_e g_i x_j, the filter's cotangent, into the dW tile; gate_e
+// g_i waits in the message tile for the dx message (this thread's own
+// slots of the ew tiling over F channels).
+template <class C>
+__device__ __forceinline__ void put_dw(const Smem& s, int e0, int ne,
+                                       const float2 (&gv)[C::F / 32][2],
+                                       const float2 (&xv)[C::F / 32][2]) {
+  const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = ew_row0(), c0 = ew_col0<C::F>();
+#pragma unroll
+  for (int nt = 0; nt < C::F / 32; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int e = r0 + g + 8 * half, c = c0 + nt * 8 + 2 * t;
+      const float gate = e < ne ? s.eg[e0 + e] : 0.f;
+      const float2 a = make_float2(gate * gv[nt][half].x, gate * gv[nt][half].y), b = xv[nt][half];
+      *reinterpret_cast<float2*>(s.dwf + e * C::SD + c) = make_float2(a.x * b.x, a.y * b.y);
+      *reinterpret_cast<float2*>(s.xs + e * C::SX + c) = a;
+    }
+}
+
+// P2: W = h W2[slab rows, slab columns] (+ b2) into acc, FO channels; b2 null
+// adds no bias (K2's slabs after the first).
+template <class C>
+__device__ __forceinline__ void layer2(const Smem& s, const float* b2,
+                                       float (&acc)[1][C::FO / 32][4]) {
   zero(acc);
-  warp_mma<1, EW_NT, F>(acc, F32Tile<SH, 1>{s.h}, PackedW{s.w2}, r0, c0);
-#pragma unroll
-  for (int nt = 0; nt < EW_NT; ++nt) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + c0 + nt * 8 + 2 * t));
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[0][nt][r] += (r & 1) ? bb.y : bb.x;
-  }
+  warp_mma<1, C::FO / 32, C::SC>(acc, F32Tile<C::SH, 1>{s.h}, PackedW<C::SW2>{s.w2}, ew_row0(),
+                                 ew_col0<C::FO>());
+  if (b2 != nullptr) add_bias<C::FO>(b2, acc);
 }
 
 // Row sums of the item on the tensor cores: rows[r][c] += sum_e S[r][e]
 // tile[e][c] over the tile's edges, with the selection S[r][e] = 1 where
 // edge e's key (target i for K1, source j for K2) is key0 + r, r < R. S is
 // exact in bf16, so two passes (tile hi and lo) suffice. Warp w owns
-// channels 16 w .. +15; acc rows g (r = 0, 1) are the item's rows, rows
-// g + 8 stay zero. Fixed order, no atomics.
-__device__ __forceinline__ void scatter_rows(const Smem& s, const int* key, int key0, int e0,
-                                             int ne, float (&rows)[2][4]) {
+// channels (W/8) w .. +W/8-1; acc rows g (r = 0, 1) are the item's rows,
+// rows g + 8 stay zero. Fixed order, no atomics.
+template <int W, int SX>
+__device__ __forceinline__ void scatter_rows(const float* xs, const int* key, int key0, int e0,
+                                             int ne, float (&rows)[W / 64][4]) {
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
-  const float* tile = s.xs + 16 * (tid() >> 5);
+  const float* tile = xs + (W / 8) * (tid() >> 5);
   constexpr uint32_t ONE = 0x3f80u;  // bf16 1.0
 #pragma unroll
   for (int k0 = 0; k0 < ET; k0 += 16) {
@@ -508,7 +578,7 @@ __device__ __forceinline__ void scatter_rows(const Smem& s, const int* key, int 
       a[2 * half] = s0 | (s1 << 16);
     }
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+    for (int nt = 0; nt < W / 64; ++nt) {
       const float* b = tile + (k0 + 2 * t) * SX + nt * 8 + g;
       uint32_t bh[2], bl[2];
       load_split<SX>(b, bh[0], bl[0]);
@@ -519,15 +589,17 @@ __device__ __forceinline__ void scatter_rows(const Smem& s, const int* key, int 
   }
 }
 
-// Writes the item's rows key0 .. key0+nr-1 (those below n) of dst (N, F),
-// or adds them to dst when the item is computed in two parts.
-__device__ __forceinline__ void store_rows(const float (&rows)[2][4], float* dst, int key0, int nr,
-                                           int n, bool part) {
+// Writes the item's rows key0 .. key0+nr-1 (those below n) of dst (N, LD),
+// columns of the W channels of the row sums, or adds them to dst when the
+// item is computed in two parts.
+template <int W, int LD>
+__device__ __forceinline__ void store_rows(const float (&rows)[W / 64][4], float* dst, int key0,
+                                           int nr, int n, bool part) {
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
   if (g >= nr || key0 + g >= n) return;
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    float* p = dst + (size_t)(key0 + g) * F + 16 * (tid() >> 5) + nt * 8 + 2 * t;
+  for (int nt = 0; nt < W / 64; ++nt) {
+    float* p = dst + (size_t)(key0 + g) * LD + (W / 8) * (tid() >> 5) + nt * 8 + 2 * t;
     if (part) {
       atomicAdd(p, rows[nt][0]);
       atomicAdd(p + 1, rows[nt][1]);
@@ -545,7 +617,9 @@ __device__ __forceinline__ void store_rows(const float (&rows)[2][4], float* dst
 // atomically to the zeroed output: two addends onto zero give the same sum
 // in either order. Runs are at least as long as the longest item (fewer
 // teams work if need be), so no item spans three teams, and every sum the
-// kernels form is the same from run to run.
+// kernels form is the same from run to run. With slabs, each slab's teams
+// cut the same sequence among themselves and write their own columns (K1)
+// or their own part of dx (K2), so the rule holds per slab.
 template <bool SOURCE_MAJOR>
 __global__ void __launch_bounds__(THREADS)
     cfconv_count_kernel(const float* __restrict__ pos, const float* __restrict__ mask, int n,
@@ -637,22 +711,30 @@ __device__ TileRun plan_tiles(int* red, const int* __restrict__ item_tiles, int 
 }
 
 // ------------------------------------------------------------ K1
-__global__ void __launch_bounds__(2 * THREADS, 1)
+// Block b computes slab b % NS of the output filters; the blocks of a slab
+// and their teams share out its tiles.
+template <int F, int KG>
+__global__ void __launch_bounds__(Cfg<F, KG, false>::TEAMS * THREADS, 1)
     cfconv_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
                       const float* __restrict__ x, const float* __restrict__ w1,
                       const float* __restrict__ b1, const float* __restrict__ w2,
                       const float* __restrict__ b2, const int* __restrict__ item_tiles,
                       float* __restrict__ out, int G, int n, int gs, float cutoff, int cap) {
+  using C = Cfg<F, KG, false>;
+  constexpr int FO = C::FO;
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, false);
+  const Smem s = carve<C, false>(smem);
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int slab = blockIdx.x % C::NS, member = blockIdx.x / C::NS, members = gridDim.x / C::NS;
+  const int o0 = slab * FO;  // this block's output filters
   const float step = cutoff / (gs - 1);
   const float coeff = -0.5f / (step * step);
   const int per_graph = (n + R1 - 1) / R1;
-  load_weights(s, w1, w2, gs);
+  stage_weights<C::SC, C::SW1>(s.w1, w1, F, KG, gs, 0, 0);
+  stage_weights<FO, C::SW2>(s.w2, w2, F, F, F, 0, o0);
   __syncthreads();
-  const TileRun run =
-      plan_tiles(s.cnt, item_tiles, G * per_graph, 2 * gridDim.x, 2 * blockIdx.x + team());
+  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, C::TEAMS * members,
+                                 C::TEAMS * member + team());
 
   for (int item = run.k_lo, off = run.off_lo; item < run.k_hi; ++item) {
     const int g = item / per_graph, i0 = (item % per_graph) * R1;
@@ -665,43 +747,46 @@ __global__ void __launch_bounds__(2 * THREADS, 1)
     row_bits(s, n, cutoff, cap, i0, min(i0 + R1, n));
     team_sync();
     const int E = build_edges<false, R1>(s, n, cutoff, i0);
-    const float* xg = x + (size_t)g * n * F;
-    float rows[2][4] = {};
+    const float* xg = x + (size_t)g * n * F + o0;
+    float rows[FO / 64][4] = {};
     for (int e0 = first * ET; e0 < min(E, last * ET); e0 += ET) {
       const int ne = min(ET, E - e0);
-      float2 xv[EW_NT][2];  // x_j
-      gather_rows(xg, s.ej, e0, ne, xv);
-      rbf_tile(s, e0, ne, gs, step, coeff);
+      float2 xv[FO / 32][2];  // x_j
+      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);
+      rbf_tile<C>(s, e0, ne, gs, step, coeff);
       team_sync();
-      float acc[1][EW_NT][4];
-      layer1(s, b1, acc);
-      store_h(s, acc);
+      {
+        float acc[1][C::SC / 32][4];
+        layer1<C>(s, b1, acc);
+        store_h<C>(s, acc);
+      }
       team_sync();
-      layer2(s, b2, acc);
+      float acc[1][FO / 32][4];
+      layer2<C>(s, b2 + o0, acc);
       // message W_e gate_e x_j into the message tile; padding edges give 0
-      const int r0 = ew_row0(), c0 = ew_col0();
+      const int r0 = ew_row0(), c0 = ew_col0<FO>();
 #pragma unroll
-      for (int nt = 0; nt < EW_NT; ++nt)
+      for (int nt = 0; nt < FO / 32; ++nt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int e = r0 + g8 + 8 * half, c = c0 + nt * 8 + 2 * t;
           const float gate = e < ne ? s.eg[e0 + e] : 0.f;
-          *reinterpret_cast<float2*>(s.xs + e * SX + c) =
+          *reinterpret_cast<float2*>(s.xs + e * C::SX + c) =
               make_float2(acc[0][nt][2 * half] * gate * xv[nt][half].x,
                           acc[0][nt][2 * half + 1] * gate * xv[nt][half].y);
         }
       team_sync();
-      scatter_rows(s, s.ei, i0, e0, ne, rows);
+      scatter_rows<FO, C::SX>(s.xs, s.ei, i0, e0, ne, rows);
     }
-    store_rows(rows, out + (size_t)g * n * F, i0, R1, n, first > 0 || last < tiles);
+    store_rows<FO, F>(rows, out + (size_t)g * n * F + o0, i0, R1, n, first > 0 || last < tiles);
   }
 }
 
 // ------------------------------------------------------------ K2
-// Partial sums of one block in the scratch row: dW2 (F x F), dW1 (gs x F),
-// db1 (F), db2 (F).
-__host__ __device__ constexpr int partial_floats(int gs) { return F * F + gs * F + 2 * F; }
-
+// Block b computes slab b % NS of the input filters of h (all of them at
+// F = 128); the blocks of a slab share out its tiles. dx is this slab's part
+// (G, N, F) of dx: the slabs' parts start NS apart.
+template <int F, int KG>
 __global__ void __launch_bounds__(THREADS, 1)
     cfconv_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
                       const float* __restrict__ x, const float* __restrict__ w1,
@@ -709,23 +794,31 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const float* __restrict__ b2, const float* __restrict__ gout,
                       const int* __restrict__ item_tiles, float* __restrict__ dx,
                       float* __restrict__ partial, int G, int n, int gs, float cutoff, int cap) {
+  using C = Cfg<F, KG, true>;
+  constexpr int SC = C::SC;
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, true);
+  const Smem s = carve<C, true>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int slab = blockIdx.x % C::NS, member = blockIdx.x / C::NS, members = gridDim.x / C::NS;
+  const int c0s = slab * SC;  // this block's channels of h
   const float step = cutoff / (gs - 1);
   const float coeff = -0.5f / (step * step);
   const int per_graph = (n + R2 - 1) / R2;
-  load_weights(s, w1, w2, gs);
-  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, gridDim.x, blockIdx.x);  // orders the weights too
+  stage_weights<SC, C::SW1>(s.w1, w1, F, KG, gs, 0, c0s);
+  stage_weights<F, C::SW2>(s.w2, w2, F, SC, SC, c0s, 0);
+  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, members, member);  // orders the weights too
+  float* dxs = dx + (size_t)slab * G * n * F;
 
   // this block's weight-gradient partials, summed over its items:
-  // dW2 (c x c'): warp w rows 32 (w % 4) .. +31, columns 64 (w / 4) .. +63;
-  // dW1^T (c x k): warp w rows 16 w .. +15, all KG columns.
-  float dw2[2][8][4], dw1t[1][KG / 8][4];
+  // dW2[slab, :] (c x c'): warp w rows 32 (w % RG) .. +31, columns CW (w / RG) .. +CW-1;
+  // dW1[:, slab]^T (c x k): warp w rows 16 (w % RG1) .. +15, columns KW (w / RG1) .. +KW-1.
+  constexpr int RG = SC / 32, CW = F / (8 / RG);
+  constexpr int RG1 = SC / 16, KW = C::KG / (8 / RG1);
+  float dw2[2][CW / 8][4], dw1t[1][KW / 8][4];
   zero(dw2);
   zero(dw1t);
-  float db = 0.f;  // db2 for threads < F, db1 for threads >= THREADS - F (channel c)
-  const int db_c = threadIdx.x < F ? threadIdx.x : threadIdx.x - (THREADS - F);
+  float db2 = 0.f, db1 = 0.f;  // db2 for threads < F (channel tid), db1 for the last SC threads
+  const int db1_c = threadIdx.x - (THREADS - SC);
 
   for (int item = run.k_lo, off = run.off_lo, loaded = -1; item < run.k_hi; ++item) {
     const int g = item / per_graph, j0 = (item % per_graph) * R2;
@@ -743,124 +836,214 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int E = build_edges<true, R2>(s, n, cutoff, j0);
     const float* xg = x + (size_t)g * n * F;
     const float* gg = gout + (size_t)g * n * F;
-    float rows[2][4] = {};
+    float rows[F / 64][4] = {};
     for (int e0 = first * ET; e0 < min(E, last * ET); e0 += ET) {
       const int ne = min(ET, E - e0);
-      float2 gv[EW_NT][2], xv[EW_NT][2];  // g_i and x_j
-      gather_rows(gg, s.ei, e0, ne, gv);
-      gather_rows(xg, s.ej, e0, ne, xv);
-      rbf_tile(s, e0, ne, gs, step, coeff);
+      const int r0 = ew_row0(), c0 = ew_col0<F>();
+      float2 gv[F / 32][2], xv[F / 32][2];  // g_i and x_j
+      gather_rows<F, F>(gg, s.ei, e0, ne, gv);
+      gather_rows<F, F>(xg, s.ej, e0, ne, xv);
+      // F = 128: the gathers' latency hides behind P1; F = 256: their 64
+      // registers are freed before it
+      constexpr bool late_dw = F == 128;
+      if constexpr (!late_dw) put_dw<C>(s, e0, ne, gv, xv);
+      rbf_tile<C>(s, e0, ne, gs, step, coeff);
       __syncthreads();
-      float acc[1][EW_NT][4], sig[EW_NT][4];
-      layer1(s, b1, acc);
+      float acc[1][SC / 32][4], sig[SC / 32][4];
+      layer1<C>(s, b1 + c0s, acc);
 #pragma unroll
-      for (int nt = 0; nt < EW_NT; ++nt)
+      for (int nt = 0; nt < SC / 32; ++nt)
 #pragma unroll
         for (int r = 0; r < 4; ++r) sig[nt][r] = sigmoidf(acc[0][nt][r]);  // ssp'(pre)
-      store_h(s, acc);
-      // dW_e = gate_e g_i x_j, the filter's cotangent; gate_e g_i waits in
-      // the message tile for the dx message (this thread's own slots)
-      const int r0 = ew_row0(), c0 = ew_col0();
-#pragma unroll
-      for (int nt = 0; nt < EW_NT; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = r0 + g8 + 8 * half, c = c0 + nt * 8 + 2 * t;
-          const float gate = e < ne ? s.eg[e0 + e] : 0.f;
-          const float2 a = make_float2(gate * gv[nt][half].x, gate * gv[nt][half].y), b = xv[nt][half];
-          *reinterpret_cast<float2*>(s.dwf + e * SD + c) = make_float2(a.x * b.x, a.y * b.y);
-          *reinterpret_cast<float2*>(s.xs + e * SX + c) = a;
-        }
+      store_h<C>(s, acc);
+      if constexpr (late_dw) put_dw<C>(s, e0, ne, gv, xv);
       __syncthreads();
-      layer2(s, b2, acc);
-      // the dx message W_e gate_e g_i; padding edges give 0
+      {
+        // the dx message W_e gate_e g_i, this slab's part of W; padding
+        // edges give 0
+        float accw[1][F / 32][4];
+        layer2<C>(s, slab == 0 ? b2 : nullptr, accw);
 #pragma unroll
-      for (int nt = 0; nt < EW_NT; ++nt)
+        for (int nt = 0; nt < F / 32; ++nt)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = r0 + g8 + 8 * half, c = c0 + nt * 8 + 2 * t;
-          float2* m = reinterpret_cast<float2*>(s.xs + e * SX + c);
-          const float2 a = *m;
-          *m = make_float2(acc[0][nt][2 * half] * a.x, acc[0][nt][2 * half + 1] * a.y);
-        }
+          for (int half = 0; half < 2; ++half) {
+            const int e = r0 + g8 + 8 * half, c = c0 + nt * 8 + 2 * t;
+            float2* m = reinterpret_cast<float2*>(s.xs + e * C::SX + c);
+            const float2 a = *m;
+            *m = make_float2(accw[0][nt][2 * half] * a.x, accw[0][nt][2 * half + 1] * a.y);
+          }
+      }
       __syncthreads();
-      scatter_rows(s, s.ej, j0, e0, ne, rows);
+      scatter_rows<F, C::SX>(s.xs, s.ej, j0, e0, ne, rows);
       if (threadIdx.x < F)  // padding rows of the tile are zero
 #pragma unroll
-        for (int e = 0; e < ET; ++e) db += s.dwf[e * SD + db_c];
-      // P3: dh = dW W2^T (edge x channel), then P4: dW2 += h^T dW
+        for (int e = 0; e < ET; ++e) db2 += s.dwf[e * C::SD + threadIdx.x];
+      // P3: dh = dW W2[slab, :]^T (edge x channel), then P4: dW2[slab, :] += h^T dW
       zero(acc);
-      warp_mma<1, EW_NT, F>(acc, F32Tile<SD, 1>{s.dwf}, PackedWT{s.w2}, r0, c0);
-      warp_mma<2, 8, ET>(dw2, F32Tile<1, SH>{s.h}, F32Tile<1, SD>{s.dwf}, 32 * (warp & 3),
-                         64 * (warp >> 2));
+      warp_mma<1, SC / 32, F>(acc, F32Tile<C::SD, 1>{s.dwf}, PackedWT<C::SW2>{s.w2}, r0,
+                              ew_col0<SC>());
+      warp_mma<2, CW / 8, ET>(dw2, F32Tile<1, C::SH>{s.h}, F32Tile<1, C::SD>{s.dwf},
+                              32 * (warp % RG), CW * (warp / RG));
       __syncthreads();  // the dx sums are done with the message tile
+      {
+        const int cs = ew_col0<SC>();
 #pragma unroll
-      for (int nt = 0; nt < EW_NT; ++nt)
+        for (int nt = 0; nt < SC / 32; ++nt)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = r0 + g8 + 8 * half, c = c0 + nt * 8 + 2 * t;
-          *reinterpret_cast<float2*>(s.xs + e * SX + c) =
-              make_float2(acc[0][nt][2 * half] * sig[nt][2 * half],
-                          acc[0][nt][2 * half + 1] * sig[nt][2 * half + 1]);
-        }
+          for (int half = 0; half < 2; ++half) {
+            const int e = r0 + g8 + 8 * half, c = cs + nt * 8 + 2 * t;
+            *reinterpret_cast<float2*>(s.xs + e * C::SX + c) =
+                make_float2(acc[0][nt][2 * half] * sig[nt][2 * half],
+                            acc[0][nt][2 * half + 1] * sig[nt][2 * half + 1]);
+          }
+      }
       __syncthreads();
-      // P5: dW1^T += dpre^T rbf
-      warp_mma<1, KG / 8, ET>(dw1t, F32Tile<1, SX>{s.xs}, F32Tile<1, SR>{s.rbf}, 16 * warp, 0);
-      if (threadIdx.x >= THREADS - F)
+      // P5: dW1[:, slab]^T += dpre^T rbf
+      warp_mma<1, KW / 8, ET>(dw1t, F32Tile<1, C::SX>{s.xs}, F32Tile<1, C::SR>{s.rbf},
+                              16 * (warp % RG1), KW * (warp / RG1));
+      if (db1_c >= 0)
 #pragma unroll
-        for (int e = 0; e < ET; ++e) db += s.xs[e * SX + db_c];
+        for (int e = 0; e < ET; ++e) db1 += s.xs[e * C::SX + db1_c];
       __syncthreads();  // rbf and the dpre tile are rewritten by the next tile
     }
-    store_rows(rows, dx + (size_t)g * n * F, j0, R2, n, first > 0 || last < tiles);
+    store_rows<F, F>(rows, dxs + (size_t)g * n * F, j0, R2, n, first > 0 || last < tiles);
   }
 
-  float* p = partial + (size_t)blockIdx.x * partial_floats(gs);
+  float* p = partial + (size_t)blockIdx.x * C::partial_floats(gs);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < CW / 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int c = 32 * (warp & 3) + 16 * mt + g8 + 8 * (r >> 1);
-        const int c2 = 64 * (warp >> 2) + 8 * nt + 2 * t + (r & 1);
+        const int c = 32 * (warp % RG) + 16 * mt + g8 + 8 * (r >> 1);
+        const int c2 = CW * (warp / RG) + 8 * nt + 2 * t + (r & 1);
         p[c * F + c2] = dw2[mt][nt][r];
       }
 #pragma unroll
-  for (int nt = 0; nt < KG / 8; ++nt)
+  for (int nt = 0; nt < KW / 8; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int c = 16 * warp + g8 + 8 * (r >> 1), k = 8 * nt + 2 * t + (r & 1);
-      if (k < gs) p[F * F + k * F + c] = dw1t[0][nt][r];
+      const int c = 16 * (warp % RG1) + g8 + 8 * (r >> 1), k = KW * (warp / RG1) + 8 * nt + 2 * t + (r & 1);
+      if (k < gs) p[SC * F + k * SC + c] = dw1t[0][nt][r];
     }
-  if (threadIdx.x < F) p[F * F + gs * F + F + db_c] = db;               // db2
-  else if (threadIdx.x >= THREADS - F) p[F * F + gs * F + db_c] = db;  // db1
+  if (threadIdx.x < F) p[SC * F + gs * SC + SC + threadIdx.x] = db2;
+  if (db1_c >= 0) p[SC * F + gs * SC + db1_c] = db1;
 }
 
-// Sums the P partial rows in block order: one thread per gradient element.
+// Sums the partial rows of the blocks of each slab in block order: one
+// thread per gradient element. db2 comes from slab 0's blocks.
+template <int F, int KG>
 __global__ void cfconv_reduce_kernel(const float* __restrict__ partial, int blocks, int gs,
                                      float* __restrict__ dw1, float* __restrict__ db1,
                                      float* __restrict__ dw2, float* __restrict__ db2) {
+  using C = Cfg<F, KG, true>;
+  constexpr int SC = C::SC;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int total = partial_floats(gs);
-  if (idx >= total) return;
+  if (idx >= F * F + gs * F + 2 * F) return;
+  int slab = 0, at;  // the slab holding idx and its offset in the slab's row
+  float* dst;
+  if (idx < F * F) {
+    const int c = idx / F;
+    slab = c / SC, at = (c % SC) * F + idx % F, dst = dw2 + idx;
+  } else if (idx < F * F + gs * F) {
+    const int i = idx - F * F, c = i % F;
+    slab = c / SC, at = SC * F + (i / F) * SC + c % SC, dst = dw1 + i;
+  } else if (idx < F * F + gs * F + F) {
+    const int c = idx - F * F - gs * F;
+    slab = c / SC, at = SC * F + gs * SC + c % SC, dst = db1 + c;
+  } else {
+    const int c = idx - F * F - gs * F - F;
+    at = SC * F + gs * SC + SC + c, dst = db2 + c;
+  }
+  const size_t row = C::partial_floats(gs);
   float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partial[(size_t)b * total + idx];
-  if (idx < F * F) dw2[idx] = acc;
-  else if (idx < F * F + gs * F) dw1[idx - F * F] = acc;
-  else if (idx < F * F + gs * F + F) db1[idx - F * F - gs * F] = acc;
-  else db2[idx - F * F - gs * F - F] = acc;
+  for (int b = slab; b < blocks; b += C::NS) acc += partial[(size_t)b * row + at];
+  *dst = acc;
 }
 
-// Raises a kernel's dynamic shared-memory limit, once per device.
+// dx = the sum of the NS slabs' parts, in slab order.
+template <int NS>
+__global__ void cfconv_dx_reduce_kernel(const float* __restrict__ parts, size_t count,
+                                        float* __restrict__ dx) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= count) return;
+  float acc = parts[idx];
+#pragma unroll
+  for (int s = 1; s < NS; ++s) acc += parts[s * count + idx];
+  dx[idx] = acc;
+}
+
+// Raises a kernel's dynamic shared-memory limit, once per kernel and device.
 template <class Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
-  static bool done[64] = {};
+  static const void* done[64][4] = {};  // per device, the kernels already raised
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  if (dev < 64)
+    for (const void* k : done[dev])
+      if (k == key) return 0;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  if (err == cudaSuccess && dev < 64)
+    for (const void*& k : done[dev])
+      if (k == nullptr) {
+        k = key;
+        break;
+      }
   return (int)err;
+}
+
+template <int F, int KG>
+int fwd(const float* pos, const float* mask, const float* x, const float* w1, const float* b1,
+        const float* w2, const float* b2, float* out, int* item_tiles, int G, int N, int Gs,
+        float cutoff, int cap, int blocks, cudaStream_t st) {
+  using C = Cfg<F, KG, false>;
+  cudaError_t err;
+  if ((err = cudaMemsetAsync(out, 0, (size_t)G * N * F * sizeof(float), st)) != cudaSuccess)
+    return (int)err;
+  cfconv_count_kernel<false><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int code = set_smem(cfconv_fwd_kernel<F, KG>, C::SMEM);
+  if (code != 0) return code;
+  cfconv_fwd_kernel<F, KG><<<blocks, C::TEAMS * THREADS, C::SMEM, st>>>(
+      pos, mask, x, w1, b1, w2, b2, item_tiles, out, G, N, Gs, cutoff, cap);
+  return (int)cudaGetLastError();
+}
+
+template <int F, int KG>
+int bwd(const float* pos, const float* mask, const float* x, const float* w1, const float* b1,
+        const float* w2, const float* b2, const float* gout, float* dx, float* dx_parts,
+        float* dw1, float* db1, float* dw2, float* db2, float* partial, int* item_tiles, int G,
+        int N, int Gs, float cutoff, int cap, int blocks, cudaStream_t st) {
+  using C = Cfg<F, KG, true>;
+  cudaError_t err;
+  const size_t count = (size_t)G * N * F;
+  float* parts = C::NS > 1 ? dx_parts : dx;
+  if ((err = cudaMemsetAsync(parts, 0, C::NS * count * sizeof(float), st)) != cudaSuccess)
+    return (int)err;
+  cfconv_count_kernel<true><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int code = set_smem(cfconv_bwd_kernel<F, KG>, C::SMEM);
+  if (code != 0) return code;
+  cfconv_bwd_kernel<F, KG><<<blocks, THREADS, C::SMEM, st>>>(
+      pos, mask, x, w1, b1, w2, b2, gout, item_tiles, parts, partial, G, N, Gs, cutoff, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int total = F * F + Gs * F + 2 * F;
+  cfconv_reduce_kernel<F, KG><<<(total + 255) / 256, 256, 0, st>>>(partial, blocks, Gs, dw1, db1,
+                                                                   dw2, db2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (C::NS > 1) {
+    cfconv_dx_reduce_kernel<C::NS><<<(unsigned)((count + 255) / 256), 256, 0, st>>>(parts, count, dx);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+// The compiled widths: F = 128 with Gs <= 64, F = 256 with Gs <= 16.
+bool compiled(int F, int Gs) {
+  return Gs >= 2 && ((F == 128 && Gs <= 64) || (F == 256 && Gs <= 16));
 }
 
 }  // namespace
@@ -869,53 +1052,54 @@ extern "C" {
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Floats of the (blocks, .) scratch that K2 needs per block.
-int cfconv_partial_floats(int gs) { return partial_floats(gs); }
-
-// K1. pos (G,N,3), mask (G,N) as 0/1 floats, x (G,N,128), w1 (Gs,128),
-// b1 (128), w2 (128,128), b2 (128) -> out (G,N,128). All f32, contiguous,
-// 16-byte aligned, on the device. `blocks` is the persistent grid size and
-// item_tiles a scratch of G * ceil(N/4) ints.
-int cfconv_fwd(const float* pos, const float* mask, const float* x, const float* w1,
-               const float* b1, const float* w2, const float* b2, float* out, int* item_tiles,
-               int G, int N, int Gs, float cutoff, int cap, int blocks, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if ((err = cudaMemsetAsync(out, 0, (size_t)G * N * F * sizeof(float), st)) != cudaSuccess)
-    return (int)err;
-  cfconv_count_kernel<false><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(WEIGHT_FLOATS + 2 * team_floats(false)) * sizeof(float);
-  int code = set_smem(cfconv_fwd_kernel, smem);
-  if (code != 0) return code;
-  cfconv_fwd_kernel<<<blocks, 2 * THREADS, smem, st>>>(pos, mask, x, w1, b1, w2, b2, item_tiles,
-                                                       out, G, N, Gs, cutoff, cap);
-  return (int)cudaGetLastError();
+// Slabs of a width's blocks: its persistent grid is a multiple of this.
+// K1 (bwd 0) splits the output filters, K2 (bwd 1) the filters of h; K2's
+// dx parts scratch holds this many (G, N, F) parts when it is above 1.
+int cfconv_slabs(int F, int bwd) {
+  if (F == 128) return 1;
+  if (F == 256) return bwd ? Cfg<256, 16, true>::NS : Cfg<256, 16, false>::NS;
+  return 0;
 }
 
-// K2. As K1 plus the cotangent gout (G,N,128), a scratch of
-// blocks * cfconv_partial_floats(Gs) floats and one of G * ceil(N/8) ints. Writes dx (G,N,128) and the
-// weight gradients summed over all graphs.
+// Floats of the (blocks, .) scratch that K2 needs per block.
+int cfconv_partial_floats(int F, int gs) {
+  if (F == 128) return Cfg<128, 64, true>::partial_floats(gs);
+  if (F == 256) return Cfg<256, 16, true>::partial_floats(gs);
+  return 0;
+}
+
+// K1. pos (G,N,3), mask (G,N) as 0/1 floats, x (G,N,F), w1 (Gs,F), b1 (F),
+// w2 (F,F), b2 (F) -> out (G,N,F). All f32, contiguous, 16-byte aligned,
+// on the device. `blocks` is the persistent grid size, a multiple of
+// cfconv_slabs(F, 0), and item_tiles a scratch of G * ceil(N/4) ints.
+int cfconv_fwd(const float* pos, const float* mask, const float* x, const float* w1,
+               const float* b1, const float* w2, const float* b2, float* out, int* item_tiles,
+               int G, int N, int F, int Gs, float cutoff, int cap, int blocks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 0)) return (int)cudaErrorInvalidValue;
+  if (F == 128)
+    return fwd<128, 64>(pos, mask, x, w1, b1, w2, b2, out, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+  return fwd<256, 16>(pos, mask, x, w1, b1, w2, b2, out, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+}
+
+// K2. As K1 plus the cotangent gout (G,N,F), a scratch of
+// blocks * cfconv_partial_floats(F, Gs) floats, one of G * ceil(N/8) ints
+// and, where cfconv_slabs(F, 1) > 1, one of that many (G,N,F) dx parts
+// (dx_parts; unused otherwise). `blocks` is a multiple of
+// cfconv_slabs(F, 1). Writes dx (G,N,F) and the weight gradients summed
+// over all graphs.
 int cfconv_bwd(const float* pos, const float* mask, const float* x, const float* w1,
                const float* b1, const float* w2, const float* b2, const float* gout, float* dx,
-               float* dw1, float* db1, float* dw2, float* db2, float* partial, int* item_tiles,
-               int G, int N, int Gs, float cutoff, int cap, int blocks, void* stream) {
+               float* dx_parts, float* dw1, float* db1, float* dw2, float* db2, float* partial,
+               int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int blocks,
+               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if ((err = cudaMemsetAsync(dx, 0, (size_t)G * N * F * sizeof(float), st)) != cudaSuccess)
-    return (int)err;
-  cfconv_count_kernel<true><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(WEIGHT_FLOATS + team_floats(true)) * sizeof(float);
-  int code = set_smem(cfconv_bwd_kernel, smem);
-  if (code != 0) return code;
-  cfconv_bwd_kernel<<<blocks, THREADS, smem, st>>>(pos, mask, x, w1, b1, w2, b2, gout,
-                                                   item_tiles, dx, partial, G, N, Gs, cutoff, cap);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int total = partial_floats(Gs);
-  cfconv_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(partial, blocks, Gs, dw1, db1, dw2,
-                                                            db2);
-  return (int)cudaGetLastError();
+  if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 1)) return (int)cudaErrorInvalidValue;
+  if (F == 128)
+    return bwd<128, 64>(pos, mask, x, w1, b1, w2, b2, gout, dx, dx_parts, dw1, db1, dw2, db2,
+                        partial, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+  return bwd<256, 16>(pos, mask, x, w1, b1, w2, b2, gout, dx, dx_parts, dw1, db1, dw2, db2, partial,
+                      item_tiles, G, N, Gs, cutoff, cap, blocks, st);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
-"""Regression fusion model: 3D SchNet + 2D GAT + FGW-barycenter branch
-(port of ``conan_fgw_tpu/models/heads.py``, regression with the SchNet
-backbone).
+"""Fusion model: 3D SchNet + 2D GAT + FGW-barycenter branch (port of
+``conan_fgw_tpu/models/heads.py`` with the SchNet backbone, regression and
+classification).
 
 The barycenter stage is a call-time flag (``use_barycenter``), so stage 1 and
 stage 2 share one parameter set and the warm start is the same module.
 Affine transforms commute with the conformer mean, so ``T(mean_k x_k)``
 replaces the reference's per-conformer ``T(x_k)`` + mean; the GAT runs once
-per molecule.
+per molecule. Classification's stage 1 runs self-attention per conformer
+before the mean, so there the transforms run per conformer.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch import nn
 
 from conan_fgw_tpu_torch.data.vocab import NUM_ATOM_FEATURES, NUM_BOND_FEATURES
 from conan_fgw_tpu_torch.device import resolve_device
+from conan_fgw_tpu_torch.models.attention import SelfAttention
 from conan_fgw_tpu_torch.models.gat import GAT2D
 from conan_fgw_tpu_torch.models.schnet import SchNet3D
 from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter_batch, normalize_minmax
@@ -36,19 +38,38 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
                     nn.init.xavier_uniform_(p, generator=generator)
 
 
+class ClassificationHead(nn.Module):
+    """Linear -> ReLU -> Linear(channels // 2) -> ReLU -> Linear(1) (the JAX
+    package's ``ClassificationHead``; ``lins.0/1/2`` are flax's
+    ``Dense_0/1/2``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.lins = nn.ModuleList([nn.Linear(channels, channels),
+                                   nn.Linear(channels, channels // 2),
+                                   nn.Linear(channels // 2, 1)])
+
+    def forward(self, x):
+        x = torch.relu(self.lins[0](x))
+        x = torch.relu(self.lins[1](x))
+        return self.lins[2](x)
+
+
 class ConanModel(nn.Module):
     """Conformer aggregation network with an optional FGW-barycenter branch.
 
     ``forward(batch, use_barycenter)`` returns ``(pred (B, 1), n_div)``:
     ``n_div`` counts the coupling solves that rolled back a Sinkhorn
-    numerical failure (0 without the barycenter branch).
+    numerical failure (0 without the barycenter branch). ``task``
+    "regression" predicts with one Linear; "classification" returns logits
+    of a three-layer head, with self-attention per conformer in stage 1.
 
     ``bary_pad_mode``: "reference" keeps the reference's padding semantics
     (pad rows carry uniform mass with zero adjacency); "masked" excludes
     padding from marginals and normalisation.
     """
 
-    def __init__(self, hidden_channels: int = 128, num_filters: int = 128,
+    def __init__(self, task: str = "regression", hidden_channels: int = 128, num_filters: int = 128,
                  num_gaussians: int = 50, num_interactions: int = 3, cutoff: float = 10.0,
                  max_neighbors: int = 32, agg_weight: float = 0.2,
                  fgw: FGWConfig = FGWConfig(), bary_shift: float = 0.5,
@@ -58,8 +79,11 @@ class ConanModel(nn.Module):
         super().__init__()
         if bary_pad_mode not in ("reference", "masked"):
             raise ValueError(f"unknown bary_pad_mode {bary_pad_mode!r}")
+        if task not in ("regression", "classification"):
+            raise ValueError(f"unknown task {task!r}")
         dev = resolve_device(device)
         half = hidden_channels // 2
+        self.task = task
         self.agg_weight = agg_weight
         self.fgw = fgw
         self.bary_shift = bary_shift
@@ -71,7 +95,11 @@ class ConanModel(nn.Module):
         self.t3d = nn.Linear(half, half)
         self.tcov = nn.Linear(half, half)
         self.tbary = nn.Linear(half, half)
-        self.head = nn.Linear(half, 1)
+        if task == "classification":
+            self.head = ClassificationHead(half)
+            self.self_attention = SelfAttention(half)
+        else:
+            self.head = nn.Linear(half, 1)
         init_like_flax(self, torch.Generator().manual_seed(seed))
         self.to(dev)
 
@@ -132,7 +160,13 @@ class ConanModel(nn.Module):
     def forward(self, batch, use_barycenter: bool = False):
         x3d, x_bary, n_div = self._readouts(batch, use_barycenter)
         x_cov = self.gat(batch.x2d, batch.bond_adj, batch.bond_attr, batch.atom_mask)
-        x = self.t3d(x3d.mean(1)) + self.tcov(x_cov)
-        if use_barycenter:
-            x = x + self.agg_weight * self.tbary(x_bary)
+        if self.task == "classification" and not use_barycenter:
+            # attention per conformer before the K-mean, on the fused
+            # embedding T3d(x3d_k) + Tcov(x_cov), a sequence of length 1
+            xk = self.t3d(x3d) + self.tcov(x_cov)[:, None, :]
+            x = self.self_attention(xk[..., None, :])[..., 0, :].mean(1)
+        else:
+            x = self.t3d(x3d.mean(1)) + self.tcov(x_cov)
+            if use_barycenter:
+                x = x + self.agg_weight * self.tbary(x_bary)
         return self.head(x), n_div

@@ -18,14 +18,17 @@ Its five products run on the tensor cores in bf16 with a three-term split
 contract with any margin. Work items are (graph, 8 target rows) for K1 and
 (graph, 8 source atoms) for K2, over a compacted edge list in tiles of 32
 edges; each item sums its own output rows on the tensor cores and writes
-them once. Both run a persistent grid of one block per SM (two teams of 8
-warps each for K1, one for K2). K2's blocks keep
-their weight-gradient partials in registers over a partition of the items
-fixed by the mask, and a second kernel sums the partials in a fixed order,
-so K2 is deterministic. Only F = 128 filters and up to 64 Gaussians are
-compiled; the wrapper refuses other shapes. ``split_mm``, ``edge_list`` and
-``cfconv_edges`` restate the kernels' arithmetic and edge order in plain
-PyTorch so the CPU tests can check them.
+them once. Both run a persistent grid of about one block per SM. K2's blocks
+keep their weight-gradient partials in registers over a partition of the
+items fixed by the mask, and a second kernel sums the partials in a fixed
+order, so K2 is deterministic. Two widths are compiled (``BUILT``): F = 128
+filters with up to 64 Gaussians (the regression model) and F = 256 with up to
+16 (the classification model, 10 Gaussians), where the blocks split W2 in
+slabs: K1 by output filter, K2 by the filters of ``h``, whose four parts of
+``dx`` a third kernel sums in a fixed order. The wrapper refuses other
+shapes. Each width counts its launches under its own name (``kernel_name``).
+``split_mm``, ``edge_list`` and ``cfconv_edges`` restate the kernels'
+arithmetic and edge order in plain PyTorch so the CPU tests can check them.
 """
 
 from __future__ import annotations
@@ -42,11 +45,18 @@ from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 from conan_fgw_tpu_torch.ops.rbf import gaussian_smearing, shifted_softplus
 
 MAX_ATOMS = DEFAULT_BUCKETS[-1]
-# what csrc/cfconv.cu is compiled for: F, the padded Gaussian count KG, and
-# the rows of one K1 work item (R1) and sources of one K2 work item (R2)
-KERNEL_FILTERS = 128
-MAX_GAUSSIANS = 64
+# what csrc/cfconv.cu is compiled for: filters F -> the Gaussians it takes
+# (their padded count KG), and the rows of one K1 work item (R1) and
+# sources of one K2 work item (R2)
+BUILT = {128: 64, 256: 16}
 K1_ROWS, K2_ROWS = 4, 8
+
+
+def kernel_name(kernel: str, filters: int) -> str:
+    """The launch-count name of K1 (``"cfconv_fwd"``) or K2
+    (``"cfconv_bwd"``) at a width: F = 128 keeps the plain name, F = 256 is
+    ``"cfconv_fwd_f256"``."""
+    return kernel if filters == 128 else f"{kernel}_f{filters}"
 
 
 def _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
@@ -96,11 +106,14 @@ def edge_list(pos, mask, cutoff, max_neighbors, source_major=False):
 
 
 def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=32,
-                 mm=torch.matmul):
+                 mm=torch.matmul, slab=None):
     """K1's forward and K2's backward as the kernels compute them, over
     their edge lists, with the filter MLP's five products done by ``mm``
-    (``split_mm`` for the tensor cores' arithmetic). Returns ``out`` and
-    ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``gout``."""
+    (``split_mm`` for the tensor cores' arithmetic). ``slab`` splits K2's
+    filters of ``h`` as the F = 256 kernel does: each slab's part of the
+    filter W (``b2`` in the first) gives its own part of ``dx``, and the
+    parts are summed in slab order. Returns ``out`` and ``(dx, dw1, db1,
+    dw2, db2)`` for the cotangent ``gout``."""
     G, N, F = x.shape
     dist = pairwise_distances(pos)
 
@@ -119,7 +132,14 @@ def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=
     rbf, pre, h, w, gate = mlp(g, i, j)
     gg = gout[g, i] * gate
     dw = gg * x[g, j]
-    dx = torch.zeros(G * N, F).index_add_(0, g * N + j, w * gg).view(G, N, F)
+    if slab is None:
+        dx = torch.zeros(G * N, F).index_add_(0, g * N + j, w * gg).view(G, N, F)
+    else:
+        dx = torch.zeros(G * N, F)
+        for c in range(0, F, slab):
+            w_part = mm(h[:, c:c + slab], w2[c:c + slab]) + (b2 if c == 0 else 0.0)
+            dx = dx + torch.zeros(G * N, F).index_add_(0, g * N + j, w_part * gg)
+        dx = dx.view(G, N, F)
     dpre = mm(dw, w2.t()) * torch.sigmoid(pre)
     return out, (dx, mm(rbf.t(), dpre), dpre.sum(0), mm(h.t(), dw), dw.sum(0))
 
@@ -143,11 +163,17 @@ def _check(pos, mask, x, w1, b1, w2, b2):
             raise ValueError(f"cfconv kernel: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
     if N > MAX_ATOMS:
         raise ValueError(f"cfconv kernel: N={N} exceeds the largest bucket {MAX_ATOMS}")
-    if F != KERNEL_FILTERS or not 2 <= Gs <= MAX_GAUSSIANS:
-        raise ValueError(f"cfconv kernel: built for F={KERNEL_FILTERS} and 2..{MAX_GAUSSIANS}"
-                         f" Gaussians, got F={F}, {Gs}")
-    blocks = max(1, min(_sm_count(x.device), G * -(-N // K2_ROWS)))  # one persistent block per SM
-    return G, N, Gs, blocks
+    if F not in BUILT or not 2 <= Gs <= BUILT[F]:
+        built = ", ".join(f"F={f} with 2..{gs} Gaussians" for f, gs in BUILT.items())
+        raise ValueError(f"cfconv kernel: built for {built}; got F={F} with {Gs}")
+    return G, N, F, Gs
+
+
+def _blocks(lib, x, G, N, F, bwd):
+    """The persistent grid: about one block per SM, a multiple of the
+    width's slabs, and no more blocks per slab than K2 has work items."""
+    slabs = lib.cfconv_slabs(F, int(bwd))
+    return slabs * max(1, min(_sm_count(x.device) // slabs, G * -(-N // K2_ROWS)))
 
 
 @functools.cache
@@ -164,43 +190,47 @@ def _on(device: torch.device):
 
 def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors):
     """Launch K1: messages ``(G, N, F)``."""
-    G, N, Gs, blocks = _check(pos, mask, x, w1, b1, w2, b2)
+    G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     lib = _build.load_library()
+    blocks = _blocks(lib, x, G, N, F, bwd=False)
     out = torch.empty_like(x)
     item_tiles = torch.empty(G * -(-N // K1_ROWS), dtype=torch.int32, device=x.device)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.cfconv_fwd(
             *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out, item_tiles)),
-            G, N, Gs, float(cutoff), int(max_neighbors), blocks, stream,
+            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, stream,
         )
     _build.check(code, "cfconv_fwd")
-    launches["cfconv_fwd"] += 1
+    launches[kernel_name("cfconv_fwd", F)] += 1
     return out
 
 
 def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors):
     """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g``, the
     weight gradients summed over all graphs."""
-    G, N, Gs, blocks = _check(pos, mask, x, w1, b1, w2, b2)
+    G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     if g.shape != x.shape or g.dtype != torch.float32 or not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("cfconv backward: the cotangent must be a contiguous, 16-byte aligned"
                          " f32 (G, N, F) tensor")
     lib = _build.load_library()
+    blocks = _blocks(lib, x, G, N, F, bwd=True)
+    slabs = lib.cfconv_slabs(F, 1)
     dx = torch.empty_like(x)
+    dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 else dx
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
-    partial = torch.empty((blocks, lib.cfconv_partial_floats(Gs)), device=x.device)
+    partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
     item_tiles = torch.empty(G * -(-N // K2_ROWS), dtype=torch.int32, device=x.device)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.cfconv_bwd(
-            *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dw1, db1, dw2, db2, partial,
-                                     item_tiles)),
-            G, N, Gs, float(cutoff), int(max_neighbors), blocks, stream,
+            *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dx_parts, dw1, db1, dw2,
+                                     db2, partial, item_tiles)),
+            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, stream,
         )
     _build.check(code, "cfconv_bwd")
-    launches["cfconv_bwd"] += 1
+    launches[kernel_name("cfconv_bwd", F)] += 1
     return dx, dw1, db1, dw2, db2
 
 

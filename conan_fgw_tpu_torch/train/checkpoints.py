@@ -89,7 +89,9 @@ def _named_parameters(model, optimizer) -> list[tuple[str, torch.nn.Parameter]]:
 
 class RunCheckpointer:
     """best/last checkpoints for one training run (see the module docstring
-    for the format)."""
+    for the format). ``fit`` calls ``save_best`` when ``monitor`` improves in
+    its direction: up for ``val_auroc``, ``val_mean`` and ``val_prc``, down
+    for the rest (``train/loop.py::MAXIMIZED``)."""
 
     def __init__(self, directory: str, monitor: str = "val_mse"):
         self.directory = directory

@@ -1,12 +1,14 @@
-"""Train step and epoch loop (port of ``conan_fgw_tpu/train/loop.py``, the
-regression path).
+"""Train step and epoch loop (port of ``conan_fgw_tpu/train/loop.py``).
 
 One train step: forward (including the batched FGW barycenter in stage 2),
-masked MSE, backward, global-norm clip at 1.0 written as
+the task's loss (masked MSE for regression; for classification the stable
+logit-space BCE scaled by ``loss_scale``), backward, global-norm clip at 1.0
+written as
 ``optax.clip_by_global_norm``, and Adam (``torch.optim.Adam``, whose update
 equals optax's). ``fit`` runs epochs over atom-count-bucketed batches with the
 LR plateau schedule and early stopping on ``val_loss``, keeps the ``best``
-checkpoint by ``TrainSettings.monitor`` and the ``last`` and ``last_state``
+checkpoint by ``TrainSettings.monitor`` (higher is better for ``val_auroc``,
+``val_mean`` and ``val_prc``, lower for the rest) and the ``last`` and ``last_state``
 ones every epoch, and resumes from ``last_state``. ``fit(..., model=m)``
 continues from the weights ``m`` holds; the runner loads stage 1's ``best``
 into ``m`` for the stage-2 warm start.
@@ -34,12 +36,19 @@ log = logging.getLogger("conan_fgw_tpu_torch")
 # package's GUARD_SIGMAS: far outside any legitimate regressor output, and
 # never reached by ordinary bad fits)
 GUARD_SIGMAS = 50.0
+# monitors for which a higher value is better
+MAXIMIZED = ("val_auroc", "val_mean", "val_prc")
 
 
 @dataclasses.dataclass
 class TrainSettings:
     """Optimisation settings; defaults mirror the reference regression task."""
 
+    task: str = "regression"  # or "classification"
+    # classification: the BCE's scalar class-weight rescale (the runner's
+    # class_weight_ratio of the train split); None is 1
+    loss_scale: float | None = None
+    trade_off: bool = False  # classification: also report mean = (auroc + prc) / 2
     learning_rate: float = 5e-4
     num_epochs: int = 80
     batch_size: int = 24
@@ -49,7 +58,7 @@ class TrainSettings:
     es_patience: int = 50
     es_min_delta: float = 1e-4
     use_barycenter: bool = False
-    monitor: str = "val_mse"  # the history key, lower is better, that picks `best`
+    monitor: str = "val_mse"  # the history key that picks `best` (see MAXIMIZED)
     seed: int = 5
     max_atoms: int | None = None  # the largest bucket; None: the data's
     # flag non-finite and outlier predictions in `evaluate` (pred_outliers)
@@ -63,6 +72,27 @@ def masked_mse(pred: torch.Tensor, batch) -> torch.Tensor:
     denom = torch.clamp(w.sum(), min=1.0)
     sq = torch.where(w > 0, (pred - y) ** 2, torch.zeros_like(pred))
     return sq.sum() / denom
+
+
+def masked_bce(pred: torch.Tensor, batch, scale: float | None = None) -> torch.Tensor:
+    """Binary cross-entropy of logits over real molecules, times ``scale``:
+    the stable form ``max(z, 0) - z y + log1p(exp(-|z|))``. The model
+    returns logits; this equals the reference's probability-space BCE with
+    its class-weight rescale, and keeps a gradient where the sigmoid
+    saturates in f32."""
+    y = batch.y[:, None]
+    w = batch.mol_mask.to(pred.dtype)[:, None]
+    denom = torch.clamp(w.sum(), min=1.0)
+    bce = torch.clamp(pred, min=0.0) - pred * y + torch.log1p(torch.exp(-pred.abs()))
+    total = torch.where(w > 0, bce, torch.zeros_like(bce)).sum() / denom
+    return (1.0 if scale is None else scale) * total
+
+
+def task_loss(pred: torch.Tensor, batch, settings: "TrainSettings") -> torch.Tensor:
+    """The loss of ``settings.task``: masked MSE, or the scaled masked BCE."""
+    if settings.task == "regression":
+        return masked_mse(pred, batch)
+    return masked_bce(pred, batch, settings.loss_scale)
 
 
 def clip_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -91,7 +121,7 @@ def train_step(model, optimizer, batch, settings: TrainSettings):
     """One optimisation step; returns ``(loss, n_div)`` as device tensors."""
     optimizer.zero_grad(set_to_none=True)
     pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
-    loss = masked_mse(pred, batch)
+    loss = task_loss(pred, batch, settings)
     loss.backward()
     clip_by_global_norm_(list(model.parameters()), settings.grad_clip)
     optimizer.step()
@@ -115,7 +145,7 @@ def evaluate(model, records, settings: TrainSettings, max_atoms: int, device):
                                    buckets=bucket_boundaries(max_atoms)):
             batch = pb.to(device)
             pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
-            losses.append(masked_mse(pred, batch))
+            losses.append(task_loss(pred, batch, settings))
             divs.append(n_div)
             preds.append((pred.reshape(-1), pb.mol_mask))
             ys.append(pb.y[pb.mol_mask])
@@ -126,11 +156,13 @@ def evaluate(model, records, settings: TrainSettings, max_atoms: int, device):
         log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                     "during evaluation", n_div)
     out = {"loss": float(torch.stack(losses).mean())}
+    regression = settings.task == "regression"
     if settings.eval_guard:
         # the JAX package's divergence detector: report outliers, keep them
         # in the unguarded metrics
         bad = ~np.isfinite(pred)
-        bad |= np.abs(pred - float(np.mean(y))) > GUARD_SIGMAS * max(float(np.std(y)), 1e-6)
+        if regression:
+            bad |= np.abs(pred - float(np.mean(y))) > GUARD_SIGMAS * max(float(np.std(y)), 1e-6)
         out["pred_outliers"] = int(bad.sum())
         if bad.any():
             log.warning(
@@ -140,11 +172,19 @@ def evaluate(model, records, settings: TrainSettings, max_atoms: int, device):
                 int(bad.sum()), np.flatnonzero(bad)[:16].tolist(),
                 float(np.max(np.abs(pred[bad]))), float(np.std(y)),
             )
-            if (~bad).any():
+            if regression and (~bad).any():
                 out["mse_guarded"] = metrics_lib.mse(pred[~bad], y[~bad])
                 out["rmse_guarded"] = metrics_lib.rmse(pred[~bad], y[~bad])
-    out["mse"] = metrics_lib.mse(pred, y)
-    out["rmse"] = metrics_lib.rmse(pred, y)
+    if regression:
+        out["mse"] = metrics_lib.mse(pred, y)
+        out["rmse"] = metrics_lib.rmse(pred, y)
+        return out, pred, y
+    try:
+        out.update(metrics_lib.classification_metrics(pred, y, settings.trade_off))
+    except ValueError:  # a single-class split
+        log.warning("eval split contains a single class (%d positives of %d); "
+                    "reporting auroc=prc=0.5 — check the split", int((y == 1).sum()), len(y))
+        out.update({"auroc": 0.5, "prc": 0.5})
     return out, pred, y
 
 
@@ -213,7 +253,8 @@ def fit(settings: TrainSettings,
         settings.learning_rate, settings.plateau_factor, settings.plateau_patience
     )
     stopper = metrics_lib.EarlyStopping(settings.es_patience, settings.es_min_delta)
-    best, best_epoch, history, start_epoch = np.inf, -1, [], 0
+    maximize = settings.monitor in MAXIMIZED
+    best, best_epoch, history, start_epoch = -np.inf if maximize else np.inf, -1, [], 0
 
     if resume and checkpointer is not None and checkpointer.has("last_state"):
         meta = checkpointer.restore_state(model, optimizer)
@@ -258,11 +299,12 @@ def fit(settings: TrainSettings,
             "val_loss": val_loss,
         }
         history.append(row)
-        log.info("epoch %d train_loss=%.5f val_loss=%.5f val_rmse=%.5f lr=%.2e (%.1fs)",
-                 epoch, train_loss, val_loss, val_metrics["rmse"], plateau.lr,
-                 row["epoch_time_s"])
+        log.info("epoch %d train_loss=%.5f val_loss=%.5f %s lr=%.2e (%.1fs)",
+                 epoch, train_loss, val_loss,
+                 " ".join(f"val_{k}={v:.5f}" for k, v in val_metrics.items() if k != "loss"),
+                 plateau.lr, row["epoch_time_s"])
         monitored = row.get(settings.monitor)
-        if monitored is not None and monitored < best:
+        if monitored is not None and (monitored > best if maximize else monitored < best):
             best, best_epoch = monitored, epoch
             if checkpointer is not None:
                 checkpointer.save_best(model, epoch, {settings.monitor: monitored})

@@ -4,7 +4,8 @@
 The reference delegates to Lightning's ``Tuner.lr_find``
 (``train_val.py:196-198``): sweep the LR exponentially over a short run,
 record the loss curve, and pick the steepest-descent point. The sweep trains
-a copy of the model, so the model passed in keeps its weights.
+a copy of the model, so the model passed in keeps its weights. Each step
+takes the task's loss (``settings.task``: MSE, or the scaled BCE).
 """
 
 from __future__ import annotations

@@ -63,7 +63,9 @@ def export_embeddings(model, records, settings, max_atoms, out_path, device="cud
 
 
 def main(argv=None) -> float:
-    """Predict one split; print and return its RMSE against the targets."""
+    """Predict one split; print and return its RMSE against the targets. A
+    classification model's logits become probabilities (a float64 sigmoid),
+    as the JAX tool prints and writes them."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", required=True, help="run directory with best/last")
@@ -86,6 +88,9 @@ def main(argv=None) -> float:
     RunCheckpointer(args.checkpoint).restore_params(model, args.which)
 
     ordered, pred, y = predict_records(model, records, settings, max_atoms, dev)
+    if settings.task == "classification":
+        # the model emits logits; surface probabilities
+        pred = 1.0 / (1.0 + np.exp(-np.asarray(pred, dtype=np.float64)))
     rows = [
         {"mol_id": r.mol_id, "smiles": r.smiles, "prediction": float(p), "target": float(t)}
         for r, p, t in zip(ordered, pred, y)

@@ -15,9 +15,10 @@ Usage, on the card (``--device cpu`` runs on the CPU)::
     python -m conan_fgw_tpu_torch.train.runner --config config/schnet/sol250_5_bc.yaml \\
         --stage conan_fgw
 
-The port carries the regression ``ConanModel`` with the SchNet backbone on
-the conformer datasets; what else a config can ask for raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_supported``).
+The port carries ``ConanModel`` with the SchNet backbone, for regression
+and classification, on the conformer datasets; what else a config can ask
+for raises ``NotImplementedError`` naming its ``ROADMAP.md`` item
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import os
 
 import torch
 
-from conan_fgw_tpu_torch.data.datasets import ConformerDataset
+from conan_fgw_tpu_torch.data.datasets import ConformerDataset, class_weight_ratio
 from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.models.heads import ConanModel
 from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig
@@ -49,24 +50,19 @@ STAGE_BC = "conan_fgw"
 def check_supported(config: ExperimentConfig, device: torch.device) -> None:
     """Raise for what a config asks and the port does not carry."""
     spec = config.spec
-    if spec.task == "classification":
-        raise NotImplementedError(
-            "task: classification is not ported yet (ROADMAP.md §1, item 1): it needs the "
-            "cfconv kernels K1/K2 at 256 filters and 10 Gaussians, and they are compiled "
-            "for 128 filters only")
     if spec.dataset != "conformers":
         raise NotImplementedError(
-            f"dataset: {spec.dataset} is not ported yet (ROADMAP.md §1, item 2)")
+            f"dataset: {spec.dataset} is not ported yet (ROADMAP.md §1, item 7)")
     if spec.model != "conan":
         raise NotImplementedError(
             f"the {spec.model!r} head family (aux and ESAN heads) is not ported yet "
-            "(ROADMAP.md §1, item 8)")
+            "(ROADMAP.md §1, item 5)")
     if config.model_name != "schnet":
         raise NotImplementedError(
-            f"model_name: {config.model_name} is not ported yet (ROADMAP.md §1, item 7)")
+            f"model_name: {config.model_name} is not ported yet (ROADMAP.md §1, item 4)")
     if config.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype: {config.compute_dtype} is not ported yet (ROADMAP.md §1, item 10)")
+            f"compute_dtype: {config.compute_dtype} is not ported yet (ROADMAP.md §1, item 9)")
     if device.type == "cuda":
         for key in ("use_pallas_cfconv", "use_pallas_fgw"):
             if getattr(config, key) is False:
@@ -76,8 +72,9 @@ def check_supported(config: ExperimentConfig, device: torch.device) -> None:
 
 
 def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> ConanModel:
-    """The flagship regression model: SchNet hidden 128, 128 filters, 50
-    Gaussians, 3 interactions, cutoff 10, cap 32, and the FGW solver."""
+    """SchNet with 3 interactions, cutoff 10, cap 32, and the FGW solver:
+    for regression hidden 128, 128 filters and 50 Gaussians; for
+    classification hidden 512, 256 filters and 10 Gaussians."""
     dev = resolve_device(device)
     check_supported(config, dev)
     if config.fgw_from_config:
@@ -91,15 +88,30 @@ def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> Co
         fgw = dataclasses.replace(fgw, pgd_iters=config.fgw_pgd_iters)
     if config.fgw_sinkhorn_iters is not None:
         fgw = dataclasses.replace(fgw, sinkhorn_iters=config.fgw_sinkhorn_iters)
+    task = config.spec.task
+    hidden, filters, gaussians = (512, 256, 10) if task == "classification" else (128, 128, 50)
     return ConanModel(
-        hidden_channels=128, num_filters=128, num_gaussians=50, num_interactions=3,
-        cutoff=10.0, agg_weight=config.agg_weight, fgw=fgw,
+        task=task, hidden_channels=hidden, num_filters=filters, num_gaussians=gaussians,
+        num_interactions=3, cutoff=10.0, agg_weight=config.agg_weight, fgw=fgw,
         bary_pad_mode=config.bary_pad_mode, seed=seed, device=dev,
     )
 
 
-def build_settings(config: ExperimentConfig, stage: str) -> loop_lib.TrainSettings:
+def build_settings(config: ExperimentConfig, stage: str,
+                   loss_scale: float | None = None) -> loop_lib.TrainSettings:
+    """The task's schedule and monitor: regression plateau patience 10 and
+    factor 0.8 on ``val_mse``; classification patience 5 and factor 0.5 on
+    ``val_mean`` with ``trade_off``, else ``val_auroc``."""
+    task = config.spec.task
+    if task == "classification":
+        schedule = dict(plateau_patience=5, plateau_factor=0.5,
+                        monitor="val_mean" if config.trade_off else "val_auroc")
+    else:
+        schedule = dict(plateau_patience=10, plateau_factor=0.8, monitor="val_mse")
     return loop_lib.TrainSettings(
+        task=task,
+        loss_scale=loss_scale,
+        trade_off=config.trade_off,
         learning_rate=config.learning_rate,
         num_epochs=config.num_epochs,
         batch_size=config.batch_size,
@@ -108,7 +120,8 @@ def build_settings(config: ExperimentConfig, stage: str) -> loop_lib.TrainSettin
         es_min_delta=config.es_min_delta,
         max_atoms=config.max_atoms,
         eval_guard=config.eval_guard,
-    )  # the regression schedule and monitor (val_mse) are TrainSettings' defaults
+        **schedule,
+    )
 
 
 def load_datasets(config: ExperimentConfig, data_dir: str) -> dict[str, ConformerDataset]:
@@ -153,7 +166,7 @@ def run_experiment(
     check_supported(config, dev)
     if config.scan_chunk > 1:
         log.info("scan_chunk=%d: the port runs one step at a time; its counterpart of the "
-                 "JAX package's scanned chunks is CUDA graphs (ROADMAP.md §1, item 4)",
+                 "JAX package's scanned chunks is CUDA graphs (ROADMAP.md §1, item 2)",
                  config.scan_chunk)
     ds = load_datasets(config, data_dir)
     datasets = {m: ds[m].records() for m in ("train", "valid", "test")}
@@ -165,10 +178,15 @@ def run_experiment(
         ds["train"].set_epoch(epoch)
         return ds["train"].records()
 
+    loss_scale = None
+    if config.spec.task == "classification":
+        # the BCE's class-weight rescale from the train split's labels
+        loss_scale = class_weight_ratio([{"y": r.y} for r in datasets["train"]])
+
     avg = AverageRuns()
     per_run = []
     for run_idx in range(number_of_runs):
-        settings = build_settings(config, stage)
+        settings = build_settings(config, stage, loss_scale)
         settings.seed = settings.seed + run_idx
         model = build_model(config, seed=settings.seed, device=dev)
         ckpt = RunCheckpointer(
@@ -277,7 +295,7 @@ def main(argv=None):
     if args.num_devices > 1 or args.distributed:
         raise NotImplementedError(
             "data-parallel training (--num_devices > 1, --distributed) is not ported yet "
-            "(ROADMAP.md §1, item 6)")
+            "(ROADMAP.md §1, item 8)")
     overrides = {"model_name": args.model_name} if args.model_name else {}
     if args.eval_guard:
         overrides["eval_guard"] = True

@@ -47,45 +47,48 @@ VARIANTS = {
     "phases": [
         ("namespace {\n", "namespace {\n__device__ long long g_phase[1024][8], g_phase2[1024][10];\n"
          "#define TICK(k) { long long n_ = clock64(); T[k] += n_ - tc; tc = n_; }\n"),
-        ("      plan_tiles(s.cnt, item_tiles, G * per_graph, 2 * gridDim.x, 2 * blockIdx.x + team());\n",
-         "      plan_tiles(s.cnt, item_tiles, G * per_graph, 2 * gridDim.x, 2 * blockIdx.x + team());\n"
+        ("                                 C::TEAMS * member + team());\n",
+         "                                 C::TEAMS * member + team());\n"
          "  long long T[8] = {}; long long tc = clock64();\n"),
         ("    const int E = build_edges<false, R1>(s, n, cutoff, i0);\n",
          "    const int E = build_edges<false, R1>(s, n, cutoff, i0);\n    TICK(0); T[6] += 1;\n"),
-        ("  // x_j\n      gather_rows(xg, s.ej, e0, ne, xv);\n      rbf_tile(s, e0, ne, gs, step, coeff);\n      team_sync();\n",
-         "  // x_j\n      gather_rows(xg, s.ej, e0, ne, xv);\n      rbf_tile(s, e0, ne, gs, step, coeff);\n      team_sync();\n"
-         "      TICK(1); T[7] += 1;\n"),
-        ("      layer1(s, b1, acc);\n      store_h(s, acc);\n      team_sync();\n",
-         "      layer1(s, b1, acc);\n      store_h(s, acc);\n      team_sync();\n      TICK(2);\n"),
-        ("      team_sync();\n      scatter_rows(s, s.ei, i0, e0, ne, rows);\n",
-         "      team_sync();\n      TICK(3);\n      scatter_rows(s, s.ei, i0, e0, ne, rows);\n      TICK(4);\n"),
-        ("    store_rows(rows, out + (size_t)g * n * F, i0, R1, n, first > 0 || last < tiles);\n  }\n",
-         "    store_rows(rows, out + (size_t)g * n * F, i0, R1, n, first > 0 || last < tiles);\n    TICK(5);\n  }\n"
-         "  if (tid() == 0) for (int k = 0; k < 8; ++k) g_phase[2 * blockIdx.x + team()][k] = T[k];\n"),
+        ("      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);\n      rbf_tile<C>(s, e0, ne, gs, step, coeff);\n"
+         "      team_sync();\n",
+         "      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);\n      rbf_tile<C>(s, e0, ne, gs, step, coeff);\n"
+         "      team_sync();\n      TICK(1); T[7] += 1;\n"),
+        ("        store_h<C>(s, acc);\n      }\n      team_sync();\n",
+         "        store_h<C>(s, acc);\n      }\n      team_sync();\n      TICK(2);\n"),
+        ("      team_sync();\n      scatter_rows<FO, C::SX>(s.xs, s.ei, i0, e0, ne, rows);\n",
+         "      team_sync();\n      TICK(3);\n      scatter_rows<FO, C::SX>(s.xs, s.ei, i0, e0, ne, rows);\n"
+         "      TICK(4);\n"),
+        ("first > 0 || last < tiles);\n  }\n}\n\n// ------------------------------------------------------------ K2",
+         "first > 0 || last < tiles);\n    TICK(5);\n  }\n"
+         "  if (tid() == 0) for (int k = 0; k < 8; ++k) g_phase[C::TEAMS * blockIdx.x + team()][k] = T[k];\n"
+         "}\n\n// ------------------------------------------------------------ K2"),
         ("extern \"C\" {\n", "extern \"C\" {\n"
          "int phase_dump(void* dst) { return (int)cudaMemcpyFromSymbol(dst, g_phase, sizeof(g_phase)); }\n"
          "int phase_dump2(void* dst) { return (int)cudaMemcpyFromSymbol(dst, g_phase2, sizeof(g_phase2)); }\n"),
         # K2
-        ("  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, gridDim.x, blockIdx.x);",
+        ("  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, members, member);",
          "  long long T[10] = {};\n"
-         "  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, gridDim.x, blockIdx.x);\n"
+         "  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, members, member);\n"
          "  long long tc = clock64();"),
         ("    const int E = build_edges<true, R2>(s, n, cutoff, j0);\n",
          "    const int E = build_edges<true, R2>(s, n, cutoff, j0);\n    TICK(0); T[8] += 1;\n"),
-        ("      __syncthreads();\n      float acc[1][EW_NT][4], sig[EW_NT][4];\n",
-         "      __syncthreads();\n      TICK(1); T[9] += 1;\n      float acc[1][EW_NT][4], sig[EW_NT][4];\n"),
-        ("      __syncthreads();\n      layer2(s, b2, acc);\n      // the dx message",
-         "      __syncthreads();\n      TICK(2);\n      layer2(s, b2, acc);\n      // the dx message"),
-        ("      __syncthreads();\n      scatter_rows(s, s.ej, j0, e0, ne, rows);\n",
-         "      __syncthreads();\n      TICK(3);\n      scatter_rows(s, s.ej, j0, e0, ne, rows);\n"),
-        ("      // P3: dh = dW W2^T", "      TICK(4);\n      // P3: dh = dW W2^T"),
+        ("      __syncthreads();\n      float acc[1][SC / 32][4], sig[SC / 32][4];\n",
+         "      __syncthreads();\n      TICK(1); T[9] += 1;\n      float acc[1][SC / 32][4], sig[SC / 32][4];\n"),
+        ("      __syncthreads();\n      {\n        // the dx message",
+         "      __syncthreads();\n      TICK(2);\n      {\n        // the dx message"),
+        ("      __syncthreads();\n      scatter_rows<F, C::SX>(s.xs, s.ej, j0, e0, ne, rows);\n",
+         "      __syncthreads();\n      TICK(3);\n      scatter_rows<F, C::SX>(s.xs, s.ej, j0, e0, ne, rows);\n"),
+        ("      // P3: dh = dW W2[slab, :]^T", "      TICK(4);\n      // P3: dh = dW W2[slab, :]^T"),
         ("      __syncthreads();  // the dx sums are done with the message tile\n",
          "      __syncthreads();  // the dx sums are done with the message tile\n      TICK(5);\n"),
-        ("      // P5: dW1^T += dpre^T rbf\n", "      TICK(6);\n      // P5: dW1^T += dpre^T rbf\n"),
+        ("      // P5: dW1[:, slab]^T += dpre^T rbf\n", "      TICK(6);\n      // P5: dW1[:, slab]^T += dpre^T rbf\n"),
         ("      __syncthreads();  // rbf and the dpre tile are rewritten by the next tile\n",
          "      __syncthreads();  // rbf and the dpre tile are rewritten by the next tile\n      TICK(7);\n"),
-        ("    store_rows(rows, dx + (size_t)g * n * F, j0, R2, n, first > 0 || last < tiles);\n  }\n",
-         "    store_rows(rows, dx + (size_t)g * n * F, j0, R2, n, first > 0 || last < tiles);\n  }\n"
+        ("    store_rows<F, F>(rows, dxs + (size_t)g * n * F, j0, R2, n, first > 0 || last < tiles);\n  }\n",
+         "    store_rows<F, F>(rows, dxs + (size_t)g * n * F, j0, R2, n, first > 0 || last < tiles);\n  }\n"
          "  if (threadIdx.x == 0) for (int k = 0; k < 10; ++k) g_phase2[blockIdx.x][k] = T[k];\n"),
     ],
 }
@@ -165,20 +168,20 @@ def main() -> int:
 
         out, dx = torch.empty_like(x), torch.empty_like(x)
         grads = [torch.empty_like(t) for t in (w1, b1, w2, b2)]
-        blocks = min(sms, G * -(-n // 8))
-        part = torch.empty(blocks, libs["phases"].cfconv_partial_floats(Gs), device="cuda")
+        blocks = min(sms, G * -(-n // 8))  # F = 128: one slab
+        part = torch.empty(blocks, libs["phases"].cfconv_partial_floats(F, Gs), device="cuda")
         item_tiles = torch.empty(G * -(-n // 4), dtype=torch.int32, device="cuda")  # K1's, the larger
         st = torch.cuda.current_stream().cuda_stream
         ptrs_f = [t.data_ptr() for t in (*args, out, item_tiles)]
-        ptrs_b = [t.data_ptr() for t in (*args, cot, dx, grads[0], grads[1], grads[2], grads[3], part,
-                                         item_tiles)]
+        ptrs_b = [t.data_ptr() for t in (*args, cot, dx, dx, grads[0], grads[1], grads[2], grads[3],
+                                         part, item_tiles)]
         for name, lib in libs.items():
-            fwd_ms = smoke.cuda_ms(lambda: lib.cfconv_fwd(*ptrs_f, G, n, Gs, smoke.CUTOFF, smoke.CAP, blocks, st), reps=20)
-            bwd_ms = smoke.cuda_ms(lambda: lib.cfconv_bwd(*ptrs_b, G, n, Gs, smoke.CUTOFF, smoke.CAP, blocks, st), reps=20)
+            fwd_ms = smoke.cuda_ms(lambda: lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st), reps=20)
+            bwd_ms = smoke.cuda_ms(lambda: lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st), reps=20)
             print(f"[{label}] variant {name:8s} K1 {fwd_ms:.4f} ms, K2 {bwd_ms:.4f} ms (events)")
 
         lib = libs["phases"]
-        lib.cfconv_fwd(*ptrs_f, G, n, Gs, smoke.CUTOFF, smoke.CAP, blocks, st)
+        lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st)
         torch.cuda.synchronize()
         buf = np.zeros((1024, 8), np.int64)
         if lib.phase_dump(buf.ctypes.data) != 0:
@@ -191,7 +194,7 @@ def main() -> int:
             print(f"[{label}]   {name:22s} {100 * b[:, k].sum() / tot.sum():5.1f}%,"
                   f" {b[:, k].sum() / max(1, b[:, 7].sum()):7.0f} cycles per tile,"
                   f" {b[:, k].sum() / max(1, b[:, 6].sum()):7.0f} per item")
-        lib.cfconv_bwd(*ptrs_b, G, n, Gs, smoke.CUTOFF, smoke.CAP, blocks, st)
+        lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st)
         torch.cuda.synchronize()
         buf2 = np.zeros((1024, 10), np.int64)
         if lib.phase_dump2(buf2.ctypes.data) != 0:

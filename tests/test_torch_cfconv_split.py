@@ -11,6 +11,11 @@ packed synthetic conformers:
 - the compacted edge lists (target-major for K1, source-major for K2) hold
   exactly the gated edges, and summing the messages over either list in
   its order reproduces ``_cfconv_plain`` to 1e-6 relative.
+
+At the classification width (F=256, 10 Gaussians), where K2 splits the
+filters of h in slabs of 64 and sums the slabs' parts of dx in slab order,
+the same two holds: the split with the slabs within a tenth of the
+contract, and the edge formulation with the slabs to 1e-5 in f32.
 """
 
 import functools
@@ -37,7 +42,7 @@ NAMES = ("out", "dx", "dw1", "db1", "dw2", "db2")
 
 
 @functools.cache
-def _problem(seed=0, n_mols=4):
+def _problem(seed=0, n_mols=4, F=F, GAUSS=GAUSS):
     recs = random_dataset(seed, n_mols, num_conformers=K, heavy_range=(8, 13), device="cpu")
     pb = pack_batch(recs, max_atoms=N, batch_size=n_mols).to("cpu")
     pos = pb.pos.reshape(-1, N, 3).contiguous()
@@ -56,14 +61,14 @@ def _problem(seed=0, n_mols=4):
 
 
 @functools.cache
-def _results():
-    pos, mask, params, cot = _problem()
+def _results(F=F, GAUSS=GAUSS, slab=None):
+    pos, mask, params, cot = _problem(F=F, GAUSS=GAUSS)
     leaves = [p.clone().requires_grad_(True) for p in params]
     out = _cfconv_plain(pos, mask, *leaves, CUTOFF, GAUSS, CAP)
     plain = (out.detach(), *torch.autograd.grad(out, leaves, cot))
 
     def run(mm):
-        out, grads = cfconv_edges(pos, mask, *params, cot, CUTOFF, CAP, mm=mm)
+        out, grads = cfconv_edges(pos, mask, *params, cot, CUTOFF, CAP, mm=mm, slab=slab)
         return (out, *grads)
 
     one_tf32 = functools.partial(split_mm, passes=1, drop=13)
@@ -139,3 +144,21 @@ def test_split_product_error_is_far_below_one_pass():
 
     e3, e1 = err(split_mm), err(lambda a, b: split_mm(a, b, passes=1, drop=13))
     assert e3 < 2e-5 < 1e-4 < e1, (e3, e1)
+
+
+CLASSIFICATION = dict(F=256, GAUSS=10, slab=64)  # K2 at F=256: slabs of 64 filters of h
+
+
+@pytest.mark.parametrize("k", range(len(NAMES)), ids=NAMES)
+def test_split_bf16_holds_the_contract_at_f256(k):
+    plain, split, single, _ = _results(**CLASSIFICATION)
+    err, err1 = _rel(split[k], plain[k]), _rel(single[k], plain[k])
+    assert err <= CONTRACT / MARGIN, (
+        f"{NAMES[k]}: 3-term bf16 rel err {err:.3e} > {CONTRACT / MARGIN:.1e}"
+        f" (one TF32 pass: {err1:.3e}, contract {CONTRACT})")
+
+
+def test_edge_formulation_with_slabs_matches_plain_in_f32():
+    plain, _, _, exact = _results(**CLASSIFICATION)
+    for name, a, b in zip(NAMES, exact, plain):
+        assert _rel(a, b) <= 1e-5, name

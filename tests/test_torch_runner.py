@@ -178,7 +178,6 @@ def test_lr_finder_sets_the_learning_rate(tiny, tmp_path, caplog):
 
 
 @pytest.mark.parametrize("extra", [
-    "experiment_override: classification",
     "model_name_override: visnet",
     "model_name_override: dimenet",
     "experiment_override: gat_only",
