@@ -34,9 +34,11 @@ Phases (any failure exits non-zero and prints no result line):
    everything over the f32 CUDA-core peak.
 3. Training, the main path: ``fit`` on 48 synthetic molecules (K = 5
    conformers, B = 24, full width), stage 1 for 2 epochs, then stage 2 for
-   2 epochs on the same model. Launch counts are zeroed just before and read
-   just after; losses must be finite and every kernel must have run. Then
-   three more stage-2 steps run under ``torch.profiler`` for the device
+   2 epochs on the same model, its steps as CUDA graphs (``fit`` always
+   steps through ``train/graphs.py``; each stage must capture a train and
+   an eval graph). Launch counts are zeroed just before and read just
+   after; losses must be finite and every kernel must have run. Then three
+   more stage-2 steps run eagerly under ``torch.profiler`` for the device
    time by kernel and the device's busy share.
 4. Step parity: one stage-2 training step from identical weights through
    the kernels on the card and through the plain versions on the CPU.
@@ -52,7 +54,10 @@ Phases (any failure exits non-zero and prints no result line):
    epochs must start at epoch 2 and add one row, and ``predict.main`` on
    stage 2's ``best`` must give the test RMSE the runner reported, to 1e-6
    relative. Prints each stage's epoch times, steps per epoch, ms per step
-   by bucket and ``fgw_diverged``.
+   by bucket and ``fgw_diverged``. The steps run as CUDA graphs
+   (``train/graphs.py``): each run must capture train and eval graphs, and
+   the launch counts must be the eager path's (K2 three a train step;
+   three K1 and five K3 a forward).
 6. The classification path on the repo's ``data/sol1k_class``: the
    runner's ``main`` trains stage 1 (``config/schnet/sol1k_class_5.yaml``)
    and then stage 2 (``sol1k_class_5_bc.yaml``), each for 2 epochs, at the
@@ -62,15 +67,38 @@ Phases (any failure exits non-zero and prints no result line):
    run, the warm start must be bit-exact, losses finite, ``val_auroc`` and
    ``test_auroc`` in [0, 1], ``best`` at the epoch of the highest
    ``val_auroc``, and the AUROC of ``predict.main``'s probabilities must
-   equal the runner's ``test_auroc`` to 1e-6.
+   equal the runner's ``test_auroc`` to 1e-6. These steps run as CUDA
+   graphs too, with phase 5's checks on captures and launch counts.
+8. CUDA graphs at full width: the flagship regression model in stage 1 and
+   stage 2 at N=32 and N=64 (B=24, K=5) and the classification model in
+   stage 2 at N=32 (B=18). Each runs 20 synthetic batches eagerly and
+   through ``StepGraphs`` from identical weights, with the lr halved by
+   ``set_learning_rate`` after 10 steps: per-step losses and final weights
+   must agree to 1e-5 relative (bit-identity is printed), the launch counts
+   must be equal, and the eval graph's predictions must equal eager eval's
+   to 1e-6. Then 50 warmed steps in turns (eager, graphed, graphed, eager)
+   give ms per step and graphs/s by host clock ending in a synchronise,
+   with the graphed step's host time per batch split into packing, the
+   copy into the static buffers and the replay. Stage 2 also profiles three
+   graphed steps: busy share, kernels per step, and the K1/K2/K3
+   executions the profiler sees, which must equal the launch counts.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
-   stage-2 steps on ``data/sol250`` and must give bit-identical batches,
-   losses, gradients and weights; a third runs them under
+   stage-2 steps on ``data/sol250``, eagerly and then through CUDA graphs,
+   and must give bit-identical batches, losses, gradients and weights; a
+   third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish.
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. It runs last.
 
 Then it prints the per-kernel JSON line (every kernel, each width and
 shape held), the card line and, last, ``{"ok": true, "device": {...}}``.
+
+Launch counts under CUDA graphs: a kernel's wrapper counts once while a
+graph is captured and does not run when the graph is replayed, so each
+graph adds its capture's counts once per later replay
+(``train/graphs.py::LaunchReplays``). The counts of phases 3, 5 and 6
+(``launches``, ``runner_launches``, ``classification_launches``) are
+derived so; phase 8 requires the profiler's count of kernel executions
+over graphed steps to equal them.
 """
 
 from __future__ import annotations
@@ -511,6 +539,8 @@ def phase_train(device, card):
         res = fit(settings, train, val, model=model, device=device)
         model = res.model
         steps = sum(r["train_steps"] for r in res.history)
+        captured = sorted(k[0] for k, st in res.graphs.steps.items() if st.graph is not None)
+        require(captured == ["eval", "train"], f"stage {stage}: CUDA graphs captured {captured}")
         grew = {k: launches[k] - before.get(k, 0) for k in REGRESSION}
         for r in res.history:
             require(all(v == v and abs(v) != float("inf") for v in (r["train_loss"], r["val_loss"])),
@@ -524,7 +554,8 @@ def phase_train(device, card):
         gps = B * K * last["train_steps"] / last["train_s"]
         print(f"[train stage {stage}] {steps} steps, losses "
               + ", ".join(f"{r['train_loss']:.4f}/{r['val_loss']:.4f}" for r in res.history)
-              + f"; epoch 2: {step_ms:.2f} ms/step, {gps:.1f} graphs/s on {card}; launches {grew}")
+              + f"; epoch 2 (graph replays): {step_ms:.2f} ms/step, {gps:.1f} graphs/s on {card};"
+              f" launches {grew}")
         stage_rows[stage] = dict(step_ms=step_ms, graphs_per_s=gps, steps=steps)
     totals = {k: launches[k] for k in REGRESSION}
     print(f"[train] main-path launches {totals}")
@@ -534,9 +565,9 @@ def phase_train(device, card):
 
 
 def profile_stage2(model, device):
-    """Device time by kernel over three stage-2 training steps (after the
-    main path's counts were read), and the device's busy share of the wall
-    time. Prints "not measured" where the profiler saw no device time."""
+    """Device time by kernel over three eager stage-2 training steps (after
+    the main path's counts were read), and the device's busy share of the
+    wall time. Prints "not measured" where the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,10 +581,21 @@ def profile_stage2(model, device):
     opt = make_optimizer(model, settings)
     train_step(model, opt, batch, settings)
     torch.cuda.synchronize()
+    return profile_steps("[profile] stage-2 step", lambda: train_step(model, opt, batch, settings))
+
+
+def profile_steps(label, step, steps: int = 3):
+    """``steps`` calls of ``step`` under ``torch.profiler``: prints the wall
+    and device busy time per step, kernels per step and the largest kernels;
+    returns ``(busy share, kernels per step, {kernel name: executions})``,
+    or None where the profiler saw no device time ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            train_step(model, opt, batch, settings)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side kernels and copies only: the CPU ops that launched them, and
@@ -564,12 +606,19 @@ def profile_stage2(model, device):
               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in events)
     if not events:
-        print("[profile] device time: not measured (the profiler saw no device activity)")
-        return
-    print(f"[profile] stage-2 step: wall {wall_us / 3e3:.3f} ms, device busy {busy_us / 3e3:.3f} ms"
-          f" ({100 * busy_us / wall_us:.1f}% busy), {sum(e.count for e in events) // 3} kernels/step")
+        print(f"{label}: device time not measured (the profiler saw no device activity)")
+        return None
+    per_step = sum(e.count for e in events) // steps
+    print(f"{label}: wall {wall_us / steps / 1e3:.3f} ms, device busy"
+          f" {busy_us / steps / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy), {per_step}"
+          " kernels/step")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 3e3:8.3f} ms/step  x{e.count // 3:<4d} {e.key[:70]}")
+        print(f"{label}   {e.self_device_time_total / steps / 1e3:8.3f} ms/step"
+              f"  x{e.count // steps:<4d} {e.key[:70]}")
+    counts = collections.Counter()
+    for e in events:
+        counts[e.key] += e.count
+    return busy_us / wall_us, per_step, counts
 
 
 # ---------------------------------------------------------------- phase 4
@@ -625,16 +674,18 @@ def config_copy(src: str, out_dir: Path, epochs: int) -> str:
 
 @contextlib.contextmanager
 def runner_spies():
-    """Count calls of the kernels' plain versions, and record the weights
-    each checkpoint restore leaves in the model: ``(plain_calls, restores)``,
-    ``restores`` a list of ``(directory, which, state_dict on the host)``."""
+    """Count calls of the kernels' plain versions and CUDA-graph captures by
+    kind, and record the weights each checkpoint restore leaves in the model:
+    ``(plain_calls, restores, captures)``, ``restores`` a list of
+    ``(directory, which, state_dict on the host)``."""
     from conan_fgw_tpu_torch.ops.cuda import cfconv as cfconv_mod
     from conan_fgw_tpu_torch.ops.cuda import fgw as fgw_mod
     from conan_fgw_tpu_torch.train.checkpoints import RunCheckpointer
+    from conan_fgw_tpu_torch.train.graphs import StepGraphs
 
-    plain_calls, restores = collections.Counter(), []
+    plain_calls, restores, captures = collections.Counter(), [], collections.Counter()
     saved = [(cfconv_mod, "_cfconv_plain"), (fgw_mod, "fgw_couplings_plain"),
-             (RunCheckpointer, "restore_params")]
+             (RunCheckpointer, "restore_params"), (StepGraphs, "_capture")]
     originals = [getattr(owner, name) for owner, name in saved]
 
     def counted(name, fn):
@@ -649,11 +700,16 @@ def runner_spies():
                          {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}))
         return out
 
+    def capture(self, step, fn, kind):
+        captures[kind] += 1
+        return originals[3](self, step, fn, kind)
+
     cfconv_mod._cfconv_plain = counted("cfconv", originals[0])
     fgw_mod.fgw_couplings_plain = counted("fgw", originals[1])
     RunCheckpointer.restore_params = restore_params
+    StepGraphs._capture = capture
     try:
-        yield plain_calls, restores
+        yield plain_calls, restores, captures
     finally:
         for (owner, name), fn in zip(saved, originals):
             setattr(owner, name, fn)
@@ -671,16 +727,18 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     common arguments, the temporary directory, the plain-call counts, the
     device and the card line; ``start`` is the first epoch this run trains;
     ``kernels`` names the path's K1, K2 and K3 counts, and ``metric`` its
-    validation and test metric (``rmse``, or ``auroc`` for classification)."""
+    validation and test metric (``rmse``, or ``auroc`` for classification).
+    The run must capture at least one train and one eval graph."""
     import numpy as np
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
     from conan_fgw_tpu_torch.train import runner
 
-    common, tmp, plain_calls, device, card = ctx
+    common, tmp, plain_calls, captures, device, card = ctx
     k1, k2, k3 = kernels
     reset_launches()
+    captures.clear()
     t0 = time.perf_counter()
     summary = run_main(runner.main, ["--config", cfg, "--stage", stage, *common, *extra])
     if device == "cuda":
@@ -692,6 +750,9 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     steps = sum(r["train_steps"] for r in history)
     val_key = "val_mse" if metric == "rmse" else f"val_{metric}"
     require(not plain_calls, f"runner {label}: plain versions ran: {dict(plain_calls)}")
+    if device == "cuda":
+        require(captures["train"] and captures["eval"],
+                f"runner {label}: CUDA graphs captured {dict(captures)}")
     for r in history:
         require(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]),
                 f"runner {label} epoch {r['epoch']} has a non-finite loss")
@@ -699,12 +760,14 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
                 f"runner {label} epoch {r['epoch']} did not run both buckets: {r}")
     require(np.isfinite(summary[f"test_{metric}"]["mean"]), f"runner {label}: test_{metric} not finite")
     new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
-    require(grew[k1] >= 3 * new_steps, f"runner {label}: K1 launched {grew[k1]}")
-    require(grew[k2] >= 3 * new_steps, f"runner {label}: K2 launched {grew[k2]}")
+    # fit's steps ran as CUDA graphs; the counts must be the eager path's: K2 three a train step, and every
+    # forward (train or eval) three K1 and, in stage 2, five K3
+    require(grew[k1] >= 3 * new_steps and grew[k1] % 3 == 0, f"runner {label}: K1 launched {grew[k1]}")
+    require(grew[k2] == 3 * new_steps, f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
     others = [k for k in REPLACES if k not in kernels and grew[k]]
     require(not others, f"runner {label}: kernels of another width launched: {others}")
     if stage == "conan_fgw":
-        require(grew[k3] >= 5 * new_steps, f"runner {label}: K3 launched {grew[k3]}")
+        require(3 * grew[k3] == 5 * grew[k1], f"runner {label}: K3 launched {grew[k3]}, K1 {grew[k1]}")
     else:
         require(grew[k3] == 0, f"runner {label}: K3 launched in stage 1")
     for r in history:
@@ -717,7 +780,7 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
               f" {val_key} {r[val_key]:.5f}")
     print(f"[runner {label}] {steps} steps in all, {new_steps} in this run: {wall:.1f} s wall with"
           f" data and test on {card}; test_{metric} {summary[f'test_{metric}']['mean']:.6f};"
-          f" launches {grew}")
+          f" launches {grew}; CUDA graphs captured {dict(captures)}")
     return summary, history, grew
 
 
@@ -754,12 +817,12 @@ def phase_runner(device, card):
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as name, \
-            runner_spies() as (plain_calls, restores):
+            runner_spies() as (plain_calls, restores, captures):
         tmp = Path(name)
         common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
                   "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
                   "--metrics_dir", str(tmp / "metrics"), "--device", device]
-        ctx = (common, tmp, plain_calls, device, card)
+        ctx = (common, tmp, plain_calls, captures, device, card)
         cfgs, totals = {}, collections.Counter()
         for stage, src in RUNNER_STAGES:
             first_restore = len(restores)  # stage 1 restores its own best for its test
@@ -817,12 +880,12 @@ def phase_classification(device, card):
 
     out, totals = {}, collections.Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_class_") as name, \
-            runner_spies() as (plain_calls, restores):
+            runner_spies() as (plain_calls, restores, captures):
         tmp = Path(name)
         common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
                   "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
                   "--metrics_dir", str(tmp / "metrics"), "--device", device]
-        ctx = (common, tmp, plain_calls, device, card)
+        ctx = (common, tmp, plain_calls, captures, device, card)
         for stage, src in CLASS_STAGES:
             first_restore = len(restores)
             cfg = config_copy(src, tmp, RUNNER_EPOCHS)
@@ -862,8 +925,203 @@ def phase_classification(device, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+# how the result line's launch counts were taken
+LAUNCHES_COUNTED = ("wrapper counts over CUDA-graphed steps: each graph's capture-time counts"
+                    " once per replay (train/graphs.py::LaunchReplays), held against the"
+                    " profiler's kernel executions in phase 8")
+GRAPH_STEPS = 20     # batches of the eager-against-graphed run
+GRAPH_LR_AT = 10     # set_learning_rate after this many steps, in both runs
+GRAPH_TIMED = 50     # warmed steps in each timing turn
+GRAPH_RTOL = 1e-5    # per-step losses and final weights, relative
+GRAPH_EVAL_RTOL = 1e-6
+# label, classification?, stage 2?, bucket N, heavy atoms per molecule, batch
+GRAPH_CASES = (("stage 1 N32", False, False, 32, (8, 13), B),
+               ("stage 1 N64", False, False, 64, (20, 26), B),
+               ("stage 2 N32", False, True, 32, (8, 13), B),
+               ("stage 2 N64", False, True, 64, (20, 26), B),
+               ("class stage 2 N32", True, True, 32, (8, 13), B_CLS))
+PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256"),
+            "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256"),
+            "fgw_couplings_kernel": ("fgw_couplings",)}
+
+
+def _max_rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@contextlib.contextmanager
+def timed_copies():
+    """Host seconds spent copying batches into the graphs' static buffers,
+    summed into the yielded one-element list."""
+    from conan_fgw_tpu_torch.train import graphs as graphs_mod
+
+    spent, load = [0.0], graphs_mod._Step.load
+
+    def timed(self, pb):
+        t0 = time.perf_counter()
+        load(self, pb)
+        spent[0] += time.perf_counter() - t0
+
+    graphs_mod._Step.load = timed
+    try:
+        yield spent
+    finally:
+        graphs_mod._Step.load = load
+
+
+def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
+    """One shape of phase 8: eager against graphed steps from identical
+    weights through an lr change, the eval graph against eager eval, ms per
+    step in turns (eager, graphed, graphed, eager) with the graphed step's
+    host time split, and for stage 2 a profile of three graphed steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from conan_fgw_tpu_torch.data.loader import bucketed_batches
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.cuda import launches
+    from conan_fgw_tpu_torch.train import loop
+
+    recs = random_dataset(SEED + 500 + n_atoms, GRAPH_STEPS * batch, num_conformers=K,
+                          heavy_range=heavy, device=device)
+    if classify:
+        median = float(np.median([r.y for r in recs]))
+        recs = [dataclasses.replace(r, y=float(r.y > median)) for r in recs]
+    t0 = time.perf_counter()
+    batches = list(bucketed_batches(recs, batch, buckets=(n_atoms,)))
+    pack_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    require(len(batches) == GRAPH_STEPS and all(pb.max_atoms == n_atoms for pb in batches),
+            f"graphs {label}: the batches are not {GRAPH_STEPS} at N={n_atoms}")
+    width = dict(task="classification", hidden_channels=512, num_filters=256,
+                 num_gaussians=GAUSS_CLS) if classify else {}
+    base = ConanModel(seed=SEED, device=device, **width)
+    settings = loop.TrainSettings(task=width.get("task", "regression"), batch_size=batch,
+                                  use_barycenter=bary)
+
+    # eager against graphed, from identical weights and a fresh Adam each
+    runs = {}
+    for mode in ("eager", "graphed"):
+        model = copy.deepcopy(base)
+        opt = loop.make_optimizer(model, settings)
+        graphs = loop.step_graphs(model, opt, settings, device)
+        before, losses = collections.Counter(launches), []
+        for i, pb in enumerate(batches):
+            if i == GRAPH_LR_AT:
+                loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
+            if mode == "eager":
+                loss, _ = loop.train_step(model, opt, pb.to(device), settings)
+            else:
+                loss, _ = graphs.train(pb)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+        runs[mode] = (model, opt, graphs, torch.stack(losses), grew)
+    (m_e, opt_e, _, loss_e, grew_e), (m_g, opt_g, graphs, loss_g, grew_g) = runs["eager"], runs["graphed"]
+    require(loss_e.isfinite().all(), f"graphs {label}: a non-finite eager loss")
+    loss_rel = _max_rel(loss_g, loss_e)
+    w_rel = max(_max_rel(q.detach(), p.detach()) for p, q in zip(m_e.parameters(), m_g.parameters()))
+    bits = bool(torch.equal(loss_e, loss_g)) and all(
+        torch.equal(p, q) for p, q in zip(m_e.parameters(), m_g.parameters()))
+    captured = sorted(k[0] for k, s in graphs.steps.items() if s.graph is not None)
+    print(f"[graphs {label}] {GRAPH_STEPS} steps eager vs graphed, lr halved after {GRAPH_LR_AT}:"
+          f" losses rel {loss_rel:.3e}, weights rel {w_rel:.3e} (tol {GRAPH_RTOL}); bit-identical"
+          f" {bits}; graphs captured {captured}; launches eager {grew_e} graphed {grew_g}")
+    require(loss_rel <= GRAPH_RTOL and w_rel <= GRAPH_RTOL, f"graphs {label}: eager and graphed differ")
+    require(captured == ["train"], f"graphs {label}: captured {captured}")
+    require(grew_e == grew_g, f"graphs {label}: launches eager {grew_e} graphed {grew_g}")
+
+    # the eval graph against eager eval on the same weights (the first
+    # batch warms up, the second is captured, the rest replay)
+    before, preds_g, preds_e = collections.Counter(launches), [], []
+    for pb in batches[:5]:
+        preds_g.append(graphs.eval(pb)[1])
+    grew_eval = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+    before = collections.Counter(launches)
+    for pb in batches[:5]:
+        preds_e.append(loop.eval_step(m_g, pb.to(device), settings)[1])
+    grew_eager_eval = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+    eval_rel = _max_rel(torch.cat(preds_g), torch.cat(preds_e))
+    print(f"[graphs {label}] eval graph vs eager eval, 5 batches: predictions rel {eval_rel:.3e}"
+          f" (tol {GRAPH_EVAL_RTOL}); launches {grew_eval}")
+    require(eval_rel <= GRAPH_EVAL_RTOL, f"graphs {label}: the eval graph disagrees")
+    require(grew_eval == grew_eager_eval, f"graphs {label}: eval launches {grew_eval} against"
+            f" {grew_eager_eval} eager")
+
+    # timing in turns; each turn GRAPH_TIMED warmed steps over the batches
+    order = [batches[i % GRAPH_STEPS] for i in range(GRAPH_TIMED)]
+
+    def eager_turn():
+        for pb in order:
+            loop.train_step(m_e, opt_e, pb.to(device), settings)
+
+    def graphed_turn():
+        for pb in order:
+            graphs.train(pb)
+
+    turns = collections.defaultdict(list)
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (eager_turn if mode == "eager" else graphed_turn)()
+        torch.cuda.synchronize()
+        turns[mode].append(1e3 * (time.perf_counter() - t0) / GRAPH_TIMED)
+    # the graphed step's host time per batch, each step from an idle card
+    # (a copy from pageable memory waits for the stream to drain, so in the
+    # turns above it also holds the previous step's device time)
+    split = collections.defaultdict(float)
+    with timed_copies() as copy_s:
+        for pb in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphs.train(pb)
+            split["step_ms"] += 1e3 * (time.perf_counter() - t0) / GRAPH_STEPS
+        torch.cuda.synchronize()
+    split["copy_ms"] = 1e3 * copy_s[0] / GRAPH_STEPS
+    split["replay_ms"] = split["step_ms"] - split["copy_ms"]
+    gps = {m: batch * K * 1e3 / min(v) for m, v in turns.items()}
+    print(f"[graphs {label}] ms/step over {GRAPH_TIMED} warmed steps, turns eager/graphed/graphed/eager:"
+          f" {turns['eager'][0]:.3f}/{turns['graphed'][0]:.3f}/{turns['graphed'][1]:.3f}/"
+          f"{turns['eager'][1]:.3f} on {card}; graphs/s eager {gps['eager']:.1f}, graphed"
+          f" {gps['graphed']:.1f}; graphed host per batch: packing {pack_ms:.3f} ms, copy"
+          f" {split['copy_ms']:.3f} ms, replay and outputs {split['replay_ms']:.3f} ms")
+    row = dict(eager_ms=turns["eager"], graphed_ms=turns["graphed"], eager_gps=gps["eager"],
+               graphed_gps=gps["graphed"], pack_ms=pack_ms, copy_ms=split["copy_ms"],
+               replay_ms=split["replay_ms"], loss_rel=loss_rel, weights_rel=w_rel,
+               eval_rel=eval_rel, bit_identical=bits)
+    if bary:
+        before = collections.Counter(launches)
+        prof = profile_steps(f"[graphs {label}] profile, graphed", lambda: graphs.train(batches[0]))
+        grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+        # the launch counts of graphed steps are derived (LaunchReplays): the
+        # profiler's count of executions must back them
+        require(prof is not None, f"graphs {label}: the profiler saw no device activity")
+        busy, per_step, counts = prof
+        seen = {name: sum(c for key, c in counts.items() if name in key) for name in PROFILED}
+        want = {name: sum(grew.get(k, 0) for k in names) for name, names in PROFILED.items()}
+        print(f"[graphs {label}] kernel executions seen by the profiler {seen}, counted by"
+              f" the wrappers {want}")
+        require(seen == want and all(seen.values()),
+                f"graphs {label}: the profiler saw {seen}, launches {want}")
+        row.update(busy_share=busy, kernels_per_step=per_step)
+    del runs, graphs, m_e, m_g, opt_e, opt_g
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_graphs(device, card):
+    """Phase 8: the train and eval steps as CUDA graphs, at full width."""
+    return {label: graph_case(label, *case, device, card) for label, *case in GRAPH_CASES}
+
+
 # ---------------------------------------------------------------- determinism
 DET_STEPS = 3  # stage-1 steps, then as many stage-2 steps, from the same weights
+# graphed steps per stage: the shape's eager warm-up, the capture with its
+# first replay, then replays
+DET_GRAPH_STEPS = 4
 
 
 def _digest(*arrays) -> str:
@@ -883,9 +1141,12 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
     ``data/sol250``'s first train records, from the seeded flagship model.
     Writes, per step, the batch's digest, the loss's bits, each gradient's
     digest before the clip and each weight's digest after the update, to
-    ``out_path`` (JSON). ``deterministic`` runs it under
-    ``torch.use_deterministic_algorithms(True)``, which raises naming an
-    operation that has no deterministic implementation."""
+    ``out_path`` (JSON). Then, from the seeded model again,
+    ``DET_GRAPH_STEPS`` steps a stage through ``StepGraphs`` on the N=32
+    batches (stages ``g1``, ``g2``), whose gradients are read after the clip
+    from the graph's static tensors. ``deterministic`` runs the eager steps
+    only, under ``torch.use_deterministic_algorithms(True)``, which raises
+    naming an operation that has no deterministic implementation."""
     import os
 
     if deterministic:
@@ -903,6 +1164,7 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         clip_by_global_norm_,
         make_optimizer,
         masked_mse,
+        step_graphs,
     )
 
     pin_full_f32()
@@ -933,7 +1195,33 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
             t_steps.append(time.perf_counter() - t0)
             row["weights"] = {k: _digest(p.detach().cpu().numpy()) for k, p in model.named_parameters()}
             rows.append(row)
-    Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps}))
+    graph_s = []
+    model = ConanModel(seed=SEED, device="cuda")
+    names = [k for k, _ in model.named_parameters()]
+    for bary, batch_size in () if deterministic else ((False, 96), (True, 24)):
+        settings = TrainSettings(batch_size=batch_size, use_barycenter=bary)
+        graphs = step_graphs(model, make_optimizer(model, settings), settings, "cuda")
+        n32 = [pb for pb in bucketed_batches(records, batch_size, buckets=(32, 64))
+               if pb.max_atoms == 32]
+        for i in range(DET_GRAPH_STEPS):
+            pb = n32[i % len(n32)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = graphs.train(pb)
+            torch.cuda.synchronize()
+            graph_s.append(time.perf_counter() - t0)
+            rows.append({
+                "stage": f"g{2 if bary else 1}",
+                "batch": _digest(*(getattr(pb, f) for f in ("z", "pos", "atom_mask", "y"))),
+                "loss": struct.pack("<f", float(loss)).hex(),
+                "grads": {k: _digest(g.cpu().numpy()) for k, g in zip(names, graphs.grads)
+                          if g is not None},
+                "weights": {k: _digest(p.detach().cpu().numpy())
+                            for k, p in model.named_parameters()},
+            })
+        require(sum(s.graph is not None for s in graphs.steps.values()) == 1,
+                "the determinism worker captured no graph")
+    Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps, "graph_step_s": graph_s}))
     return 0
 
 
@@ -982,10 +1270,15 @@ def phase_determinism():
         print(f"[determinism] first difference at step {k} (stage {stage}): batch {diff['batch']},"
               f" loss {diff['loss']}, gradients {diff['grads'][:8]}, weights {diff['weights'][:8]}")
     require(first is None, "two processes of the same seeded steps differ")
+    graphed = sum(str(r["stage"]).startswith("g") for r in a["steps"])
+    require(graphed == 2 * DET_GRAPH_STEPS, f"the workers ran {graphed} graphed steps")
+    graph_ms = [1e3 * min(x, y) for x, y in zip(a["graph_step_s"], b["graph_step_s"])]
     print(f"[determinism] two processes: batches, losses, gradients and weights bit-identical over"
-          f" {len(a['steps'])} steps (stage 1 and stage 2)")
-    return dict(steps=len(a["steps"]), step_ms=ms, strict_step_ms=[1e3 * v for v in strict["step_s"]],
-                strict_identical=same_strict)
+          f" {len(a['steps'])} steps ({len(a['steps']) - graphed} eager, {graphed} through CUDA"
+          f" graphs; stage 1 and stage 2); graphed step ms (the faster process, each with a"
+          " synchronise): " + ", ".join(f"{v:.2f}" for v in graph_ms))
+    return dict(steps=len(a["steps"]), step_ms=ms, graph_step_ms=graph_ms,
+                strict_step_ms=[1e3 * v for v in strict["step_s"]], strict_identical=same_strict)
 
 
 def main() -> int:
@@ -1017,6 +1310,7 @@ def main() -> int:
     phase_parity(model, device)
     stage_rows["runner"] = phase_runner(device, card)
     stage_rows["classification"] = phase_classification(device, card)
+    stage_rows["graphs"] = phase_graphs(device, card)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -1025,7 +1319,8 @@ def main() -> int:
         return out
 
     # launches: the regression kernels on the main path (phase 3), the F=256
-    # ones on the classification path (phase 6); each also by runner path
+    # ones on the classification path (phase 6); each also by runner path.
+    # All three paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
     kernels = []
     for name in REPLACES:
@@ -1045,8 +1340,11 @@ def main() -> int:
                 kernels[-1][lab.lower()] = dict(
                     ms=other["ms"], plain_ms=other["plain_ms"], bound_ms=other["bound"][0],
                     **extra(other))
-    print(f"[done] {time.perf_counter() - t0:.1f} s; stage 2 {stage_rows[2]['step_ms']:.2f} ms/step")
-    print(json.dumps({"kernels": kernels, "train": stage_rows}))
+    flagship = stage_rows["graphs"]["stage 2 N32"]
+    print(f"[done] {time.perf_counter() - t0:.1f} s; stage 2 {stage_rows[2]['step_ms']:.2f} ms/step"
+          f" (phase 3, graphed); phase 8 at N=32: eager {min(flagship['eager_ms']):.3f}, graphed"
+          f" {min(flagship['graphed_ms']):.3f} ms/step")
+    print(json.dumps({"kernels": kernels, "launches_counted": LAUNCHES_COUNTED, "train": stage_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -113,7 +113,9 @@ class RunCheckpointer:
 
     def save_state(self, model, optimizer, epoch: int, loop_state: dict | None = None):
         """Weights, Adam's state and the loop's state after ``epoch``, for
-        ``fit(..., resume=True)``."""
+        ``fit(..., resume=True)``. A capturable Adam keeps ``step`` on the
+        card; it is written as the same 0-d float array. The lr is not
+        written: the loop's state holds the schedule's."""
         arrays = _model_arrays(model)
         for name, p in _named_parameters(model, optimizer):
             st = optimizer.state.get(p)
@@ -124,7 +126,12 @@ class RunCheckpointer:
 
     def restore_state(self, model, optimizer, which: str = "last_state") -> dict:
         """Load weights and Adam's state into ``model`` and ``optimizer`` in
-        place; return the meta dict (``epoch``, ``loop``)."""
+        place; return the meta dict (``epoch``, ``loop``). ``load_state_dict``
+        puts the moments on their parameter's device, and ``step`` too where
+        Adam is capturable (on the card). It replaces Adam's state tensors,
+        and the lr tensor with a copy (it deep-copies ``param_groups``), so
+        ``set_learning_rate`` and any CUDA graph of the optimizer
+        (``train/graphs.py``) must come after this call."""
         path = self._path(which, "npz")
         with np.load(path, allow_pickle=False) as data:
             _restore_model(model, data, path)

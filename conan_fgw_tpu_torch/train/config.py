@@ -122,7 +122,8 @@ class ExperimentConfig:
     use_pallas_cfconv: Optional[bool] = None
     use_pallas_fgw: Optional[bool] = None
     compute_dtype: str = "float32"
-    # the JAX package's scan-chunked training; the port runs per step
+    # the JAX package's scan-chunked training; the port runs every fit's
+    # train and eval steps as CUDA graphs on the card, whatever its value
     scan_chunk: int = 0
     eval_guard: bool = False
 

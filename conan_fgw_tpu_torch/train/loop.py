@@ -3,20 +3,26 @@
 One train step: forward (including the batched FGW barycenter in stage 2),
 the task's loss (masked MSE for regression; for classification the stable
 logit-space BCE scaled by ``loss_scale``), backward, global-norm clip at 1.0
-written as
-``optax.clip_by_global_norm``, and Adam (``torch.optim.Adam``, whose update
-equals optax's). ``fit`` runs epochs over atom-count-bucketed batches with the
-LR plateau schedule and early stopping on ``val_loss``, keeps the ``best``
-checkpoint by ``TrainSettings.monitor`` (higher is better for ``val_auroc``,
-``val_mean`` and ``val_prc``, lower for the rest) and the ``last`` and ``last_state``
-ones every epoch, and resumes from ``last_state``. ``fit(..., model=m)``
-continues from the weights ``m`` holds; the runner loads stage 1's ``best``
-into ``m`` for the stage-2 warm start.
+written as ``optax.clip_by_global_norm`` with multi-tensor ops, and Adam
+(``torch.optim.Adam``, whose update equals optax's). On the card Adam is
+capturable and its learning rate a 0-d tensor on the device, which
+``set_learning_rate`` writes in place. ``fit`` runs epochs over
+atom-count-bucketed batches with the LR plateau schedule and early stopping
+on ``val_loss``, keeps the ``best`` checkpoint by ``TrainSettings.monitor``
+(higher is better for ``val_auroc``, ``val_mean`` and ``val_prc``, lower for
+the rest) and the ``last`` and ``last_state`` ones every epoch, and resumes
+from ``last_state``. ``fit(..., model=m)`` continues from the weights ``m``
+holds; the runner loads stage 1's ``best`` into ``m`` for the stage-2 warm
+start. ``fit``'s train and eval steps go through
+``train/graphs.py::StepGraphs``, the counterpart of the JAX package's
+``scan_chunk`` training: on the card each bucket shape's whole step is one
+CUDA graph, replayed once per batch, whatever a config's ``scan_chunk``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import logging
 import time
@@ -29,6 +35,7 @@ from conan_fgw_tpu_torch.data.loader import bucketed_batches
 from conan_fgw_tpu_torch.data.packing import DEFAULT_BUCKETS, MoleculeRecord, bucket_for
 from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.train import metrics as metrics_lib
+from conan_fgw_tpu_torch.train.graphs import StepGraphs
 
 log = logging.getLogger("conan_fgw_tpu_torch")
 
@@ -97,28 +104,44 @@ def task_loss(pred: torch.Tensor, batch, settings: "TrainSettings") -> torch.Ten
 
 def clip_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale gradients in place as ``optax.clip_by_global_norm``: unchanged
-    when the global norm is below ``max_norm``, else ``g / norm * max_norm``
-    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``)."""
+    when the global norm is below ``max_norm``, else ``g * max_norm / norm``
+    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Multi-tensor
+    ops, a factor chosen on the device: a few launches in all, no host
+    sync, so a CUDA graph can hold it."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    clip = norm >= max_norm
-    for g in grads:
-        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    factor = torch.where(norm >= max_norm, max_norm / norm, torch.ones_like(norm))
+    torch._foreach_mul_(grads, factor)
     return norm
 
 
 def make_optimizer(model: torch.nn.Module, settings: TrainSettings) -> torch.optim.Optimizer:
-    return torch.optim.Adam(model.parameters(), lr=settings.learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8)
+    """Adam with optax's defaults. On the card it is capturable and its lr
+    a 0-d float32 tensor on the device: a graph captured with a float lr
+    would keep that value in its kernels and miss the plateau schedule's
+    changes. The CPU keeps a float lr (torch refuses capturable there)."""
+    params = list(model.parameters())
+    dev = params[0].device
+    if dev.type == "cuda":
+        lr = torch.tensor(settings.learning_rate, dtype=torch.float32, device=dev)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    return torch.optim.Adam(params, lr=settings.learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's lr: a tensor lr is written in place, so captured
+    steps read the new value."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def train_step(model, optimizer, batch, settings: TrainSettings):
-    """One optimisation step; returns ``(loss, n_div)`` as device tensors."""
+    """One optimisation step; returns ``(loss, n_div)`` as device tensors.
+    Gradients are set to None first, so under capture backward allocates
+    them in the graph's memory pool."""
     optimizer.zero_grad(set_to_none=True)
     pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
     loss = task_loss(pred, batch, settings)
@@ -126,6 +149,21 @@ def train_step(model, optimizer, batch, settings: TrainSettings):
     clip_by_global_norm_(list(model.parameters()), settings.grad_clip)
     optimizer.step()
     return loss.detach(), n_div
+
+
+def eval_step(model, batch, settings: TrainSettings):
+    """One forward without gradient: ``(loss, pred, n_div)`` device tensors."""
+    with torch.no_grad():
+        pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
+        return task_loss(pred, batch, settings), pred, n_div
+
+
+def step_graphs(model, optimizer, settings: TrainSettings, device) -> StepGraphs:
+    """``train_step`` and ``eval_step`` of ``model`` under ``settings``, to
+    be captured per batch shape on the card (``train/graphs.py``)."""
+    return StepGraphs(functools.partial(train_step, model, optimizer, settings=settings),
+                      functools.partial(eval_step, model, settings=settings),
+                      model.parameters(), device)
 
 
 def bucket_boundaries(max_atoms: int) -> tuple:
@@ -137,18 +175,19 @@ def dataset_max_atoms(records: Sequence[MoleculeRecord]) -> int:
     return bucket_for(max(r.num_atoms for r in records))
 
 
-def evaluate(model, records, settings: TrainSettings, max_atoms: int, device):
-    """Full-split predictions and metrics: ``(metrics, pred, y)``."""
+def evaluate(model, records, settings: TrainSettings, max_atoms: int, device, graphs=None):
+    """Full-split predictions and metrics: ``(metrics, pred, y)``. With
+    ``graphs`` (``fit``'s ``StepGraphs``) the eval steps go through it, as
+    the JAX package's ``eval_scan``; without (predict's single pass, where
+    a capture would not pay) they run eagerly."""
     preds, ys, losses, divs = [], [], [], []
-    with torch.no_grad():
-        for pb in bucketed_batches(records, settings.batch_size,
-                                   buckets=bucket_boundaries(max_atoms)):
-            batch = pb.to(device)
-            pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
-            losses.append(task_loss(pred, batch, settings))
-            divs.append(n_div)
-            preds.append((pred.reshape(-1), pb.mol_mask))
-            ys.append(pb.y[pb.mol_mask])
+    for pb in bucketed_batches(records, settings.batch_size, buckets=bucket_boundaries(max_atoms)):
+        loss, pred, n_div = (graphs.eval(pb) if graphs is not None
+                             else eval_step(model, pb.to(device), settings))
+        losses.append(loss)
+        divs.append(n_div)
+        preds.append((pred.reshape(-1), pb.mol_mask))
+        ys.append(pb.y[pb.mol_mask])
     pred = np.concatenate([p.cpu().numpy()[m] for p, m in preds])
     y = np.concatenate(ys)
     n_div = int(torch.stack(divs).sum())
@@ -194,19 +233,22 @@ class FitResult:
     best_epoch: int
     history: list
     model: torch.nn.Module
+    # the fit's StepGraphs; the runner evaluates the test split through its
+    # eval graphs
+    graphs: StepGraphs
 
 
-def _train_epoch(model, optimizer, records, settings: TrainSettings, buckets, dev):
-    """One epoch of train steps: ``(losses, n_divs, timing)``. The buckets'
-    batches come one bucket after another; ``timing`` holds each bucket's
-    steps (``steps_n32``) and host seconds up to a synchronise at its end
-    (``train_s_n32``)."""
+def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, buckets, dev):
+    """One epoch of train steps through ``graphs``: ``(losses, n_divs,
+    timing)``. The buckets' batches come one bucket after another;
+    ``timing`` holds each bucket's steps (``steps_n32``) and host seconds
+    up to a synchronise at its end (``train_s_n32``)."""
     losses, divs, timing = [], [], {}
     batches = bucketed_batches(records, settings.batch_size, buckets=buckets)
     for n, group in itertools.groupby(batches, key=lambda pb: pb.max_atoms):
         t0, steps = time.perf_counter(), 0
         for pb in group:
-            loss, n_div = train_step(model, optimizer, pb.to(dev), settings)
+            loss, n_div = graphs.train(pb)
             losses.append(loss)
             divs.append(n_div)
             steps += 1
@@ -238,6 +280,9 @@ def fit(settings: TrainSettings,
     Each history row carries ``train_steps`` and ``train_s``, the host time
     of the epoch's training steps ending in a device synchronise, and the
     same by bucket (``steps_n32``, ``train_s_n32``, ...).
+
+    The steps go through one ``StepGraphs``, created after a resume has
+    restored Adam's state; it is returned in ``FitResult.graphs``.
     """
     dev = resolve_device(device)
     if model is None:
@@ -270,6 +315,9 @@ def fit(settings: TrainSettings,
         history = loop_meta.get("history", [])
         set_learning_rate(optimizer, plateau.lr)
         log.info("resumed from epoch %d (lr=%.2e)", start_epoch, plateau.lr)
+    # after restore_state, which replaces Adam's state tensors: a graph
+    # holds the addresses of the tensors it was captured with
+    graphs = step_graphs(model, optimizer, settings, dev)
 
     for epoch in range(start_epoch, settings.num_epochs):
         t0 = time.perf_counter()
@@ -277,14 +325,14 @@ def fit(settings: TrainSettings,
             # keyed on the epoch, so a resumed run redraws any epoch's subsets
             epoch_records = train_records(epoch)
         t_train = time.perf_counter()
-        losses, divs, timing = _train_epoch(model, optimizer, epoch_records, settings, buckets, dev)
+        losses, divs, timing = _train_epoch(graphs, epoch_records, settings, buckets, dev)
         train_s = time.perf_counter() - t_train
         train_loss = float(torch.stack(losses).mean())
         epoch_divs = int(torch.stack(divs).sum())
         if epoch_divs:
             log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                         "in epoch %d", epoch_divs, epoch)
-        val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev)
+        val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev, graphs)
         val_loss = val_metrics["loss"]
         row = {
             "epoch": epoch,
@@ -325,4 +373,4 @@ def fit(settings: TrainSettings,
         if should_stop:
             log.info("early stopping at epoch %d", epoch)
             break
-    return FitResult(float(best), best_epoch, history, model)
+    return FitResult(float(best), best_epoch, history, model, graphs)

@@ -164,10 +164,6 @@ def run_experiment(
     per_run)``, the second a list of ``{"metrics", "history"}``."""
     dev = resolve_device(device)
     check_supported(config, dev)
-    if config.scan_chunk > 1:
-        log.info("scan_chunk=%d: the port runs one step at a time; its counterpart of the "
-                 "JAX package's scanned chunks is CUDA graphs (ROADMAP.md §1, item 2)",
-                 config.scan_chunk)
     ds = load_datasets(config, data_dir)
     datasets = {m: ds[m].records() for m in ("train", "valid", "test")}
 
@@ -233,7 +229,9 @@ def run_experiment(
             ckpt.restore_params(model, "best")
         max_atoms = settings.max_atoms or loop_lib.dataset_max_atoms(
             datasets["train"] + datasets["valid"] + datasets["test"])
-        test_metrics, _, _ = loop_lib.evaluate(model, datasets["test"], settings, max_atoms, dev)
+        # through fit's eval graphs, as the JAX runner passes its eval_scan
+        test_metrics, _, _ = loop_lib.evaluate(model, datasets["test"], settings, max_atoms, dev,
+                                               result.graphs)
         run_metrics = {f"test_{k}": v for k, v in test_metrics.items()}
         run_metrics["best_epoch"] = result.best_epoch
         run_metrics[settings.monitor] = result.best_metric
