@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Build the CUDA kernels from ``conan_fgw_tpu_torch/csrc`` and print the
    build time, each kernel's registers and spills (a cfconv or K3 kernel
-   that spills fails the run), and the card's name and power limit.
+   that spills fails the run), and the card's name and power limit; build
+   the native batch packer (``conan_fgw_tpu_torch/native/packer.cpp``).
 2. Kernel against plain version, on the card: K1 (cfconv forward), K2
    (cfconv backward: dx, dW1, db1, dW2, db2) and K3 (FGW couplings: T and
    the diverged flags) at the slice shape (G = S = 120 conformer graphs,
@@ -57,7 +58,10 @@ Phases (any failure exits non-zero and prints no result line):
    by bucket and ``fgw_diverged``. The steps run as CUDA graphs
    (``train/graphs.py``): each run must capture train and eval graphs, and
    the launch counts must be the eager path's (K2 three a train step;
-   three K1 and five K3 a forward).
+   three K1 and five K3 a forward). Their batches come through the host
+   pipeline: every one packed natively on the prefetch thread into a
+   pinned slot and copied from it without waiting, none packed by numpy or
+   copied from pageable memory.
 6. The classification path on the repo's ``data/sol1k_class``: the
    runner's ``main`` trains stage 1 (``config/schnet/sol1k_class_5.yaml``)
    and then stage 2 (``sol1k_class_5_bc.yaml``), each for 2 epochs, at the
@@ -76,15 +80,30 @@ Phases (any failure exits non-zero and prints no result line):
    ``set_learning_rate`` after 10 steps: per-step losses and final weights
    must agree to 1e-5 relative (bit-identity is printed), the launch counts
    must be equal, and the eval graph's predictions must equal eager eval's
-   to 1e-6. Then 50 warmed steps in turns (eager, graphed, graphed, eager)
-   give ms per step and graphs/s by host clock ending in a synchronise,
-   with the graphed step's host time per batch split into packing, the
-   copy into the static buffers and the replay. Stage 2 also profiles three
-   graphed steps: busy share, kernels per step, and the K1/K2/K3
-   executions the profiler sees, which must equal the launch counts.
+   to 1e-6. The eager steps take pre-packed batches, the graphed ones the
+   host pipeline's (prefetch, native packing into pinned slots,
+   non-blocking copies). Then 50 warmed steps a turn give ms per step and
+   graphs/s by host clock ending in a synchronise, in turns eager,
+   graphed, pipelined, serial and back: eager and graphed steps on
+   pre-packed batches copied from pageable memory, pipelined ones through
+   the host pipeline, serial ones packed by numpy on the main thread and
+   copied from pageable memory (``fit(prefetch=False, native=False)``'s
+   path). One more pipelined turn splits its host time per step: waiting
+   on the prefetch queue, the copy, waiting for a slot's earlier copy, and
+   the replay with the rest; and the prefetch thread's native packing per
+   batch (its foreign call apart), beside numpy packing. A sixth case is
+   stage 1 at N=32 with sol250's stage-1 batch of 96. Stage 2 also profiles three graphed steps: busy share,
+   kernels per step, and the K1/K2/K3 executions the profiler sees, which
+   must equal the launch counts.
+9. The host pipeline: the native packer against the numpy one, byte for
+   byte, over every batch of ``data/sol250`` (batches 96 and 24) and
+   ``data/sol1k_class`` (18), every split and bucket, also into a reused
+   pinned buffer; then sol250's stage 1 through ``fit`` for 2 epochs from
+   the same seeded model, through the pipeline and with ``prefetch=False,
+   native=False``: losses and weights must agree bit for bit.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
-   stage-2 steps on ``data/sol250``, eagerly and then through CUDA graphs,
-   and must give bit-identical batches, losses, gradients and weights; a
+   stage-2 steps on ``data/sol250``, eagerly and then through CUDA graphs
+   fed by the host pipeline, and must give bit-identical batches, losses, gradients and weights; a
    third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. It runs last.
@@ -106,6 +125,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import io
 import json
 import re
@@ -231,6 +251,12 @@ def phase_build():
     path, built_s = _build.build()
     _build.load_library()
     print(f"[build] {path.name}: nvcc {built_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
+    from conan_fgw_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    packer = native.build()
+    native.load_library()
+    print(f"[build] {packer.name}: the native packer, g++ and load {time.perf_counter() - t0:.1f} s")
     report = _build.BUILD_DIR / path.name.replace("libconan_kernels_", "ptxas_").replace(".so", ".txt")
     if report.exists():
         entry, spills = "", {}
@@ -675,17 +701,22 @@ def config_copy(src: str, out_dir: Path, epochs: int) -> str:
 @contextlib.contextmanager
 def runner_spies():
     """Count calls of the kernels' plain versions and CUDA-graph captures by
-    kind, and record the weights each checkpoint restore leaves in the model:
-    ``(plain_calls, restores, captures)``, ``restores`` a list of
-    ``(directory, which, state_dict on the host)``."""
+    kind, record the weights each checkpoint restore leaves in the model,
+    and count the host pipeline's numpy packs, pageable copies and staged
+    copies from pinned slots: ``(plain_calls, restores, captures, host)``,
+    ``restores`` a list of ``(directory, which, state_dict on the host)``."""
+    from conan_fgw_tpu_torch.data import loader
     from conan_fgw_tpu_torch.ops.cuda import cfconv as cfconv_mod
     from conan_fgw_tpu_torch.ops.cuda import fgw as fgw_mod
+    from conan_fgw_tpu_torch.train import graphs as graphs_mod
     from conan_fgw_tpu_torch.train.checkpoints import RunCheckpointer
     from conan_fgw_tpu_torch.train.graphs import StepGraphs
 
     plain_calls, restores, captures = collections.Counter(), [], collections.Counter()
+    host = collections.Counter()
     saved = [(cfconv_mod, "_cfconv_plain"), (fgw_mod, "fgw_couplings_plain"),
-             (RunCheckpointer, "restore_params"), (StepGraphs, "_capture")]
+             (RunCheckpointer, "restore_params"), (StepGraphs, "_capture"),
+             (loader, "pack_batch"), (graphs_mod._Step, "load"), (graphs_mod.PinnedSlots, "stage")]
     originals = [getattr(owner, name) for owner, name in saved]
 
     def counted(name, fn):
@@ -704,12 +735,21 @@ def runner_spies():
         captures[kind] += 1
         return originals[3](self, step, fn, kind)
 
+    def host_counted(name, fn):
+        def call(*args, **kwargs):
+            host[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
     cfconv_mod._cfconv_plain = counted("cfconv", originals[0])
     fgw_mod.fgw_couplings_plain = counted("fgw", originals[1])
     RunCheckpointer.restore_params = restore_params
     StepGraphs._capture = capture
+    loader.pack_batch = host_counted("numpy_pack", originals[4])
+    graphs_mod._Step.load = host_counted("pageable_copy", originals[5])
+    graphs_mod.PinnedSlots.stage = host_counted("staged_copy", originals[6])
     try:
-        yield plain_calls, restores, captures
+        yield plain_calls, restores, captures, host
     finally:
         for (owner, name), fn in zip(saved, originals):
             setattr(owner, name, fn)
@@ -735,10 +775,11 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
     from conan_fgw_tpu_torch.train import runner
 
-    common, tmp, plain_calls, captures, device, card = ctx
+    common, tmp, plain_calls, captures, host, device, card = ctx
     k1, k2, k3 = kernels
     reset_launches()
     captures.clear()
+    host.clear()
     t0 = time.perf_counter()
     summary = run_main(runner.main, ["--config", cfg, "--stage", stage, *common, *extra])
     if device == "cuda":
@@ -753,6 +794,9 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     if device == "cuda":
         require(captures["train"] and captures["eval"],
                 f"runner {label}: CUDA graphs captured {dict(captures)}")
+        # every batch natively packed into a pinned slot and staged from it
+        require(host["staged_copy"] > 0 and not host["numpy_pack"] and not host["pageable_copy"],
+                f"runner {label}: host pipeline {dict(host)}")
     for r in history:
         require(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]),
                 f"runner {label} epoch {r['epoch']} has a non-finite loss")
@@ -780,7 +824,7 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
               f" {val_key} {r[val_key]:.5f}")
     print(f"[runner {label}] {steps} steps in all, {new_steps} in this run: {wall:.1f} s wall with"
           f" data and test on {card}; test_{metric} {summary[f'test_{metric}']['mean']:.6f};"
-          f" launches {grew}; CUDA graphs captured {dict(captures)}")
+          f" launches {grew}; CUDA graphs captured {dict(captures)}; host pipeline {dict(host)}")
     return summary, history, grew
 
 
@@ -817,12 +861,12 @@ def phase_runner(device, card):
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as name, \
-            runner_spies() as (plain_calls, restores, captures):
+            runner_spies() as (plain_calls, restores, captures, host):
         tmp = Path(name)
         common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
                   "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
                   "--metrics_dir", str(tmp / "metrics"), "--device", device]
-        ctx = (common, tmp, plain_calls, captures, device, card)
+        ctx = (common, tmp, plain_calls, captures, host, device, card)
         cfgs, totals = {}, collections.Counter()
         for stage, src in RUNNER_STAGES:
             first_restore = len(restores)  # stage 1 restores its own best for its test
@@ -880,12 +924,12 @@ def phase_classification(device, card):
 
     out, totals = {}, collections.Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_class_") as name, \
-            runner_spies() as (plain_calls, restores, captures):
+            runner_spies() as (plain_calls, restores, captures, host):
         tmp = Path(name)
         common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
                   "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
                   "--metrics_dir", str(tmp / "metrics"), "--device", device]
-        ctx = (common, tmp, plain_calls, captures, device, card)
+        ctx = (common, tmp, plain_calls, captures, host, device, card)
         for stage, src in CLASS_STAGES:
             first_restore = len(restores)
             cfg = config_copy(src, tmp, RUNNER_EPOCHS)
@@ -935,12 +979,16 @@ GRAPH_LR_AT = 10     # set_learning_rate after this many steps, in both runs
 GRAPH_TIMED = 50     # warmed steps in each timing turn
 GRAPH_RTOL = 1e-5    # per-step losses and final weights, relative
 GRAPH_EVAL_RTOL = 1e-6
-# label, classification?, stage 2?, bucket N, heavy atoms per molecule, batch
+# label, classification?, stage 2?, bucket N, heavy atoms per molecule, batch.
+# Every case draws its molecules, in order and cycled, from the 480 of its
+# bucket (GRAPH_STEPS batches of B); B=96 is config/schnet/sol250_5.yaml's
+# stage-1 batch
 GRAPH_CASES = (("stage 1 N32", False, False, 32, (8, 13), B),
                ("stage 1 N64", False, False, 64, (20, 26), B),
                ("stage 2 N32", False, True, 32, (8, 13), B),
                ("stage 2 N64", False, True, 64, (20, 26), B),
-               ("class stage 2 N32", True, True, 32, (8, 13), B_CLS))
+               ("class stage 2 N32", True, True, 32, (8, 13), B_CLS),
+               ("stage 1 N32 B96", False, False, 32, (8, 13), 96))
 PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256"),
             "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256"),
             "fgw_couplings_kernel": ("fgw_couplings",)}
@@ -950,52 +998,83 @@ def _max_rel(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+@functools.cache
+def graph_records(n_atoms: int, heavy: tuple, device: str) -> list:
+    """Phase 8's synthetic molecules of one bucket (B=24's GRAPH_STEPS batches)."""
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+
+    return random_dataset(SEED + 500 + n_atoms, GRAPH_STEPS * B, num_conformers=K,
+                          heavy_range=heavy, device=device)
+
+
 @contextlib.contextmanager
-def timed_copies():
-    """Host seconds spent copying batches into the graphs' static buffers,
-    summed into the yielded one-element list."""
+def host_split():
+    """Host seconds of the pipelined graphed step's parts, summed into the
+    yielded dict. On the prefetch thread: ``pack`` (the native packer into a
+    pinned slot) and ``native`` (its foreign call, which runs without the
+    interpreter lock). On the main thread: ``stage`` (``StepGraphs._load``:
+    the non-blocking copy, its event, freeing landed slots) and
+    ``slot_wait`` (the part of ``stage`` waiting for an earlier copy while
+    too many are in flight)."""
+    from conan_fgw_tpu_torch.data import native
     from conan_fgw_tpu_torch.train import graphs as graphs_mod
 
-    spent, load = [0.0], graphs_mod._Step.load
+    spent = collections.Counter()
+    lib = native.load_library()
+    saved = [(graphs_mod, "pack_batch_native"), (graphs_mod.StepGraphs, "_load"),
+             (graphs_mod.PinnedSlots, "reclaim"), (lib, "pack_batch")]
+    originals = [getattr(owner, name) for owner, name in saved]
 
-    def timed(self, pb):
-        t0 = time.perf_counter()
-        load(self, pb)
-        spent[0] += time.perf_counter() - t0
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
 
-    graphs_mod._Step.load = timed
+    for (owner, name), fn, key in zip(saved, originals,
+                                      ("pack", "stage", "slot_wait", "native")):
+        setattr(owner, name, timed(key, fn))
     try:
         yield spent
     finally:
-        graphs_mod._Step.load = load
+        for (owner, name), fn in zip(saved, originals):
+            setattr(owner, name, fn)
 
 
 def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
-    """One shape of phase 8: eager against graphed steps from identical
-    weights through an lr change, the eval graph against eager eval, ms per
-    step in turns (eager, graphed, graphed, eager) with the graphed step's
-    host time split, and for stage 2 a profile of three graphed steps."""
+    """One shape of phase 8: eager steps on pre-packed batches against
+    graphed steps fed by the host pipeline (prefetch, native packing into
+    pinned slots, non-blocking copies), from identical weights through an lr
+    change; the eval graph against eager eval; ms per step in turns (eager,
+    graphed, pipelined, serial and back); the pipelined step's host time
+    split; for stage 2 a profile of three graphed steps."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from conan_fgw_tpu_torch.data.loader import bucketed_batches
-    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.data.loader import batches as host_batches
+    from conan_fgw_tpu_torch.data.packing import bucket_for, pack_batch
     from conan_fgw_tpu_torch.models.heads import ConanModel
     from conan_fgw_tpu_torch.ops.cuda import launches
     from conan_fgw_tpu_torch.train import loop
 
-    recs = random_dataset(SEED + 500 + n_atoms, GRAPH_STEPS * batch, num_conformers=K,
-                          heavy_range=heavy, device=device)
+    # the molecules of the case's own bucket, so that the pipeline's
+    # bucketed batches are the pre-packed ones: one shape, in input order
+    pool = [r for r in graph_records(n_atoms, heavy, device)
+            if bucket_for(r.num_atoms, loop.bucket_boundaries(n_atoms)) == n_atoms]
+    recs = [pool[i % len(pool)] for i in range(GRAPH_STEPS * batch)]
     if classify:
         median = float(np.median([r.y for r in recs]))
         recs = [dataclasses.replace(r, y=float(r.y > median)) for r in recs]
     t0 = time.perf_counter()
-    batches = list(bucketed_batches(recs, batch, buckets=(n_atoms,)))
-    pack_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
-    require(len(batches) == GRAPH_STEPS and all(pb.max_atoms == n_atoms for pb in batches),
-            f"graphs {label}: the batches are not {GRAPH_STEPS} at N={n_atoms}")
+    batches = list(host_batches(recs, batch, n_atoms, pack=pack_batch))
+    numpy_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    require(len(batches) == GRAPH_STEPS and all(pb.mol_mask.all() for pb in batches),
+            f"graphs {label}: the batches are not {GRAPH_STEPS} full ones at N={n_atoms}")
     width = dict(task="classification", hidden_channels=512, num_filters=256,
                  num_gaussians=GAUSS_CLS) if classify else {}
     base = ConanModel(seed=SEED, device=device, **width)
@@ -1009,27 +1088,34 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
         opt = loop.make_optimizer(model, settings)
         graphs = loop.step_graphs(model, opt, settings, device)
         before, losses = collections.Counter(launches), []
-        for i, pb in enumerate(batches):
-            if i == GRAPH_LR_AT:
-                loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
-            if mode == "eager":
-                loss, _ = loop.train_step(model, opt, pb.to(device), settings)
-            else:
-                loss, _ = graphs.train(pb)
-            losses.append(loss)
+        if mode == "eager":
+            for i, pb in enumerate(batches):
+                if i == GRAPH_LR_AT:
+                    loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
+                losses.append(loop.train_step(model, opt, pb.to(device), settings)[0])
+        else:
+            with loop.step_batches(recs, settings, n_atoms, graphs) as staged:
+                for i, pb in enumerate(staged):
+                    if i == GRAPH_LR_AT:
+                        loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
+                    losses.append(graphs.train(pb)[0])
         torch.cuda.synchronize()
         grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
         runs[mode] = (model, opt, graphs, torch.stack(losses), grew)
     (m_e, opt_e, _, loss_e, grew_e), (m_g, opt_g, graphs, loss_g, grew_g) = runs["eager"], runs["graphed"]
     require(loss_e.isfinite().all(), f"graphs {label}: a non-finite eager loss")
+    require(len(loss_g) == GRAPH_STEPS, f"graphs {label}: the pipeline gave {len(loss_g)} batches")
     loss_rel = _max_rel(loss_g, loss_e)
     w_rel = max(_max_rel(q.detach(), p.detach()) for p, q in zip(m_e.parameters(), m_g.parameters()))
     bits = bool(torch.equal(loss_e, loss_g)) and all(
         torch.equal(p, q) for p, q in zip(m_e.parameters(), m_g.parameters()))
     captured = sorted(k[0] for k, s in graphs.steps.items() if s.graph is not None)
-    print(f"[graphs {label}] {GRAPH_STEPS} steps eager vs graphed, lr halved after {GRAPH_LR_AT}:"
-          f" losses rel {loss_rel:.3e}, weights rel {w_rel:.3e} (tol {GRAPH_RTOL}); bit-identical"
-          f" {bits}; graphs captured {captured}; launches eager {grew_e} graphed {grew_g}")
+    require(list(graphs.pools) == [(batch, K, n_atoms)],
+            f"graphs {label}: pinned slots for {list(graphs.pools)}")
+    print(f"[graphs {label}] {GRAPH_STEPS} steps eager vs graphed (batches through prefetch,"
+          f" native packing into pinned slots), lr halved after {GRAPH_LR_AT}: losses rel"
+          f" {loss_rel:.3e}, weights rel {w_rel:.3e} (tol {GRAPH_RTOL}); bit-identical {bits};"
+          f" graphs captured {captured}; launches eager {grew_e} graphed {grew_g}")
     require(loss_rel <= GRAPH_RTOL and w_rel <= GRAPH_RTOL, f"graphs {label}: eager and graphed differ")
     require(captured == ["train"], f"graphs {label}: captured {captured}")
     require(grew_e == grew_g, f"graphs {label}: launches eager {grew_e} graphed {grew_g}")
@@ -1051,8 +1137,12 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
     require(grew_eval == grew_eager_eval, f"graphs {label}: eval launches {grew_eval} against"
             f" {grew_eager_eval} eager")
 
-    # timing in turns; each turn GRAPH_TIMED warmed steps over the batches
+    # timing in turns of GRAPH_TIMED warmed steps over the batches: eager
+    # and graphed steps on pre-packed batches (pageable copies), pipelined
+    # ones through the host pipeline, serial ones packed by numpy on this
+    # thread (pageable copies)
     order = [batches[i % GRAPH_STEPS] for i in range(GRAPH_TIMED)]
+    timed_recs = [r for i in range(GRAPH_TIMED) for r in recs[(i % GRAPH_STEPS) * batch:][:batch]]
 
     def eager_turn():
         for pb in order:
@@ -1062,35 +1152,55 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
         for pb in order:
             graphs.train(pb)
 
+    def pipelined_turn(split=None, **pipeline):
+        with loop.step_batches(timed_recs, settings, n_atoms, graphs, **pipeline) as staged:
+            staged = iter(staged)
+            while True:
+                t0 = time.perf_counter()
+                pb = next(staged, None)
+                if split is not None:
+                    split["queue_wait"] += time.perf_counter() - t0
+                if pb is None:
+                    return
+                graphs.train(pb)
+
+    turn_fns = {"eager": eager_turn, "graphed": graphed_turn, "pipelined": pipelined_turn,
+                "serial": functools.partial(pipelined_turn, prefetch=False, native=False)}
     turns = collections.defaultdict(list)
-    for mode in ("eager", "graphed", "graphed", "eager"):
+    for mode in (*turn_fns, *reversed(turn_fns)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (eager_turn if mode == "eager" else graphed_turn)()
+        turn_fns[mode]()
         torch.cuda.synchronize()
         turns[mode].append(1e3 * (time.perf_counter() - t0) / GRAPH_TIMED)
-    # the graphed step's host time per batch, each step from an idle card
-    # (a copy from pageable memory waits for the stream to drain, so in the
-    # turns above it also holds the previous step's device time)
-    split = collections.defaultdict(float)
-    with timed_copies() as copy_s:
-        for pb in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            graphs.train(pb)
-            split["step_ms"] += 1e3 * (time.perf_counter() - t0) / GRAPH_STEPS
+    # the pipelined step's host time per step, from one more turn
+    with host_split() as split:
         torch.cuda.synchronize()
-    split["copy_ms"] = 1e3 * copy_s[0] / GRAPH_STEPS
-    split["replay_ms"] = split["step_ms"] - split["copy_ms"]
+        t0 = time.perf_counter()
+        pipelined_turn(split)
+        torch.cuda.synchronize()
+        split_turn_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED
+    per = {k: 1e3 * v / GRAPH_TIMED for k, v in split.items()}
+    per["copy"] = per["stage"] - per["slot_wait"]
+    per["replay"] = split_turn_ms - per["queue_wait"] - per["stage"]
     gps = {m: batch * K * 1e3 / min(v) for m, v in turns.items()}
-    print(f"[graphs {label}] ms/step over {GRAPH_TIMED} warmed steps, turns eager/graphed/graphed/eager:"
-          f" {turns['eager'][0]:.3f}/{turns['graphed'][0]:.3f}/{turns['graphed'][1]:.3f}/"
-          f"{turns['eager'][1]:.3f} on {card}; graphs/s eager {gps['eager']:.1f}, graphed"
-          f" {gps['graphed']:.1f}; graphed host per batch: packing {pack_ms:.3f} ms, copy"
-          f" {split['copy_ms']:.3f} ms, replay and outputs {split['replay_ms']:.3f} ms")
-    row = dict(eager_ms=turns["eager"], graphed_ms=turns["graphed"], eager_gps=gps["eager"],
-               graphed_gps=gps["graphed"], pack_ms=pack_ms, copy_ms=split["copy_ms"],
-               replay_ms=split["replay_ms"], loss_rel=loss_rel, weights_rel=w_rel,
+    print(f"[graphs {label}] ms/step over {GRAPH_TIMED} warmed steps, turns "
+          + "/".join(turns) + ", then back: " + "; ".join(
+              f"{m} {v[0]:.3f}/{v[1]:.3f}" for m, v in turns.items())
+          + f" on {card}; graphs/s " + ", ".join(f"{m} {v:.1f}" for m, v in gps.items()))
+    print(f"[graphs {label}] pipelined step, host ms per step ({split_turn_ms:.3f} ms a step):"
+          f" queue wait {per['queue_wait']:.3f}, copy {per['copy']:.3f} (non-blocking), slot"
+          f" wait {per['slot_wait']:.3f}, replay and the rest {per['replay']:.3f}; prefetch thread:"
+          f" native packing {per['pack']:.3f} ms a batch (the foreign call {per['native']:.3f},"
+          f" the interpreter lock held {per['pack'] - per['native']:.3f}); numpy packing"
+          f" {numpy_ms:.3f} ms a batch")
+    row = dict(eager_ms=turns["eager"], graphed_ms=turns["graphed"],
+               pipelined_ms=turns["pipelined"], serial_ms=turns["serial"],
+               **{f"{m}_gps": v for m, v in gps.items()}, numpy_pack_ms=numpy_ms,
+               native_pack_ms=per["pack"], native_call_ms=per["native"],
+               staged_copy_ms=per["copy"], slot_wait_ms=per["slot_wait"],
+               queue_wait_ms=per["queue_wait"], pipelined_replay_ms=per["replay"],
+               split_step_ms=split_turn_ms, loss_rel=loss_rel, weights_rel=w_rel,
                eval_rel=eval_rel, bit_identical=bits)
     if bary:
         before = collections.Counter(launches)
@@ -1115,6 +1225,133 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
 def phase_graphs(device, card):
     """Phase 8: the train and eval steps as CUDA graphs, at full width."""
     return {label: graph_case(label, *case, device, card) for label, *case in GRAPH_CASES}
+
+
+# ---------------------------------------------------------------- phase 9
+# configs whose datasets the packer check packs, at their batch sizes (the
+# stage-1 and stage-2 batches of sol250, sol1k_class's)
+PACKER_DATA = (("config/schnet/sol250_5.yaml", (96, 24)),
+               ("config/schnet/sol1k_class_5.yaml", (18,)))
+PIPELINE_EPOCHS = 2
+
+
+def packer_check(device):
+    """The native packer against the numpy one, byte for byte, over every
+    batch of every split of ``data/sol250`` and ``data/sol1k_class`` at their
+    configs' batch sizes, in every bucket they reach: packed fresh and into
+    one reused pinned buffer per shape."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.data import native
+    from conan_fgw_tpu_torch.data.loader import bucketed_batches
+    from conan_fgw_tpu_torch.data.packing import batch_layout, pack_batch
+    from conan_fgw_tpu_torch.train import loop
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.graphs import host_batch
+    from conan_fgw_tpu_torch.train.runner import load_datasets
+
+    out = {}
+    for cfg, sizes in PACKER_DATA:
+        ds = load_datasets(load_config(cfg), "data")
+        splits = {m: ds[m].records() for m in ("train", "valid", "test")}
+        buckets = loop.bucket_boundaries(loop.dataset_max_atoms(
+            [r for recs in splits.values() for r in recs]))
+        for batch in sizes:
+            pinned, shapes, spent = {}, collections.Counter(), collections.Counter()
+
+            def check(chunk, *, max_atoms, batch_size):
+                t0 = time.perf_counter()
+                want = pack_batch(chunk, max_atoms=max_atoms, batch_size=batch_size)
+                t1 = time.perf_counter()
+                got = native.pack_batch_native(chunk, max_atoms=max_atoms, batch_size=batch_size)
+                spent["numpy"] += t1 - t0
+                spent["native"] += time.perf_counter() - t1
+                shape = want.z.shape
+                if shape not in pinned:
+                    pinned[shape] = host_batch(batch_layout(*shape), pin=device == "cuda")[1]
+                into = native.pack_batch_native(chunk, max_atoms=max_atoms, batch_size=batch_size,
+                                                out=pinned[shape])
+                for name in ("z", "pos", "atom_mask", "x2d", "bond_adj", "bond_attr", "y",
+                             "mol_mask"):
+                    ref = getattr(want, name)
+                    for other in (got, into):
+                        a = getattr(other, name)
+                        require(a.dtype == ref.dtype and a.shape == ref.shape
+                                and np.array_equal(a.view(np.uint8), ref.view(np.uint8)),
+                                f"packer check {cfg} batch {batch} N={max_atoms}: {name} differs")
+                shapes[max_atoms] += 1
+                return want
+
+            for recs in splits.values():
+                for _ in bucketed_batches(recs, batch, buckets, pack=check):
+                    pass
+            n = sum(shapes.values())
+            label = f"{Path(cfg).stem} B={batch}"
+            print(f"[packer] {label}: {n} batches byte-identical, native and numpy, fresh and into"
+                  f" a reused pinned buffer, by bucket {dict(shapes)}; host ms a batch: numpy"
+                  f" {1e3 * spent['numpy'] / n:.3f}, native {1e3 * spent['native'] / n:.3f}")
+            out[label] = dict(batches=n, by_bucket=dict(shapes),
+                              numpy_ms=1e3 * spent["numpy"] / n, native_ms=1e3 * spent["native"] / n)
+    return out
+
+
+def phase_pipeline(device, card):
+    """Phase 9: the packer check, then two ``fit`` runs of sol250's stage 1
+    (``config/schnet/sol250_5.yaml``, 2 epochs, from the same seeded model):
+    through the host pipeline (prefetch, native packing into pinned slots)
+    and with ``prefetch=False, native=False`` (numpy packing on the main
+    thread, pageable copies). Losses and weights must agree bit for bit;
+    prints both runs' ms per step by bucket."""
+    import torch
+
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.loop import fit
+    from conan_fgw_tpu_torch.train.runner import STAGE_PRE, build_model, build_settings, load_datasets
+
+    out = {"packer": packer_check(device)}
+    config = load_config(RUNNER_STAGES[0][1])
+    settings = build_settings(config, STAGE_PRE)
+    settings.num_epochs = PIPELINE_EPOCHS
+    ds = load_datasets(config, "data")
+
+    def train_records(epoch):
+        ds["train"].set_epoch(epoch)
+        return ds["train"].records()
+
+    runs = {}
+    for mode, kw in (("serial numpy", dict(prefetch=False, native=False)), ("prefetched", {})):
+        with runner_spies() as (plain_calls, _, _, host):
+            res = fit(settings, train_records, ds["valid"].records(),
+                      model=build_model(config, seed=settings.seed, device=device), device=device,
+                      **kw)
+        require(not plain_calls, f"pipeline {mode}: plain versions ran: {dict(plain_calls)}")
+        if mode == "prefetched":
+            require(host["staged_copy"] and not host["numpy_pack"] and not host["pageable_copy"],
+                    f"pipeline {mode}: host pipeline {dict(host)}")
+        else:
+            require(host["numpy_pack"] and host["pageable_copy"] and not host["staged_copy"],
+                    f"pipeline {mode}: host pipeline {dict(host)}")
+        runs[mode] = res
+        for r in res.history:
+            print(f"[pipeline {mode}] epoch {r['epoch']}: {r['epoch_time_s']:.3f} s,"
+                  f" {1e3 * r['train_s_n32'] / r['steps_n32']:.2f} ms/step at N=32"
+                  f" ({r['steps_n32']} steps), {1e3 * r['train_s_n64'] / r['steps_n64']:.2f} at"
+                  f" N=64 ({r['steps_n64']}), train_loss {r['train_loss']!r}, val_loss"
+                  f" {r['val_loss']!r}; host pipeline {dict(host)} on {card}")
+    a, b = runs["prefetched"], runs["serial numpy"]
+    keys = ("train_loss", "val_loss", "val_mse", "val_rmse")
+    same_losses = [[ra[k] for k in keys] for ra in a.history] == [[rb[k] for k in keys]
+                                                                   for rb in b.history]
+    same_weights = all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+    print(f"[pipeline] sol250 stage 1, {PIPELINE_EPOCHS} epochs: prefetched and native against"
+          f" serial numpy, losses bit-identical {same_losses}, weights bit-identical {same_weights}")
+    require(same_losses and same_weights, "the prefetched run differs from the serial numpy run")
+    for mode, res in runs.items():
+        last = res.history[-1]
+        out[mode] = dict(ms_n32=1e3 * last["train_s_n32"] / last["steps_n32"],
+                         ms_n64=1e3 * last["train_s_n64"] / last["steps_n64"],
+                         epoch_s=[r["epoch_time_s"] for r in res.history])
+    return out
 
 
 # ---------------------------------------------------------------- determinism
@@ -1143,8 +1380,9 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
     digest before the clip and each weight's digest after the update, to
     ``out_path`` (JSON). Then, from the seeded model again,
     ``DET_GRAPH_STEPS`` steps a stage through ``StepGraphs`` on the N=32
-    batches (stages ``g1``, ``g2``), whose gradients are read after the clip
-    from the graph's static tensors. ``deterministic`` runs the eager steps
+    molecules, their batches through the host pipeline (prefetch, native
+    packing into pinned slots; stages ``g1``, ``g2``), whose gradients are
+    read after the clip from the graph's static tensors. ``deterministic`` runs the eager steps
     only, under ``torch.use_deterministic_algorithms(True)``, which raises
     naming an operation that has no deterministic implementation."""
     import os
@@ -1164,6 +1402,7 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         clip_by_global_norm_,
         make_optimizer,
         masked_mse,
+        step_batches,
         step_graphs,
     )
 
@@ -1199,26 +1438,30 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
     model = ConanModel(seed=SEED, device="cuda")
     names = [k for k, _ in model.named_parameters()]
     for bary, batch_size in () if deterministic else ((False, 96), (True, 24)):
+        # the N=32 molecules, cycled, through the host pipeline as fit takes
+        # them: prefetched, packed natively into pinned slots
         settings = TrainSettings(batch_size=batch_size, use_barycenter=bary)
         graphs = step_graphs(model, make_optimizer(model, settings), settings, "cuda")
-        n32 = [pb for pb in bucketed_batches(records, batch_size, buckets=(32, 64))
-               if pb.max_atoms == 32]
-        for i in range(DET_GRAPH_STEPS):
-            pb = n32[i % len(n32)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, _ = graphs.train(pb)
-            torch.cuda.synchronize()
-            graph_s.append(time.perf_counter() - t0)
-            rows.append({
-                "stage": f"g{2 if bary else 1}",
-                "batch": _digest(*(getattr(pb, f) for f in ("z", "pos", "atom_mask", "y"))),
-                "loss": struct.pack("<f", float(loss)).hex(),
-                "grads": {k: _digest(g.cpu().numpy()) for k, g in zip(names, graphs.grads)
-                          if g is not None},
-                "weights": {k: _digest(p.detach().cpu().numpy())
-                            for k, p in model.named_parameters()},
-            })
+        n32 = [r for r in records if r.num_atoms <= 32]
+        stream = [n32[i % len(n32)] for i in range(DET_GRAPH_STEPS * batch_size)]
+        with step_batches(stream, settings, 32, graphs) as staged:
+            for pb in staged:
+                digest = _digest(*(getattr(pb, f) for f in ("z", "pos", "atom_mask", "y")))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = graphs.train(pb)
+                torch.cuda.synchronize()
+                graph_s.append(time.perf_counter() - t0)
+                rows.append({
+                    "stage": f"g{2 if bary else 1}",
+                    "batch": digest,
+                    "loss": struct.pack("<f", float(loss)).hex(),
+                    "grads": {k: _digest(g.cpu().numpy()) for k, g in zip(names, graphs.grads)
+                              if g is not None},
+                    "weights": {k: _digest(p.detach().cpu().numpy())
+                                for k, p in model.named_parameters()},
+                })
+        require(graphs.pools, "the determinism worker's graphed steps had no pinned slots")
         require(sum(s.graph is not None for s in graphs.steps.values()) == 1,
                 "the determinism worker captured no graph")
     Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps, "graph_step_s": graph_s}))
@@ -1311,6 +1554,7 @@ def main() -> int:
     stage_rows["runner"] = phase_runner(device, card)
     stage_rows["classification"] = phase_classification(device, card)
     stage_rows["graphs"] = phase_graphs(device, card)
+    stage_rows["pipeline"] = phase_pipeline(device, card)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):

@@ -1,16 +1,22 @@
-"""Host batch iterators for the epoch loop.
+"""Host data loader: batch packing and background prefetch.
 
-Port of the part of ``conan_fgw_tpu/data/loader.py`` that the runner
-reaches without prefetch: molecules grouped by atom-count bucket, packed
-with the numpy packer (``bucketed_batches``, with ``bucket_order`` to align
-per-record outputs), and plain sequential batches (``batches``, the LR
-finder's). The prefetching loader and the native packer come later.
+Port of ``conan_fgw_tpu/data/loader.py``. Batches are packed with the
+native C++ packer (``data/native.py``) unless a caller passes another
+``pack`` (the numpy ``packing.pack_batch``, or a packer that writes into
+pinned host memory, ``train/graphs.py::StepGraphs.pack``), and prefetched
+on a background thread so that packing overlaps the device's steps. The
+order is the input's (the reference's loaders do not shuffle): the JAX
+package's unshuffled order.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+import contextlib
+import queue
+import threading
+from typing import Callable, Iterator, Sequence
 
+from conan_fgw_tpu_torch.data.native import pack_batch_native
 from conan_fgw_tpu_torch.data.packing import (
     DEFAULT_BUCKETS,
     MoleculeRecord,
@@ -19,13 +25,22 @@ from conan_fgw_tpu_torch.data.packing import (
     pack_batch,
 )
 
+DEPTH = 2  # batches a Prefetcher's queue holds ahead of its consumer
+_DONE = object()  # the end of a prefetch queue
 
-def batches(records: Sequence[MoleculeRecord], batch_size: int,
-            max_atoms: int) -> Iterator[PackedBatch]:
+
+def pack(records: Sequence[MoleculeRecord], *, native: bool = True, **kw) -> PackedBatch:
+    """One padded batch: the native packer, or with ``native=False`` the
+    numpy one (byte for byte the same)."""
+    return (pack_batch_native if native else pack_batch)(records, **kw)
+
+
+def batches(records: Sequence[MoleculeRecord], batch_size: int, max_atoms: int, *,
+            pack: Callable = pack) -> Iterator[PackedBatch]:
     """Batches in input order, every one padded to ``max_atoms`` atoms and
     ``batch_size`` molecules."""
     for s in range(0, len(records), batch_size):
-        yield pack_batch(records[s : s + batch_size], max_atoms=max_atoms, batch_size=batch_size)
+        yield pack(list(records[s : s + batch_size]), max_atoms=max_atoms, batch_size=batch_size)
 
 
 def _groups(records: Sequence[MoleculeRecord], buckets) -> dict[int, list[int]]:
@@ -37,19 +52,16 @@ def _groups(records: Sequence[MoleculeRecord], buckets) -> dict[int, list[int]]:
     return groups
 
 
-def bucketed_batches(
-    records: Sequence[MoleculeRecord],
-    batch_size: int,
-    buckets=DEFAULT_BUCKETS,
-) -> Iterator[PackedBatch]:
-    """Atom-count-bucketed batching in input order (the reference's loaders
-    do not shuffle): group molecules by padded size, groups in first-seen
-    order, then emit full-width batches (the last of each group padded via
-    ``mol_mask``). A bucket's batches come one after another."""
+def bucketed_batches(records: Sequence[MoleculeRecord], batch_size: int,
+                     buckets=DEFAULT_BUCKETS, *, pack: Callable = pack) -> Iterator[PackedBatch]:
+    """Atom-count-bucketed batching in input order: group molecules by
+    padded size, groups in first-seen order, then emit full-width batches
+    (the last of each group padded via ``mol_mask``). A bucket's batches
+    come one after another."""
     for b, idx in _groups(records, buckets).items():
         for s in range(0, len(idx), batch_size):
-            chunk = [records[i] for i in idx[s : s + batch_size]]
-            yield pack_batch(chunk, max_atoms=b, batch_size=batch_size)
+            yield pack([records[i] for i in idx[s : s + batch_size]], max_atoms=b,
+                       batch_size=batch_size)
 
 
 def bucket_order(records: Sequence[MoleculeRecord], buckets=DEFAULT_BUCKETS) -> list[int]:
@@ -57,3 +69,62 @@ def bucket_order(records: Sequence[MoleculeRecord], buckets=DEFAULT_BUCKETS) -> 
     per-record outputs (predictions, embeddings) with their input records
     reindex through this."""
     return [i for idx in _groups(records, buckets).values() for i in idx]
+
+
+class Prefetcher:
+    """Wrap a batch iterator with a ``DEPTH``-deep background prefetch queue.
+
+    The thread runs ``iterator``; an exception there is re-raised in the
+    consumer. ``close()`` stops the thread and waits for it: iterating to
+    the end, or leaving the iteration early (``break``, an exception, a
+    generator closed), calls it. The thread checks its stop flag after each
+    put, and ``close`` empties the queue, so a thread blocked on the full
+    queue gets its put through and ends."""
+
+    def __init__(self, iterator: Iterator):
+        self._queue: queue.Queue = queue.Queue(maxsize=DEPTH)
+        self._stop = threading.Event()
+        self._err: BaseException | None = None
+        self._thread = threading.Thread(target=self._fill, args=(iterator,), daemon=True)
+        self._thread.start()
+
+    def _fill(self, iterator):
+        try:
+            for item in iterator:
+                self._queue.put(item)
+                if self._stop.is_set():
+                    return
+        except BaseException as e:  # propagate to the consumer
+            self._err = e
+        self._queue.put(_DONE)
+
+    def __iter__(self):
+        try:
+            while True:
+                item = self._queue.get()
+                if item is _DONE:
+                    if self._err is not None:
+                        raise self._err
+                    return
+                yield item
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the thread and wait for it to end. After the stop flag is
+        set the thread makes at most one more put, which the emptied queue
+        takes without blocking."""
+        self._stop.set()
+        with contextlib.suppress(queue.Empty):
+            while True:
+                self._queue.get_nowait()
+        self._thread.join()
+
+
+def prefetched_batches(records, batch_size, max_atoms, *, pack: Callable = pack) -> Prefetcher:
+    return Prefetcher(batches(records, batch_size, max_atoms, pack=pack))
+
+
+def prefetched_bucketed_batches(records, batch_size, *, buckets=DEFAULT_BUCKETS,
+                                pack: Callable = pack) -> Prefetcher:
+    return Prefetcher(bucketed_batches(records, batch_size, buckets, pack=pack))

@@ -82,6 +82,22 @@ class PackedBatch:
         })
 
 
+def batch_layout(batch_size: int, num_conformers: int, max_atoms: int) -> dict:
+    """``{field: (shape, dtype)}`` of a ``PackedBatch`` of B molecules, K
+    conformers and N atoms, in field order."""
+    B, K, N = batch_size, num_conformers, max_atoms
+    return {
+        "z": ((B, K, N), np.int32),
+        "pos": ((B, K, N, 3), np.float32),
+        "atom_mask": ((B, N), np.bool_),
+        "x2d": ((B, N, NUM_ATOM_FEATURES), np.int32),
+        "bond_adj": ((B, N, N), np.bool_),
+        "bond_attr": ((B, N, N, NUM_BOND_FEATURES), np.float32),
+        "y": ((B,), np.float32),
+        "mol_mask": ((B,), np.bool_),
+    }
+
+
 def bucket_for(num_atoms: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
     for b in buckets:
         if num_atoms <= b:

@@ -27,8 +27,18 @@ tensor). ``RunCheckpointer.restore_state`` replaces Adam's state tensors,
 so it must run before the first capture, as ``fit`` does. A capture or
 replay that fails raises; nothing falls back to the eager step on the card.
 
+Batches reach the static buffers from pinned host memory
+(``PinnedSlots``): ``StepGraphs.stage`` readies a small pool of pinned
+batches per shape before a pass over the data, the prefetch thread packs
+each batch natively into a free one (``StepGraphs.pack``), and ``_run``
+copies it with ``non_blocking`` copies on the current stream, so the host
+neither packs nor waits for the stream on the step's path. The static
+buffers stay single: stream order serialises a copy, the replay that
+reads it and the next copy. A batch that is not a slot's (a plain numpy
+batch) is copied synchronously.
+
 On the CPU the same object runs the step eagerly through the same static
-buffers: there are no graphs there.
+buffers: there are no graphs and no pinned slots there.
 """
 
 from __future__ import annotations
@@ -36,14 +46,28 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import queue
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-from conan_fgw_tpu_torch.data.packing import PackedBatch
+from conan_fgw_tpu_torch.data.loader import DEPTH
+from conan_fgw_tpu_torch.data.native import pack_batch_native
+from conan_fgw_tpu_torch.data.packing import (
+    MoleculeRecord,
+    PackedBatch,
+    batch_layout,
+    bucket_for,
+)
 from conan_fgw_tpu_torch.ops.cuda import launches
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PackedBatch))
+# pinned host batches a pass over the data may hold besides the copies in
+# flight: the prefetch queue's DEPTH, the one the consumer holds before its
+# copy, and the one being packed
+HELD = DEPTH + 2
+SLOTS = HELD + 2  # per shape: two copies may be in flight
 
 
 class LaunchReplays:
@@ -71,10 +95,38 @@ class LaunchReplays:
         self.replays += 1
 
 
+def flat_batch(layout: dict, **empty_kw) -> tuple[torch.Tensor, PackedBatch]:
+    """One uint8 buffer (``torch.empty(..., **empty_kw)``) holding every
+    field of a batch of ``layout`` (``{field: (shape, numpy dtype)}``),
+    each at a 64-byte-aligned offset, and the ``PackedBatch`` of its typed
+    views: a whole batch moves between two such buffers in one copy."""
+    spans, total = {}, 0
+    for name, (shape, dtype) in layout.items():
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        spans[name] = slice(total, total + nbytes)
+        total += -(-nbytes // 64) * 64
+    flat = torch.empty(total, dtype=torch.uint8, **empty_kw)
+    views = {}
+    for name, (shape, dtype) in layout.items():
+        typed = torch.from_numpy(np.empty(0, dtype)).dtype
+        views[name] = flat[spans[name]].view(typed).view(shape)
+    return flat, PackedBatch(**views)
+
+
+def host_batch(layout: dict, pin: bool) -> tuple[torch.Tensor, PackedBatch]:
+    """A flat host buffer (``flat_batch``, pinned with ``pin``) and the
+    ``PackedBatch`` of numpy views of it that a packer fills (bool stays
+    bool: the native packer writes through a uint8 view of it)."""
+    flat, views = flat_batch(layout, pin_memory=pin)
+    return flat, PackedBatch(**{name: getattr(views, name).numpy() for name in _FIELDS})
+
+
 @dataclasses.dataclass
 class _Step:
-    """One shape's static input buffers, and its graph once captured."""
+    """One shape's static input buffers (views of one flat device buffer),
+    and its graph once captured."""
 
+    flat: torch.Tensor
     batch: PackedBatch
     warm: bool = False
     graph: torch.cuda.CUDAGraph | None = None
@@ -84,16 +136,81 @@ class _Step:
 
     @classmethod
     def like(cls, pb: PackedBatch, device: torch.device) -> "_Step":
-        return cls(PackedBatch(**{
-            name: torch.empty(getattr(pb, name).shape, device=device,
-                              dtype=torch.from_numpy(getattr(pb, name)).dtype)
-            for name in _FIELDS
-        }))
+        return cls(*flat_batch(batch_layout(*pb.z.shape), device=device))
 
     def load(self, pb: PackedBatch) -> None:
-        """Copy the host batch ``pb`` into the static buffers."""
+        """Copy the host batch ``pb`` into the static buffers (from
+        pageable memory, so the copy waits for the stream)."""
         for name in _FIELDS:
             getattr(self.batch, name).copy_(torch.from_numpy(getattr(pb, name)))
+
+
+class PinnedSlots:
+    """A pool of ``n`` host batches of one shape (pinned with ``pin``),
+    reused from pass to pass.
+
+    A packer takes a free slot's batch (``acquire``, any thread), packs
+    into its numpy views and hands it on. The main thread copies it to the
+    device (``stage``) and records an event after the copy; the slot is
+    free again only once that event has completed, so a packer never
+    writes bytes still in flight. Only the main thread records, queries or
+    waits on events: it frees the slots whose copies have landed at each
+    ``stage``, and waits for the oldest copy while more than ``n - HELD``
+    are in flight. A pass holds at most ``HELD`` slots besides those, so a
+    packer always finds a free one and never waits."""
+
+    def __init__(self, layout: dict, n: int, pin: bool):
+        if n <= HELD:
+            raise ValueError(f"{n} pinned slots: a pass may hold {HELD} besides its copies")
+        self.limit = n - HELD  # copies in flight
+        self.flats, self.batches = map(list, zip(*(host_batch(layout, pin) for _ in range(n))))
+        self._index = {id(b): i for i, b in enumerate(self.batches)}
+        # each slot's event, recorded after its copy
+        self._events = [torch.cuda.Event() for _ in range(n)]
+        self._in_flight: collections.deque = collections.deque()  # (slot, event), oldest first
+        self.reset()
+
+    def owns(self, pb: PackedBatch) -> bool:
+        return id(pb) in self._index
+
+    def acquire(self) -> PackedBatch:
+        """A free slot's batch (any thread, without waiting)."""
+        try:
+            return self.batches[self._free.get_nowait()]
+        except queue.Empty:
+            raise RuntimeError(f"no free pinned slot of {len(self.batches)}: the pass holds"
+                               f" more than {HELD} besides its copies in flight") from None
+
+    def stage(self, pb: PackedBatch, dst: torch.Tensor) -> None:
+        """Copy the slot batch ``pb`` into the flat device buffer ``dst``
+        (of the same layout) on the current stream, in one copy, without
+        waiting for it (main thread)."""
+        i = self._index[id(pb)]
+        dst.copy_(self.flats[i], non_blocking=True)
+        event = self._events[i]
+        event.record()
+        self._in_flight.append((i, event))
+        self.reclaim(self.limit)
+
+    def reclaim(self, limit: int) -> None:
+        """Free the slots whose copies have landed, oldest first, waiting
+        for copies while more than ``limit`` are in flight (main thread)."""
+        while self._in_flight:
+            i, event = self._in_flight[0]
+            if len(self._in_flight) > limit:
+                event.synchronize()
+            elif not event.query():
+                return
+            self._in_flight.popleft()
+            self._free.put(i)
+
+    def reset(self) -> None:
+        """Wait for every copy in flight and free every slot, for a new
+        pass (main thread; no packer may be running)."""
+        self.reclaim(0)
+        self._free: queue.Queue = queue.Queue()
+        for i in range(len(self.batches)):
+            self._free.put(i)
 
 
 class StepGraphs:
@@ -104,7 +221,9 @@ class StepGraphs:
     (``train/loop.py::step_graphs`` binds them to a model, its optimizer
     and the settings). ``params`` are the model's parameters.
     ``train(pb)``/``eval(pb)`` take a host ``PackedBatch`` and return the
-    step's outputs as device tensors of their own."""
+    step's outputs as device tensors of their own. Before a pass over the
+    data, ``stage`` readies the pinned slots of its batch shapes and
+    returns ``pack``, which packs a batch into one of them."""
 
     def __init__(self, train_fn: Callable, eval_fn: Callable,
                  params: Sequence[torch.nn.Parameter], device):
@@ -117,6 +236,35 @@ class StepGraphs:
         # where it had none): after a replay they are the graph's static
         # tensors, which ``p.grad`` may no longer point to
         self.grads: list = []
+        # pinned host slots per batch shape (B, K, N); the CPU has none
+        self.slots = SLOTS if self.graphed else 0
+        self.pools: dict[tuple, PinnedSlots] = {}
+
+    def stage(self, records: Sequence[MoleculeRecord], batch_size: int,
+              buckets: Sequence[int]) -> Callable | None:
+        """Ready the pinned slots of every batch shape that ``records``
+        reach in ``buckets``, for one pass over them (main thread, no
+        packer running): allocate a shape's pool the first time, wait for
+        copies still in flight and free every slot. Returns ``pack``, or
+        None where there are no slots."""
+        if not self.slots or not records:
+            return None
+        K = records[0].num_conformers
+        for n in sorted({bucket_for(r.num_atoms, buckets) for r in records}):
+            if (batch_size, K, n) not in self.pools:
+                self.pools[(batch_size, K, n)] = PinnedSlots(
+                    batch_layout(batch_size, K, n), self.slots, pin=self.device.type == "cuda")
+        for pool in self.pools.values():
+            pool.reset()
+        return self.pack
+
+    def pack(self, records: Sequence[MoleculeRecord], *, max_atoms: int,
+             batch_size: int) -> PackedBatch:
+        """Pack ``records`` natively into a free pinned slot of their
+        shape (any thread)."""
+        pool = self.pools[(batch_size, records[0].num_conformers, max_atoms)]
+        return pack_batch_native(records, max_atoms=max_atoms, batch_size=batch_size,
+                                 out=pool.acquire())
 
     def train(self, pb: PackedBatch) -> tuple:
         return self._run("train", pb)
@@ -129,7 +277,7 @@ class StepGraphs:
         step = self.steps.get(key)
         if step is None:
             step = self.steps[key] = _Step.like(pb, self.device)
-        step.load(pb)
+        self._load(step, pb)
         fn = self.fns[kind]
         if not self.graphed:
             out = fn(step.batch)
@@ -145,8 +293,17 @@ class StepGraphs:
             self.grads = step.grads if step.graph is not None else [p.grad for p in self.params]
         return out
 
+    def _load(self, step: _Step, pb: PackedBatch) -> None:
+        """Stage a slot batch without waiting; copy any other batch."""
+        pool = self.pools.get(pb.z.shape)
+        if pool is not None and pool.owns(pb):
+            pool.stage(pb, step.flat)
+        else:
+            step.load(pb)
+
     def _warm_up(self, step: _Step, fn: Callable) -> tuple:
-        """The shape's first batch, eagerly on a side stream."""
+        """The shape's first batch, eagerly on a side stream, which waits
+        for the current stream's work: the batch's copy too."""
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -158,7 +315,9 @@ class StepGraphs:
 
     def _capture(self, step: _Step, fn: Callable, kind: str) -> None:
         """Capture the step into a graph of its own memory pool; its first
-        replay follows."""
+        replay follows. The batch's copy was issued before, and entering
+        ``torch.cuda.graph`` synchronises the device: the copy lands before
+        the capture and is never recorded into the graph."""
         graph = torch.cuda.CUDAGraph()
         with step.counts.capturing(), torch.cuda.graph(graph):
             step.out = fn(step.batch)

@@ -17,22 +17,31 @@ start. ``fit``'s train and eval steps go through
 ``train/graphs.py::StepGraphs``, the counterpart of the JAX package's
 ``scan_chunk`` training: on the card each bucket shape's whole step is one
 CUDA graph, replayed once per batch, whatever a config's ``scan_chunk``.
+Their batches come through ``batch_iterator``, as the JAX package's do:
+packed natively on a prefetch thread, on the card straight into
+``StepGraphs``' pinned slots.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
 import logging
 import time
-from typing import Callable, Sequence
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
-from conan_fgw_tpu_torch.data.loader import bucketed_batches
-from conan_fgw_tpu_torch.data.packing import DEFAULT_BUCKETS, MoleculeRecord, bucket_for
+from conan_fgw_tpu_torch.data import loader as loader_lib
+from conan_fgw_tpu_torch.data.packing import (
+    DEFAULT_BUCKETS,
+    MoleculeRecord,
+    PackedBatch,
+    bucket_for,
+)
 from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.train import metrics as metrics_lib
 from conan_fgw_tpu_torch.train.graphs import StepGraphs
@@ -166,6 +175,46 @@ def step_graphs(model, optimizer, settings: TrainSettings, device) -> StepGraphs
                       model.parameters(), device)
 
 
+def batch_iterator(
+    records: Sequence[MoleculeRecord],
+    batch_size: int,
+    max_atoms: int,
+    *,
+    prefetch: bool = True,
+    bucketed: bool = False,
+    pack: Callable = loader_lib.pack,
+) -> Iterable[PackedBatch]:
+    """The JAX package's ``batch_iterator`` (unshuffled): bucketed or
+    sequential batches, prefetched on a background thread unless
+    ``prefetch=False``. ``pack`` packs each batch (by default natively)."""
+    if bucketed:
+        buckets = bucket_boundaries(max_atoms)
+        if prefetch:
+            return loader_lib.prefetched_bucketed_batches(records, batch_size, buckets=buckets,
+                                                          pack=pack)
+        return loader_lib.bucketed_batches(records, batch_size, buckets, pack=pack)
+    if prefetch:
+        return loader_lib.prefetched_batches(records, batch_size, max_atoms, pack=pack)
+    return loader_lib.batches(records, batch_size, max_atoms, pack=pack)
+
+
+@contextlib.contextmanager
+def step_batches(records, settings: TrainSettings, max_atoms: int, graphs=None, *,
+                 prefetch: bool = True, native: bool = True):
+    """Bucketed ``batch_iterator`` over ``records`` at ``settings``' batch
+    size for one pass of steps, closed on exit (its prefetch thread ends,
+    also when the pass stops early). With ``native`` the native packer
+    packs, into ``graphs``' pinned slots where it has them
+    (``StepGraphs.stage``); otherwise the numpy packer."""
+    pack = functools.partial(loader_lib.pack, native=native)
+    if native and graphs is not None:
+        pack = graphs.stage(records, settings.batch_size, bucket_boundaries(max_atoms)) or pack
+    it = batch_iterator(records, settings.batch_size, max_atoms, prefetch=prefetch,
+                        bucketed=True, pack=pack)
+    with contextlib.closing(it):
+        yield it
+
+
 def bucket_boundaries(max_atoms: int) -> tuple:
     """Bucket ladder capped at ``max_atoms`` (itself always a boundary)."""
     return tuple(b for b in DEFAULT_BUCKETS if b < max_atoms) + (max_atoms,)
@@ -175,19 +224,26 @@ def dataset_max_atoms(records: Sequence[MoleculeRecord]) -> int:
     return bucket_for(max(r.num_atoms for r in records))
 
 
-def evaluate(model, records, settings: TrainSettings, max_atoms: int, device, graphs=None):
+def evaluate(model, records, settings: TrainSettings, max_atoms: int, device, graphs=None, *,
+             prefetch: bool = True, native: bool = True):
     """Full-split predictions and metrics: ``(metrics, pred, y)``. With
     ``graphs`` (``fit``'s ``StepGraphs``) the eval steps go through it, as
     the JAX package's ``eval_scan``; without (predict's single pass, where
-    a capture would not pay) they run eagerly."""
+    a capture would not pay) they run eagerly. ``prefetch`` and ``native``
+    as in ``step_batches``."""
     preds, ys, losses, divs = [], [], [], []
-    for pb in bucketed_batches(records, settings.batch_size, buckets=bucket_boundaries(max_atoms)):
-        loss, pred, n_div = (graphs.eval(pb) if graphs is not None
-                             else eval_step(model, pb.to(device), settings))
-        losses.append(loss)
-        divs.append(n_div)
-        preds.append((pred.reshape(-1), pb.mol_mask))
-        ys.append(pb.y[pb.mol_mask])
+    with step_batches(records, settings, max_atoms, graphs, prefetch=prefetch,
+                      native=native) as batches:
+        for pb in batches:
+            # copied before the step: a pinned slot's batch is refilled once
+            # its copy to the card has landed
+            mask = pb.mol_mask.copy()
+            ys.append(pb.y[mask])
+            loss, pred, n_div = (graphs.eval(pb) if graphs is not None
+                                 else eval_step(model, pb.to(device), settings))
+            losses.append(loss)
+            divs.append(n_div)
+            preds.append((pred.reshape(-1), mask))
     pred = np.concatenate([p.cpu().numpy()[m] for p, m in preds])
     y = np.concatenate(ys)
     n_div = int(torch.stack(divs).sum())
@@ -238,31 +294,34 @@ class FitResult:
     graphs: StepGraphs
 
 
-def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, buckets, dev):
+def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, max_atoms: int, dev,
+                 **pipeline):
     """One epoch of train steps through ``graphs``: ``(losses, n_divs,
-    timing)``. The buckets' batches come one bucket after another;
-    ``timing`` holds each bucket's steps (``steps_n32``) and host seconds
-    up to a synchronise at its end (``train_s_n32``)."""
+    timing)``. A bucket's batches come one after another; ``timing`` holds
+    each bucket's steps (``steps_n32``) and host seconds up to a
+    synchronise at its end (``train_s_n32``). ``pipeline``:
+    ``step_batches``' ``prefetch`` and ``native``."""
     losses, divs, timing = [], [], {}
-    batches = bucketed_batches(records, settings.batch_size, buckets=buckets)
-    for n, group in itertools.groupby(batches, key=lambda pb: pb.max_atoms):
-        t0, steps = time.perf_counter(), 0
-        for pb in group:
-            loss, n_div = graphs.train(pb)
-            losses.append(loss)
-            divs.append(n_div)
-            steps += 1
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        timing[f"steps_n{n}"] = steps
-        timing[f"train_s_n{n}"] = time.perf_counter() - t0
+    with step_batches(records, settings, max_atoms, graphs, **pipeline) as batches:
+        for n, group in itertools.groupby(batches, key=lambda pb: pb.max_atoms):
+            t0, steps = time.perf_counter(), 0
+            for pb in group:
+                loss, n_div = graphs.train(pb)
+                losses.append(loss)
+                divs.append(n_div)
+                steps += 1
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timing[f"steps_n{n}"] = steps
+            timing[f"train_s_n{n}"] = time.perf_counter() - t0
     return losses, divs, timing
 
 
 def fit(settings: TrainSettings,
         train_records: Sequence[MoleculeRecord] | Callable[[int], Sequence[MoleculeRecord]],
         val_records: Sequence[MoleculeRecord], *, model=None, device="cuda",
-        checkpointer=None, resume: bool = False) -> FitResult:
+        checkpointer=None, resume: bool = False, prefetch: bool = True,
+        native: bool = True) -> FitResult:
     """Epoch loop with plateau LR, early stopping on ``val_loss`` and
     best-checkpoint tracking on ``settings.monitor``.
 
@@ -282,7 +341,10 @@ def fit(settings: TrainSettings,
     same by bucket (``steps_n32``, ``train_s_n32``, ...).
 
     The steps go through one ``StepGraphs``, created after a resume has
-    restored Adam's state; it is returned in ``FitResult.graphs``.
+    restored Adam's state; it is returned in ``FitResult.graphs``. Their
+    batches are packed natively on a prefetch thread; ``prefetch=False``
+    packs on the calling thread, ``native=False`` with the numpy packer
+    (byte for byte the same batches).
     """
     dev = resolve_device(device)
     if model is None:
@@ -293,7 +355,6 @@ def fit(settings: TrainSettings,
     optimizer = make_optimizer(model, settings)
     epoch_records = train_records(0) if callable(train_records) else train_records
     max_atoms = settings.max_atoms or dataset_max_atoms(list(epoch_records) + list(val_records))
-    buckets = bucket_boundaries(max_atoms)
     plateau = metrics_lib.ReduceLROnPlateau(
         settings.learning_rate, settings.plateau_factor, settings.plateau_patience
     )
@@ -325,14 +386,16 @@ def fit(settings: TrainSettings,
             # keyed on the epoch, so a resumed run redraws any epoch's subsets
             epoch_records = train_records(epoch)
         t_train = time.perf_counter()
-        losses, divs, timing = _train_epoch(graphs, epoch_records, settings, buckets, dev)
+        losses, divs, timing = _train_epoch(graphs, epoch_records, settings, max_atoms, dev,
+                                            prefetch=prefetch, native=native)
         train_s = time.perf_counter() - t_train
         train_loss = float(torch.stack(losses).mean())
         epoch_divs = int(torch.stack(divs).sum())
         if epoch_divs:
             log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                         "in epoch %d", epoch_divs, epoch)
-        val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev, graphs)
+        val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev, graphs,
+                                     prefetch=prefetch, native=native)
         val_loss = val_metrics["loss"]
         row = {
             "epoch": epoch,

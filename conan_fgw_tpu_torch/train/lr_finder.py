@@ -14,7 +14,6 @@ import copy
 
 import numpy as np
 
-from conan_fgw_tpu_torch.data.loader import batches
 from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.train import loop as loop_lib
 
@@ -29,7 +28,8 @@ def lr_find(model, settings, records, *, min_lr: float = 1e-6, max_lr: float = 1
     def batch_stream():
         """Endless stream over the dataset, one device batch at a time."""
         while True:
-            for pb in batches(records, settings.batch_size, max_atoms):
+            for pb in loop_lib.batch_iterator(records, settings.batch_size, max_atoms,
+                                              prefetch=False):
                 yield pb.to(dev)
 
     trial = copy.deepcopy(model).to(dev)

@@ -14,13 +14,14 @@ visualisation workflow (``EmbeddingsVisualizationBaryCenter``,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 
 import numpy as np
 import torch
 
-from conan_fgw_tpu_torch.data.loader import bucket_order, bucketed_batches
+from conan_fgw_tpu_torch.data.loader import bucket_order
 from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.train import loop as loop_lib
 from conan_fgw_tpu_torch.train import metrics as metrics_lib
@@ -46,8 +47,9 @@ def export_embeddings(model, records, settings, max_atoms, out_path, device="cud
     buckets = loop_lib.bucket_boundaries(max_atoms)
     keys = ("x3d", "x_bary", "x_cov")
     parts = {k: [] for k in keys}
-    with torch.no_grad():
-        for pb in bucketed_batches(records, settings.batch_size, buckets=buckets):
+    batches = loop_lib.batch_iterator(records, settings.batch_size, max_atoms, bucketed=True)
+    with torch.no_grad(), contextlib.closing(batches):
+        for pb in batches:
             out = model.embeddings(pb.to(dev))
             for k in keys:
                 parts[k].append(out[k].cpu().numpy()[pb.mol_mask])

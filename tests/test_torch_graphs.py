@@ -111,6 +111,9 @@ class _EagerSteps:
         self.train = lambda pb: tloop.train_step(model, optimizer, pb.to(device), settings)
         self.eval = lambda pb: tloop.eval_step(model, pb.to(device), settings)
 
+    def stage(self, records, batch_size, buckets):
+        return None  # no pinned slots: batches come from the default packer
+
 
 @pytest.mark.parametrize("bary", [False, True])
 def test_fit_through_step_graphs_is_bit_identical_to_eager_steps(bary, monkeypatch):
