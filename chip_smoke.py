@@ -101,9 +101,25 @@ Phases (any failure exits non-zero and prints no result line):
    pinned buffer; then sol250's stage 1 through ``fit`` for 2 epochs from
    the same seeded model, through the pipeline and with ``prefetch=False,
    native=False``: losses and weights must agree bit for bit.
+10. The ViSNet and DimeNet paths (``config/visnet/sol250_5*``,
+   ``config/dimenet/sol250_5*``; neither launches K1 or K2). K3 against its
+   plain version at DimeNet's alpha 0.5 on a fixed structure (the first
+   conformer's cutoff-5 graph as C1 at every outer iteration), at N = 32
+   and N = 64, first and second outer iteration, within phase 2's gate.
+   Then per backbone: three eager steps of the runner's model at each
+   config's batch on sol250's molecules of each bucket, stage 1 and 2, for
+   ms per step and the peak memory; the runner's ``main`` for both stages
+   (2 epochs each) with phase 5's checks, except that K1 and K2 must not
+   launch and K3 must launch five times a stage-2 forward, and the peak
+   memory of each stage; ``predict.main`` on stage 2's ``best`` against the
+   runner's test RMSE; one stage-2 step on the card against the CPU (phase
+   4's gates) at the stage-2 config's batch; and phase 8's case for stage 2
+   at N = 32 at that batch (24 for ViSNet, 16 for DimeNet), with its timed
+   turns and the profile of three graphed steps.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
-   stage-2 steps on ``data/sol250``, eagerly and then through CUDA graphs
-   fed by the host pipeline, and must give bit-identical batches, losses, gradients and weights; a
+   stage-2 steps on ``data/sol250``, and stage-2 steps of the seeded ViSNet
+   and DimeNet models, eagerly and then through CUDA graphs fed by the host
+   pipeline, and must give bit-identical batches, losses, gradients and weights; a
    third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. It runs last.
@@ -376,7 +392,7 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS):
         rows[name][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=tc, bound_f32=f32)
 
 
-def fgw_problem(pos, mask, gen, masked=False):
+def fgw_problem(pos, mask, gen, masked=False, cutoff=CUTOFF):
     """K3's inputs at the barycenter's first outer iteration: ``(Ms, C1, C2,
     ps, qs, T0)`` over ``S = B*K`` solves, with the conformer graphs' 0/1
     neighbour structure as C2 and the first conformer's as C1, random
@@ -392,7 +408,7 @@ def fgw_problem(pos, mask, gen, masked=False):
 
     dev = pos.device
     S, N, _ = pos.shape
-    nbr = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, CAP)
+    nbr = radius_graph_mask(pairwise_distances(pos), mask, cutoff, CAP)
     Cs = nbr.transpose(-1, -2).to(torch.float32).reshape(-1, K, N, N)
     Ys = (torch.rand(S // K, K, N, F // 2, generator=gen) * 1.9 + 0.1).to(dev)
     p = torch.full((S // K, N), 1.0 / N, device=dev)
@@ -409,12 +425,13 @@ def fgw_problem(pos, mask, gen, masked=False):
     return (Ms, C1, C2, ps, qs, T0), Ys, Cs
 
 
-def second_outer_inputs(args, Ys, Cs):
+def second_outer_inputs(args, Ys, Cs, kw=FGW_KW, fixed_structure=False):
     """K3's inputs at the barycenter's second outer iteration: one plain
     coupling call on the first iteration's ``args``, then the feature and
     structure update of ``ops/fgw/barycenter.py`` (uniform weights and
     marginals): M from the updated features, the dense updated structure as
-    C1, and the first iteration's plans as T0."""
+    C1 (with ``fixed_structure``, the first iteration's C1 again), and the
+    first iteration's plans as T0."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.fgw import fgw_couplings_plain
@@ -422,14 +439,17 @@ def second_outer_inputs(args, Ys, Cs):
 
     _, _, C2, ps, qs, _ = args
     Bm, Km, N, _ = Cs.shape
-    T, _ = fgw_couplings_plain(*args, **FGW_KW)
+    T, _ = fgw_couplings_plain(*args, **kw)
     T = T.reshape(Bm, Km, N, N)
     p = ps.reshape(Bm, Km, N)[:, 0]
     lambdas = torch.full((Bm, Km), 1.0 / Km, device=Ys.device)
     Y = (1.0 / p)[:, :, None] * torch.einsum("bk,bknm,bkmd->bnd", lambdas, T, Ys)
     Ms = sqdist(Y[:, None], Ys).reshape(-1, N, N).contiguous()
-    C = torch.einsum("bk,bknm,bkmj,bklj->bnl", lambdas, T, Cs, T) / (p[:, :, None] * p[:, None, :])
-    C1 = C[:, None].expand(Bm, Km, N, N).reshape(-1, N, N).contiguous()
+    if fixed_structure:
+        C1 = args[1]
+    else:
+        C = torch.einsum("bk,bknm,bkmj,bklj->bnl", lambdas, T, Cs, T) / (p[:, :, None] * p[:, None, :])
+        C1 = C[:, None].expand(Bm, Km, N, N).reshape(-1, N, N).contiguous()
     return Ms, C1, C2, ps, qs, T.reshape(-1, N, N).contiguous()
 
 
@@ -648,15 +668,15 @@ def profile_steps(label, step, steps: int = 3):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_parity(model, device):
+def phase_parity(model, device, batch=B, label="parity"):
     import torch
 
     from conan_fgw_tpu_torch.data.packing import pack_batch
     from conan_fgw_tpu_torch.data.synthetic import random_dataset
     from conan_fgw_tpu_torch.train.loop import masked_mse
 
-    recs = random_dataset(SEED + 3, B, num_conformers=K, heavy_range=(8, 10), device=device)
-    pb = pack_batch(recs, max_atoms=32, batch_size=B)
+    recs = random_dataset(SEED + 3, batch, num_conformers=K, heavy_range=(8, 10), device=device)
+    pb = pack_batch(recs, max_atoms=32, batch_size=batch)
     results = {}
     for name, m, dev in (("kernel", model, device), ("plain", copy.deepcopy(model).to("cpu"), "cpu")):
         m.zero_grad(set_to_none=True)
@@ -672,14 +692,15 @@ def phase_parity(model, device):
     rel = {k: abs(nk[k] - np_[k]) / max(np_[k], PARAM_FLOOR * gp) for k in np_}
     worst = max(rel.values())
     for k in sorted(rel, key=rel.get, reverse=True)[:5]:
-        print(f"[parity] {k}: grad norm kernel {nk[k]:.6e} plain {np_[k]:.6e} rel {rel[k]:.3e}")
-    print(f"[parity] loss kernel {lk:.6f} plain {lp:.6f}; grad norm kernel {gk:.6f} plain {gp:.6f};"
+        print(f"[{label}] {k}: grad norm kernel {nk[k]:.6e} plain {np_[k]:.6e} rel {rel[k]:.3e}")
+    print(f"[{label}] loss kernel {lk:.6f} plain {lp:.6f}; grad norm kernel {gk:.6f} plain {gp:.6f};"
           f" worst parameter grad-norm rel err {worst:.3e} (tol {STEP_RTOL}, {PARAM_RTOL})")
-    require(set(nk) == set(np_), "kernel and plain paths differ in which parameters get gradients")
-    require(abs(lk - lp) <= STEP_RTOL * abs(lp), "stage-2 loss disagrees")
-    require(abs(gk - gp) <= STEP_RTOL * gp, "stage-2 gradient norm disagrees")
-    require(worst <= PARAM_RTOL, "a parameter's gradient norm disagrees")
+    require(set(nk) == set(np_), f"{label}: card and CPU differ in which parameters get gradients")
+    require(abs(lk - lp) <= STEP_RTOL * abs(lp), f"{label}: stage-2 loss disagrees")
+    require(abs(gk - gp) <= STEP_RTOL * gp, f"{label}: stage-2 gradient norm disagrees")
+    require(worst <= PARAM_RTOL, f"{label}: a parameter's gradient norm disagrees")
     model.zero_grad(set_to_none=True)
+    return dict(loss_rel=abs(lk - lp) / abs(lp), grad_norm_rel=abs(gk - gp) / gp, worst_param_rel=worst)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -703,8 +724,10 @@ def runner_spies():
     """Count calls of the kernels' plain versions and CUDA-graph captures by
     kind, record the weights each checkpoint restore leaves in the model,
     and count the host pipeline's numpy packs, pageable copies and staged
-    copies from pinned slots: ``(plain_calls, restores, captures, host)``,
-    ``restores`` a list of ``(directory, which, state_dict on the host)``."""
+    copies from pinned slots and the steps it feeds, train and eval
+    (``train_forwards``, ``eval_forwards``): ``(plain_calls, restores,
+    captures, host)``, ``restores`` a list of ``(directory, which,
+    state_dict on the host)``."""
     from conan_fgw_tpu_torch.data import loader
     from conan_fgw_tpu_torch.ops.cuda import cfconv as cfconv_mod
     from conan_fgw_tpu_torch.ops.cuda import fgw as fgw_mod
@@ -716,7 +739,8 @@ def runner_spies():
     host = collections.Counter()
     saved = [(cfconv_mod, "_cfconv_plain"), (fgw_mod, "fgw_couplings_plain"),
              (RunCheckpointer, "restore_params"), (StepGraphs, "_capture"),
-             (loader, "pack_batch"), (graphs_mod._Step, "load"), (graphs_mod.PinnedSlots, "stage")]
+             (loader, "pack_batch"), (graphs_mod._Step, "load"), (graphs_mod.PinnedSlots, "stage"),
+             (StepGraphs, "_run")]
     originals = [getattr(owner, name) for owner, name in saved]
 
     def counted(name, fn):
@@ -748,6 +772,12 @@ def runner_spies():
     loader.pack_batch = host_counted("numpy_pack", originals[4])
     graphs_mod._Step.load = host_counted("pageable_copy", originals[5])
     graphs_mod.PinnedSlots.stage = host_counted("staged_copy", originals[6])
+
+    def run_counted(self, kind, pb):
+        host[f"{kind}_forwards"] += 1
+        return originals[7](self, kind, pb)
+
+    StepGraphs._run = run_counted
     try:
         yield plain_calls, restores, captures, host
     finally:
@@ -776,7 +806,7 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     from conan_fgw_tpu_torch.train import runner
 
     common, tmp, plain_calls, captures, host, device, card = ctx
-    k1, k2, k3 = kernels
+    k1, k2, k3 = kernels  # K1 and K2 None: the path has no cfconv (ViSNet, DimeNet)
     reset_launches()
     captures.clear()
     host.clear()
@@ -804,15 +834,26 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
                 f"runner {label} epoch {r['epoch']} did not run both buckets: {r}")
     require(np.isfinite(summary[f"test_{metric}"]["mean"]), f"runner {label}: test_{metric} not finite")
     new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
-    # fit's steps ran as CUDA graphs; the counts must be the eager path's: K2 three a train step, and every
-    # forward (train or eval) three K1 and, in stage 2, five K3
-    require(grew[k1] >= 3 * new_steps and grew[k1] % 3 == 0, f"runner {label}: K1 launched {grew[k1]}")
-    require(grew[k2] == 3 * new_steps, f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
     others = [k for k in REPLACES if k not in kernels and grew[k]]
-    require(not others, f"runner {label}: kernels of another width launched: {others}")
-    if stage == "conan_fgw":
-        require(3 * grew[k3] == 5 * grew[k1], f"runner {label}: K3 launched {grew[k3]}, K1 {grew[k1]}")
+    require(not others, f"runner {label}: kernels of another width or path launched: {others}")
+    if k1 is None:
+        # ViSNet and DimeNet: no cfconv; five K3 a stage-2 forward, train or eval, eager
+        # or graphed (a graph's capture stands for its first replay)
+        require(host["train_forwards"] == new_steps,
+                f"runner {label}: {host['train_forwards']} train forwards in {new_steps} steps")
+        if stage == "conan_fgw":
+            forwards = host["train_forwards"] + host["eval_forwards"]
+            require(host["eval_forwards"] > 0 and grew[k3] == 5 * forwards,
+                    f"runner {label}: K3 launched {grew[k3]} in {forwards} forwards")
     else:
+        # fit's steps ran as CUDA graphs; the counts must be the eager path's: K2 three a train
+        # step, and every forward (train or eval) three K1 and, in stage 2, five K3
+        require(grew[k1] >= 3 * new_steps and grew[k1] % 3 == 0,
+                f"runner {label}: K1 launched {grew[k1]}")
+        require(grew[k2] == 3 * new_steps, f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
+        if stage == "conan_fgw":
+            require(3 * grew[k3] == 5 * grew[k1], f"runner {label}: K3 launched {grew[k3]}, K1 {grew[k1]}")
+    if stage != "conan_fgw":
         require(grew[k3] == 0, f"runner {label}: K3 launched in stage 1")
     for r in history:
         n64 = r["steps_n64"] / r["train_steps"]
@@ -1044,13 +1085,17 @@ def host_split():
             setattr(owner, name, fn)
 
 
-def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
+def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card, base=None,
+               timed=GRAPH_TIMED):
     """One shape of phase 8: eager steps on pre-packed batches against
     graphed steps fed by the host pipeline (prefetch, native packing into
     pinned slots, non-blocking copies), from identical weights through an lr
     change; the eval graph against eager eval; ms per step in turns (eager,
     graphed, pipelined, serial and back); the pipelined step's host time
-    split; for stage 2 a profile of three graphed steps."""
+    split; for stage 2 a profile of three graphed steps. ``base`` is the
+    model to start from (default: the seeded SchNet model of the case's
+    task); a model without cfconv must launch K3 alone. ``timed`` warmed
+    steps a turn."""
     import dataclasses
 
     import numpy as np
@@ -1059,6 +1104,7 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
     from conan_fgw_tpu_torch.data.loader import batches as host_batches
     from conan_fgw_tpu_torch.data.packing import bucket_for, pack_batch
     from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.models.schnet import SchNet3D
     from conan_fgw_tpu_torch.ops.cuda import launches
     from conan_fgw_tpu_torch.train import loop
 
@@ -1077,7 +1123,9 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
             f"graphs {label}: the batches are not {GRAPH_STEPS} full ones at N={n_atoms}")
     width = dict(task="classification", hidden_channels=512, num_filters=256,
                  num_gaussians=GAUSS_CLS) if classify else {}
-    base = ConanModel(seed=SEED, device=device, **width)
+    if base is None:
+        base = ConanModel(seed=SEED, device=device, **width)
+    schnet = isinstance(base.backbone, SchNet3D)
     settings = loop.TrainSettings(task=width.get("task", "regression"), batch_size=batch,
                                   use_barycenter=bary)
 
@@ -1137,12 +1185,12 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
     require(grew_eval == grew_eager_eval, f"graphs {label}: eval launches {grew_eval} against"
             f" {grew_eager_eval} eager")
 
-    # timing in turns of GRAPH_TIMED warmed steps over the batches: eager
+    # timing in turns of timed warmed steps over the batches: eager
     # and graphed steps on pre-packed batches (pageable copies), pipelined
     # ones through the host pipeline, serial ones packed by numpy on this
     # thread (pageable copies)
-    order = [batches[i % GRAPH_STEPS] for i in range(GRAPH_TIMED)]
-    timed_recs = [r for i in range(GRAPH_TIMED) for r in recs[(i % GRAPH_STEPS) * batch:][:batch]]
+    order = [batches[i % GRAPH_STEPS] for i in range(timed)]
+    timed_recs = [r for i in range(timed) for r in recs[(i % GRAPH_STEPS) * batch:][:batch]]
 
     def eager_turn():
         for pb in order:
@@ -1172,19 +1220,19 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
         t0 = time.perf_counter()
         turn_fns[mode]()
         torch.cuda.synchronize()
-        turns[mode].append(1e3 * (time.perf_counter() - t0) / GRAPH_TIMED)
+        turns[mode].append(1e3 * (time.perf_counter() - t0) / timed)
     # the pipelined step's host time per step, from one more turn
     with host_split() as split:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipelined_turn(split)
         torch.cuda.synchronize()
-        split_turn_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_TIMED
-    per = {k: 1e3 * v / GRAPH_TIMED for k, v in split.items()}
+        split_turn_ms = 1e3 * (time.perf_counter() - t0) / timed
+    per = {k: 1e3 * v / timed for k, v in split.items()}
     per["copy"] = per["stage"] - per["slot_wait"]
     per["replay"] = split_turn_ms - per["queue_wait"] - per["stage"]
     gps = {m: batch * K * 1e3 / min(v) for m, v in turns.items()}
-    print(f"[graphs {label}] ms/step over {GRAPH_TIMED} warmed steps, turns "
+    print(f"[graphs {label}] ms/step over {timed} warmed steps, turns "
           + "/".join(turns) + ", then back: " + "; ".join(
               f"{m} {v[0]:.3f}/{v[1]:.3f}" for m, v in turns.items())
           + f" on {card}; graphs/s " + ", ".join(f"{m} {v:.1f}" for m, v in gps.items()))
@@ -1214,8 +1262,8 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card):
         want = {name: sum(grew.get(k, 0) for k in names) for name, names in PROFILED.items()}
         print(f"[graphs {label}] kernel executions seen by the profiler {seen}, counted by"
               f" the wrappers {want}")
-        require(seen == want and all(seen.values()),
-                f"graphs {label}: the profiler saw {seen}, launches {want}")
+        ran = seen.values() if schnet else [seen["fgw_couplings_kernel"]]
+        require(seen == want and all(ran), f"graphs {label}: the profiler saw {seen}, launches {want}")
         row.update(busy_share=busy, kernels_per_step=per_step)
     del runs, graphs, m_e, m_g, opt_e, opt_g
     torch.cuda.empty_cache()
@@ -1354,6 +1402,152 @@ def phase_pipeline(device, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+# the ViSNet and DimeNet paths: (stage-1 config, stage-2 config) each
+BACKBONES = {"visnet": ("config/visnet/sol250_5.yaml", "config/visnet/sol250_5_bc.yaml"),
+             "dimenet": ("config/dimenet/sol250_5.yaml", "config/dimenet/sol250_5_bc.yaml")}
+# what those paths launch: no cfconv, K3 in stage 2
+BACKBONE_KERNELS = (None, None, "fgw_couplings")
+# DimeNet's barycenter budget: alpha 0.5 with the structure held fixed
+FGW_FIXED_KW = dict(FGW_KW, alpha=0.5)
+MEMORY_STEPS = 3  # eager steps a stage and bucket; the last two are timed
+BACKBONE_TIMED = 10  # warmed steps a timing turn of phase 8's case (steps of 50-110 ms)
+
+
+def check_fgw_fixed(device, rows):
+    """K3 against its plain version at DimeNet's alpha 0.5 on a fixed
+    structure (C1 the first conformer's cutoff-5 graph at every outer
+    iteration) at DimeNet's stage-2 batch of 16 molecules, N=32 and N=64:
+    the first outer iteration and the second (updated M, the first plans
+    as T0, the same C1)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for label, heavy, n_atoms in FGW_SHAPES[:2]:
+        pos, mask = packed_geometry(SEED + 2000 + n_atoms, 16, heavy, n_atoms, device)
+        args, Ys, Cs = fgw_problem(pos, mask, gen, cutoff=5.0)
+        tag = "alpha05" if n_atoms == 32 else f"alpha05-{label}"
+        check_fgw(tag, args, rows, FGW_FIXED_KW)
+        check_fgw(f"{tag}-outer2", second_outer_inputs(args, Ys, Cs, FGW_FIXED_KW,
+                                                      fixed_structure=True), rows, FGW_FIXED_KW)
+
+
+def backbone_memory(name, device, card):
+    """Eager train steps of the runner's model from each config at its own
+    batch on ``data/sol250``'s molecules of one bucket (cycled to fill the
+    batch), stage 1 and 2, N=32 and N=64: ms per step (the last two of
+    ``MEMORY_STEPS``, each ending in a synchronise) and the peak of
+    ``torch.cuda.max_memory_allocated`` from a fresh model on, less what
+    was allocated before it."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import bucket_for, pack_batch
+    from conan_fgw_tpu_torch.train import loop
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import STAGE_BC, STAGE_PRE, build_model, build_settings
+    from conan_fgw_tpu_torch.train.runner import load_datasets
+
+    out = {}
+    for stage, cfg in zip((STAGE_PRE, STAGE_BC), BACKBONES[name]):
+        config = load_config(cfg)
+        settings = build_settings(config, stage)
+        records = load_datasets(config, "data")["train"].records()
+        for n_atoms in (32, 64):
+            pool = [r for r in records if bucket_for(r.num_atoms, (32, 64)) == n_atoms]
+            recs = [pool[i % len(pool)] for i in range(settings.batch_size)]
+            batch = pack_batch(recs, max_atoms=n_atoms, batch_size=settings.batch_size).to(device)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # by earlier phases and the batch
+            model = build_model(config, seed=SEED, device=device)
+            opt = loop.make_optimizer(model, settings)
+            times = []
+            for _ in range(MEMORY_STEPS):
+                t0 = time.perf_counter()
+                loss, _ = loop.train_step(model, opt, batch, settings)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            ms = 1e3 * min(times[1:])
+            require(bool(torch.isfinite(loss)), f"{name} {stage} N={n_atoms}: a non-finite loss")
+            key = f"{'stage 1' if stage == STAGE_PRE else 'stage 2'} N{n_atoms}"
+            print(f"[{name} memory] {key}, batch {settings.batch_size} (G={settings.batch_size * K}):"
+                  f" eager {ms:.2f} ms/step, peak {peak:.2f} GiB allocated (model, Adam and the"
+                  f" step, beyond what was held before) on {card}")
+            out[key] = dict(eager_ms=ms, peak_gib=peak)
+            del model, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_backbones(device, card, rows):
+    """Phase 10: the ViSNet and DimeNet paths. K3 at alpha 0.5 on a fixed
+    structure; then per backbone: eager steps' time and peak memory by
+    stage and bucket; the runner's two stages and predict on
+    ``data/sol250`` (launch counts zeroed before each stage and read after
+    it: no cfconv kernel, K3 in stage 2 only, no plain version, both
+    buckets as CUDA graphs fed by the host pipeline, the warm start bit for
+    bit, predict's RMSE the runner's, and the peak memory of each stage);
+    one stage-2 step on the card against the CPU; and phase 8's case for
+    stage 2 at N=32 at the stage-2 config's batch."""
+    import torch
+
+    from conan_fgw_tpu_torch.train import predict
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import build_model
+
+    check_fgw_fixed(device, rows)
+    out = {}
+    for name, (pre_cfg, bc_cfg) in BACKBONES.items():
+        row = out[name] = {"memory": backbone_memory(name, device, card)}
+        totals = collections.Counter()
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmpname, \
+                runner_spies() as (plain_calls, restores, captures, host):
+            tmp = Path(tmpname)
+            common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                      "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                      "--metrics_dir", str(tmp / "metrics"), "--device", device]
+            ctx = (common, tmp, plain_calls, captures, host, device, card)
+            for stage, src in zip(("conan_fgw_pre", "conan_fgw"), (pre_cfg, bc_cfg)):
+                first_restore = len(restores)
+                cfg = config_copy(src, tmp, RUNNER_EPOCHS)
+                label = f"{name} stage {1 if stage == 'conan_fgw_pre' else 2}"
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                summary, history, grew = runner_stage(label, stage, cfg, ctx,
+                                                      kernels=BACKBONE_KERNELS)
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                print(f"[runner {label}] peak {peak:.2f} GiB allocated beyond what was held before"
+                      f" (both buckets' train and eval graphs with their pools) on {card}")
+                totals.update(grew)
+                row[label] = dict(stage_row(history, summary, "rmse"), peak_gib=peak)
+            check_warm_start(restores, first_restore,
+                             tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+            reported = summary["test_rmse"]["mean"]
+            rmse = run_main(predict.main, ["--config", cfg, "--checkpoint",
+                                           str(tmp / "models" / "smoke" / "0" / "run_conan_fgw:0"),
+                                           "--data_root", ".", "--device", device,
+                                           "--out", str(tmp / "preds.csv")])
+            rel = abs(rmse - reported) / abs(reported)
+            print(f"[runner {name}] predict on stage 2's best: test RMSE {rmse!r}, the runner's"
+                  f" {reported!r}, rel {rel:.3e} (tol {PREDICT_RTOL})")
+            require(rel <= PREDICT_RTOL, f"{name}: predict's test RMSE disagrees with the runner's")
+            require(not plain_calls, f"{name}: plain versions ran: {dict(plain_calls)}")
+        row["launches"] = {k: totals[k] for k in REPLACES}
+        require(row["launches"]["fgw_couplings"] > 0, f"{name}: K3 never launched")
+        config = load_config(bc_cfg)
+        row["parity"] = phase_parity(build_model(config, seed=SEED, device=device), device,
+                                     batch=config.batch_size, label=f"{name} parity")
+        row["graphs"] = graph_case(f"{name} stage 2 N32", False, True, 32, (8, 13),
+                                   config.batch_size, device, card,
+                                   base=build_model(config, seed=SEED, device=device),
+                                   timed=BACKBONE_TIMED)
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- determinism
 DET_STEPS = 3  # stage-1 steps, then as many stage-2 steps, from the same weights
 # graphed steps per stage: the shape's eager warm-up, the capture with its
@@ -1375,16 +1569,18 @@ def _digest(*arrays) -> str:
 def determinism_worker(out_path: str, deterministic: bool) -> int:
     """One fresh process's run of the seeded steps: ``DET_STEPS`` stage-1
     steps at batch 96 and ``DET_STEPS`` stage-2 steps at batch 24 on
-    ``data/sol250``'s first train records, from the seeded flagship model.
-    Writes, per step, the batch's digest, the loss's bits, each gradient's
-    digest before the clip and each weight's digest after the update, to
-    ``out_path`` (JSON). Then, from the seeded model again,
-    ``DET_GRAPH_STEPS`` steps a stage through ``StepGraphs`` on the N=32
-    molecules, their batches through the host pipeline (prefetch, native
-    packing into pinned slots; stages ``g1``, ``g2``), whose gradients are
-    read after the clip from the graph's static tensors. ``deterministic`` runs the eager steps
-    only, under ``torch.use_deterministic_algorithms(True)``, which raises
-    naming an operation that has no deterministic implementation."""
+    ``data/sol250``'s first train records, from the seeded flagship model,
+    then ``DET_STEPS`` stage-2 steps of the runner's seeded ViSNet and
+    DimeNet models at their stage-2 configs' batches. Writes, per step, the
+    batch's digest, the loss's bits, each gradient's digest before the clip
+    and each weight's digest after the update, to ``out_path`` (JSON). Then,
+    from the seeded models again, ``DET_GRAPH_STEPS`` steps a stage through
+    ``StepGraphs`` on the N=32 molecules, their batches through the host
+    pipeline (prefetch, native packing into pinned slots; stages ``g1``,
+    ``g2``, ``gvisnet``, ``gdimenet``), whose gradients are read after the
+    clip from the graph's static tensors. ``deterministic`` runs the eager
+    steps only, under ``torch.use_deterministic_algorithms(True)``, which
+    raises naming an operation that has no deterministic implementation."""
     import os
 
     if deterministic:
@@ -1397,6 +1593,7 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
     from conan_fgw_tpu_torch.data.loader import bucketed_batches
     from conan_fgw_tpu_torch.device import pin_full_f32
     from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.train.config import load_config
     from conan_fgw_tpu_torch.train.loop import (
         TrainSettings,
         clip_by_global_norm_,
@@ -1405,24 +1602,24 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         step_batches,
         step_graphs,
     )
+    from conan_fgw_tpu_torch.train.runner import build_model
 
     pin_full_f32()
     torch.use_deterministic_algorithms(deterministic)
     records = ConformerDataset("train", "data", "sol250", "logS_surrogate", K).records()[:192]
-    model = ConanModel(seed=SEED, device="cuda")
-    rows, t_steps = [], []
-    for bary, batch_size in ((False, 96), (True, 24)):
-        settings = TrainSettings(batch_size=batch_size, use_barycenter=bary)
+    rows, t_steps, graph_s = [], [], []
+
+    def eager_steps(model, settings, stage):
         opt = make_optimizer(model, settings)
-        batches = bucketed_batches(records, batch_size, buckets=(32, 64))
+        batches = bucketed_batches(records, settings.batch_size, buckets=(32, 64))
         for _, pb in zip(range(DET_STEPS), batches):
-            row = {"stage": 2 if bary else 1,
+            row = {"stage": stage,
                    "batch": _digest(*(getattr(pb, f) for f in ("z", "pos", "atom_mask", "y")))}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             batch = pb.to("cuda")
             opt.zero_grad(set_to_none=True)
-            pred, _ = model(batch, use_barycenter=bary)
+            pred, _ = model(batch, use_barycenter=settings.use_barycenter)
             loss = masked_mse(pred, batch)
             loss.backward()
             row["loss"] = struct.pack("<f", float(loss.detach())).hex()
@@ -1434,16 +1631,14 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
             t_steps.append(time.perf_counter() - t0)
             row["weights"] = {k: _digest(p.detach().cpu().numpy()) for k, p in model.named_parameters()}
             rows.append(row)
-    graph_s = []
-    model = ConanModel(seed=SEED, device="cuda")
-    names = [k for k, _ in model.named_parameters()]
-    for bary, batch_size in () if deterministic else ((False, 96), (True, 24)):
+
+    def graphed_steps(model, settings, stage):
         # the N=32 molecules, cycled, through the host pipeline as fit takes
         # them: prefetched, packed natively into pinned slots
-        settings = TrainSettings(batch_size=batch_size, use_barycenter=bary)
+        names = [k for k, _ in model.named_parameters()]
         graphs = step_graphs(model, make_optimizer(model, settings), settings, "cuda")
         n32 = [r for r in records if r.num_atoms <= 32]
-        stream = [n32[i % len(n32)] for i in range(DET_GRAPH_STEPS * batch_size)]
+        stream = [n32[i % len(n32)] for i in range(DET_GRAPH_STEPS * settings.batch_size)]
         with step_batches(stream, settings, 32, graphs) as staged:
             for pb in staged:
                 digest = _digest(*(getattr(pb, f) for f in ("z", "pos", "atom_mask", "y")))
@@ -1453,7 +1648,7 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
                 torch.cuda.synchronize()
                 graph_s.append(time.perf_counter() - t0)
                 rows.append({
-                    "stage": f"g{2 if bary else 1}",
+                    "stage": stage,
                     "batch": digest,
                     "loss": struct.pack("<f", float(loss)).hex(),
                     "grads": {k: _digest(g.cpu().numpy()) for k, g in zip(names, graphs.grads)
@@ -1464,6 +1659,23 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         require(graphs.pools, "the determinism worker's graphed steps had no pinned slots")
         require(sum(s.graph is not None for s in graphs.steps.values()) == 1,
                 "the determinism worker captured no graph")
+
+    schnet_stages = ((False, 96), (True, 24))
+    backbones = {name: load_config(bc_cfg) for name, (_, bc_cfg) in BACKBONES.items()}
+    model = ConanModel(seed=SEED, device="cuda")
+    for bary, batch_size in schnet_stages:
+        eager_steps(model, TrainSettings(batch_size=batch_size, use_barycenter=bary), 2 if bary else 1)
+    for name, config in backbones.items():
+        eager_steps(build_model(config, seed=SEED, device="cuda"),
+                    TrainSettings(batch_size=config.batch_size, use_barycenter=True), name)
+    if not deterministic:
+        model = ConanModel(seed=SEED, device="cuda")
+        for bary, batch_size in schnet_stages:
+            graphed_steps(model, TrainSettings(batch_size=batch_size, use_barycenter=bary),
+                          f"g{2 if bary else 1}")
+        for name, config in backbones.items():
+            graphed_steps(build_model(config, seed=SEED, device="cuda"),
+                          TrainSettings(batch_size=config.batch_size, use_barycenter=True), f"g{name}")
     Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps, "graph_step_s": graph_s}))
     return 0
 
@@ -1514,11 +1726,12 @@ def phase_determinism():
               f" loss {diff['loss']}, gradients {diff['grads'][:8]}, weights {diff['weights'][:8]}")
     require(first is None, "two processes of the same seeded steps differ")
     graphed = sum(str(r["stage"]).startswith("g") for r in a["steps"])
-    require(graphed == 2 * DET_GRAPH_STEPS, f"the workers ran {graphed} graphed steps")
+    require(graphed == (2 + len(BACKBONES)) * DET_GRAPH_STEPS, f"the workers ran {graphed} graphed steps")
     graph_ms = [1e3 * min(x, y) for x, y in zip(a["graph_step_s"], b["graph_step_s"])]
     print(f"[determinism] two processes: batches, losses, gradients and weights bit-identical over"
           f" {len(a['steps'])} steps ({len(a['steps']) - graphed} eager, {graphed} through CUDA"
-          f" graphs; stage 1 and stage 2); graphed step ms (the faster process, each with a"
+          f" graphs; SchNet stage 1 and stage 2, ViSNet and DimeNet stage 2); graphed step ms"
+          f" (the faster process, each with a"
           " synchronise): " + ", ".join(f"{v:.2f}" for v in graph_ms))
     return dict(steps=len(a["steps"]), step_ms=ms, graph_step_ms=graph_ms,
                 strict_step_ms=[1e3 * v for v in strict["step_s"]], strict_identical=same_strict)
@@ -1555,6 +1768,7 @@ def main() -> int:
     stage_rows["classification"] = phase_classification(device, card)
     stage_rows["graphs"] = phase_graphs(device, card)
     stage_rows["pipeline"] = phase_pipeline(device, card)
+    stage_rows["backbones"] = phase_backbones(device, card, rows)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -1563,7 +1777,8 @@ def main() -> int:
         return out
 
     # launches: the regression kernels on the main path (phase 3), the F=256
-    # ones on the classification path (phase 6); each also by runner path.
+    # ones on the classification path (phase 6); each also by runner path,
+    # the ViSNet and DimeNet runners' included (phase 10).
     # All three paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
     kernels = []
@@ -1575,6 +1790,7 @@ def main() -> int:
             "launches": totals[name] if name in REGRESSION else class_launches[name],
             "runner_launches": stage_rows["runner"]["launches"][name],
             "classification_launches": class_launches[name],
+            **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             "max_abs_err": max(rows[name][lab]["max_abs_err"] for lab in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, **extra(r),

@@ -1,6 +1,6 @@
-"""Fusion model: 3D SchNet + 2D GAT + FGW-barycenter branch (port of
-``conan_fgw_tpu/models/heads.py`` with the SchNet backbone, regression and
-classification).
+"""Fusion model: 3D backbone (SchNet, ViSNet or DimeNet) + 2D GAT +
+FGW-barycenter branch (port of ``conan_fgw_tpu/models/heads.py``, regression
+and classification).
 
 The barycenter stage is a call-time flag (``use_barycenter``), so stage 1 and
 stage 2 share one parameter set and the warm start is the same module.
@@ -18,24 +18,40 @@ from torch import nn
 from conan_fgw_tpu_torch.data.vocab import NUM_ATOM_FEATURES, NUM_BOND_FEATURES
 from conan_fgw_tpu_torch.device import resolve_device
 from conan_fgw_tpu_torch.models.attention import SelfAttention
+from conan_fgw_tpu_torch.models.dimenet import DimeNet3D
 from conan_fgw_tpu_torch.models.gat import GAT2D
 from conan_fgw_tpu_torch.models.schnet import SchNet3D
+from conan_fgw_tpu_torch.models.visnet import ViSNet3D
 from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter_batch, normalize_minmax
 from conan_fgw_tpu_torch.ops.graph import masked_sum
 
 
 def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise as the flax model does: xavier-uniform kernels and
-    attention vectors, zero biases, N(0, 1) embeddings."""
+    attention vectors, zero biases, N(0, 1) embeddings, LayerNorm scales of
+    one. A module with initialisers of its own (a ``flax_init(generator)``
+    method: DimeNet, ViSNet's ``Atomref``) draws its parameters itself. All
+    draws come from ``generator``, module by module in order."""
     with torch.no_grad():
-        for mod in module.modules():
-            for name, p in mod.named_parameters(recurse=False):
-                if isinstance(mod, nn.Embedding):
-                    nn.init.normal_(p, 0.0, 1.0, generator=generator)
-                elif name in ("bias", "filter_b1", "filter_b2"):
-                    nn.init.zeros_(p)
-                else:
-                    nn.init.xavier_uniform_(p, generator=generator)
+        _init_module(module, generator)
+
+
+def _init_module(mod: nn.Module, generator: torch.Generator) -> None:
+    own = getattr(mod, "flax_init", None)
+    if own is not None:
+        own(generator)
+        return
+    for name, p in mod.named_parameters(recurse=False):
+        if isinstance(mod, nn.Embedding):
+            nn.init.normal_(p, 0.0, 1.0, generator=generator)
+        elif isinstance(mod, nn.LayerNorm) and name == "weight":
+            nn.init.ones_(p)
+        elif name in ("bias", "filter_b1", "filter_b2"):
+            nn.init.zeros_(p)
+        else:
+            nn.init.xavier_uniform_(p, generator=generator)
+    for child in mod.children():
+        _init_module(child, generator)
 
 
 class ClassificationHead(nn.Module):
@@ -64,21 +80,29 @@ class ConanModel(nn.Module):
     "regression" predicts with one Linear; "classification" returns logits
     of a three-layer head, with self-attention per conformer in stage 1.
 
+    ``backbone_name``: "schnet" (``num_filters``, ``num_gaussians`` and
+    ``num_interactions`` are its), "visnet" or "dimenet" (its node outputs
+    ``hidden_channels // 2`` wide), each at the backbone's default depth.
     ``bary_pad_mode``: "reference" keeps the reference's padding semantics
     (pad rows carry uniform mass with zero adjacency); "masked" excludes
-    padding from marginals and normalisation.
+    padding from marginals and normalisation. ``bary_postnorm`` "l2col"
+    (ViSNet's wrapper) zeroes a non-finite barycenter and normalises each
+    feature column of the barycenter to unit L2 norm before the readout.
     """
 
-    def __init__(self, task: str = "regression", hidden_channels: int = 128, num_filters: int = 128,
+    def __init__(self, task: str = "regression", backbone_name: str = "schnet",
+                 hidden_channels: int = 128, num_filters: int = 128,
                  num_gaussians: int = 50, num_interactions: int = 3, cutoff: float = 10.0,
                  max_neighbors: int = 32, agg_weight: float = 0.2,
                  fgw: FGWConfig = FGWConfig(), bary_shift: float = 0.5,
                  bary_norm: tuple[float, float] = (0.1, 2.0),
-                 bary_pad_mode: str = "reference", seed: int = 0,
+                 bary_pad_mode: str = "reference", bary_postnorm: str = "none", seed: int = 0,
                  device: str | torch.device = "cuda"):
         super().__init__()
         if bary_pad_mode not in ("reference", "masked"):
             raise ValueError(f"unknown bary_pad_mode {bary_pad_mode!r}")
+        if bary_postnorm not in ("none", "l2col"):
+            raise ValueError(f"unknown bary_postnorm {bary_postnorm!r}")
         if task not in ("regression", "classification"):
             raise ValueError(f"unknown task {task!r}")
         dev = resolve_device(device)
@@ -89,8 +113,17 @@ class ConanModel(nn.Module):
         self.bary_shift = bary_shift
         self.bary_norm = bary_norm
         self.bary_pad_mode = bary_pad_mode
-        self.backbone = SchNet3D(hidden_channels, num_filters, num_interactions,
-                                 num_gaussians, cutoff, max_neighbors)
+        self.bary_postnorm = bary_postnorm
+        if backbone_name == "schnet":
+            self.backbone = SchNet3D(hidden_channels, num_filters, num_interactions,
+                                     num_gaussians, cutoff, max_neighbors)
+        elif backbone_name == "visnet":
+            self.backbone = ViSNet3D(hidden_channels, cutoff=cutoff, max_neighbors=max_neighbors)
+        elif backbone_name == "dimenet":
+            self.backbone = DimeNet3D(hidden_channels, out_channels=half, cutoff=cutoff,
+                                      max_neighbors=max_neighbors)
+        else:
+            raise ValueError(f"unknown backbone {backbone_name!r}")
         self.gat = GAT2D(NUM_ATOM_FEATURES, half, NUM_BOND_FEATURES)
         self.t3d = nn.Linear(half, half)
         self.tcov = nn.Linear(half, half)
@@ -127,6 +160,10 @@ class ConanModel(nn.Module):
         # structure graph: dense adjacency of the radius graph, A[j, i] = j -> i
         cs = nbr.transpose(-1, -2).to(hb.dtype).reshape(B, K, N, N)
         y_bary, _, n_div = fgw_barycenter_batch(ys, cs, ps=ps, p=p, config=self.fgw)
+        if self.bary_postnorm == "l2col":
+            finite = torch.isfinite(y_bary).flatten(-2).all(-1)[:, None, None]
+            y_bary = torch.where(finite, y_bary, torch.zeros_like(y_bary))
+            y_bary = y_bary / torch.sqrt(torch.sum(y_bary * y_bary, dim=-2, keepdim=True) + 1e-16)
         return y_bary.sum(-2), n_div  # sum-readout (pads included, as the reference)
 
     def _readouts(self, batch, use_barycenter: bool):

@@ -11,21 +11,19 @@ CUDA kernels K1/K2 for tensors on the card, the plain PyTorch formulation on
 the CPU. Both read the same raw filter parameters ``filter_w1/b1/w2/b2``.
 
 The atom embedding is a product of the one-hot atomic numbers with the
-table, not ``nn.Embedding``'s lookup: the lookup's backward on the card
-accumulates the table's gradient in an order that varies from process to
-process, so two runs of the same seeded training differed in their last
-bits. The product gives the same rows bit for bit (one 1 and zeros), and
-its backward is a matrix product, which sums in a fixed order.
+table (``ops/graph.py::embed_onehot``), not ``nn.Embedding``'s lookup: the
+lookup's backward on the card accumulates the table's gradient in an order
+that varies from process to process, so two runs of the same seeded
+training differed in their last bits.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from conan_fgw_tpu_torch.ops.cuda.cfconv import cfconv
-from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+from conan_fgw_tpu_torch.ops.graph import embed_onehot, pairwise_distances, radius_graph_mask
 from conan_fgw_tpu_torch.ops.rbf import shifted_softplus
 
 
@@ -82,9 +80,7 @@ class SchNet3D(nn.Module):
         self.lin2_bary = nn.Linear(half, half)
 
     def trunk(self, z, pos, mask):
-        table = self.embedding.weight
-        onehot = F.one_hot(z.long(), table.shape[0]).to(table.dtype)
-        h = (onehot @ table) * mask[..., None].to(torch.float32)
+        h = embed_onehot(z, self.embedding.weight) * mask[..., None].to(torch.float32)
         for blk in self.blocks:
             h = h + blk(h, pos, mask)
         return h

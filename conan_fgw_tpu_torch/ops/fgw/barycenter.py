@@ -28,7 +28,9 @@ class FGWConfig:
     """Solver hyper-parameters; defaults are the reference's hardcoded
     training configuration (outer = PGD = Sinkhorn = 5, alpha = eps = 0.1).
     The port's solver is the square-loss PGD path with stop-gradient
-    couplings."""
+    couplings. ``fixed_structure`` keeps the barycenter's structure at the
+    first conformer's for every outer iteration (DimeNet's barycenter,
+    with alpha 0.5)."""
 
     alpha: float = 0.1
     epsilon: float = 0.1
@@ -38,6 +40,7 @@ class FGWConfig:
     pgd_tol: float = 1e-4
     sinkhorn_iters: int = 5
     sinkhorn_thr: float = 1e-2
+    fixed_structure: bool = False
 
 
 def normalize_minmax(x: torch.Tensor, a: float, b: float, eps: float = 0.0) -> torch.Tensor:
@@ -121,15 +124,21 @@ def fgw_barycenter_batch(
             # Y = diag(1/p) sum_k lambda_k T_k Ys_k
             Y_new = inv_p[:, :, None] * torch.einsum("bk,bknm,bkmd->bnd", lambdas, T_new, Ys_ng)
             Ms_new = sqdist(Y_new[:, None], Ys_ng)
-            # C = sum_k lambda_k T_k C_k T_k^T / p p^T
-            C_new = torch.where(
-                ppt > 0,
-                torch.einsum("bk,bknm,bkmj,bklj->bnl", lambdas, T_new, Cs_ng, T_new) / ppt_safe,
-                0.0,
-            )
-            newly_frozen = (_frob(Y_new - Y) <= config.outer_tol) & (
-                _frob(C_new - C) <= config.outer_tol
-            )
+            if config.fixed_structure:
+                # C stays Cs[:, 0], and its error counts as 0 in the freeze test
+                C_new = C
+                newly_frozen = _frob(Y_new - Y) <= config.outer_tol
+            else:
+                # C = sum_k lambda_k T_k C_k T_k^T / p p^T
+                C_new = torch.where(
+                    ppt > 0,
+                    torch.einsum("bk,bknm,bkmj,bklj->bnl", lambdas, T_new, Cs_ng, T_new)
+                    / ppt_safe,
+                    0.0,
+                )
+                newly_frozen = (_frob(Y_new - Y) <= config.outer_tol) & (
+                    _frob(C_new - C) <= config.outer_tol
+                )
             m3 = frozen[:, None, None]
             m4 = frozen[:, None, None, None]
             Y = torch.where(m3, Y, Y_new)

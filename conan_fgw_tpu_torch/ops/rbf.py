@@ -1,5 +1,5 @@
-"""Radial basis expansion, cosine cutoff and SchNet's activation
-(port of ``conan_fgw_tpu/ops/rbf.py``)."""
+"""Radial basis expansions (SchNet's Gaussians, ViSNet's exponential-normal),
+the cosine cutoff and SchNet's activation (port of ``conan_fgw_tpu/ops/rbf.py``)."""
 
 from __future__ import annotations
 
@@ -27,3 +27,20 @@ def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """``softplus(x) - log(2)``."""
     return F.softplus(x) - math.log(2.0)
+
+
+def expnorm_smearing(dist: torch.Tensor, means: torch.Tensor, betas: torch.Tensor,
+                     cutoff: float) -> torch.Tensor:
+    """ViSNet's exponential-normal RBF with the cosine-cutoff envelope."""
+    alpha = 5.0 / cutoff
+    env = cosine_cutoff(dist, cutoff)
+    return env[..., None] * torch.exp(-betas * (torch.exp(-alpha * dist[..., None]) - means) ** 2)
+
+
+def expnorm_initial_params(num_rbf: int, cutoff: float,
+                           dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Initial ``(means, betas)`` as the vendored ViSNet computes them."""
+    start_value = math.exp(-cutoff)
+    means = torch.linspace(start_value, 1.0, num_rbf, dtype=dtype)
+    betas = torch.full((num_rbf,), (2.0 / num_rbf * (1.0 - start_value)) ** -2, dtype=dtype)
+    return means, betas

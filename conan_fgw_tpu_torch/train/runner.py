@@ -15,10 +15,10 @@ Usage, on the card (``--device cpu`` runs on the CPU)::
     python -m conan_fgw_tpu_torch.train.runner --config config/schnet/sol250_5_bc.yaml \\
         --stage conan_fgw
 
-The port carries ``ConanModel`` with the SchNet backbone, for regression
-and classification, on the conformer datasets; what else a config can ask
-for raises ``NotImplementedError`` naming its ``ROADMAP.md`` item
-(``check_supported``).
+The port carries ``ConanModel`` with the SchNet, ViSNet and DimeNet
+backbones, for regression and classification, on the conformer datasets;
+what else a config can ask for raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (``check_supported``).
 """
 
 from __future__ import annotations
@@ -57,9 +57,8 @@ def check_supported(config: ExperimentConfig, device: torch.device) -> None:
         raise NotImplementedError(
             f"the {spec.model!r} head family (aux and ESAN heads) is not ported yet "
             "(ROADMAP.md §1, item 5)")
-    if config.model_name != "schnet":
-        raise NotImplementedError(
-            f"model_name: {config.model_name} is not ported yet (ROADMAP.md §1, item 4)")
+    if config.model_name not in ("schnet", "visnet", "dimenet"):
+        raise ValueError(f"unknown model_name {config.model_name!r}")
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype: {config.compute_dtype} is not ported yet (ROADMAP.md §1, item 9)")
@@ -72,9 +71,13 @@ def check_supported(config: ExperimentConfig, device: torch.device) -> None:
 
 
 def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> ConanModel:
-    """SchNet with 3 interactions, cutoff 10, cap 32, and the FGW solver:
-    for regression hidden 128, 128 filters and 50 Gaussians; for
-    classification hidden 512, 256 filters and 10 Gaussians."""
+    """The config's backbone at hidden 128 for regression, 512 for
+    classification, a cap of 32 neighbours, and the FGW solver. SchNet: 3
+    interactions, cutoff 10, and 128 filters with 50 Gaussians for
+    regression, 256 with 10 for classification. ViSNet: cutoff 5, the
+    barycenter branch shifted by 1.0 and its columns L2-normalised. DimeNet:
+    cutoff 5, the barycenter solved with alpha 0.5 and a fixed structure
+    (as the JAX runner wires them, after the reference's wrappers)."""
     dev = resolve_device(device)
     check_supported(config, dev)
     if config.fgw_from_config:
@@ -89,12 +92,22 @@ def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> Co
     if config.fgw_sinkhorn_iters is not None:
         fgw = dataclasses.replace(fgw, sinkhorn_iters=config.fgw_sinkhorn_iters)
     task = config.spec.task
-    hidden, filters, gaussians = (512, 256, 10) if task == "classification" else (128, 128, 50)
-    return ConanModel(
-        task=task, hidden_channels=hidden, num_filters=filters, num_gaussians=gaussians,
-        num_interactions=3, cutoff=10.0, agg_weight=config.agg_weight, fgw=fgw,
-        bary_pad_mode=config.bary_pad_mode, seed=seed, device=dev,
-    )
+    common = dict(task=task, hidden_channels=512 if task == "classification" else 128,
+                  agg_weight=config.agg_weight, bary_pad_mode=config.bary_pad_mode, seed=seed,
+                  device=dev)
+    if config.model_name == "visnet":
+        # the wrapper's cutoff; the barycenter branch shifts by 1.0 and
+        # L2-normalises the barycenter's columns (visnet.py:50,233-241)
+        return ConanModel(backbone_name="visnet", cutoff=5.0, fgw=fgw, bary_shift=1.0,
+                          bary_postnorm="l2col", **common)
+    if config.model_name == "dimenet":
+        # the barycenter with alpha 0.5 and the first conformer's structure
+        # held fixed (dimenet.py:235-260)
+        fgw = dataclasses.replace(fgw, alpha=0.5, fixed_structure=True)
+        return ConanModel(backbone_name="dimenet", cutoff=5.0, fgw=fgw, bary_shift=0.5, **common)
+    filters, gaussians = (256, 10) if task == "classification" else (128, 50)
+    return ConanModel(backbone_name="schnet", num_filters=filters, num_gaussians=gaussians,
+                      num_interactions=3, cutoff=10.0, fgw=fgw, **common)
 
 
 def build_settings(config: ExperimentConfig, stage: str,

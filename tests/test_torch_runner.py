@@ -178,8 +178,6 @@ def test_lr_finder_sets_the_learning_rate(tiny, tmp_path, caplog):
 
 
 @pytest.mark.parametrize("extra", [
-    "model_name_override: visnet",
-    "model_name_override: dimenet",
     "experiment_override: gat_only",
     "experiment_override: esan_avg_conf",
     "experiment_override: conan_fgw.src.experiments.SOTAClassificationGEOMExperiment",
@@ -191,8 +189,6 @@ def test_what_the_port_lacks_raises(tiny, tmp_path, extra):
     text = Path(write_config(tmp_path, "c.yaml", "pre")).read_text()
     if key == "experiment_override":
         text = text.replace("experiment: regression", f"experiment: {value}")
-    elif key == "model_name_override":
-        text = text.replace("model_name: schnet", f"model_name: {value}")
     else:
         text += f"{extra}\n"
     (tmp_path / "c.yaml").write_text(text)
