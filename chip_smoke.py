@@ -93,8 +93,9 @@ Phases (any failure exits non-zero and prints no result line):
    the replay with the rest; and the prefetch thread's native packing per
    batch (its foreign call apart), beside numpy packing. A sixth case is
    stage 1 at N=32 with sol250's stage-1 batch of 96. Stage 2 also profiles three graphed steps: busy share,
-   kernels per step, and the K1/K2/K3 executions the profiler sees, which
-   must equal the launch counts.
+   kernels per step; the graph's K1/K2/K3 nodes must equal the launches
+   its capture counted, and the executions the profiler sees must not
+   exceed the launch counts (``graphed_launches``).
 9. The host pipeline: the native packer against the numpy one, byte for
    byte, over every batch of ``data/sol250`` (batches 96 and 24) and
    ``data/sol1k_class`` (18), every split and bucket, also into a reused
@@ -116,24 +117,54 @@ Phases (any failure exits non-zero and prints no result line):
    4's gates) at the stage-2 config's batch; and phase 8's case for stage 2
    at N = 32 at that batch (24 for ViSNet, 16 for DimeNet), with its timed
    turns and the profile of three graphed steps.
+11. The ESAN variants and the aux head families (``models/esan.py``,
+   ``models/aux_heads.py``). K1 and K2 against the plain version on the
+   info-sharing SchNet's input, the averaged conformers of a sol250 batch
+   of 32 (G = 32) at N = 32 and N = 64, whose atoms lie at 0.02-0.2 A
+   (``avg-N32``/``avg-N64`` rows); the cap must bind at N = 64. The
+   runner's ``main`` trains stage 1 of ``config/esan/sol250_avg_conf.yaml``
+   and ``sol250_geometry.yaml`` (2 epochs, batch 32) with phase 5's checks,
+   except that K1 must launch exactly twelve times a forward (train or
+   eval) and K2 twelve a train step, and K3 never; ``predict.main`` on
+   each ``best`` must give the runner's test RMSE to 1e-6; prints epoch
+   times, ms per step by bucket and each run's peak memory. Then each of
+   the eight families (the three ESAN variants, ``scalars``,
+   ``embeddings``, ``covalent``, ``attention``, ``gat_only``) at N = 32 and
+   N = 64 on sol250's molecules at batch 32, stage 1: one step on the card
+   against the CPU (phase 4's gates); 20 steps eager against graphed (the
+   host pipeline) through an lr change, to phase 8's gates, with equal
+   launch counts (K1 and K2 as many a step as the family's SchNets have
+   radius-graph interactions: 12 for the first two ESAN variants, 6 for
+   the third, ``scalars`` and ``covalent``, whose covalent blocks are plain
+   PyTorch, 3 for ``embeddings`` and ``attention``, 0 for ``gat_only``)
+   and the barycenter heads unchanged; the eval graph against eager eval;
+   ms per step eager and graphed in turns, each run's peak memory, and a
+   profile of three graphed steps (busy share; the graph's nodes and the
+   profiler's executions back the launch counts, as in phase 8).
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
-   stage-2 steps on ``data/sol250``, and stage-2 steps of the seeded ViSNet
-   and DimeNet models, eagerly and then through CUDA graphs fed by the host
-   pipeline, and must give bit-identical batches, losses, gradients and weights; a
+   stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
+   and DimeNet models, and stage-1 steps of the geometry ESAN and the
+   covalent head at batch 32, eagerly and then through CUDA graphs fed by
+   the host pipeline, and must give bit-identical batches, losses,
+   gradients and weights; a
    third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. It runs last.
 
 Then it prints the per-kernel JSON line (every kernel, each width and
-shape held), the card line and, last, ``{"ok": true, "device": {...}}``.
+shape held, with its launches on each runner path), the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
 graph is captured and does not run when the graph is replayed, so each
 graph adds its capture's counts once per later replay
 (``train/graphs.py::LaunchReplays``). The counts of phases 3, 5 and 6
 (``launches``, ``runner_launches``, ``classification_launches``) are
-derived so; phase 8 requires the profiler's count of kernel executions
-over graphed steps to equal them.
+derived so. Phases 8 and 11 back them with the graph itself: its K1/K2/K3
+kernel nodes, read from its ``debug_dump``, must equal the launches its
+capture counted, as every node runs once a replay; the profiler's count
+of executions over three replays must not exceed the derived counts and
+must see each of those kernels run (it drops a few device records of a
+window, so it may fall short).
 """
 
 from __future__ import annotations
@@ -176,6 +207,14 @@ FGW_ATOL = 2.5e-6   # plans, absolute; diverged flags exactly
 # (the second GAT layer's attention vectors get gradients near 1e-8, where
 # CPU and card round differently)
 STEP_RTOL, PARAM_RTOL, PARAM_FLOOR = 1e-3, 1e-2, 1e-6
+# phase 11: the head families whose step, where it misses the loss or
+# gradient-norm gate, is held to that gate instead against the CPU step computed
+# in K1/K2's own arithmetic (their edge order and three-term bf16 split, which
+# phase 2 holds within CFCONV_RTOL of the plain version). Only the attention
+# head: at N=64 its softmax spans all 160 conformers of a batch whose
+# predictions are nearly equal, so its gradient norm is the small residue of
+# large terms, and the split's rounding shows in it
+WITNESSED = ("attention",)
 
 REPLACES = {
     "cfconv_fwd": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
@@ -191,6 +230,8 @@ SOURCES = {
     "cfconv_fwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
 }
+# seconds between the edges of the profiler's window and the steps it profiles
+PROFILE_MARGIN_S = 0.05
 # the kernels of the regression path (phases 3 and 5) and of the
 # classification path (phase 6)
 REGRESSION = ("cfconv_fwd", "cfconv_bwd", "fgw_couplings")
@@ -633,17 +674,26 @@ def profile_stage2(model, device):
 def profile_steps(label, step, steps: int = 3):
     """``steps`` calls of ``step`` under ``torch.profiler``: prints the wall
     and device busy time per step, kernels per step and the largest kernels;
-    returns ``(busy share, kernels per step, {kernel name: executions})``,
-    or None where the profiler saw no device time ("not measured")."""
+    returns ``(busy share, kernels per step, {kernel name: executions},
+    {wrapper: launches} over the steps)``, or None where the profiler saw no
+    device time ("not measured")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from conan_fgw_tpu_torch.ops.cuda import launches
+
+    # the profiler has lost the first kernels of its window (PERF.md section
+    # 7): the steps start, and end, PROFILE_MARGIN_S inside it
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        before = collections.Counter(launches)
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+        time.sleep(PROFILE_MARGIN_S)
     # device-side kernels and copies only: the CPU ops that launched them, and
     # annotated regions on the device's timeline (the optimizer's step), span
     # the same device time again
@@ -664,43 +714,199 @@ def profile_steps(label, step, steps: int = 3):
     counts = collections.Counter()
     for e in events:
         counts[e.key] += e.count
-    return busy_us / wall_us, per_step, counts
+    return busy_us / wall_us, per_step, counts, grew
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """Inside, every ``torch.cuda.CUDAGraph`` made keeps its cudaGraph_t
+    (``keep_graph``, instantiated at its first replay) in debug mode, so
+    that ``graph_kernels`` can read its nodes."""
+    import torch
+
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __new__(cls, keep_graph=True):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=True):
+            super().__init__(True)
+            self.enable_debug_mode()
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_kernels(graph) -> dict:
+    """The K1/K2/K3 kernel nodes of a graph captured under ``kept_graphs``,
+    by the kernel names of ``PROFILED``, from its ``debug_dump``."""
+    import warnings
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp, \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # debug_dump's own notes
+        path = Path(tmp) / "graph.dot"
+        graph.debug_dump(str(path))
+        require(path.exists(), "a captured graph could not be dumped")
+        nodes = re.findall(r'"graph_\d+_node_\d+"\s*\[(.*?)\];?\s*$', path.read_text(),
+                           flags=re.S | re.M)
+    require(bool(nodes), "the dump of a captured graph holds no nodes")
+    return {name: sum(name in body for body in nodes) for name in PROFILED}
+
+
+def graphed_launches(label, graphs, pb, steps: int = 3):
+    """Backs the derived launch counts (``LaunchReplays``) of the graphed
+    train step of ``pb``'s shape: the K1/K2/K3 kernel nodes of its graph
+    must equal the launches its capture counted, since every node runs
+    once a replay; then ``profile_steps`` over ``steps`` replays of ``pb``,
+    whose derived counts must be ``steps`` times the nodes. The profiler's
+    count of executions must not exceed them and must see each kernel of
+    the graph run, but may fall short: it drops a few of the thousands of
+    device records of a window (PERF.md section 7). Returns ``(busy share,
+    kernels per step, {kernel name: executions seen})``."""
+    step = graphs.steps[("train", pb.z.shape)]
+    nodes = graph_kernels(step.graph)
+    captured = {name: sum(step.counts.delta.get(k, 0) for k in names)
+                for name, names in PROFILED.items()}
+    require(nodes == captured, f"{label}: the train graph holds the K1/K2/K3 nodes {nodes},"
+            f" its capture counted {captured}")
+    prof = profile_steps(label, lambda: graphs.train(pb), steps)
+    require(prof is not None, f"{label}: the profiler saw no device activity")
+    busy, per_step, counts, grew = prof
+    seen = {name: sum(c for key, c in counts.items() if name in key) for name in PROFILED}
+    counted = {name: sum(grew.get(k, 0) for k in names) for name, names in PROFILED.items()}
+    require(counted == {name: steps * n for name, n in nodes.items()},
+            f"{label}: {steps} replays counted {counted}, the graph holds {nodes}")
+    require(all(seen[k] <= counted[k] and (seen[k] > 0) == (counted[k] > 0) for k in PROFILED),
+            f"{label}: the profiler saw {seen}, launches {counted}")
+    print(f"{label}: K1/K2/K3 nodes of the train graph {nodes}, as its capture counted;"
+          f" executions over {steps} replays {counted}, seen by the profiler {seen}")
+    return busy, per_step, seen
 
 
 # ---------------------------------------------------------------- phase 4
 def phase_parity(model, device, batch=B, label="parity"):
-    import torch
-
     from conan_fgw_tpu_torch.data.packing import pack_batch
     from conan_fgw_tpu_torch.data.synthetic import random_dataset
-    from conan_fgw_tpu_torch.train.loop import masked_mse
 
     recs = random_dataset(SEED + 3, batch, num_conformers=K, heavy_range=(8, 10), device=device)
-    pb = pack_batch(recs, max_atoms=32, batch_size=batch)
-    results = {}
-    for name, m, dev in (("kernel", model, device), ("plain", copy.deepcopy(model).to("cpu"), "cpu")):
-        m.zero_grad(set_to_none=True)
-        batch = pb.to(dev)
-        pred, _ = m(batch, use_barycenter=True)
+    return step_parity(model, pack_batch(recs, max_atoms=32, batch_size=batch), device, label)
+
+
+@contextlib.contextmanager
+def kernel_arithmetic():
+    """Within it, the SchNet blocks' cfconv runs on the CPU as K1 and K2
+    compute it: ``cfconv_edges`` with ``split_mm``."""
+    import torch
+
+    from conan_fgw_tpu_torch.models import schnet
+    from conan_fgw_tpu_torch.ops.cuda.cfconv import cfconv_edges, split_mm
+
+    class Split(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors):
+            ctx.save_for_backward(pos, mask, x, w1, b1, w2, b2)
+            ctx.params = (cutoff, max_neighbors)
+            return cfconv_edges(pos, mask, x, w1, b1, w2, b2, torch.zeros_like(x), cutoff,
+                                max_neighbors, mm=split_mm)[0]
+
+        @staticmethod
+        def backward(ctx, g):
+            grads = cfconv_edges(*ctx.saved_tensors, g.contiguous(), *ctx.params, mm=split_mm)[1]
+            return (None, None, *grads, None, None)
+
+    def split(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
+        require(w1.shape[0] == num_gaussians, "kernel arithmetic: the filter's width")
+        return Split.apply(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors)
+
+    original = schnet.cfconv
+    schnet.cfconv = split
+    try:
+        yield
+    finally:
+        schnet.cfconv = original
+
+
+def _plain_step(model, pb, bary, dtype=None, kernel=False):
+    """Loss and per-parameter gradient norms of one step of a CPU copy of
+    ``model`` (the plain versions) on ``pb``, in ``dtype`` where given, and
+    with ``kernel`` in K1/K2's arithmetic (``kernel_arithmetic``)."""
+    import dataclasses
+
+    from conan_fgw_tpu_torch.train.loop import masked_mse
+
+    m = copy.deepcopy(model).to(device="cpu", dtype=dtype)
+    m.zero_grad(set_to_none=True)
+    batch = pb.to("cpu")
+    if dtype is not None:
+        batch = dataclasses.replace(batch, pos=batch.pos.to(dtype))
+    with kernel_arithmetic() if kernel else contextlib.nullcontext():
+        pred, _ = m(batch, use_barycenter=bary)
         loss = masked_mse(pred, batch)
         loss.backward()
-        norms = {k: float(p.grad.norm()) for k, p in m.named_parameters() if p.grad is not None}
-        results[name] = (float(loss.detach()), norms)
-    (lk, nk), (lp, np_) = results["kernel"], results["plain"]
-    gk = sum(v * v for v in nk.values()) ** 0.5
-    gp = sum(v * v for v in np_.values()) ** 0.5
+    return float(loss.detach()), {k: float(p.grad.norm()) for k, p in m.named_parameters()
+                                  if p.grad is not None}
+
+
+def _norm(norms: dict) -> float:
+    return sum(v * v for v in norms.values()) ** 0.5
+
+
+def step_parity(model, pb, device, label, bary=True, witness=False):
+    """One training step's loss and gradients from identical weights, on
+    the host batch ``pb``, through the kernels on the card and through the
+    plain versions on the CPU (stage 2 with ``bary``), within phase 4's
+    gates. With ``witness``, a loss or gradient norm that misses its gate is
+    held to it instead against the CPU step in K1/K2's arithmetic
+    (``kernel_arithmetic``); the distances of the card's step and the plain
+    CPU step from the same step in float64 are printed beside it."""
+    import torch
+
+    from conan_fgw_tpu_torch.train.loop import masked_mse
+
+    model.zero_grad(set_to_none=True)
+    batch = pb.to(device)
+    pred, _ = model(batch, use_barycenter=bary)
+    loss = masked_mse(pred, batch)
+    loss.backward()
+    lk = float(loss.detach())
+    nk = {k: float(p.grad.norm()) for k, p in model.named_parameters() if p.grad is not None}
+    lp, np_ = _plain_step(model, pb, bary)
+    gk, gp = _norm(nk), _norm(np_)
     rel = {k: abs(nk[k] - np_[k]) / max(np_[k], PARAM_FLOOR * gp) for k in np_}
     worst = max(rel.values())
     for k in sorted(rel, key=rel.get, reverse=True)[:5]:
         print(f"[{label}] {k}: grad norm kernel {nk[k]:.6e} plain {np_[k]:.6e} rel {rel[k]:.3e}")
+    stage = "stage-2" if bary else "stage-1"
+    loss_rel, grad_rel = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
     print(f"[{label}] loss kernel {lk:.6f} plain {lp:.6f}; grad norm kernel {gk:.6f} plain {gp:.6f};"
           f" worst parameter grad-norm rel err {worst:.3e} (tol {STEP_RTOL}, {PARAM_RTOL})")
     require(set(nk) == set(np_), f"{label}: card and CPU differ in which parameters get gradients")
-    require(abs(lk - lp) <= STEP_RTOL * abs(lp), f"{label}: stage-2 loss disagrees")
-    require(abs(gk - gp) <= STEP_RTOL * gp, f"{label}: stage-2 gradient norm disagrees")
     require(worst <= PARAM_RTOL, f"{label}: a parameter's gradient norm disagrees")
+    out = dict(loss_rel=loss_rel, grad_norm_rel=grad_rel, worst_param_rel=worst)
+    missed = [k for k, v in (("loss", loss_rel), ("gradient norm", grad_rel)) if v > STEP_RTOL]
+    require(witness or not missed,
+            f"{label}: {stage} {' and '.join(missed)} off by more than {STEP_RTOL}")
+    if missed:
+        ls, ns = _plain_step(model, pb, bary, kernel=True)
+        l64, n64 = _plain_step(model, pb, bary, torch.float64)
+        gs, g64 = _norm(ns), _norm(n64)
+        split = {"loss": abs(lk - ls) / abs(ls), "gradient norm": abs(gk - gs) / gs}
+        f64 = {"loss": (abs(lk - l64) / abs(l64), abs(lp - l64) / abs(l64), abs(ls - l64) / abs(l64)),
+               "gradient norm": (abs(gk - g64) / g64, abs(gp - g64) / g64, abs(gs - g64) / g64)}
+        for k in missed:
+            print(f"[{label}] {k} misses {STEP_RTOL}: card against the CPU step in the kernels'"
+                  f" arithmetic {split[k]:.3e} (tol {STEP_RTOL}); from the float64 step: card"
+                  f" {f64[k][0]:.3e}, plain f32 {f64[k][1]:.3e}, kernels' arithmetic {f64[k][2]:.3e}")
+            require(split[k] <= STEP_RTOL,
+                    f"{label}: {stage} {k} disagrees with the kernels' arithmetic on the CPU")
+        out.update(kernel_arithmetic_rel=split, f64_rel=f64)
     model.zero_grad(set_to_none=True)
-    return dict(loss_rel=abs(lk - lp) / abs(lp), grad_norm_rel=abs(gk - gp) / gp, worst_param_rel=worst)
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -791,14 +997,18 @@ def run_main(main, argv):
         return main(argv)
 
 
-def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, metric="rmse"):
+def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, metric="rmse",
+                 per_forward=3):
     """One runner run with the launch counts zeroed before it; checks and
     prints it, returns ``(summary, history, launches)``. ``ctx`` holds the
     common arguments, the temporary directory, the plain-call counts, the
     device and the card line; ``start`` is the first epoch this run trains;
     ``kernels`` names the path's K1, K2 and K3 counts, and ``metric`` its
     validation and test metric (``rmse``, or ``auroc`` for classification).
-    The run must capture at least one train and one eval graph."""
+    ``per_forward`` is the path's K1 launches a forward and K2 launches a
+    train step: 3 for the flagship's SchNet, its interactions for an ESAN or
+    aux head (phase 11). The run must capture at least one train and one
+    eval graph."""
     import numpy as np
     import torch
 
@@ -836,25 +1046,19 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
     others = [k for k in REPLACES if k not in kernels and grew[k]]
     require(not others, f"runner {label}: kernels of another width or path launched: {others}")
-    if k1 is None:
-        # ViSNet and DimeNet: no cfconv; five K3 a stage-2 forward, train or eval, eager
-        # or graphed (a graph's capture stands for its first replay)
-        require(host["train_forwards"] == new_steps,
-                f"runner {label}: {host['train_forwards']} train forwards in {new_steps} steps")
-        if stage == "conan_fgw":
-            forwards = host["train_forwards"] + host["eval_forwards"]
-            require(host["eval_forwards"] > 0 and grew[k3] == 5 * forwards,
-                    f"runner {label}: K3 launched {grew[k3]} in {forwards} forwards")
-    else:
-        # fit's steps ran as CUDA graphs; the counts must be the eager path's: K2 three a train
-        # step, and every forward (train or eval) three K1 and, in stage 2, five K3
-        require(grew[k1] >= 3 * new_steps and grew[k1] % 3 == 0,
-                f"runner {label}: K1 launched {grew[k1]}")
-        require(grew[k2] == 3 * new_steps, f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
-        if stage == "conan_fgw":
-            require(3 * grew[k3] == 5 * grew[k1], f"runner {label}: K3 launched {grew[k3]}, K1 {grew[k1]}")
-    if stage != "conan_fgw":
-        require(grew[k3] == 0, f"runner {label}: K3 launched in stage 1")
+    # fit's steps ran as CUDA graphs; the counts must be the eager path's: every forward
+    # (train or eval, a graph's capture standing for its first replay) per_forward K1 and,
+    # in stage 2, five K3; every train step per_forward K2 (ViSNet and DimeNet: no cfconv)
+    forwards = host["train_forwards"] + host["eval_forwards"]
+    require(host["train_forwards"] == new_steps and host["eval_forwards"] > 0,
+            f"runner {label}: {dict(host)} forwards in {new_steps} steps")
+    if k1 is not None:
+        require(grew[k1] == per_forward * forwards,
+                f"runner {label}: K1 launched {grew[k1]} in {forwards} forwards")
+        require(grew[k2] == per_forward * new_steps,
+                f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
+    require(grew[k3] == (5 * forwards if stage == "conan_fgw" else 0),
+            f"runner {label}: K3 launched {grew[k3]} in {forwards} {stage} forwards")
     for r in history:
         n64 = r["steps_n64"] / r["train_steps"]
         print(f"[runner {label}] epoch {r['epoch']}: {r['epoch_time_s']:.3f} s, {r['train_steps']}"
@@ -1142,7 +1346,7 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card, base=
                     loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
                 losses.append(loop.train_step(model, opt, pb.to(device), settings)[0])
         else:
-            with loop.step_batches(recs, settings, n_atoms, graphs) as staged:
+            with kept_graphs(), loop.step_batches(recs, settings, n_atoms, graphs) as staged:
                 for i, pb in enumerate(staged):
                     if i == GRAPH_LR_AT:
                         loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
@@ -1251,19 +1455,12 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card, base=
                split_step_ms=split_turn_ms, loss_rel=loss_rel, weights_rel=w_rel,
                eval_rel=eval_rel, bit_identical=bits)
     if bary:
-        before = collections.Counter(launches)
-        prof = profile_steps(f"[graphs {label}] profile, graphed", lambda: graphs.train(batches[0]))
-        grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
         # the launch counts of graphed steps are derived (LaunchReplays): the
-        # profiler's count of executions must back them
-        require(prof is not None, f"graphs {label}: the profiler saw no device activity")
-        busy, per_step, counts = prof
-        seen = {name: sum(c for key, c in counts.items() if name in key) for name in PROFILED}
-        want = {name: sum(grew.get(k, 0) for k in names) for name, names in PROFILED.items()}
-        print(f"[graphs {label}] kernel executions seen by the profiler {seen}, counted by"
-              f" the wrappers {want}")
+        # graph's nodes and the profiler's executions must back them
+        busy, per_step, seen = graphed_launches(f"[graphs {label}] profile, graphed", graphs,
+                                                batches[0])
         ran = seen.values() if schnet else [seen["fgw_couplings_kernel"]]
-        require(seen == want and all(ran), f"graphs {label}: the profiler saw {seen}, launches {want}")
+        require(all(ran), f"graphs {label}: the profiler saw {seen}")
         row.update(busy_share=busy, kernels_per_step=per_step)
     del runs, graphs, m_e, m_g, opt_e, opt_g
     torch.cuda.empty_cache()
@@ -1548,11 +1745,223 @@ def phase_backbones(device, card, rows):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+# the ESAN configs the runner trains (stage 1)
+ESAN_CONFIGS = ("config/esan/sol250_avg_conf.yaml", "config/esan/sol250_geometry.yaml")
+# every head family other than conan (ExperimentSpec.model) with its K1
+# launches a forward, K2 a train step: its SchNets' interactions
+FAMILIES = {"esan:avg_conf_esan": 12, "esan:geometry_induced_esan": 12,
+            "esan:geometry_2d_induced_esan": 6, "scalars": 6, "covalent": 6, "embeddings": 3,
+            "attention": 3, "gat_only": 0}
+FAMILY_BATCH = 32  # the ESAN configs' batch
+FAMILY_TIMED = 10  # warmed steps a timing turn
+
+
+def sol250_batch(records, n_atoms, batch, start=0):
+    """``records``' molecules of the bucket ``n_atoms`` (cycled from
+    ``start``) packed into one full host batch."""
+    from conan_fgw_tpu_torch.data.packing import bucket_for, pack_batch
+
+    pool = [r for r in records if bucket_for(r.num_atoms, (32, 64)) == n_atoms]
+    recs = [pool[(start + i) % len(pool)] for i in range(batch)]
+    return recs, pack_batch(recs, max_atoms=n_atoms, batch_size=batch)
+
+
+def check_averaged(records, device, rows):
+    """K1 and K2 against the plain version on the info-sharing SchNet's
+    input: the averaged conformers of one sol250 batch of 32 at N=32 and
+    N=64 (G=32 graphs), whose atoms lie far closer than a conformer's."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for n_atoms in (32, 64):
+        _, pb = sol250_batch(records, n_atoms, FAMILY_BATCH)
+        pb = pb.to(device)
+        pos, mask = pb.pos.mean(1).contiguous(), pb.atom_mask
+        dist = pairwise_distances(pos)
+        pair = mask[:, :, None] & mask[:, None, :] & ~torch.eye(n_atoms, dtype=torch.bool,
+                                                                 device=device)
+        closest = torch.where(pair, dist, torch.full_like(dist, float("inf"))).amin(-1)[mask]
+        within = radius_graph_mask(dist, mask, CUTOFF, None).sum(-1)[mask]
+        capped = float((within > CAP).to(torch.float32).mean())
+        print(f"[esan averaged N{n_atoms}] closest atom pair: smallest {float(closest.min()):.4f},"
+              f" median {float(closest.median()):.4f} A; {100 * capped:.1f}% of atoms have more"
+              f" than {CAP} neighbours within the cutoff")
+        if n_atoms == 64:
+            require(capped > 0, "averaged N=64 inputs never engage the neighbour cap")
+        check_cfconv(f"avg-N{n_atoms}", pos, mask, gen, rows)
+
+
+def family_case(spec, n_atoms, records, device, card):
+    """One head family at one bucket, stage 1, at batch 32 on sol250's
+    molecules: one step on the card against the CPU (phase 4's gates);
+    ``GRAPH_STEPS`` steps eager (pre-packed batches) against graphed (the
+    host pipeline), from identical weights through an lr change (phase 8's
+    gates; the barycenter heads, which get no gradient, must stay
+    bit-unchanged); the eval graph against eager eval; ms per step eager
+    and graphed in turns; the peak memory of each run; and a profile of
+    three graphed steps (busy share)."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.loader import batches as host_batches
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.ops.cuda import launches
+    from conan_fgw_tpu_torch.train import loop
+    from conan_fgw_tpu_torch.train.runner import build_aux_model
+
+    label = f"{spec} N{n_atoms}"
+    recs = [r for i in range(GRAPH_STEPS)
+            for r in sol250_batch(records, n_atoms, FAMILY_BATCH, i * FAMILY_BATCH)[0]]
+    batches = list(host_batches(recs, FAMILY_BATCH, n_atoms, pack=pack_batch))
+    require(len(batches) == GRAPH_STEPS and all(pb.mol_mask.all() for pb in batches),
+            f"{label}: the batches are not {GRAPH_STEPS} full ones")
+    base = build_aux_model(spec, 128, seed=SEED, device=device)
+    row = {"parity": step_parity(base, batches[0], device, f"{label} parity", bary=False,
+                                 witness=spec in WITNESSED)}
+    settings = loop.TrainSettings(batch_size=FAMILY_BATCH, learning_rate=1e-3)  # the ESAN configs'
+    runs = {}
+    for mode in ("eager", "graphed"):
+        model = copy.deepcopy(base)
+        opt = loop.make_optimizer(model, settings)
+        graphs = loop.step_graphs(model, opt, settings, device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        before, losses = collections.Counter(launches), []
+        if mode == "eager":
+            for i, pb in enumerate(batches):
+                if i == GRAPH_LR_AT:
+                    loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
+                losses.append(loop.train_step(model, opt, pb.to(device), settings)[0])
+        else:
+            with kept_graphs(), loop.step_batches(recs, settings, n_atoms, graphs) as staged:
+                for i, pb in enumerate(staged):
+                    if i == GRAPH_LR_AT:
+                        loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
+                    losses.append(graphs.train(pb)[0])
+        torch.cuda.synchronize()
+        row[f"{mode}_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+        runs[mode] = (model, opt, graphs, torch.stack(losses), grew)
+    (m_e, opt_e, _, loss_e, grew_e), (m_g, _, graphs, loss_g, grew_g) = runs["eager"], runs["graphed"]
+    k1 = FAMILIES[spec]
+    want = {"cfconv_fwd": k1 * GRAPH_STEPS, "cfconv_bwd": k1 * GRAPH_STEPS} if k1 else {}
+    require(loss_e.isfinite().all(), f"{label}: a non-finite eager loss")
+    loss_rel = _max_rel(loss_g, loss_e)
+    w_rel = max(_max_rel(q.detach(), p.detach()) for p, q in zip(m_e.parameters(), m_g.parameters()))
+    bits = bool(torch.equal(loss_e, loss_g)) and all(
+        torch.equal(p, q) for p, q in zip(m_e.parameters(), m_g.parameters()))
+    unused = [k for k, p in base.named_parameters() if "_bary" in k]
+    kept = all(torch.equal(dict(m.named_parameters())[k], dict(base.named_parameters())[k])
+               for m in (m_e, m_g) for k in unused)
+    captured = sorted(k[0] for k, st in graphs.steps.items() if st.graph is not None)
+    print(f"[{label}] {GRAPH_STEPS} steps eager vs graphed (host pipeline), lr halved after"
+          f" {GRAPH_LR_AT}: losses rel {loss_rel:.3e}, weights rel {w_rel:.3e} (tol {GRAPH_RTOL});"
+          f" bit-identical {bits}; {len(unused)} barycenter-head tensors unchanged {kept};"
+          f" launches eager {grew_e} graphed {grew_g}; peak eager {row['eager_peak_gib']:.2f}"
+          f" GiB, graphed {row['graphed_peak_gib']:.2f} GiB allocated on {card}")
+    require(loss_rel <= GRAPH_RTOL and w_rel <= GRAPH_RTOL, f"{label}: eager and graphed differ")
+    require(captured == (["train"] if device == "cuda" else []), f"{label}: captured {captured}")
+    require(grew_e == grew_g == want, f"{label}: launches eager {grew_e} graphed {grew_g}, want {want}")
+    require(kept, f"{label}: a barycenter head moved without a gradient")
+
+    evals = batches[:4]
+    before = collections.Counter(launches)
+    preds_g = [graphs.eval(pb)[1] for pb in evals]
+    grew_eval = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+    preds_e = [loop.eval_step(m_g, pb.to(device), settings)[1] for pb in evals]
+    eval_rel = _max_rel(torch.cat(preds_g), torch.cat(preds_e))
+    print(f"[{label}] eval graph vs eager eval, {len(evals)} batches: predictions rel"
+          f" {eval_rel:.3e} (tol {GRAPH_EVAL_RTOL}); launches {grew_eval}")
+    require(eval_rel <= GRAPH_EVAL_RTOL, f"{label}: the eval graph disagrees")
+    require(grew_eval == ({"cfconv_fwd": len(evals) * k1} if k1 else {}),
+            f"{label}: eval launches {grew_eval}")
+
+    order = [batches[i % GRAPH_STEPS] for i in range(FAMILY_TIMED)]
+    turn_fns = {"eager": lambda: [loop.train_step(m_e, opt_e, pb.to(device), settings)
+                                  for pb in order],
+                "graphed": lambda: [graphs.train(pb) for pb in order]}
+    turns = collections.defaultdict(list)
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        turn_fns[mode]()
+        torch.cuda.synchronize()
+        turns[mode].append(1e3 * (time.perf_counter() - t0) / FAMILY_TIMED)
+    # the graphed steps' launch counts are derived (LaunchReplays): the
+    # profiler's executions must back them, as in phase 8
+    busy, per_step, seen = graphed_launches(f"[{label}] profile, graphed", graphs, batches[0])
+    print(f"[{label}] ms/step over {FAMILY_TIMED} warmed steps, turns eager/graphed, then back:"
+          f" eager {turns['eager'][0]:.3f}/{turns['eager'][1]:.3f}, graphed"
+          f" {turns['graphed'][0]:.3f}/{turns['graphed'][1]:.3f} on {card}")
+    row.update(eager_ms=turns["eager"], graphed_ms=turns["graphed"], busy_share=busy,
+               kernels_per_step=per_step, profiled=seen, loss_rel=loss_rel,
+               weights_rel=w_rel, eval_rel=eval_rel, bit_identical=bits, launches=grew_g)
+    del runs, graphs, m_e, m_g, opt_e, base
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_esan(device, card, rows):
+    """Phase 11: the ESAN and aux head families. K1/K2 on averaged
+    conformers; the runner's stage 1 on the two ESAN configs with phase 5's
+    checks (K1 exactly twelve a forward, K2 twelve a train step, no K3) and
+    predict on their best; then every family step by step at N=32 and
+    N=64 (``family_case``)."""
+    import torch
+
+    from conan_fgw_tpu_torch.train import predict
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import load_datasets
+
+    records = load_datasets(load_config(ESAN_CONFIGS[0]), "data")["train"].records()
+    check_averaged(records, device, rows)
+    out = {"runner": {}, "families": {}}
+    for src in ESAN_CONFIGS:
+        name = Path(src).stem
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmpname, \
+                runner_spies() as (plain_calls, _, captures, host):
+            tmp = Path(tmpname)
+            common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                      "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                      "--metrics_dir", str(tmp / "metrics"), "--device", device]
+            ctx = (common, tmp, plain_calls, captures, host, device, card)
+            cfg = config_copy(src, tmp, RUNNER_EPOCHS)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            summary, history, grew = runner_stage(name, "conan_fgw_pre", cfg, ctx, per_forward=12)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            reported = summary["test_rmse"]["mean"]
+            rmse = run_main(predict.main, ["--config", cfg, "--checkpoint",
+                                           str(tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0"),
+                                           "--data_root", ".", "--device", device,
+                                           "--out", str(tmp / "preds.csv")])
+            rel = abs(rmse - reported) / abs(reported)
+            print(f"[runner {name}] peak {peak:.2f} GiB allocated beyond what was held before (both"
+                  f" buckets' train and eval graphs with their pools) on {card}; predict on best:"
+                  f" test RMSE {rmse!r}, the runner's {reported!r}, rel {rel:.3e} (tol {PREDICT_RTOL})")
+            require(rel <= PREDICT_RTOL, f"{name}: predict's test RMSE disagrees with the runner's")
+            require(not plain_calls, f"{name}: plain versions ran: {dict(plain_calls)}")
+        out["runner"][name] = dict(stage_row(history, summary, "rmse"), peak_gib=peak,
+                                   launches={k: grew[k] for k in REPLACES})
+    for spec in FAMILIES:
+        for n_atoms in (32, 64):
+            out["families"][f"{spec} N{n_atoms}"] = family_case(spec, n_atoms, records, device, card)
+    return out
+
+
 # ---------------------------------------------------------------- determinism
 DET_STEPS = 3  # stage-1 steps, then as many stage-2 steps, from the same weights
 # graphed steps per stage: the shape's eager warm-up, the capture with its
 # first replay, then replays
 DET_GRAPH_STEPS = 4
+# the head families whose stage-1 steps the workers run too (at batch 32):
+# K1/K2 at depth 6, the GAT's 50-wide edge features, the covalent block
+DET_AUX = {"esan_geometry": "esan:geometry_induced_esan", "covalent": "covalent"}
 
 
 def _digest(*arrays) -> str:
@@ -1602,7 +2011,7 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         step_batches,
         step_graphs,
     )
-    from conan_fgw_tpu_torch.train.runner import build_model
+    from conan_fgw_tpu_torch.train.runner import build_aux_model, build_model
 
     pin_full_f32()
     torch.use_deterministic_algorithms(deterministic)
@@ -1662,12 +2071,15 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
 
     schnet_stages = ((False, 96), (True, 24))
     backbones = {name: load_config(bc_cfg) for name, (_, bc_cfg) in BACKBONES.items()}
+    aux_settings = TrainSettings(batch_size=FAMILY_BATCH)
     model = ConanModel(seed=SEED, device="cuda")
     for bary, batch_size in schnet_stages:
         eager_steps(model, TrainSettings(batch_size=batch_size, use_barycenter=bary), 2 if bary else 1)
     for name, config in backbones.items():
         eager_steps(build_model(config, seed=SEED, device="cuda"),
                     TrainSettings(batch_size=config.batch_size, use_barycenter=True), name)
+    for name, spec in DET_AUX.items():
+        eager_steps(build_aux_model(spec, 128, seed=SEED, device="cuda"), aux_settings, name)
     if not deterministic:
         model = ConanModel(seed=SEED, device="cuda")
         for bary, batch_size in schnet_stages:
@@ -1676,6 +2088,9 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         for name, config in backbones.items():
             graphed_steps(build_model(config, seed=SEED, device="cuda"),
                           TrainSettings(batch_size=config.batch_size, use_barycenter=True), f"g{name}")
+        for name, spec in DET_AUX.items():
+            graphed_steps(build_aux_model(spec, 128, seed=SEED, device="cuda"), aux_settings,
+                          f"g{name}")
     Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps, "graph_step_s": graph_s}))
     return 0
 
@@ -1726,11 +2141,13 @@ def phase_determinism():
               f" loss {diff['loss']}, gradients {diff['grads'][:8]}, weights {diff['weights'][:8]}")
     require(first is None, "two processes of the same seeded steps differ")
     graphed = sum(str(r["stage"]).startswith("g") for r in a["steps"])
-    require(graphed == (2 + len(BACKBONES)) * DET_GRAPH_STEPS, f"the workers ran {graphed} graphed steps")
+    require(graphed == (2 + len(BACKBONES) + len(DET_AUX)) * DET_GRAPH_STEPS,
+            f"the workers ran {graphed} graphed steps")
     graph_ms = [1e3 * min(x, y) for x, y in zip(a["graph_step_s"], b["graph_step_s"])]
     print(f"[determinism] two processes: batches, losses, gradients and weights bit-identical over"
           f" {len(a['steps'])} steps ({len(a['steps']) - graphed} eager, {graphed} through CUDA"
-          f" graphs; SchNet stage 1 and stage 2, ViSNet and DimeNet stage 2); graphed step ms"
+          f" graphs; SchNet stage 1 and stage 2, ViSNet and DimeNet stage 2, the geometry ESAN and"
+          f" the covalent head stage 1); graphed step ms"
           f" (the faster process, each with a"
           " synchronise): " + ", ".join(f"{v:.2f}" for v in graph_ms))
     return dict(steps=len(a["steps"]), step_ms=ms, graph_step_ms=graph_ms,
@@ -1769,6 +2186,7 @@ def main() -> int:
     stage_rows["graphs"] = phase_graphs(device, card)
     stage_rows["pipeline"] = phase_pipeline(device, card)
     stage_rows["backbones"] = phase_backbones(device, card, rows)
+    stage_rows["esan"] = phase_esan(device, card, rows)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -1778,7 +2196,8 @@ def main() -> int:
 
     # launches: the regression kernels on the main path (phase 3), the F=256
     # ones on the classification path (phase 6); each also by runner path,
-    # the ViSNet and DimeNet runners' included (phase 10).
+    # the ViSNet and DimeNet runners' (phase 10) and the ESAN configs'
+    # (phase 11) included.
     # All three paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
     kernels = []
@@ -1791,6 +2210,8 @@ def main() -> int:
             "runner_launches": stage_rows["runner"]["launches"][name],
             "classification_launches": class_launches[name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
+            **{f"{cfg}_launches": run["launches"][name]
+               for cfg, run in stage_rows["esan"]["runner"].items()},
             "max_abs_err": max(rows[name][lab]["max_abs_err"] for lab in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, **extra(r),

@@ -1,4 +1,5 @@
-"""Map a flax ``ConanModel`` parameter tree onto the port's ``state_dict``.
+"""Map a flax model's parameter tree onto the port's ``state_dict``: a
+``ConanModel``'s or one of the aux heads' (``models/aux_heads.py``).
 
 ``params_from_flax`` takes the flax tree as nested dicts of numpy arrays
 (with or without the top-level ``"params"`` key). Flax ``Dense`` kernels are
@@ -9,8 +10,14 @@ biases are copied as they are. The backbone's rules follow the tree: ViSNet's
 has ``layers_0``, DimeNet's ``bessel_freq``, SchNet's neither. A
 classification tree (its head has ``Dense_1``) maps ``head/Dense_i`` to
 ``head.lins.i`` and ``self_attention/Dense_i`` to ``self_attention.qkv.i``;
-a regression tree's ``head/Dense_0`` is ``head``. A leaf that no rule maps
-raises.
+a regression tree's ``head/Dense_0`` is ``head``. An aux head's tree has no
+``backbone``: its top-level ``SchNet3D_0`` becomes ``schnet`` (the attention
+head's ``Dense_0..3`` ``q``, ``k``, ``v`` and ``head``, the others'
+``Dense_0`` ``head``), ``GAT2D_0`` ``gat``, and an ESAN variant's module
+(``AverageConformerESAN_0``, ...) ``net``, with its ``siamese``,
+``info_sharing``, GATs, ``deep_sets/Dense_0`` and ``transformation`` under
+it. A SchNet's covalent ``blocks_cov_i`` map as its ``blocks_i`` do. A leaf
+that no rule maps raises.
 ``state_dict_from_flax_checkpoint`` does the same for a parameter
 checkpoint file of the JAX package, reading it with numpy alone.
 """
@@ -23,16 +30,42 @@ import numpy as np
 import torch
 
 # (flax path regex, torch name template, transpose)
-_SCHNET = (
-    (r"backbone/blocks_(\d+)/(filter_[wb][12])", "backbone.blocks.{0}.{1}", False),
-    (r"backbone/blocks_(\d+)/Dense_0/kernel", "backbone.blocks.{0}.lin1.weight", True),
-    (r"backbone/blocks_(\d+)/Dense_1/kernel", "backbone.blocks.{0}.lin2.weight", True),
-    (r"backbone/blocks_(\d+)/Dense_1/bias", "backbone.blocks.{0}.lin2.bias", False),
-    (r"backbone/blocks_(\d+)/Dense_2/kernel", "backbone.blocks.{0}.lin.weight", True),
-    (r"backbone/blocks_(\d+)/Dense_2/bias", "backbone.blocks.{0}.lin.bias", False),
-    (r"backbone/(lin[12](?:_bary)?)/kernel", "backbone.{0}.weight", True),
-    (r"backbone/(lin[12](?:_bary)?)/bias", "backbone.{0}.bias", False),
-)
+
+
+def _dense(src: str, dst: str) -> tuple:
+    """A flax ``Dense`` at ``src`` as the torch ``Linear`` ``dst``."""
+    return ((rf"{src}/kernel", f"{dst}.weight", True), (rf"{src}/bias", f"{dst}.bias", False))
+
+
+def _schnet(src: str, dst: str) -> tuple:
+    """A flax ``SchNet3D`` at ``src`` (its radius blocks ``blocks_i``, its
+    covalent ones ``blocks_cov_i``, the embedding and the heads) as the
+    port's ``SchNet3D`` at ``dst``."""
+    block = rf"{src}/(blocks(?:_cov)?)_(\d+)"
+    return (
+        (rf"{block}/(filter_[wb][12])", dst + ".{0}.{1}.{2}", False),
+        (rf"{block}/Dense_0/kernel", dst + ".{0}.{1}.lin1.weight", True),
+        (rf"{block}/Dense_1/kernel", dst + ".{0}.{1}.lin2.weight", True),
+        (rf"{block}/Dense_1/bias", dst + ".{0}.{1}.lin2.bias", False),
+        (rf"{block}/Dense_2/kernel", dst + ".{0}.{1}.lin.weight", True),
+        (rf"{block}/Dense_2/bias", dst + ".{0}.{1}.lin.bias", False),
+        (rf"{src}/embedding/embedding", f"{dst}.embedding.weight", False),
+        (rf"{src}/(lin[12](?:_bary)?)/kernel", dst + ".{0}.weight", True),
+        (rf"{src}/(lin[12](?:_bary)?)/bias", dst + ".{0}.bias", False),
+    )
+
+
+def _gat(src: str, dst: str) -> tuple:
+    """A flax ``GAT2D`` at ``src`` as the port's ``GAT2D`` at ``dst``."""
+    return (
+        (rf"{src}/DenseGATConv_(\d+)/Dense_0/kernel", dst + ".convs.{0}.lin.weight", True),
+        (rf"{src}/DenseGATConv_(\d+)/Dense_1/kernel", dst + ".convs.{0}.lin_edge.weight", True),
+        (rf"{src}/DenseGATConv_(\d+)/(att_src|att_dst|att_edge|bias)", dst + ".convs.{0}.{1}",
+         False),
+    )
+
+
+_SCHNET = _schnet("backbone", "backbone")
 _VISNET = (
     (r"backbone/(neighbor_embedding_z)/embedding", "backbone.{0}.weight", False),
     (r"backbone/(prior_model(?:_bary)?)/Embed_0/embedding", "backbone.{0}.embedding.weight", False),
@@ -72,9 +105,7 @@ _DIMENET = (
 )
 _COMMON = (
     (r"backbone/embedding/embedding", "backbone.embedding.weight", False),
-    (r"gat/DenseGATConv_(\d+)/Dense_0/kernel", "gat.convs.{0}.lin.weight", True),
-    (r"gat/DenseGATConv_(\d+)/Dense_1/kernel", "gat.convs.{0}.lin_edge.weight", True),
-    (r"gat/DenseGATConv_(\d+)/(att_src|att_dst|att_edge|bias)", "gat.convs.{0}.{1}", False),
+    *_gat("gat", "gat"),
     (r"(t3d|tcov|tbary)/kernel", "{0}.weight", True),
     (r"(t3d|tcov|tbary)/bias", "{0}.bias", False),
 )
@@ -99,16 +130,48 @@ def _flatten(tree, prefix=""):
             yield path, val
 
 
-def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
-    """Return a ``state_dict`` for ``ConanModel`` from flax parameters."""
-    tree = flax_params.get("params", flax_params)
+# the ESAN variants' flax module names (``ESANAggregation``'s child)
+_ESAN = ("AverageConformerESAN_0", "GeometryInducedESAN_0", "Geometry2DInducedESAN_0")
+
+
+def _conan_rules(tree: dict) -> tuple:
     head = _CLASSIFICATION_HEAD if "Dense_1" in tree.get("head", {}) else _REGRESSION_HEAD
-    backbone = tree.get("backbone", {})
+    backbone = tree["backbone"]
     rules = (_VISNET if "layers_0" in backbone else _DIMENET if "bessel_freq" in backbone
              else _SCHNET)
+    return _COMMON + rules + head
+
+
+def _aux_rules(tree: dict) -> tuple:
+    """The rules of an aux head's tree (``models/aux_heads.py``), told
+    apart by its top-level modules."""
+    if "SchNet3D_0" in tree:
+        # the attention head's Dense_0..3 are q, k, v and the head
+        heads = ("q", "k", "v", "head") if "Dense_3" in tree else ("head",)
+        dense = (r for i, name in enumerate(heads) for r in _dense(f"Dense_{i}", name))
+        return (*_schnet("SchNet3D_0", "schnet"), *dense)
+    if "GAT2D_0" in tree:
+        return (*_gat("GAT2D_0", "gat"), *_dense("Dense_0", "head"))
+    esan = [name for name in _ESAN if name in tree]
+    if len(esan) != 1:
+        raise KeyError(f"flax tree with top-level modules {sorted(tree)} is no model of the port")
+    src = esan[0]
+    return (*_schnet(f"{src}/siamese", "net.siamese"),
+            *_schnet(f"{src}/info_sharing", "net.info_sharing"),
+            *(r for g in ("gat_2d", "gat_rbf", "gat_sub") for r in _gat(f"{src}/{g}", f"net.{g}")),
+            *_dense(f"{src}/deep_sets/Dense_0", "net.deep_sets.lin"),
+            *_dense(f"{src}/transformation", "net.transformation"),
+            *_dense("Dense_0", "head"))
+
+
+def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
+    """Return a ``state_dict`` for ``ConanModel`` or an aux head from flax
+    parameters; the tree's top-level keys tell which model it is."""
+    tree = flax_params.get("params", flax_params)
+    rules = _conan_rules(tree) if "backbone" in tree else _aux_rules(tree)
     state = {}
     for path, leaf in _flatten(tree):
-        for pattern, template, transpose in _COMMON + rules + head:
+        for pattern, template, transpose in rules:
             m = re.fullmatch(pattern, path)
             if m:
                 arr = np.asarray(leaf, dtype=np.float32)
@@ -120,7 +183,7 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
 
 
 def state_dict_from_flax_checkpoint(npz_path: str) -> dict[str, torch.Tensor]:
-    """Return a ``state_dict`` for ``ConanModel`` from a parameter
+    """Return a ``state_dict`` for ``ConanModel`` or an aux head from a parameter
     checkpoint of the JAX package's ``RunCheckpointer`` (its ``best.npz`` or
     ``last.npz``), whose entries are keyed by their path in the flax tree,
     e.g. ``['params']['backbone']['blocks_0']['filter_w1']``."""

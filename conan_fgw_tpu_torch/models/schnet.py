@@ -10,6 +10,12 @@ The cfconv of every block goes through ``ops/cuda/cfconv.py::cfconv``: the
 CUDA kernels K1/K2 for tensors on the card, the plain PyTorch formulation on
 the CPU. Both read the same raw filter parameters ``filter_w1/b1/w2/b2``.
 
+``use_covalent`` adds the parallel stack of ``CovalentInteractionBlock``s
+over the covalent bond graph (the JAX module's ``blocks_cov``), whose output
+is concatenated to the radius stack's before the heads. ``heads="simple"``
+keeps ``lin1`` alone, for a SchNet reached only through ``embed_simple``
+(the flax module then creates no other head).
+
 The atom embedding is a product of the one-hot atomic numbers with the
 table (``ops/graph.py::embed_onehot``), not ``nn.Embedding``'s lookup: the
 lookup's backward on the card accumulates the table's gradient in an order
@@ -19,12 +25,15 @@ training differed in their last bits.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
+from conan_fgw_tpu_torch.data.vocab import NUM_BOND_FEATURES
 from conan_fgw_tpu_torch.ops.cuda.cfconv import cfconv
 from conan_fgw_tpu_torch.ops.graph import embed_onehot, pairwise_distances, radius_graph_mask
-from conan_fgw_tpu_torch.ops.rbf import shifted_softplus
+from conan_fgw_tpu_torch.ops.rbf import gaussian_smearing, shifted_softplus
 
 
 class InteractionBlock(nn.Module):
@@ -55,39 +64,104 @@ class InteractionBlock(nn.Module):
         return self.lin(shifted_softplus(self.lin2(m)))
 
 
+class CovalentInteractionBlock(nn.Module):
+    """One block of the covalent stack: a cfconv whose "RBF" is the bond
+    attributes, whose neighbours are the bonds (no cap) and whose distances
+    are all one, so its cosine envelope is the constant ``0.5 (cos(pi /
+    cutoff) + 1)``.
+
+    The JAX package runs this block outside any Pallas kernel (its covalent
+    blocks always take the XLA formulation), so here it is plain PyTorch on
+    the card as on the CPU: a masked product over a materialised filter.
+    The filter depends on the molecule alone, so it is computed once per
+    molecule, ``(M, N, N, F)``, and applied to the molecule's ``G / M``
+    conformers, not repeated for each."""
+
+    def __init__(self, hidden_channels: int, num_filters: int, cutoff: float):
+        super().__init__()
+        self.envelope = 0.5 * (math.cos(math.pi / cutoff) + 1.0)
+        self.filter_w1 = nn.Parameter(torch.empty(NUM_BOND_FEATURES, num_filters))
+        self.filter_b1 = nn.Parameter(torch.empty(num_filters))
+        self.filter_w2 = nn.Parameter(torch.empty(num_filters, num_filters))
+        self.filter_b2 = nn.Parameter(torch.empty(num_filters))
+        self.lin1 = nn.Linear(hidden_channels, num_filters, bias=False)
+        self.lin2 = nn.Linear(num_filters, hidden_channels)
+        self.lin = nn.Linear(hidden_channels, hidden_channels)
+
+    def forward(self, h, bond_adj, bond_attr):
+        """``h (G, N, H)``; ``bond_adj (M, N, N)`` bool and ``bond_attr (M,
+        N, N, 3)`` of the ``M`` molecules whose conformers ``h`` holds, each
+        molecule's ``G / M`` in a row."""
+        M, N = bond_adj.shape[:2]
+        x = self.lin1(h)
+        w = shifted_softplus(bond_attr.to(x.dtype) @ self.filter_w1 + self.filter_b1)
+        w = w @ self.filter_w2 + self.filter_b2
+        w = w * (self.envelope * bond_adj.to(x.dtype))[..., None]
+        m = torch.einsum("mijf,mkjf->mkif", w, x.reshape(M, -1, N, x.shape[-1]))
+        return self.lin(shifted_softplus(self.lin2(m.reshape(x.shape))))
+
+
 class SchNet3D(nn.Module):
     """SchNet trunk + dual heads over padded conformer point clouds.
 
     Defaults follow the reference regression configuration: hidden=128,
     filters=128, gaussians=50, interactions=3, cutoff=10, 32 neighbours.
+    ``heads``: "dual" (``lin1/lin2`` and ``lin1_bary/lin2_bary``) or
+    "simple" (``lin1`` alone, for ``embed_simple``).
     """
 
     def __init__(self, hidden_channels: int = 128, num_filters: int = 128,
                  num_interactions: int = 3, num_gaussians: int = 50, cutoff: float = 10.0,
-                 max_neighbors: int | None = 32):
+                 max_neighbors: int | None = 32, use_covalent: bool = False,
+                 heads: str = "dual"):
         super().__init__()
+        if heads not in ("dual", "simple"):
+            raise ValueError(f"unknown heads {heads!r}")
         self.cutoff = cutoff
+        self.num_gaussians = num_gaussians
         self.max_neighbors = max_neighbors
+        self.use_covalent = use_covalent
         self.embedding = nn.Embedding(100, hidden_channels)
         self.blocks = nn.ModuleList(
             InteractionBlock(hidden_channels, num_filters, cutoff, num_gaussians, max_neighbors)
             for _ in range(num_interactions)
         )
+        if use_covalent:
+            self.blocks_cov = nn.ModuleList(
+                CovalentInteractionBlock(hidden_channels, num_filters, cutoff)
+                for _ in range(num_interactions)
+            )
+        width = 2 * hidden_channels if use_covalent else hidden_channels
         half = hidden_channels // 2
-        self.lin1 = nn.Linear(hidden_channels, half)
-        self.lin2 = nn.Linear(half, half)
-        self.lin1_bary = nn.Linear(hidden_channels, half)
-        self.lin2_bary = nn.Linear(half, half)
+        self.lin1 = nn.Linear(width, half)
+        if heads == "dual":
+            self.lin2 = nn.Linear(half, half)
+            self.lin1_bary = nn.Linear(width, half)
+            self.lin2_bary = nn.Linear(half, half)
 
-    def trunk(self, z, pos, mask):
-        h = embed_onehot(z, self.embedding.weight) * mask[..., None].to(torch.float32)
+    def _embed(self, z, mask):
+        return embed_onehot(z, self.embedding.weight) * mask[..., None].to(torch.float32)
+
+    def trunk(self, z, pos, mask, bond_adj=None, bond_attr=None):
+        """Per-node features of the interaction stacks; with ``use_covalent``
+        the covalent stack's over ``bond_adj``/``bond_attr`` (one per
+        molecule, see ``CovalentInteractionBlock``) are concatenated."""
+        h = self._embed(z, mask)
         for blk in self.blocks:
             h = h + blk(h, pos, mask)
-        return h
+        if not self.use_covalent:
+            return h
+        if bond_adj is None or bond_attr is None:
+            raise ValueError("use_covalent=True requires bond_adj and bond_attr")
+        h_cov = self._embed(z, mask)
+        for blk in self.blocks_cov:
+            h_cov = h_cov + blk(h_cov, bond_adj, bond_attr)
+        return torch.cat([h, h_cov], dim=-1)
 
-    def forward(self, z, pos, mask):
+    def forward(self, z, pos, mask, bond_adj=None, bond_attr=None):
         """3D branch only (stage 1): per-node features ``(..., N, hidden//2)``."""
-        return shifted_softplus(self.lin2(self.lin1(self.trunk(z, pos, mask))))
+        h = self.trunk(z, pos, mask, bond_adj, bond_attr)
+        return shifted_softplus(self.lin2(self.lin1(h)))
 
     def embed_dual(self, z, pos, mask):
         """Both heads off the shared trunk: ``(h_3d, h_bary, nbr_mask)``; the
@@ -97,3 +171,16 @@ class SchNet3D(nn.Module):
         h3 = shifted_softplus(self.lin2(self.lin1(h)))
         hb = shifted_softplus(self.lin2_bary(self.lin1_bary(h)))
         return h3, hb, nbr
+
+    def embed_simple(self, z, pos, mask):
+        """The one-linear head (the JAX module's ``embed_simple``):
+        ``(ssp(lin1(h)) (..., N, hidden//2), nbr_mask, rbf * nbr)``, the last
+        the radius graph's Gaussian edge features ``(..., N, N, gaussians)``
+        for a GAT over it. The blocks run through the cfconv kernels, which
+        compute the radius graph, RBF and envelope of the JAX function's
+        XLA formulation."""
+        h = shifted_softplus(self.lin1(self.trunk(z, pos, mask)))
+        dist = pairwise_distances(pos)
+        nbr = radius_graph_mask(dist, mask, self.cutoff, self.max_neighbors)
+        rbf = gaussian_smearing(dist, self.num_gaussians, 0.0, self.cutoff)
+        return h, nbr, rbf * nbr[..., None].to(rbf.dtype)

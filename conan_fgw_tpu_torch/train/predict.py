@@ -42,7 +42,11 @@ def predict_records(model, records, settings, max_atoms=None, device="cuda"):
 def export_embeddings(model, records, settings, max_atoms, out_path, device="cuda"):
     """Write ``out_path`` (npz): ``x3d`` (M, K, C) per conformer, ``x_bary``
     (M, C) and ``x_cov`` (M, C) per molecule, and the aligned ``mol_id``,
-    ``smiles`` and ``y``."""
+    ``smiles`` and ``y``. Exits, as the JAX tool does, for a model without
+    ``embeddings()`` (the aux heads)."""
+    if not hasattr(type(model), "embeddings"):
+        raise SystemExit(f"--embeddings needs a model with an embeddings() method (ConanModel);"
+                         f" {type(model).__name__} has none")
     dev = resolve_device(device)
     buckets = loop_lib.bucket_boundaries(max_atoms)
     keys = ("x3d", "x_bary", "x_cov")

@@ -16,9 +16,11 @@ Usage, on the card (``--device cpu`` runs on the CPU)::
         --stage conan_fgw
 
 The port carries ``ConanModel`` with the SchNet, ViSNet and DimeNet
-backbones, for regression and classification, on the conformer datasets;
-what else a config can ask for raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (``check_supported``).
+backbones, for regression and classification, and the head families of
+``experiment:`` other than ``conan`` (the ESAN variants and the aux heads,
+``build_aux_model``), on the conformer datasets; what else a config can ask
+for raises ``NotImplementedError`` naming its ``ROADMAP.md`` item
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from conan_fgw_tpu_torch.data.datasets import ConformerDataset, class_weight_ratio
 from conan_fgw_tpu_torch.device import resolve_device
+from conan_fgw_tpu_torch.models import aux_heads
 from conan_fgw_tpu_torch.models.heads import ConanModel
 from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig
 from conan_fgw_tpu_torch.train import loop as loop_lib
@@ -53,10 +56,6 @@ def check_supported(config: ExperimentConfig, device: torch.device) -> None:
     if spec.dataset != "conformers":
         raise NotImplementedError(
             f"dataset: {spec.dataset} is not ported yet (ROADMAP.md §1, item 7)")
-    if spec.model != "conan":
-        raise NotImplementedError(
-            f"the {spec.model!r} head family (aux and ESAN heads) is not ported yet "
-            "(ROADMAP.md §1, item 5)")
     if config.model_name not in ("schnet", "visnet", "dimenet"):
         raise ValueError(f"unknown model_name {config.model_name!r}")
     if config.compute_dtype != "float32":
@@ -70,8 +69,24 @@ def check_supported(config: ExperimentConfig, device: torch.device) -> None:
                     "on the CPU only; on the card the kernels run")
 
 
-def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> ConanModel:
-    """The config's backbone at hidden 128 for regression, 512 for
+def build_aux_model(spec_model: str, hidden: int, *, seed: int = 0, device="cuda"):
+    """A head family other than ``conan`` (``ExperimentSpec.model``): the
+    reference's GAT-only and baseline heads and the ESAN variants
+    (``esan:<variant>``), as the JAX runner builds them."""
+    if spec_model.startswith("esan:"):
+        return aux_heads.ESANAggregation(spec_model.split(":", 1)[1], hidden, seed=seed,
+                                         device=device)
+    try:
+        head = aux_heads.HEADS[spec_model]
+    except KeyError:
+        raise ValueError(f"unknown experiment model family {spec_model!r}; known: conan,"
+                         f" esan:<variant>, {sorted(aux_heads.HEADS)}") from None
+    return head(hidden, seed=seed, device=device)
+
+
+def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda"):
+    """A head family other than ``conan`` comes from ``build_aux_model``.
+    Otherwise the config's backbone at hidden 128 for regression, 512 for
     classification, a cap of 32 neighbours, and the FGW solver. SchNet: 3
     interactions, cutoff 10, and 128 filters with 50 Gaussians for
     regression, 256 with 10 for classification. ViSNet: cutoff 5, the
@@ -80,6 +95,10 @@ def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> Co
     (as the JAX runner wires them, after the reference's wrappers)."""
     dev = resolve_device(device)
     check_supported(config, dev)
+    task = config.spec.task
+    hidden = 512 if task == "classification" else 128
+    if config.spec.model != "conan":
+        return build_aux_model(config.spec.model, hidden, seed=seed, device=dev)
     if config.fgw_from_config:
         # opt-in: the YAML's max_iter/epsilon reach the solver
         fgw = FGWConfig(outer_iters=config.max_iter, epsilon=config.epsilon)
@@ -91,8 +110,7 @@ def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda") -> Co
         fgw = dataclasses.replace(fgw, pgd_iters=config.fgw_pgd_iters)
     if config.fgw_sinkhorn_iters is not None:
         fgw = dataclasses.replace(fgw, sinkhorn_iters=config.fgw_sinkhorn_iters)
-    task = config.spec.task
-    common = dict(task=task, hidden_channels=512 if task == "classification" else 128,
+    common = dict(task=task, hidden_channels=hidden,
                   agg_weight=config.agg_weight, bary_pad_mode=config.bary_pad_mode, seed=seed,
                   device=dev)
     if config.model_name == "visnet":

@@ -178,8 +178,6 @@ def test_lr_finder_sets_the_learning_rate(tiny, tmp_path, caplog):
 
 
 @pytest.mark.parametrize("extra", [
-    "experiment_override: gat_only",
-    "experiment_override: esan_avg_conf",
     "experiment_override: conan_fgw.src.experiments.SOTAClassificationGEOMExperiment",
     "experiment_override: conan_fgw.src.experiments.DimeNetGEOMExperiment",
     "compute_dtype: bfloat16",
@@ -194,6 +192,45 @@ def test_what_the_port_lacks_raises(tiny, tmp_path, extra):
     (tmp_path / "c.yaml").write_text(text)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.main(_cli(tiny, str(tmp_path / "c.yaml"), "conan_fgw_pre"))
+
+
+def _family_config(tmp_path: Path, experiment: str) -> str:
+    text = Path(write_config(tmp_path, "c.yaml", "pre", epochs=1)).read_text()
+    (tmp_path / "c.yaml").write_text(text.replace("experiment: regression",
+                                                  f"experiment: {experiment}"))
+    return str(tmp_path / "c.yaml")
+
+
+@pytest.mark.parametrize("experiment,head", [
+    ("esan_geometry", "ESANAggregation"), ("gat_only", "EmbeddingsWithGAT"),
+    ("scalars", "ScalarsAggregation"), ("embeddings", "EmbeddingsAggregation"),
+    ("covalent", "CovalentEmbeddingsAggregation"), ("attention", "AttentionEmbeddingsAggregation"),
+])
+def test_cli_trains_a_head_family_then_predicts(tiny, tmp_path, experiment, head):
+    """The runner's CLI trains each head family other than ``conan`` (the
+    ESAN geometry variant and the five aux heads, at the runner's width)
+    for one epoch on the CPU, and predict on its best gives its test RMSE."""
+    cfg = _family_config(tmp_path, experiment)
+    assert type(trunner.build_model(tload(cfg), device="cpu")).__name__ == head
+    dirs = ("--models_dir", str(tmp_path / "models"), "--metrics_dir", str(tmp_path / "metrics"),
+            "--logs_dir", str(tmp_path / "logs"))
+    summary = trunner.main(_cli(tiny, cfg, "conan_fgw_pre", *dirs))
+    assert np.isfinite(summary["test_rmse"]["mean"])
+    rmse = tpredict.main(["--config", cfg, "--checkpoint",
+                          str(tmp_path / "models/cli/1/run_conan_fgw_pre:0"),
+                          "--data_root", str(tiny), "--device", "cpu"])
+    assert rmse == summary["test_rmse"]["mean"]
+
+
+def test_predict_refuses_embeddings_of_an_aux_head(tiny, tmp_path):
+    """``--embeddings`` needs ``embeddings()`` (``ConanModel``'s): on an aux
+    head predict exits with the JAX tool's message."""
+    cfg = _family_config(tmp_path, "gat_only")
+    RunCheckpointer(str(tmp_path / "ckpt")).save_best(trunner.build_model(tload(cfg), device="cpu"),
+                                                     0)
+    with pytest.raises(SystemExit, match=r"embeddings\(\) method .* EmbeddingsWithGAT has none"):
+        tpredict.main(["--config", cfg, "--checkpoint", str(tmp_path / "ckpt"), "--data_root",
+                       str(tiny), "--device", "cpu", "--embeddings", str(tmp_path / "e.npz")])
 
 
 @pytest.mark.parametrize("flags", [["--num_devices", "2"], ["--distributed"]])
