@@ -141,25 +141,56 @@ Phases (any failure exits non-zero and prints no result line):
    ms per step eager and graphed in turns, each run's peak memory, and a
    profile of three graphed steps (busy share; the graph's nodes and the
    profiler's executions back the launch counts, as in phase 8).
+12. bf16 compute (``compute_dtype: bfloat16``). K1 and K2's bf16 variants
+   (bf16 node features and cotangent, f32 weights; counted as
+   ``cfconv_fwd_bf16``, ``cfconv_bwd_bf16``, ``cfconv_fwd_f256_bf16`` and
+   ``cfconv_bwd_f256_bf16``) against the bf16 plain version on phase 2's
+   inputs at F=128 (G=120) and F=256 (G=90), N=32 and N=64: ``out`` and
+   ``dx`` equal the f32 kernels' results on the widened inputs rounded to
+   bf16 bit for bit, and lie within one bf16 ulp of the plain version's
+   beyond the distance of the two f32 results they round (that distance
+   within ``CFCONV_RTOL`` of the largest; the share of elements that differ
+   is printed); the weight gradients within ``CFCONV_RTOL``; K2 twice
+   bit-identical; times and bounds as in phase 2. The flagship at
+   ``bench.py``'s ``mixed_precision`` shape (B=24, K=5, N=32) with a bf16
+   trunk: one stage-2 step card against CPU (phase 4's gates; where a gate
+   is missed, the step is held to it against the CPU step in the kernels'
+   arithmetic and the result says ``witnessed``), phase 8's case (20 steps
+   eager against graphed through an lr change, the eval graph, timed turns
+   beside phase 8's f32 figures, the profile), and the peak memory of eager
+   steps in f32 and bf16. The runner's ``main`` on bf16 copies of
+   ``config/schnet/sol250_5.yaml`` and ``sol250_5_bc.yaml`` (2 epochs each)
+   with phase 5's checks, where only the bf16 K1/K2 and K3 may launch, and
+   predict on stage 2's best, beside phase 5's f32 test RMSE. The
+   classification model (F=256) in bf16: one stage-2 step card against CPU
+   at batch 18, and phase 8's case. DimeNet with bf16 triplet tensors
+   (``config/dimenet/sol250_5_bc.yaml`` with ``compute_dtype: bfloat16``):
+   one stage-2 step card against CPU at batch 16, phase 8's case beside
+   phase 10's f32 figures, the peak memory of eager steps in f32 and bf16
+   at N=32, and at ``bench.py``'s ``dimenet_n96_bf16`` shape (B=8, N=96),
+   where 20 bf16 steps at the config's lr must stay finite.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
-   and DimeNet models, and stage-1 steps of the geometry ESAN and the
-   covalent head at batch 32, eagerly and then through CUDA graphs fed by
+   and DimeNet models, stage-1 steps of the geometry ESAN and the
+   covalent head at batch 32, and stage-2 steps of the bf16 flagship,
+   eagerly and then through CUDA graphs fed by
    the host pipeline, and must give bit-identical batches, losses,
    gradients and weights; a
    third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. It runs last.
 
-Then it prints the per-kernel JSON line (every kernel, each width and
-shape held, with its launches on each runner path), the card line and, last, ``{"ok": true, "device": {...}}``.
+Then it prints the per-kernel JSON line (every kernel, each width, type
+and shape held, with its launches on each runner path; the bf16 variants'
+``launches`` are those of phase 12's runner, this slice's main path), the
+card line and, last, ``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
 graph is captured and does not run when the graph is replayed, so each
 graph adds its capture's counts once per later replay
 (``train/graphs.py::LaunchReplays``). The counts of phases 3, 5 and 6
-(``launches``, ``runner_launches``, ``classification_launches``) are
-derived so. Phases 8 and 11 back them with the graph itself: its K1/K2/K3
+(``launches``, ``runner_launches``, ``classification_launches``) and of
+phase 12 are derived so. Phases 8 and 11 back them with the graph itself: its K1/K2/K3
 kernel nodes, read from its ``debug_dump``, must equal the launches its
 capture counted, as every node runs once a replay; the profiler's count
 of executions over three replays must not exceed the derived counts and
@@ -209,12 +240,12 @@ FGW_ATOL = 2.5e-6   # plans, absolute; diverged flags exactly
 STEP_RTOL, PARAM_RTOL, PARAM_FLOOR = 1e-3, 1e-2, 1e-6
 # phase 11: the head families whose step, where it misses the loss or
 # gradient-norm gate, is held to that gate instead against the CPU step computed
-# in K1/K2's own arithmetic (their edge order and three-term bf16 split, which
-# phase 2 holds within CFCONV_RTOL of the plain version). Only the attention
-# head: at N=64 its softmax spans all 160 conformers of a batch whose
-# predictions are nearly equal, so its gradient norm is the small residue of
-# large terms, and the split's rounding shows in it
-WITNESSED = ("attention",)
+# in K1/K2's own arithmetic (their edge order and 3xTF32 split, which phase 2
+# holds within CFCONV_RTOL of the plain version). None since K1/K2 moved from a
+# three-term bf16 split to 3xTF32: the attention head, whose N=64 softmax spans
+# all 160 conformers of a batch with nearly equal predictions, missed the gate
+# with the bf16 split's rounding
+WITNESSED = ()
 
 REPLACES = {
     "cfconv_fwd": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
@@ -222,6 +253,12 @@ REPLACES = {
     "fgw_couplings": "conan_fgw_tpu/ops/pallas/fgw.py:362",
     "cfconv_fwd_f256": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd_f256": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
+    # the bf16 variants (bf16 node features: the Pallas kernels' x, out, g
+    # and dx in a bf16 trunk, compute_dtype: bfloat16)
+    "cfconv_fwd_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
+    "cfconv_bwd_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
+    "cfconv_fwd_f256_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
+    "cfconv_bwd_f256_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
 }
 SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
@@ -229,6 +266,10 @@ SOURCES = {
     "fgw_couplings": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "cfconv_fwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_fwd_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_bwd_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_fwd_f256_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_bwd_f256_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
 }
 # seconds between the edges of the profiler's window and the steps it profiles
 PROFILE_MARGIN_S = 0.05
@@ -236,6 +277,9 @@ PROFILE_MARGIN_S = 0.05
 # classification path (phase 6)
 REGRESSION = ("cfconv_fwd", "cfconv_bwd", "fgw_couplings")
 CLASSIFICATION = ("cfconv_fwd_f256", "cfconv_bwd_f256", "fgw_couplings")
+# the same two paths in bf16 compute (phase 12)
+REGRESSION_BF16 = ("cfconv_fwd_bf16", "cfconv_bwd_bf16", "fgw_couplings")
+CLASSIFICATION_BF16 = ("cfconv_fwd_f256_bf16", "cfconv_bwd_f256_bf16", "fgw_couplings")
 
 
 class SmokeFailure(RuntimeError):
@@ -361,10 +405,28 @@ def cfconv_params(G, N, gen, dev, F=F, GAUSS=GAUSS):
     return x, w1, b1, w2, b2, rnd(G, N, F)
 
 
-def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS):
+def bf16_ulp(t):
+    """The spacing of bf16 values at each element of ``t`` (f32): 2^(e - 8)
+    for ``t = m 2^e``, ``0.5 <= |m| < 1``; 0 at 0."""
+    import torch
+
+    mant, exp = torch.frexp(t.float())
+    return torch.where(mant == 0, torch.zeros_like(t.float()), torch.ldexp(torch.ones_like(mant),
+                                                                           exp - 8))
+
+
+def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
     """K1 and K2 against the plain version at one shape; ``F``/``GAUSS``
     pick the width (the classification model's is 256 filters and 10
-    Gaussians), whose rows go under its launch-count names."""
+    Gaussians), whose rows go under its launch-count names. With ``dtype``
+    bf16, the node features and the cotangent are bf16 (phase 12): ``out``
+    and ``dx`` must equal bit for bit the f32 kernels' results on the
+    widened inputs rounded to bf16, and lie within one bf16 ulp of the plain
+    version's, element by element, beyond the distance of the two f32
+    results they round (an element that cancels to 1e-6 of the largest
+    differs by many of its own ulps in f32 already; that distance is held to
+    ``CFCONV_RTOL`` of the largest). The weight gradients (f32) are held to
+    ``CFCONV_RTOL`` and must equal the f32 kernel's bit for bit."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.cfconv import (
@@ -374,35 +436,70 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS):
         kernel_name,
     )
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = f"{label} F{F}" + (" bf16" if bf16 else "")
     G, N, _ = pos.shape
     maskf = mask.to(torch.float32).contiguous()
     x, w1, b1, w2, b2, cot = cfconv_params(G, N, gen, pos.device, F, GAUSS)
+    x, cot = x.to(dtype), cot.to(dtype)
     out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP)
     grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
     grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
     torch.cuda.synchronize()
     same = [n for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_again)
             if torch.equal(a, b)]
-    print(f"[cfconv {label} F{F}] bwd twice on the same inputs: bit-identical {same}")
-    require(len(same) == 5, f"cfconv {label} backward is not deterministic")
+    print(f"[cfconv {tag}] bwd twice on the same inputs: bit-identical {same}")
+    require(len(same) == 5, f"cfconv {tag} backward is not deterministic")
+    require(out_k.dtype == grads_k[0].dtype == dtype
+            and all(t.dtype == torch.float32 for t in grads_k[1:]),
+            f"cfconv {tag}: out {out_k.dtype}, grads {[t.dtype for t in grads_k]}")
     leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
     out_p = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP)
     grads_p = torch.autograd.grad(out_p, leaves, cot)
     torch.cuda.synchronize()
 
     def rel(a, b):
-        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
 
-    err_fwd = float((out_k - out_p.detach()).abs().max())
+    err_fwd = float((out_k.float() - out_p.detach().float()).abs().max())
     rel_fwd = rel(out_k, out_p.detach())
     rels_bwd = {n: rel(a, b) for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_p)}
-    err_bwd = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
-    print(f"[cfconv {label} F{F}] fwd max_abs_err {err_fwd:.3e} rel {rel_fwd:.3e} (tol {CFCONV_RTOL})")
-    print(f"[cfconv {label} F{F}] bwd rel errors "
+    err_bwd = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads_k, grads_p))
+    print(f"[cfconv {tag}] fwd max_abs_err {err_fwd:.3e} rel {rel_fwd:.3e} (tol {CFCONV_RTOL})")
+    print(f"[cfconv {tag}] bwd rel errors "
           + " ".join(f"{n} {v:.3e}" for n, v in rels_bwd.items()) + f" (tol {CFCONV_RTOL})")
-    require(rel_fwd <= CFCONV_RTOL, f"cfconv {label} forward disagrees: {rel_fwd}")
+    if bf16:
+        # the bf16 variants widen, compute as the f32 ones and round once
+        wide = [t.float().contiguous() for t in (x, cot)]
+        out_w = cfconv_forward(pos, maskf, wide[0], w1, b1, w2, b2, CUTOFF, CAP)
+        grads_w = cfconv_backward(pos, maskf, wide[0], w1, b1, w2, b2, wide[1], CUTOFF, CAP)
+        equal = [torch.equal(out_k, out_w.to(dtype)), torch.equal(grads_k[0], grads_w[0].to(dtype)),
+                 *(torch.equal(a, b) for a, b in zip(grads_k[1:], grads_w[1:]))]
+        print(f"[cfconv {tag}] against the f32 kernels on the widened inputs, rounded: bit-identical"
+              f" out, dx, dw1, db1, dw2, db2 {equal}")
+        require(all(equal), f"cfconv {tag}: the bf16 variants differ from the f32 kernels rounded")
+        leaves32 = [t.float().requires_grad_(True) for t in leaves]
+        out_p32 = _cfconv_plain(pos, maskf, *leaves32, CUTOFF, GAUSS, CAP)
+        dx_p32 = torch.autograd.grad(out_p32, leaves32[0], wide[1])[0]
+        for name, k, p, k32, p32 in (("out", out_k, out_p.detach(), out_w, out_p32.detach()),
+                                     ("dx", grads_k[0], grads_p[0], grads_w[0], dx_p32)):
+            k, p = k.float(), p.float()
+            ulp = torch.maximum(bf16_ulp(k), bf16_ulp(p))
+            beyond = float(((k - p).abs() - (k32 - p32).abs()).div(ulp.clamp_min(1e-38)).max())
+            over = float(((k - p).abs() > ulp).to(torch.float32).mean())
+            differ = float((k != p).to(torch.float32).mean())
+            f32_rel = rel(k32, p32)
+            print(f"[cfconv {tag}] {name}: {100 * differ:.3f}% of elements differ from the plain"
+                  f" version's, {100 * over:.4f}% by more than one bf16 ulp; at most {beyond:.2f}"
+                  f" ulp beyond the f32 results' distance (tol 1), which is {f32_rel:.3e} of the"
+                  f" largest (tol {CFCONV_RTOL})")
+            require(beyond <= 1.0 and f32_rel <= CFCONV_RTOL,
+                    f"cfconv {tag} {name} is more than one bf16 ulp off")
+    else:
+        require(rel_fwd <= CFCONV_RTOL, f"cfconv {tag} forward disagrees: {rel_fwd}")
     for n, v in rels_bwd.items():
-        require(v <= CFCONV_RTOL, f"cfconv {label} backward {n} disagrees: {v}")
+        require(bf16 and n == "dx" or v <= CFCONV_RTOL, f"cfconv {tag} backward {n} disagrees: {v}")
 
     edges = count_edges(pos, mask, CAP)
     fwd_ms = cuda_ms(lambda: cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP))
@@ -415,19 +512,22 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS):
 
     plain_bwd_ms = cuda_ms(plain_bwd)
     w_bytes = 4 * (GAUSS * F + F * F + 2 * F)
-    io_fwd = 4 * (G * N * 3 + G * N + 2 * G * N * F) + w_bytes
-    io_bwd = 4 * (G * N * 3 + G * N + 3 * G * N * F) + 2 * w_bytes
+    feat = x.element_size()  # x, out, the cotangent and dx
+    io_fwd = 4 * (G * N * 3 + G * N) + feat * 2 * G * N * F + w_bytes
+    io_bwd = 4 * (G * N * 3 + G * N) + feat * 3 * G * N * F + 2 * w_bytes
     # the filter MLP's products (tensor cores in the kernels) and the rest
     mlp_fwd, mlp_bwd = edges * 2 * (GAUSS * F + F * F), edges * (4 * GAUSS * F + 6 * F * F)
     flops_fwd, flops_bwd = mlp_fwd + edges * 2 * F, mlp_bwd + edges * 4 * F
-    print(f"[cfconv {label} F{F}] G={G} N={N} F={F} Gs={GAUSS} edges={edges}: fwd {fwd_ms:.4f} ms"
+    print(f"[cfconv {tag}] G={G} N={N} F={F} Gs={GAUSS} edges={edges}: fwd {fwd_ms:.4f} ms"
           f" (plain {plain_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f})")
     for name, ms, plain_ms, err, io, flops, mlp in (
-        (kernel_name("cfconv_fwd", F), fwd_ms, plain_fwd_ms, err_fwd, io_fwd, flops_fwd, mlp_fwd),
-        (kernel_name("cfconv_bwd", F), bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd, mlp_bwd),
+        (kernel_name("cfconv_fwd", F, dtype), fwd_ms, plain_fwd_ms, err_fwd, io_fwd, flops_fwd,
+         mlp_fwd),
+        (kernel_name("cfconv_bwd", F, dtype), bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd,
+         mlp_bwd),
     ):
         tc, f32 = bound(io, flops, mlp), bound(io, flops)
-        print(f"[cfconv {label} F{F}] {name}: bound {tc[0]:.5f} ms on the tensor cores"
+        print(f"[cfconv {tag}] {name}: bound {tc[0]:.5f} ms on the tensor cores"
               f" ({100 * tc[0] / ms:.1f}% reached), {f32[0]:.5f} ms in f32 on the CUDA cores"
               f" ({100 * f32[0] / ms:.1f}%); {flops / ms / 1e9:.1f} TFLOP/s")
         rows[name][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=tc, bound_f32=f32)
@@ -789,12 +889,13 @@ def graphed_launches(label, graphs, pb, steps: int = 3):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_parity(model, device, batch=B, label="parity"):
+def phase_parity(model, device, batch=B, label="parity", witness=False):
     from conan_fgw_tpu_torch.data.packing import pack_batch
     from conan_fgw_tpu_torch.data.synthetic import random_dataset
 
     recs = random_dataset(SEED + 3, batch, num_conformers=K, heavy_range=(8, 10), device=device)
-    return step_parity(model, pack_batch(recs, max_atoms=32, batch_size=batch), device, label)
+    return step_parity(model, pack_batch(recs, max_atoms=32, batch_size=batch), device, label,
+                       witness=witness)
 
 
 @contextlib.contextmanager
@@ -1234,8 +1335,10 @@ GRAPH_CASES = (("stage 1 N32", False, False, 32, (8, 13), B),
                ("stage 2 N64", False, True, 64, (20, 26), B),
                ("class stage 2 N32", True, True, 32, (8, 13), B_CLS),
                ("stage 1 N32 B96", False, False, 32, (8, 13), 96))
-PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256"),
-            "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256"),
+PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_bf16",
+                                  "cfconv_fwd_f256_bf16"),
+            "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256", "cfconv_bwd_bf16",
+                                  "cfconv_bwd_f256_bf16"),
             "fgw_couplings_kernel": ("fgw_couplings",)}
 
 
@@ -1954,6 +2057,233 @@ def phase_esan(device, card, rows):
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+BF16 = "compute_dtype: bfloat16\n"
+# bench.py's dimenet_n96_bf16 row: DimeNet stage 2 at B=8, K=5, N=96, where
+# a bf16 edge-state chain overflowed in JAX (commit 31c42ad)
+DIMENET_N96_BATCH, DIMENET_N96_STEPS = 8, 20
+BF16_MEMORY_STEPS = 3  # eager steps for a peak; the last two are timed
+
+
+def bf16_copy(src: str, out_dir: Path, epochs: int | None = None) -> str:
+    """A copy of the YAML config ``src`` with ``compute_dtype: bfloat16``
+    appended (and ``num_epochs: epochs`` where given)."""
+    path = Path(config_copy(src, out_dir, epochs)) if epochs else out_dir / Path(src).name
+    text = path.read_text() if epochs else Path(src).read_text()
+    require("compute_dtype" not in text, f"{src} already sets compute_dtype")
+    path = path.with_name(f"{path.stem}_bf16.yaml")
+    path.write_text(text + BF16)
+    return str(path)
+
+
+def phase_bf16_kernels(device, rows):
+    """Phase 12's kernel checks: K1/K2's bf16 variants against the bf16
+    plain version on phase 2's inputs with bf16 node features and
+    cotangent, at F=128 (G=120, N=32 and N=64 with the cap active) and at
+    F=256 (G=90, N=32 and 64)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    for label, heavy, n_atoms in FGW_SHAPES[:2]:
+        pos, mask = packed_geometry(SEED + n_atoms, B, heavy, n_atoms, device)
+        check_cfconv(label, pos, mask, gen, rows, dtype=torch.bfloat16)
+        pos, mask = packed_geometry(SEED + 1000 + n_atoms, B_CLS, heavy, n_atoms, device)
+        check_cfconv(label, pos, mask, gen, rows, F_CLS, GAUSS_CLS, dtype=torch.bfloat16)
+
+
+def eager_peak(label, model, batch, settings, card, steps=BF16_MEMORY_STEPS):
+    """``steps`` eager train steps of ``model`` on ``batch`` (on the card):
+    ms per step (the best of the last ``steps - 1``) and the peak of
+    ``torch.cuda.max_memory_allocated`` beyond what was held before."""
+    import torch
+
+    from conan_fgw_tpu_torch.train import loop
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    opt = loop.make_optimizer(model, settings)
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(loop.train_step(model, opt, batch, settings)[0])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    ms = 1e3 * min(times[1:])
+    finite = bool(torch.stack(losses).isfinite().all())
+    print(f"[{label}] {steps} eager steps: {ms:.2f} ms/step, peak {peak:.2f} GiB allocated (Adam and"
+          f" the step, beyond what was held before) on {card}; losses finite {finite}")
+    require(finite, f"{label}: a non-finite loss")
+    del opt
+    return dict(eager_ms=ms, peak_gib=peak, losses=[float(v) for v in losses])
+
+
+def _grew_only(label, before, allowed):
+    """The launches since ``before`` touch only the kernels ``allowed``."""
+    from conan_fgw_tpu_torch.ops.cuda import launches
+
+    grew = {k: launches[k] - before[k] for k in REPLACES if launches[k] != before[k]}
+    require(set(grew) <= set(allowed), f"{label}: kernels launched {grew}, want only {allowed}")
+    return grew
+
+
+def phase_bf16(device, card, rows, f32=None):
+    """Phase 12: bf16 compute (``compute_dtype: bfloat16``). K1/K2's bf16
+    variants against the bf16 plain version; the flagship SchNet at
+    ``bench.py``'s ``mixed_precision`` shape (B=24, K=5, N=32): one stage-2
+    step card against CPU (phase 4's gates; where it misses them, against
+    the CPU step in the kernels' arithmetic, recorded as ``witnessed``),
+    phase 8's eager-against-graphed case with its timed turns, and the peak
+    memory of eager steps in f32 and bf16; the runner's stage 1 and stage 2
+    on bf16 copies of ``config/schnet/sol250_5*.yaml`` with phase 5's checks
+    (only the bf16 K1/K2 and K3 launch) and predict; the classification
+    model's stage-2 step at F=256 and batch 18 card against CPU, and its
+    graphed case; DimeNet's stage-2 step at batch 16 card against CPU, its
+    graphed case, the peak memory in f32 and bf16, and 20 training steps at
+    ``bench.py``'s N=96 B=8 shape, which must stay finite. ``f32`` holds the
+    f32 figures of this run (phases 5, 8 and 10) to print beside."""
+    import dataclasses
+
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.cuda import launches
+    from conan_fgw_tpu_torch.train import loop, predict
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import STAGE_BC, build_model, build_settings
+
+    f32 = f32 or {}
+    out = {"kernels": {}}
+    phase_bf16_kernels(device, rows)
+
+    # the flagship at the mixed_precision shape
+    model = ConanModel(seed=SEED, device=device, compute_dtype="bfloat16")
+    require(all(b.compute_dtype == torch.bfloat16 for b in model.backbone.blocks),
+            "the bf16 flagship's blocks are not bf16")
+    before = collections.Counter(launches)
+    parity = phase_parity(model, device, label="bf16 parity", witness=True)
+    _grew_only("bf16 parity", before, REGRESSION_BF16)
+    out["parity"] = dict(parity, witnessed="kernel_arithmetic_rel" in parity)
+    before = collections.Counter(launches)
+    out["graphs"] = graph_case("bf16 stage 2 N32", False, True, 32, (8, 13), B, device, card,
+                               base=ConanModel(seed=SEED, device=device, compute_dtype="bfloat16"))
+    _grew_only("bf16 graphs", before, REGRESSION_BF16)
+    flag = f32.get("graphs", {})
+    if flag:
+        print(f"[graphs bf16 stage 2 N32] against f32 (phase 8, this run): eager"
+              f" {min(out['graphs']['eager_ms']):.3f} vs {min(flag['eager_ms']):.3f}, graphed"
+              f" {min(out['graphs']['graphed_ms']):.3f} vs {min(flag['graphed_ms']):.3f}, pipelined"
+              f" {min(out['graphs']['pipelined_ms']):.3f} vs {min(flag['pipelined_ms']):.3f} ms/step"
+              f" on {card}")
+    recs = random_dataset(SEED + 3, B, num_conformers=K, heavy_range=(8, 10), device=device)
+    batch = pack_batch(recs, max_atoms=32, batch_size=B).to(device)
+    settings = loop.TrainSettings(batch_size=B, use_barycenter=True)
+    out["memory"] = {
+        dtype: eager_peak(f"bf16 memory flagship {dtype}",
+                          ConanModel(seed=SEED, device=device, compute_dtype=dtype), batch,
+                          settings, card)
+        for dtype in ("float32", "bfloat16")}
+    del model, batch
+
+    # the runner on bf16 copies of the sol250 configs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as name, \
+            runner_spies() as (plain_calls, restores, captures, host):
+        tmp = Path(name)
+        common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        ctx = (common, tmp, plain_calls, captures, host, device, card)
+        totals, cfgs = collections.Counter(), {}
+        for stage, src in RUNNER_STAGES:
+            first_restore = len(restores)
+            cfgs[stage] = bf16_copy(src, tmp, RUNNER_EPOCHS)
+            label = "bf16 stage 1" if stage == "conan_fgw_pre" else "bf16 stage 2"
+            summary, history, grew = runner_stage(label, stage, cfgs[stage], ctx,
+                                                  kernels=REGRESSION_BF16)
+            totals.update(grew)
+            out[label] = stage_row(history, summary, "rmse")
+        check_warm_start(restores, first_restore,
+                         tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+        reported = summary["test_rmse"]["mean"]
+        rmse = run_main(predict.main, ["--config", cfgs[STAGE_BC], "--checkpoint",
+                                       str(tmp / "models" / "smoke" / "0" / "run_conan_fgw:0"),
+                                       "--data_root", ".", "--device", device,
+                                       "--out", str(tmp / "preds.csv")])
+        rel = abs(rmse - reported) / abs(reported)
+        f32_rmse = f32.get("runner", {}).get("stage 2", {}).get("test_rmse")
+        print(f"[runner bf16] predict on stage 2's best: test RMSE {rmse!r}, the runner's"
+              f" {reported!r}, rel {rel:.3e} (tol {PREDICT_RTOL}); the f32 runner's (phase 5,"
+              f" this run) {f32_rmse!r}")
+        require(rel <= PREDICT_RTOL, "bf16: predict's test RMSE disagrees with the runner's")
+        require(not plain_calls, f"bf16 runner: plain versions ran: {dict(plain_calls)}")
+    out["launches"] = {k: totals[k] for k in REPLACES}
+    for k in REGRESSION_BF16:
+        require(out["launches"][k] > 0, f"bf16 runner: {k} never launched")
+
+    # classification at F=256, sol1k_class's batch of 18
+    model = ConanModel(seed=SEED, device=device, task="classification", hidden_channels=512,
+                       num_filters=256, num_gaussians=GAUSS_CLS, compute_dtype="bfloat16")
+    before = collections.Counter(launches)
+    parity = phase_parity(model, device, batch=B_CLS, label="bf16 class parity", witness=True)
+    out["class_parity"] = dict(parity, witnessed="kernel_arithmetic_rel" in parity)
+    out["class_graphs"] = graph_case(
+        "bf16 class stage 2 N32", True, True, 32, (8, 13), B_CLS, device, card,
+        base=ConanModel(seed=SEED, device=device, task="classification", hidden_channels=512,
+                        num_filters=256, num_gaussians=GAUSS_CLS, compute_dtype="bfloat16"))
+    out["class_launches"] = _grew_only("bf16 classification", before, CLASSIFICATION_BF16)
+    require(all(out["class_launches"].get(k, 0) > 0 for k in CLASSIFICATION_BF16),
+            f"bf16 classification: launches {out['class_launches']}")
+    del model
+
+    # DimeNet: bf16 triplet tensors
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_dimenet_") as name:
+        cfg = load_config(bf16_copy(BACKBONES["dimenet"][1], Path(name)))
+    require(cfg.compute_dtype == "bfloat16", "the DimeNet copy is not bf16")
+    f32_cfg = load_config(BACKBONES["dimenet"][1])
+    out["dimenet_parity"] = phase_parity(build_model(cfg, seed=SEED, device=device), device,
+                                         batch=cfg.batch_size, label="bf16 dimenet parity")
+    before = collections.Counter(launches)
+    out["dimenet_graphs"] = graph_case("bf16 dimenet stage 2 N32", False, True, 32, (8, 13),
+                                       cfg.batch_size, device, card,
+                                       base=build_model(cfg, seed=SEED, device=device),
+                                       timed=BACKBONE_TIMED)
+    _grew_only("bf16 dimenet", before, ("fgw_couplings",))
+    dn32 = f32.get("backbones", {}).get("dimenet", {}).get("graphs", {})
+    if dn32:
+        print(f"[graphs bf16 dimenet stage 2 N32] against f32 (phase 10, this run): graphed"
+              f" {min(out['dimenet_graphs']['graphed_ms']):.3f} vs {min(dn32['graphed_ms']):.3f}"
+              f" ms/step on {card}")
+    settings = build_settings(cfg, STAGE_BC)
+    recs = random_dataset(SEED + 12, cfg.batch_size, num_conformers=K, heavy_range=(8, 13),
+                          device=device)
+    batch = pack_batch(recs, max_atoms=32, batch_size=cfg.batch_size).to(device)
+    out["dimenet_memory"] = {
+        name: eager_peak(f"bf16 memory dimenet N32 B{cfg.batch_size} {name}",
+                         build_model(c, seed=SEED, device=device), batch, settings, card)
+        for name, c in (("float32", f32_cfg), ("bfloat16", cfg))}
+    # bench.py's dimenet_n96_bf16 shape: the steps must stay finite
+    recs = random_dataset(SEED + 96, DIMENET_N96_BATCH, num_conformers=K, heavy_range=(48, 54),
+                          device=device)
+    batch = pack_batch(recs, max_atoms=96, batch_size=DIMENET_N96_BATCH).to(device)
+    settings = dataclasses.replace(build_settings(cfg, STAGE_BC), batch_size=DIMENET_N96_BATCH)
+    out["dimenet_n96"] = {
+        "float32": eager_peak(f"bf16 dimenet N96 B{DIMENET_N96_BATCH} float32",
+                              build_model(f32_cfg, seed=SEED, device=device), batch, settings,
+                              card),
+        "bfloat16": eager_peak(f"bf16 dimenet N96 B{DIMENET_N96_BATCH} bfloat16",
+                               build_model(cfg, seed=SEED, device=device), batch, settings, card,
+                               steps=DIMENET_N96_STEPS)}
+    print(f"[bf16 dimenet N96] {DIMENET_N96_STEPS} steps at lr {settings.learning_rate}: losses"
+          f" {out['dimenet_n96']['bfloat16']['losses'][0]:.4g} ->"
+          f" {out['dimenet_n96']['bfloat16']['losses'][-1]:.4g}, all finite")
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- determinism
 DET_STEPS = 3  # stage-1 steps, then as many stage-2 steps, from the same weights
 # graphed steps per stage: the shape's eager warm-up, the capture with its
@@ -1980,13 +2310,15 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
     steps at batch 96 and ``DET_STEPS`` stage-2 steps at batch 24 on
     ``data/sol250``'s first train records, from the seeded flagship model,
     then ``DET_STEPS`` stage-2 steps of the runner's seeded ViSNet and
-    DimeNet models at their stage-2 configs' batches. Writes, per step, the
+    DimeNet models at their stage-2 configs' batches, stage-1 steps of the
+    ``DET_AUX`` heads and stage-2 steps of the bf16 flagship (``compute_dtype:
+    bfloat16``) at batch 24. Writes, per step, the
     batch's digest, the loss's bits, each gradient's digest before the clip
     and each weight's digest after the update, to ``out_path`` (JSON). Then,
     from the seeded models again, ``DET_GRAPH_STEPS`` steps a stage through
     ``StepGraphs`` on the N=32 molecules, their batches through the host
     pipeline (prefetch, native packing into pinned slots; stages ``g1``,
-    ``g2``, ``gvisnet``, ``gdimenet``), whose gradients are read after the
+    ``g2``, ``gvisnet``, ``gdimenet``, the aux heads' and ``gbf16``), whose gradients are read after the
     clip from the graph's static tensors. ``deterministic`` runs the eager
     steps only, under ``torch.use_deterministic_algorithms(True)``, which
     raises naming an operation that has no deterministic implementation."""
@@ -2080,6 +2412,9 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
                     TrainSettings(batch_size=config.batch_size, use_barycenter=True), name)
     for name, spec in DET_AUX.items():
         eager_steps(build_aux_model(spec, 128, seed=SEED, device="cuda"), aux_settings, name)
+    bf16_settings = TrainSettings(batch_size=24, use_barycenter=True)
+    eager_steps(ConanModel(seed=SEED, device="cuda", compute_dtype="bfloat16"), bf16_settings,
+                "bf16")
     if not deterministic:
         model = ConanModel(seed=SEED, device="cuda")
         for bary, batch_size in schnet_stages:
@@ -2091,6 +2426,8 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
         for name, spec in DET_AUX.items():
             graphed_steps(build_aux_model(spec, 128, seed=SEED, device="cuda"), aux_settings,
                           f"g{name}")
+        graphed_steps(ConanModel(seed=SEED, device="cuda", compute_dtype="bfloat16"),
+                      bf16_settings, "gbf16")
     Path(out_path).write_text(json.dumps({"steps": rows, "step_s": t_steps, "graph_step_s": graph_s}))
     return 0
 
@@ -2141,13 +2478,14 @@ def phase_determinism():
               f" loss {diff['loss']}, gradients {diff['grads'][:8]}, weights {diff['weights'][:8]}")
     require(first is None, "two processes of the same seeded steps differ")
     graphed = sum(str(r["stage"]).startswith("g") for r in a["steps"])
-    require(graphed == (2 + len(BACKBONES) + len(DET_AUX)) * DET_GRAPH_STEPS,
+    # SchNet stage 1 and 2, the backbones, the aux heads and the bf16 flagship
+    require(graphed == (3 + len(BACKBONES) + len(DET_AUX)) * DET_GRAPH_STEPS,
             f"the workers ran {graphed} graphed steps")
     graph_ms = [1e3 * min(x, y) for x, y in zip(a["graph_step_s"], b["graph_step_s"])]
     print(f"[determinism] two processes: batches, losses, gradients and weights bit-identical over"
           f" {len(a['steps'])} steps ({len(a['steps']) - graphed} eager, {graphed} through CUDA"
           f" graphs; SchNet stage 1 and stage 2, ViSNet and DimeNet stage 2, the geometry ESAN and"
-          f" the covalent head stage 1); graphed step ms"
+          f" the covalent head stage 1, the bf16 flagship stage 2); graphed step ms"
           f" (the faster process, each with a"
           " synchronise): " + ", ".join(f"{v:.2f}" for v in graph_ms))
     return dict(steps=len(a["steps"]), step_ms=ms, graph_step_ms=graph_ms,
@@ -2187,6 +2525,9 @@ def main() -> int:
     stage_rows["pipeline"] = phase_pipeline(device, card)
     stage_rows["backbones"] = phase_backbones(device, card, rows)
     stage_rows["esan"] = phase_esan(device, card, rows)
+    stage_rows["bf16"] = phase_bf16(device, card, rows, f32={
+        "graphs": stage_rows["graphs"]["stage 2 N32"], "runner": stage_rows["runner"],
+        "backbones": stage_rows["backbones"]})
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -2195,19 +2536,26 @@ def main() -> int:
         return out
 
     # launches: the regression kernels on the main path (phase 3), the F=256
-    # ones on the classification path (phase 6); each also by runner path,
-    # the ViSNet and DimeNet runners' (phase 10) and the ESAN configs'
-    # (phase 11) included.
-    # All three paths step through CUDA graphs: see the module docstring
+    # ones on the classification path (phase 6), the bf16 variants on the
+    # bf16 runner's path (phase 12, this slice's), the F=256 bf16 ones on
+    # phase 12's classification step and graphs; each also by runner path,
+    # the ViSNet and DimeNet runners' (phase 10), the ESAN configs' (phase
+    # 11) and the bf16 runner's (phase 12) included.
+    # All these paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
+    bf16_launches = stage_rows["bf16"]["launches"]
     kernels = []
     for name in REPLACES:
         r = rows[name]["N32"]
         bound_ms, bound_by = r["bound"]
+        main_path = (totals[name] if name in REGRESSION else
+                     stage_rows["bf16"]["class_launches"][name] if name.endswith("_f256_bf16") else
+                     bf16_launches[name] if name.endswith("_bf16") else class_launches[name])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": totals[name] if name in REGRESSION else class_launches[name],
+            "launches": main_path,
             "runner_launches": stage_rows["runner"]["launches"][name],
+            "bf16_runner_launches": bf16_launches[name],
             "classification_launches": class_launches[name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             **{f"{cfg}_launches": run["launches"][name]

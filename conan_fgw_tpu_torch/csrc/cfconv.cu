@@ -15,10 +15,13 @@
 // x, the cotangent, the weights) are a few MB. So it is operation-bound, and
 // the five products of the MLP are dense products of edge tiles with the
 // (Gs, F) and (F, F) weights: tensor-core work. They run on the tensor cores
-// with mma.sync.m16n8k16 in bf16, each f32 operand split in two (a = a_hi +
-// a_lo + O(2^-17 a)) and the product taken as a_lo b_hi + a_hi b_lo +
-// a_hi b_hi with f32 sums: about 16 bits, where one TF32 pass keeps 11 and
-// does not hold the 5e-4 contract with any margin. The elementwise parts
+// with mma.sync.m16n8k8 in TF32, each f32 operand split in two (a = a_big +
+// a_small + O(2^-22 a)) and the product taken as a_small b_big + a_big
+// b_small + a_big b_big with f32 sums (3xTF32): about 22 bits. One TF32
+// pass keeps 11 and does not hold the 5e-4 contract with any margin; a
+// three-term bf16 split (16 bits) holds it, but its rounding showed in the
+// attention head's gradient at N = 64, where a softmax over 160 nearly equal
+// conformers leaves a small residue of large terms. The elementwise parts
 // (RBF, ssp, sigmoid, gate, the products with x and the cotangent) stay on
 // the CUDA cores between the products. With 8 or 16 warps an SM, the
 // products are latency-bound, not tensor-pipe-bound.
@@ -33,8 +36,8 @@
 //   padding.
 // - Teams of 8 warps work on one item at a time, in tiles of ET = 32 edges;
 //   Gs is zero-padded to KG, a multiple of 16. The weights a block needs
-//   stay in shared memory for its life, split to hi/lo once when they are
-//   staged; the edge tiles are split as their fragments are loaded.
+//   stay in shared memory for its life, in f32 pairs along k; weights and
+//   edge tiles are split as their fragments are loaded.
 // - Row sums into out / dx: a sixth product on the tensor cores, the 0/1
 //   selection of the item's rows times the message tile, accumulated over
 //   the item's tiles in registers: fixed order, no branches.
@@ -53,8 +56,8 @@
 // - F = 128 filters, Gs <= KG = 64: the regression model. Every block holds
 //   all of W1 and W2. K1 runs two teams a block (16 warps an SM) that share
 //   the weights; K2 needs more registers and shared memory and runs one.
-// - F = 256 filters, Gs <= KG = 16: the classification model. W2 split to
-//   hi/lo is 256 KiB, more than a block's 227 KB, so the blocks split it in
+// - F = 256 filters, Gs <= KG = 16: the classification model. W2 in f32 is
+//   256 KiB, more than a block's 227 KB, so the blocks split it in
 //   slabs. K1 splits the output filters in two slabs of 128: a block holds
 //   all of W1 and the columns W2[:, slab], recomputes h = ssp(rbf W1 + b1)
 //   for every edge (Gs F = 2,560 MACs an edge against F 128 = 32,768 for
@@ -65,15 +68,27 @@
 //   dW1[:, slab] and dW2[slab, :] (64 x 256 partials: as many registers as
 //   F = 128's 128 x 128). Only dx, a sum over c through W = h W2 + b2, needs
 //   the four slabs' parts: each slab writes its own (G, N, F) part and
-//   cfconv_dx_reduce sums them in slab order. The edge list and the
+//   cfconv_sum_parts_kernel sums them in slab order. The edge list and the
 //   gathers are built once per slab.
+//
+// Node features: x and the cotangent are f32 or bf16 (the element type T
+// of the kernels), as the Pallas kernels take bf16 x in a bf16 trunk. A
+// bf16 element is widened to f32 as it is loaded and everything after is
+// the f32 arithmetic above, so the bf16 variant computes exactly what the
+// f32 one does on the widened inputs. Its out and dx are summed in an f32
+// scratch and rounded once to bf16, to nearest even (__float2bfloat16_rn,
+// as XLA's convert rounds), by cfconv_sum_parts_kernel; the weight
+// gradients stay f32 and are summed as in the f32 variant.
 //
 // Limits: F = 128 with 2 <= Gs <= 64, or F = 256 with 2 <= Gs <= 16;
 // N <= 128 atoms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -98,7 +113,7 @@ static_assert(R1 <= R && R2 <= R && R <= THREADS / 32, "one warp per row / sourc
 // [g][2t] (conflict-free when stride % 32 is 8 or 24), or down a column as
 // two loads at [2t][g] and [2t+1][g] (conflict-free when stride % 8 is 4).
 // A tile read both ways takes the first; its column reads see 2-way
-// conflicts. Packed weights hold pairs (uint2), conflict-free for 8-byte
+// conflicts. Packed weights hold pairs (float2), conflict-free for 8-byte
 // reads when the pair stride % 16 is 4.
 template <int F_, int KG_, bool BWD>
 struct Cfg {
@@ -134,14 +149,16 @@ __device__ __forceinline__ void team_sync() {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + team()), "r"(THREADS) : "memory");
 }
 
-// The elementwise functions use the fast exp / log (absolute errors near
-// 1e-7 on values of order 1, far inside the 5e-4 contract).
+// The elementwise functions use the accurate expf / log1pf: the fast
+// __expf errs by about |x| 2^-24 of its result (the rounded x log2 e),
+// more than the 3xTF32 products leave, and a step whose gradient amplifies
+// rounding (the attention head at N = 64) showed it.
 __device__ __forceinline__ float ssp(float x) {
   // softplus(x) - log 2, stable for large |x|
-  return fmaxf(x, 0.f) + __logf(1.f + __expf(-fabsf(x))) - LOG2_F;
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))) - LOG2_F;
 }
 
-__device__ __forceinline__ float sigmoidf(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
 // Squared norm and Gram-form distance with a fixed operation order, so that
 // dist(i, j) == dist(j, i) bit for bit.
@@ -158,127 +175,126 @@ __device__ __forceinline__ float pair_dist(const float* pos_s, const float* sq_s
 }
 
 // ------------------------------------------------------------ tensor cores
-// The split: x = hi + lo + O(2^-17 x), hi = bf16(x) and lo = bf16(x - hi),
-// both rounded to nearest (ties away) on the bits, two elements packed per
-// register (the lower k in the low half). x - hi is exact in f32. Integer
-// adds, masks and byte permutes only: no conversion instruction.
-__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const uint32_t u0 = __float_as_uint(x0) + 0x8000u, u1 = __float_as_uint(x1) + 0x8000u;
-  hi = __byte_perm(u0, u1, 0x7632);
-  const float r0 = x0 - __uint_as_float(u0 & 0xffff0000u);
-  const float r1 = x1 - __uint_as_float(u1 & 0xffff0000u);
-  lo = __byte_perm(__float_as_uint(r0) + 0x8000u, __float_as_uint(r1) + 0x8000u, 0x7632);
+// The split: x = big + small + O(2^-22 x), big = tf32(x) and small =
+// tf32(x - big), both rounded as cvt.rna.tf32.f32 rounds (to nearest, ties
+// away from zero) on the bits: add half of the 13 dropped bits, clear them.
+// Two integer instructions, no conversion. x - big is exact in f32. A NaN
+// such as 0x7fffffff would carry into the sign bit; the operands here are
+// finite.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// Elements p[0] and p[S] (consecutive k), split and packed.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Elements p[0] and p[S] (consecutive k).
 template <int S>
-__device__ __forceinline__ void load_split(const float* p, uint32_t& hi, uint32_t& lo) {
+__device__ __forceinline__ float2 load_pair(const float* p) {
   if constexpr (S == 1) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    split_bf16x2(v.x, v.y, hi, lo);
+    return *reinterpret_cast<const float2*>(p);
   } else {
-    split_bf16x2(p[0], p[S], hi, lo);
+    return make_float2(p[0], p[S]);
   }
 }
 
-// Operand loaders for warp_mma: load(r, k, hi, lo) gives the fragment
-// register of elements (r, k) and (r, k+1) along the product's k, k even,
-// split and packed; r is the row m of A or the column n of B.
-// F32Tile: an f32 edge tile, element (r, k) at p[r*RS + k*KS], split as it
-// is loaded (splitting a tile once where it is written measured slower).
+// Operand loaders for warp_mma: load(r, k) gives elements (r, k) and
+// (r, k+1) along the product's k, k even; r is the row m of A or the
+// column n of B.
+// F32Tile: an f32 edge tile, element (r, k) at p[r*RS + k*KS].
 template <int RS, int KS>
 struct F32Tile {
   const float* p;
-  __device__ __forceinline__ void load(int r, int k, uint32_t& hi, uint32_t& lo) const {
-    load_split<KS>(p + r * RS + k * KS, hi, lo);
-  }
+  __device__ __forceinline__ float2 load(int r, int k) const { return load_pair<KS>(p + r * RS + k * KS); }
 };
-// Weights split once when staged: p[(k/2)*SWP + n] holds the pair (k, k+1)
-// of column n as {hi, lo}. PackedW reads B(k, n) = W(k, n) in one load;
-// PackedWT reads B(k, n) = W(n, k) from the halves of two entries.
+// Weights staged as pairs: p[(k/2)*SWP + n] holds W(k, n), W(k+1, n).
+// PackedW reads B(k, n) = W(k, n) in one load; PackedWT reads B(k, n) =
+// W(n, k) from the halves of two entries.
 template <int SWP>
 struct PackedW {
-  const uint2* p;
-  __device__ __forceinline__ void load(int n, int k, uint32_t& hi, uint32_t& lo) const {
-    const uint2 v = p[(k >> 1) * SWP + n];
-    hi = v.x;
-    lo = v.y;
-  }
+  const float2* p;
+  __device__ __forceinline__ float2 load(int n, int k) const { return p[(k >> 1) * SWP + n]; }
 };
 template <int SWP>
 struct PackedWT {
-  const uint2* p;
-  __device__ __forceinline__ void load(int n, int k, uint32_t& hi, uint32_t& lo) const {
-    const uint2 a = p[(n >> 1) * SWP + k], b = p[(n >> 1) * SWP + k + 1];
-    const uint32_t sel = (n & 1) ? 0x7632u : 0x5410u;  // n's half of each pair
-    hi = __byte_perm(a.x, b.x, sel);
-    lo = __byte_perm(a.y, b.y, sel);
+  const float2* p;
+  __device__ __forceinline__ float2 load(int n, int k) const {
+    const float2 a = p[(n >> 1) * SWP + k], b = p[(n >> 1) * SWP + k + 1];
+    return (n & 1) ? make_float2(a.y, b.y) : make_float2(a.x, b.x);  // n's half of each pair
   }
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One warp adds A (rows m0 .. m0 + MT*16) times B (columns n0 .. n0 + NT*8)
-// over k < K (a multiple of 16) to acc with the three-term bf16 split
-// a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi. Accumulator layout (mma.sync):
-// acc[mt][nt][r] is row m0 + mt*16 + g + 8*(r>>1), column n0 + nt*8 + 2t +
-// (r&1), with g = lane/4, t = lane%4.
+// over k < K (a multiple of 8) to acc with the three-term TF32 split
+// a b ~ a_small b_big + a_big b_small + a_big b_big (3xTF32). Each k-step of
+// 8 gives lane t the pair k0 + 2t, k0 + 2t + 1 at the fragment's columns t
+// and t + 4 of A and rows t and t + 4 of B: the same permutation of k on
+// both sides, so the product is unchanged and every operand is one 8-byte
+// pair. Accumulator layout (mma.sync): acc[mt][nt][r] is row m0 + mt*16 + g
+// + 8*(r>>1), column n0 + nt*8 + 2t + (r&1), with g = lane/4, t = lane%4.
 template <int MT, int NT, int K, class LA, class LB>
 __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const LA& A, const LB& B,
                                          int m0, int n0) {
-  static_assert(K % 16 == 0, "mma.m16n8k16 steps");
+  static_assert(K % 8 == 0, "mma.m16n8k8 steps");
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
+  for (int k0 = 0; k0 < K; k0 += 8) {
     const int k = k0 + 2 * t;
-    uint32_t ah[MT][4], al[MT][4];
+    uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int m = m0 + mt * 16 + g;
-      A.load(m, k, ah[mt][0], al[mt][0]);
-      A.load(m + 8, k, ah[mt][1], al[mt][1]);
-      A.load(m, k + 8, ah[mt][2], al[mt][2]);
-      A.load(m + 8, k + 8, ah[mt][3], al[mt][3]);
+      const float2 top = A.load(m, k), bottom = A.load(m + 8, k);
+      split_tf32(top.x, ab[mt][0], as[mt][0]);
+      split_tf32(bottom.x, ab[mt][1], as[mt][1]);
+      split_tf32(top.y, ab[mt][2], as[mt][2]);
+      split_tf32(bottom.y, ab[mt][3], as[mt][3]);
     }
     if constexpr (MT * NT <= 4) {
       // few accumulators: the three passes one after another over all of
       // them, so that consecutive mma do not wait on each other's sums
-      uint32_t bh[NT][2], bl[NT][2];
+      uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        B.load(n0 + nt * 8 + g, k, bh[nt][0], bl[nt][0]);
-        B.load(n0 + nt * 8 + g, k + 8, bh[nt][1], bl[nt][1]);
+        const float2 v = B.load(n0 + nt * 8 + g, k);
+        split_tf32(v.x, bb[nt][0], bs[nt][0]);
+        split_tf32(v.y, bb[nt][1], bs[nt][1]);
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], al[mt], bh[nt]);
+        for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], as[mt], bb[nt]);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], ah[mt], bl[nt]);
+        for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], ah[mt], bh[nt]);
+        for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
     } else {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        uint32_t bh[2], bl[2];
-        B.load(n0 + nt * 8 + g, k, bh[0], bl[0]);
-        B.load(n0 + nt * 8 + g, k + 8, bh[1], bl[1]);
+        uint32_t bb[2], bs[2];
+        const float2 v = B.load(n0 + nt * 8 + g, k);
+        split_tf32(v.x, bb[0], bs[0]);
+        split_tf32(v.y, bb[1], bs[1]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][nt], al[mt], bh);
-          mma_bf16(acc[mt][nt], ah[mt], bl);
-          mma_bf16(acc[mt][nt], ah[mt], bh);
+          mma_tf32(acc[mt][nt], as[mt], bb);
+          mma_tf32(acc[mt][nt], ab[mt], bs);
+          mma_tf32(acc[mt][nt], ab[mt], bb);
         }
       }
     }
@@ -297,8 +313,8 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 
 // ------------------------------------------------------------ shared memory
 struct Smem {
-  uint2* w1;      // KG/2 x SW1, split pairs (PackedW)
-  uint2* w2;      // W2_ROWS/2 x SW2
+  float2* w1;     // KG/2 x SW1, pairs (PackedW)
+  float2* w2;     // W2_ROWS/2 x SW2
   float* rbf;     // ET x SR
   float* h;       // ET x SH
   float* dwf;     // ET x SD (K2 only)
@@ -319,8 +335,8 @@ struct Smem {
 template <class C, bool BWD>
 __device__ Smem carve(float* p) {
   Smem s;
-  s.w1 = reinterpret_cast<uint2*>(p); p += C::KG * C::SW1;
-  s.w2 = reinterpret_cast<uint2*>(p); p += C::W2_ROWS * C::SW2;
+  s.w1 = reinterpret_cast<float2*>(p); p += C::KG * C::SW1;
+  s.w2 = reinterpret_cast<float2*>(p); p += C::W2_ROWS * C::SW2;
   p += team() * C::TEAM_FLOATS;
   s.rbf = p; p += ET * C::SR;
   s.h = p; p += ET * C::SH;
@@ -339,20 +355,17 @@ __device__ Smem carve(float* p) {
 }
 
 // Stages rows [row0, row0 + rows) and columns [col0, col0 + COLS) of W (row
-// stride ld; rows >= valid are zero) split into pairs along its rows:
-// dst[(k/2)*SWP + n] = {hi, lo} of W(row0 + k, col0 + n), W(row0 + k + 1,
-// col0 + n). Done once per block; the split is the one fragment loads of
-// f32 tiles make.
+// stride ld; rows >= valid are zero) in pairs along its rows:
+// dst[(k/2)*SWP + n] = W(row0 + k, col0 + n), W(row0 + k + 1, col0 + n).
+// Done once per block; fragment loads split them as they split edge tiles.
 template <int COLS, int SWP>
-__device__ void stage_weights(uint2* dst, const float* w, int ld, int rows, int valid, int row0,
+__device__ void stage_weights(float2* dst, const float* w, int ld, int rows, int valid, int row0,
                               int col0) {
   for (int idx = threadIdx.x; idx < rows / 2 * COLS; idx += blockDim.x) {
     const int k = 2 * (idx / COLS), n = idx % COLS;
     const float a = k < valid ? __ldg(w + (size_t)(row0 + k) * ld + col0 + n) : 0.f;
     const float b = k + 1 < valid ? __ldg(w + (size_t)(row0 + k + 1) * ld + col0 + n) : 0.f;
-    uint2 v;
-    split_bf16x2(a, b, v.x, v.y);
-    dst[(k / 2) * SWP + n] = v;
+    dst[(k / 2) * SWP + n] = make_float2(a, b);
   }
 }
 
@@ -447,14 +460,19 @@ __device__ int build_edges(const Smem& s, int n, float cutoff, int a0) {
 }
 
 // RBF tile [e][k] of edges e0 .. e0+ne-1; padding edges and k >= gs are 0.
+// The centres and the order of operations are torch.linspace's and
+// gaussian_smearing's: the lower half k step, the upper half cutoff - (gs -
+// 1 - k) step; exp(coeff (d - mu)^2).
 template <class C>
-__device__ void rbf_tile(const Smem& s, int e0, int ne, int gs, float step, float coeff) {
+__device__ void rbf_tile(const Smem& s, int e0, int ne, int gs, float cutoff, float step,
+                         float coeff) {
   for (int idx = tid(); idx < ET * C::KG; idx += THREADS) {
     const int e = idx / C::KG, k = idx % C::KG;
     float v = 0.f;
     if (e < ne && k < gs) {
-      const float diff = s.ed[e0 + e] - k * step;
-      v = __expf(coeff * diff * diff);
+      const float mu = k < gs / 2 ? step * k : cutoff - step * (gs - 1 - k);
+      const float diff = s.ed[e0 + e] - mu;
+      v = expf(coeff * (diff * diff));
     }
     s.rbf[e * C::SR + k] = v;
   }
@@ -504,12 +522,20 @@ __device__ __forceinline__ void store_h(const Smem& s, const float (&acc)[1][C::
     }
 }
 
+// Elements c, c+1 of a node-feature row, widened to f32.
+__device__ __forceinline__ float2 load_feature_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load_feature_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
 // Rows key[e] of a graph's (N, ld) tensor, columns of an (ET x W) tile, at
 // this thread's fragment positions of the edge tile (edge e, channels c,
 // c+1); 0 for padding edges. Issued a phase before the values are used, so
 // the loads' latency hides behind a product.
-template <int W, int LD>
-__device__ __forceinline__ void gather_rows(const float* base, const int* key, int e0, int ne,
+template <int W, int LD, class T>
+__device__ __forceinline__ void gather_rows(const T* base, const int* key, int e0, int ne,
                                             float2 (&v)[W / 32][2]) {
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
   const int r0 = ew_row0(), c0 = ew_col0<W>();
@@ -518,7 +544,7 @@ __device__ __forceinline__ void gather_rows(const float* base, const int* key, i
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int e = r0 + g + 8 * half, c = c0 + nt * 8 + 2 * t;
-      v[nt][half] = e < ne ? __ldg(reinterpret_cast<const float2*>(base + (size_t)key[e0 + e] * LD + c))
+      v[nt][half] = e < ne ? load_feature_pair(base + (size_t)key[e0 + e] * LD + c)
                            : make_float2(0.f, 0.f);
     }
 }
@@ -558,33 +584,30 @@ __device__ __forceinline__ void layer2(const Smem& s, const float* b2,
 // Row sums of the item on the tensor cores: rows[r][c] += sum_e S[r][e]
 // tile[e][c] over the tile's edges, with the selection S[r][e] = 1 where
 // edge e's key (target i for K1, source j for K2) is key0 + r, r < R. S is
-// exact in bf16, so two passes (tile hi and lo) suffice. Warp w owns
-// channels (W/8) w .. +W/8-1; acc rows g (r = 0, 1) are the item's rows,
-// rows g + 8 stay zero. Fixed order, no atomics.
+// exact in TF32, so two passes (tile big and small) suffice; k runs over
+// the edges in the pairs of warp_mma. Warp w owns channels (W/8) w ..
+// +W/8-1; acc rows g (r = 0, 1) are the item's rows, rows g + 8 stay zero.
+// Fixed order, no atomics.
 template <int W, int SX>
 __device__ __forceinline__ void scatter_rows(const float* xs, const int* key, int key0, int e0,
                                              int ne, float (&rows)[W / 64][4]) {
   const int lane = tid() & 31, g = lane >> 2, t = lane & 3;
   const float* tile = xs + (W / 8) * (tid() >> 5);
-  constexpr uint32_t ONE = 0x3f80u;  // bf16 1.0
+  constexpr uint32_t ONE = 0x3f800000u;  // 1.0f
 #pragma unroll
-  for (int k0 = 0; k0 < ET; k0 += 16) {
+  for (int k0 = 0; k0 < ET; k0 += 8) {
+    const int e = k0 + 2 * t;
     uint32_t a[4] = {0u, 0u, 0u, 0u};  // rows g + 8 (a[1], a[3]) select nothing
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int e = k0 + 2 * t + 8 * half;
-      const uint32_t s0 = e < ne && key[e0 + e] - key0 == g ? ONE : 0u;
-      const uint32_t s1 = e + 1 < ne && key[e0 + e + 1] - key0 == g ? ONE : 0u;
-      a[2 * half] = s0 | (s1 << 16);
-    }
+    a[0] = e < ne && key[e0 + e] - key0 == g ? ONE : 0u;
+    a[2] = e + 1 < ne && key[e0 + e + 1] - key0 == g ? ONE : 0u;
 #pragma unroll
     for (int nt = 0; nt < W / 64; ++nt) {
-      const float* b = tile + (k0 + 2 * t) * SX + nt * 8 + g;
-      uint32_t bh[2], bl[2];
-      load_split<SX>(b, bh[0], bl[0]);
-      load_split<SX>(b + 8 * SX, bh[1], bl[1]);
-      mma_bf16(rows[nt], a, bl);
-      mma_bf16(rows[nt], a, bh);
+      const float2 v = load_pair<SX>(tile + e * SX + nt * 8 + g);
+      uint32_t bb[2], bs[2];
+      split_tf32(v.x, bb[0], bs[0]);
+      split_tf32(v.y, bb[1], bs[1]);
+      mma_tf32(rows[nt], a, bs);
+      mma_tf32(rows[nt], a, bb);
     }
   }
 }
@@ -712,11 +735,12 @@ __device__ TileRun plan_tiles(int* red, const int* __restrict__ item_tiles, int 
 
 // ------------------------------------------------------------ K1
 // Block b computes slab b % NS of the output filters; the blocks of a slab
-// and their teams share out its tiles.
-template <int F, int KG>
+// and their teams share out its tiles. out is f32 (the bf16 variant's
+// scratch).
+template <int F, int KG, class T>
 __global__ void __launch_bounds__(Cfg<F, KG, false>::TEAMS * THREADS, 1)
     cfconv_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
-                      const float* __restrict__ x, const float* __restrict__ w1,
+                      const T* __restrict__ x, const float* __restrict__ w1,
                       const float* __restrict__ b1, const float* __restrict__ w2,
                       const float* __restrict__ b2, const int* __restrict__ item_tiles,
                       float* __restrict__ out, int G, int n, int gs, float cutoff, int cap) {
@@ -747,13 +771,13 @@ __global__ void __launch_bounds__(Cfg<F, KG, false>::TEAMS * THREADS, 1)
     row_bits(s, n, cutoff, cap, i0, min(i0 + R1, n));
     team_sync();
     const int E = build_edges<false, R1>(s, n, cutoff, i0);
-    const float* xg = x + (size_t)g * n * F + o0;
+    const T* xg = x + (size_t)g * n * F + o0;
     float rows[FO / 64][4] = {};
     for (int e0 = first * ET; e0 < min(E, last * ET); e0 += ET) {
       const int ne = min(ET, E - e0);
       float2 xv[FO / 32][2];  // x_j
       gather_rows<FO, F>(xg, s.ej, e0, ne, xv);
-      rbf_tile<C>(s, e0, ne, gs, step, coeff);
+      rbf_tile<C>(s, e0, ne, gs, cutoff, step, coeff);
       team_sync();
       {
         float acc[1][C::SC / 32][4];
@@ -785,13 +809,13 @@ __global__ void __launch_bounds__(Cfg<F, KG, false>::TEAMS * THREADS, 1)
 // ------------------------------------------------------------ K2
 // Block b computes slab b % NS of the input filters of h (all of them at
 // F = 128); the blocks of a slab share out its tiles. dx is this slab's part
-// (G, N, F) of dx: the slabs' parts start NS apart.
-template <int F, int KG>
+// (G, N, F) of dx, in f32: the slabs' parts start NS apart.
+template <int F, int KG, class T>
 __global__ void __launch_bounds__(THREADS, 1)
     cfconv_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
-                      const float* __restrict__ x, const float* __restrict__ w1,
+                      const T* __restrict__ x, const float* __restrict__ w1,
                       const float* __restrict__ b1, const float* __restrict__ w2,
-                      const float* __restrict__ b2, const float* __restrict__ gout,
+                      const float* __restrict__ b2, const T* __restrict__ gout,
                       const int* __restrict__ item_tiles, float* __restrict__ dx,
                       float* __restrict__ partial, int G, int n, int gs, float cutoff, int cap) {
   using C = Cfg<F, KG, true>;
@@ -834,8 +858,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     __syncthreads();
     const int E = build_edges<true, R2>(s, n, cutoff, j0);
-    const float* xg = x + (size_t)g * n * F;
-    const float* gg = gout + (size_t)g * n * F;
+    const T* xg = x + (size_t)g * n * F;
+    const T* gg = gout + (size_t)g * n * F;
     float rows[F / 64][4] = {};
     for (int e0 = first * ET; e0 < min(E, last * ET); e0 += ET) {
       const int ne = min(ET, E - e0);
@@ -847,7 +871,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // registers are freed before it
       constexpr bool late_dw = F == 128;
       if constexpr (!late_dw) put_dw<C>(s, e0, ne, gv, xv);
-      rbf_tile<C>(s, e0, ne, gs, step, coeff);
+      rbf_tile<C>(s, e0, ne, gs, cutoff, step, coeff);
       __syncthreads();
       float acc[1][SC / 32][4], sig[SC / 32][4];
       layer1<C>(s, b1 + c0s, acc);
@@ -962,16 +986,21 @@ __global__ void cfconv_reduce_kernel(const float* __restrict__ partial, int bloc
   *dst = acc;
 }
 
-// dx = the sum of the NS slabs' parts, in slab order.
-template <int NS>
-__global__ void cfconv_dx_reduce_kernel(const float* __restrict__ parts, size_t count,
-                                        float* __restrict__ dx) {
+// dst = the sum of the NS f32 parts, in part order, stored as T: K2's dx
+// from its slabs' parts, and the bf16 variants' out and dx from their f32
+// scratch (NS = 1), rounded to nearest even.
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <int NS, class T>
+__global__ void cfconv_sum_parts_kernel(const float* __restrict__ parts, size_t count,
+                                        T* __restrict__ dst) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= count) return;
   float acc = parts[idx];
 #pragma unroll
   for (int s = 1; s < NS; ++s) acc += parts[s * count + idx];
-  dx[idx] = acc;
+  store_elem(dst + idx, acc);
 }
 
 // Raises a kernel's dynamic shared-memory limit, once per kernel and device.
@@ -995,50 +1024,58 @@ int set_smem(Kernel kernel, size_t bytes) {
   return (int)err;
 }
 
-template <int F, int KG>
-int fwd(const float* pos, const float* mask, const float* x, const float* w1, const float* b1,
-        const float* w2, const float* b2, float* out, int* item_tiles, int G, int N, int Gs,
-        float cutoff, int cap, int blocks, cudaStream_t st) {
-  using C = Cfg<F, KG, false>;
-  cudaError_t err;
-  if ((err = cudaMemsetAsync(out, 0, (size_t)G * N * F * sizeof(float), st)) != cudaSuccess)
-    return (int)err;
-  cfconv_count_kernel<false><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  int code = set_smem(cfconv_fwd_kernel<F, KG>, C::SMEM);
-  if (code != 0) return code;
-  cfconv_fwd_kernel<F, KG><<<blocks, C::TEAMS * THREADS, C::SMEM, st>>>(
-      pos, mask, x, w1, b1, w2, b2, item_tiles, out, G, N, Gs, cutoff, cap);
+template <int NS, class T>
+int sum_parts(const float* parts, size_t count, T* dst, cudaStream_t st) {
+  cfconv_sum_parts_kernel<NS, T><<<(unsigned)((count + 255) / 256), 256, 0, st>>>(parts, count, dst);
   return (int)cudaGetLastError();
 }
 
-template <int F, int KG>
-int bwd(const float* pos, const float* mask, const float* x, const float* w1, const float* b1,
-        const float* w2, const float* b2, const float* gout, float* dx, float* dx_parts,
-        float* dw1, float* db1, float* dw2, float* db2, float* partial, int* item_tiles, int G,
-        int N, int Gs, float cutoff, int cap, int blocks, cudaStream_t st) {
-  using C = Cfg<F, KG, true>;
-  cudaError_t err;
+template <int F, int KG, class T>
+int fwd(const float* pos, const float* mask, const T* x, const float* w1, const float* b1,
+        const float* w2, const float* b2, T* out, float* out32, int* item_tiles, int G, int N,
+        int Gs, float cutoff, int cap, int blocks, cudaStream_t st) {
+  using C = Cfg<F, KG, false>;
+  constexpr bool direct = std::is_same<T, float>::value;  // f32 sums straight into out
+  float* acc = direct ? reinterpret_cast<float*>(out) : out32;
   const size_t count = (size_t)G * N * F;
-  float* parts = C::NS > 1 ? dx_parts : dx;
+  cudaError_t err;
+  if ((err = cudaMemsetAsync(acc, 0, count * sizeof(float), st)) != cudaSuccess) return (int)err;
+  cfconv_count_kernel<false><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int code = set_smem(cfconv_fwd_kernel<F, KG, T>, C::SMEM);
+  if (code != 0) return code;
+  cfconv_fwd_kernel<F, KG, T><<<blocks, C::TEAMS * THREADS, C::SMEM, st>>>(
+      pos, mask, x, w1, b1, w2, b2, item_tiles, acc, G, N, Gs, cutoff, cap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (!direct) return sum_parts<1, T>(acc, count, out, st);
+  return 0;
+}
+
+template <int F, int KG, class T>
+int bwd(const float* pos, const float* mask, const T* x, const float* w1, const float* b1,
+        const float* w2, const float* b2, const T* gout, T* dx, float* dx_parts, float* dw1,
+        float* db1, float* dw2, float* db2, float* partial, int* item_tiles, int G, int N, int Gs,
+        float cutoff, int cap, int blocks, cudaStream_t st) {
+  using C = Cfg<F, KG, true>;
+  constexpr bool direct = std::is_same<T, float>::value && C::NS == 1;  // dx written in place
+  const size_t count = (size_t)G * N * F;
+  float* parts = direct ? reinterpret_cast<float*>(dx) : dx_parts;
+  cudaError_t err;
   if ((err = cudaMemsetAsync(parts, 0, C::NS * count * sizeof(float), st)) != cudaSuccess)
     return (int)err;
   cfconv_count_kernel<true><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  int code = set_smem(cfconv_bwd_kernel<F, KG>, C::SMEM);
+  int code = set_smem(cfconv_bwd_kernel<F, KG, T>, C::SMEM);
   if (code != 0) return code;
-  cfconv_bwd_kernel<F, KG><<<blocks, THREADS, C::SMEM, st>>>(
+  cfconv_bwd_kernel<F, KG, T><<<blocks, THREADS, C::SMEM, st>>>(
       pos, mask, x, w1, b1, w2, b2, gout, item_tiles, parts, partial, G, N, Gs, cutoff, cap);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int total = F * F + Gs * F + 2 * F;
   cfconv_reduce_kernel<F, KG><<<(total + 255) / 256, 256, 0, st>>>(partial, blocks, Gs, dw1, db1,
                                                                    dw2, db2);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if constexpr (C::NS > 1) {
-    cfconv_dx_reduce_kernel<C::NS><<<(unsigned)((count + 255) / 256), 256, 0, st>>>(parts, count, dx);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  if constexpr (!direct) return sum_parts<C::NS, T>(parts, count, dx, st);
+  return 0;
 }
 
 // The compiled widths: F = 128 with Gs <= 64, F = 256 with Gs <= 16.
@@ -1069,37 +1106,62 @@ int cfconv_partial_floats(int F, int gs) {
 }
 
 // K1. pos (G,N,3), mask (G,N) as 0/1 floats, x (G,N,F), w1 (Gs,F), b1 (F),
-// w2 (F,F), b2 (F) -> out (G,N,F). All f32, contiguous, 16-byte aligned,
-// on the device. `blocks` is the persistent grid size, a multiple of
-// cfconv_slabs(F, 0), and item_tiles a scratch of G * ceil(N/4) ints.
-int cfconv_fwd(const float* pos, const float* mask, const float* x, const float* w1,
-               const float* b1, const float* w2, const float* b2, float* out, int* item_tiles,
-               int G, int N, int F, int Gs, float cutoff, int cap, int blocks, void* stream) {
+// w2 (F,F), b2 (F) -> out (G,N,F) of x's type: f32, or bf16 where bf16 is
+// 1, and then out32 is an f32 scratch of G*N*F floats (unused otherwise).
+// The rest is f32; all contiguous, 16-byte aligned, on the device.
+// `blocks` is the persistent grid size, a multiple of cfconv_slabs(F, 0),
+// and item_tiles a scratch of G * ceil(N/4) ints.
+int cfconv_fwd(const float* pos, const float* mask, const void* x, const float* w1,
+               const float* b1, const float* w2, const float* b2, void* out, float* out32,
+               int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int blocks,
+               int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 0)) return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const auto xb = static_cast<const B*>(x);
+  const auto xf = static_cast<const float*>(x);
+  if (F == 128 && bf16)
+    return fwd<128, 64, B>(pos, mask, xb, w1, b1, w2, b2, static_cast<B*>(out), out32, item_tiles,
+                           G, N, Gs, cutoff, cap, blocks, st);
   if (F == 128)
-    return fwd<128, 64>(pos, mask, x, w1, b1, w2, b2, out, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
-  return fwd<256, 16>(pos, mask, x, w1, b1, w2, b2, out, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+    return fwd<128, 64, float>(pos, mask, xf, w1, b1, w2, b2, static_cast<float*>(out), out32,
+                               item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+  if (bf16)
+    return fwd<256, 16, B>(pos, mask, xb, w1, b1, w2, b2, static_cast<B*>(out), out32, item_tiles,
+                           G, N, Gs, cutoff, cap, blocks, st);
+  return fwd<256, 16, float>(pos, mask, xf, w1, b1, w2, b2, static_cast<float*>(out), out32,
+                             item_tiles, G, N, Gs, cutoff, cap, blocks, st);
 }
 
-// K2. As K1 plus the cotangent gout (G,N,F), a scratch of
+// K2. As K1 plus the cotangent gout (G,N,F) of x's type, a scratch of
 // blocks * cfconv_partial_floats(F, Gs) floats, one of G * ceil(N/8) ints
-// and, where cfconv_slabs(F, 1) > 1, one of that many (G,N,F) dx parts
-// (dx_parts; unused otherwise). `blocks` is a multiple of
-// cfconv_slabs(F, 1). Writes dx (G,N,F) and the weight gradients summed
-// over all graphs.
-int cfconv_bwd(const float* pos, const float* mask, const float* x, const float* w1,
-               const float* b1, const float* w2, const float* b2, const float* gout, float* dx,
+// and, where cfconv_slabs(F, 1) > 1 or bf16 is 1, one of that many (at
+// least one) f32 (G,N,F) dx parts (dx_parts; unused otherwise). `blocks`
+// is a multiple of cfconv_slabs(F, 1). Writes dx (G,N,F) of x's type and
+// the f32 weight gradients summed over all graphs.
+int cfconv_bwd(const float* pos, const float* mask, const void* x, const float* w1,
+               const float* b1, const float* w2, const float* b2, const void* gout, void* dx,
                float* dx_parts, float* dw1, float* db1, float* dw2, float* db2, float* partial,
                int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int blocks,
-               void* stream) {
+               int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 1)) return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const auto xb = static_cast<const B*>(x), gb = static_cast<const B*>(gout);
+  const auto xf = static_cast<const float*>(x), gf = static_cast<const float*>(gout);
+  if (F == 128 && bf16)
+    return bwd<128, 64, B>(pos, mask, xb, w1, b1, w2, b2, gb, static_cast<B*>(dx), dx_parts, dw1,
+                           db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
   if (F == 128)
-    return bwd<128, 64>(pos, mask, x, w1, b1, w2, b2, gout, dx, dx_parts, dw1, db1, dw2, db2,
-                        partial, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
-  return bwd<256, 16>(pos, mask, x, w1, b1, w2, b2, gout, dx, dx_parts, dw1, db1, dw2, db2, partial,
-                      item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+    return bwd<128, 64, float>(pos, mask, xf, w1, b1, w2, b2, gf, static_cast<float*>(dx),
+                               dx_parts, dw1, db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff,
+                               cap, blocks, st);
+  if (bf16)
+    return bwd<256, 16, B>(pos, mask, xb, w1, b1, w2, b2, gb, static_cast<B*>(dx), dx_parts, dw1,
+                           db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+  return bwd<256, 16, float>(pos, mask, xf, w1, b1, w2, b2, gf, static_cast<float*>(dx), dx_parts,
+                             dw1, db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff, cap, blocks,
+                             st);
 }
 
 }  // extern "C"

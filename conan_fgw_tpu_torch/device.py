@@ -4,7 +4,11 @@ Every entry point takes a ``device`` argument that defaults to ``"cuda"``.
 With no card present that default raises: nothing falls back to the CPU
 unless the caller asks for it. Resolving a device also pins float32 matrix
 products to full precision (no TF32), as the JAX solver pins
-``default_matmul_precision("highest")``.
+``default_matmul_precision("highest")``, and bf16 products to f32 sums, as
+XLA accumulates them.
+
+``compute_dtype`` maps a config's ``compute_dtype`` to the type the trunks
+that take it (the SchNet and DimeNet backbones) cast to.
 """
 
 from __future__ import annotations
@@ -13,9 +17,23 @@ import torch
 
 
 def pin_full_f32() -> None:
-    """Disable TF32 in matmuls and convolutions (full-f32 parity contract)."""
+    """Disable TF32 in matmuls and convolutions (full-f32 parity contract),
+    and the bf16 products' partial sums in bf16 (cuBLAS may take them by
+    default): they sum in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def compute_dtype(name: str) -> torch.dtype | None:
+    """The type a ``compute_dtype`` setting makes a trunk cast to: bf16 for
+    ``"bfloat16"``, None for ``"float32"``, where the trunk computes in its
+    parameters' type (float32, or float64 in a reference step)."""
+    if name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, got {name!r}")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -15,6 +15,15 @@ Gathers of differentiable rows (the atom embeddings, each block's
 fixed order. Each interaction block is recomputed in the backward
 (``torch.utils.checkpoint``), as the JAX module remats it.
 
+``compute_dtype`` bf16 (a config's ``compute_dtype: bfloat16``) makes only
+what the JAX module makes bf16, the N·M² triplet tensors: the spherical
+basis, ``lin_sbf``'s output (flax ``Dense(dtype=bf16)``,
+``models/schnet.py::dense``) and the gathered ``x_kj``. The triplet
+contraction ``s1`` sums the bf16 products in f32 and comes out in f32
+(``f32_product``), as the JAX einsum's ``preferred_element_type`` has it;
+the edge-state chain and the output blocks stay f32 (the JAX module builds
+its ``OutputBlock``s without the compute type, ``dimenet.py:262-265``).
+
 Reference registry hyper-parameters: hidden = feat_dim, out = feat_dim / 2,
 6 blocks, 8 bilinear, 2 spherical, 3 radial, cutoff 5, envelope exponent 5,
 1 residual layer before the skip and 2 after, 3 output layers.
@@ -30,6 +39,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from conan_fgw_tpu_torch.device import compute_dtype as resolve_compute_dtype
+from conan_fgw_tpu_torch.models.schnet import dense
 from conan_fgw_tpu_torch.ops.graph import (
     embed_onehot,
     gather_rows,
@@ -107,6 +118,39 @@ def glorot_orthogonal_(w: torch.Tensor, generator: torch.Generator, scale: float
     w.mul_(torch.sqrt(scale / ((fan_in + fan_out) * w.var(unbiased=False))))
 
 
+class _F32Product(torch.autograd.Function):
+    """``a @ b`` of two bf16 tensors with f32 sums and an f32 result; the
+    gradients are the f32 products with the other operand, rounded to the
+    operand's type (what JAX's ``preferred_element_type=float32`` VJP gives).
+    On the card one ``torch.bmm(..., out_dtype=float32)``; on the CPU, where
+    that has no kernel, the product of the widened operands (bf16 products
+    are exact in f32)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                            out_dtype=torch.float32)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().transpose(-1, -2)).to(a.dtype)
+        gb = (a.float().transpose(-1, -2) @ g).to(b.dtype)
+        return ga, gb
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b``, in f32 for bf16 operands (``_F32Product``), in
+    their own type otherwise."""
+    if a.dtype == torch.bfloat16:
+        return _F32Product.apply(a, b)
+    return a @ b
+
+
 class ResidualLayer(nn.Module):
     def __init__(self, hidden: int):
         super().__init__()
@@ -118,8 +162,10 @@ class ResidualLayer(nn.Module):
 
 class InteractionBlock(nn.Module):
     def __init__(self, hidden: int, num_bilinear: int, num_spherical: int, num_radial: int,
-                 num_before_skip: int, num_after_skip: int):
+                 num_before_skip: int, num_after_skip: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.num_before_skip = num_before_skip
         self.lin_rbf = nn.Linear(num_radial, hidden, bias=False)
         self.lin_sbf = nn.Linear(num_spherical * num_radial, num_bilinear, bias=False)
@@ -133,17 +179,20 @@ class InteractionBlock(nn.Module):
     def forward(self, x, rbf, sbf, slot, tmask, idx):
         """``x (G, N, M, H)`` edge states [target i, neighbour slot m];
         ``rbf (G, N, M, R)``; ``sbf (G, N, M, M, S*R)`` for the triplets
-        (i, m -> j, m' -> k); ``slot (G, N, M)`` valid slots; ``tmask (G, N,
-        M, M)`` valid triplets; ``idx (G, N, M)`` neighbour indices."""
+        (i, m -> j, m' -> k), in ``compute_dtype``; ``slot (G, N, M)`` valid
+        slots; ``tmask (G, N, M, M)`` valid triplets; ``idx (G, N, M)``
+        neighbour indices."""
+        dt = self.compute_dtype
         m = slot[..., None].to(x.dtype)
-        sbf_b = self.lin_sbf(sbf)  # (G, N, M, M, nb)
+        sbf_b = dense(self.lin_sbf, sbf, dt)  # (G, N, M, M, nb)
         x_ji = F.silu(self.lin_ji(x))
         x_kj = F.silu(self.lin_kj(x)) * self.lin_rbf(rbf)
         # sum over the neighbours k of j: edge k -> j lives at slot (j, m'),
         # so j's slot rows are gathered up to (i, m), and the contraction over
-        # m' is a batched product of (nb, M) by (M, H) per (g, i, m)
-        x_kj_g = gather_rows(x_kj, idx)  # (G, N, M, M, H)
-        s1 = (sbf_b * tmask[..., None].to(x.dtype)).transpose(-1, -2) @ x_kj_g  # (G, N, M, nb, H)
+        # m' is a batched product of (nb, M) by (M, H) per (g, i, m), in f32
+        x_kj_g = gather_rows(x_kj if dt is None else x_kj.to(dt), idx)  # (G, N, M, M, H)
+        s1 = f32_product((sbf_b * tmask[..., None].to(sbf_b.dtype)).transpose(-1, -2),
+                         x_kj_g)  # (G, N, M, nb, H)
         H = x.shape[-1]
         agg = s1.flatten(-2) @ self.bilinear.reshape(H, -1).t()  # sum over b, l of s1 w[h, b, l]
         h = (x_ji + agg) * m
@@ -176,14 +225,17 @@ class OutputBlock(nn.Module):
 
 class DimeNet3D(nn.Module):
     """Dense DimeNet with the SchNet backbone's API (``forward``,
-    ``embed_dual``); ``out_channels`` 0 means ``hidden_channels // 2``."""
+    ``embed_dual``); ``out_channels`` 0 means ``hidden_channels // 2``;
+    ``compute_dtype`` "float32" or "bfloat16" (the triplet tensors')."""
 
     def __init__(self, hidden_channels: int = 128, out_channels: int = 0, num_blocks: int = 6,
                  num_bilinear: int = 8, num_spherical: int = 2, num_radial: int = 3,
                  cutoff: float = 5.0, envelope_exponent: int = 5, num_before_skip: int = 1,
-                 num_after_skip: int = 2, num_output_layers: int = 3, max_neighbors: int = 32):
+                 num_after_skip: int = 2, num_output_layers: int = 3, max_neighbors: int = 32,
+                 compute_dtype: str = "float32"):
         super().__init__()
         H = hidden_channels
+        dt = self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.cutoff, self.max_neighbors = cutoff, max_neighbors
         self.envelope_exponent = envelope_exponent
         self.num_spherical, self.num_radial, self.num_bilinear = num_spherical, num_radial, num_bilinear
@@ -193,7 +245,7 @@ class DimeNet3D(nn.Module):
         self.bessel_freq = nn.Parameter(torch.empty(num_radial))
         self.blocks = nn.ModuleList(
             InteractionBlock(H, num_bilinear, num_spherical, num_radial, num_before_skip,
-                             num_after_skip)
+                             num_after_skip, dt)
             for _ in range(num_blocks))
         self.outputs = nn.ModuleList(
             OutputBlock(H, out_channels or H // 2, num_radial, num_output_layers)
@@ -272,6 +324,8 @@ class DimeNet3D(nn.Module):
         i_ids = torch.arange(N, device=pos.device)[None, :, None, None]
         tmask = slot[:, :, :, None] & gather_rows(slot, idx) & (idx_k != i_ids)
         sbf = sbf * tmask[..., None].to(fdt)
+        if self.compute_dtype is not None:
+            sbf = sbf.to(self.compute_dtype)
 
         # embedding block: per-edge state from the atom embeddings and rbf
         emb = embed_onehot(z, self.embedding.weight)

@@ -88,6 +88,9 @@ class ConanModel(nn.Module):
     padding from marginals and normalisation. ``bary_postnorm`` "l2col"
     (ViSNet's wrapper) zeroes a non-finite barycenter and normalises each
     feature column of the barycenter to unit L2 norm before the readout.
+    ``compute_dtype`` ("float32" or "bfloat16") reaches the SchNet and
+    DimeNet backbones only, as in the JAX model: ViSNet, the heads, the GAT
+    and the FGW solver stay f32.
     """
 
     def __init__(self, task: str = "regression", backbone_name: str = "schnet",
@@ -97,7 +100,7 @@ class ConanModel(nn.Module):
                  fgw: FGWConfig = FGWConfig(), bary_shift: float = 0.5,
                  bary_norm: tuple[float, float] = (0.1, 2.0),
                  bary_pad_mode: str = "reference", bary_postnorm: str = "none", seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", compute_dtype: str = "float32"):
         super().__init__()
         if bary_pad_mode not in ("reference", "masked"):
             raise ValueError(f"unknown bary_pad_mode {bary_pad_mode!r}")
@@ -116,12 +119,13 @@ class ConanModel(nn.Module):
         self.bary_postnorm = bary_postnorm
         if backbone_name == "schnet":
             self.backbone = SchNet3D(hidden_channels, num_filters, num_interactions,
-                                     num_gaussians, cutoff, max_neighbors)
+                                     num_gaussians, cutoff, max_neighbors,
+                                     compute_dtype=compute_dtype)
         elif backbone_name == "visnet":
             self.backbone = ViSNet3D(hidden_channels, cutoff=cutoff, max_neighbors=max_neighbors)
         elif backbone_name == "dimenet":
             self.backbone = DimeNet3D(hidden_channels, out_channels=half, cutoff=cutoff,
-                                      max_neighbors=max_neighbors)
+                                      max_neighbors=max_neighbors, compute_dtype=compute_dtype)
         else:
             raise ValueError(f"unknown backbone {backbone_name!r}")
         self.gat = GAT2D(NUM_ATOM_FEATURES, half, NUM_BOND_FEATURES)

@@ -16,6 +16,14 @@ is concatenated to the radius stack's before the heads. ``heads="simple"``
 keeps ``lin1`` alone, for a SchNet reached only through ``embed_simple``
 (the flax module then creates no other head).
 
+``compute_dtype`` bf16 (a config's ``compute_dtype: bfloat16``) runs the
+interaction blocks as the JAX module's ``dtype=bfloat16`` blocks do: ``h``
+cast to bf16, ``lin1``/``lin2``/``lin`` as flax's ``Dense(dtype=bf16)``
+(``dense``), the activation on bf16, and the cfconv on bf16 node features
+through the kernels' bf16 variants, which give what the JAX model's cast to
+f32, f32 kernel and cast back give. The residual sum promotes to f32 again;
+the parameters, the heads and the covalent stack stay f32.
+
 The atom embedding is a product of the one-hot atomic numbers with the
 table (``ops/graph.py::embed_onehot``), not ``nn.Embedding``'s lookup: the
 lookup's backward on the card accumulates the table's gradient in an order
@@ -28,20 +36,37 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from conan_fgw_tpu_torch.data.vocab import NUM_BOND_FEATURES
+from conan_fgw_tpu_torch.device import compute_dtype as resolve_compute_dtype
 from conan_fgw_tpu_torch.ops.cuda.cfconv import cfconv
 from conan_fgw_tpu_torch.ops.graph import embed_onehot, pairwise_distances, radius_graph_mask
 from conan_fgw_tpu_torch.ops.rbf import gaussian_smearing, shifted_softplus
 
 
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``lin(x)`` as flax's ``Dense(dtype=dtype)`` computes it: the input and
+    the f32 parameters cast to ``dtype`` per call, the product rounded to
+    ``dtype`` (f32 sums), then the bias added in ``dtype``, a second
+    rounding (``F.linear`` with the bias fuses it and rounds once). With
+    ``dtype`` None, ``lin(x)``."""
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
 class InteractionBlock(nn.Module):
-    """One continuous-filter convolution block (PyG ``InteractionBlock``)."""
+    """One continuous-filter convolution block (PyG ``InteractionBlock``),
+    computed in ``compute_dtype`` (bf16, or None: the parameters' type)."""
 
     def __init__(self, hidden_channels: int, num_filters: int, cutoff: float,
-                 num_gaussians: int = 50, max_neighbors: int | None = 32):
+                 num_gaussians: int = 50, max_neighbors: int | None = 32,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.cutoff = cutoff
         self.num_gaussians = num_gaussians
         self.max_neighbors = max_neighbors
@@ -54,14 +79,16 @@ class InteractionBlock(nn.Module):
         self.lin = nn.Linear(hidden_channels, hidden_channels)
 
     def forward(self, h, pos, mask):
-        """``h (G, N, H)``, ``pos (G, N, 3)``, ``mask (G, N)`` bool."""
-        x = self.lin1(h)
+        """``h (G, N, H)``, ``pos (G, N, 3)``, ``mask (G, N)`` bool; the
+        block's output is in ``compute_dtype``."""
+        dt = self.compute_dtype
+        x = dense(self.lin1, h if dt is None else h.to(dt), dt)
         m = cfconv(
             pos.contiguous(), mask.to(torch.float32).contiguous(), x.contiguous(),
             self.filter_w1, self.filter_b1, self.filter_w2, self.filter_b2,
             self.cutoff, self.num_gaussians, self.max_neighbors,
         )
-        return self.lin(shifted_softplus(self.lin2(m)))
+        return dense(self.lin, shifted_softplus(dense(self.lin2, m, dt)), dt)
 
 
 class CovalentInteractionBlock(nn.Module):
@@ -107,13 +134,14 @@ class SchNet3D(nn.Module):
     Defaults follow the reference regression configuration: hidden=128,
     filters=128, gaussians=50, interactions=3, cutoff=10, 32 neighbours.
     ``heads``: "dual" (``lin1/lin2`` and ``lin1_bary/lin2_bary``) or
-    "simple" (``lin1`` alone, for ``embed_simple``).
+    "simple" (``lin1`` alone, for ``embed_simple``). ``compute_dtype``:
+    the interaction blocks' type, "float32" or "bfloat16".
     """
 
     def __init__(self, hidden_channels: int = 128, num_filters: int = 128,
                  num_interactions: int = 3, num_gaussians: int = 50, cutoff: float = 10.0,
                  max_neighbors: int | None = 32, use_covalent: bool = False,
-                 heads: str = "dual"):
+                 heads: str = "dual", compute_dtype: str = "float32"):
         super().__init__()
         if heads not in ("dual", "simple"):
             raise ValueError(f"unknown heads {heads!r}")
@@ -123,7 +151,8 @@ class SchNet3D(nn.Module):
         self.use_covalent = use_covalent
         self.embedding = nn.Embedding(100, hidden_channels)
         self.blocks = nn.ModuleList(
-            InteractionBlock(hidden_channels, num_filters, cutoff, num_gaussians, max_neighbors)
+            InteractionBlock(hidden_channels, num_filters, cutoff, num_gaussians, max_neighbors,
+                             resolve_compute_dtype(compute_dtype))
             for _ in range(num_interactions)
         )
         if use_covalent:

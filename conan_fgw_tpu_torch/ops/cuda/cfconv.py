@@ -12,10 +12,13 @@ one ``torch.autograd.Function`` (no gradient w.r.t. ``pos`` or ``mask``); for
 CPU tensors it runs ``_cfconv_plain``, the plain PyTorch version.
 
 Both kernels are operation-bound: the filter MLP is over 99% of their work.
-Its five products run on the tensor cores in bf16 with a three-term split
-(``a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi``, f32 sums), which keeps about
-16 bits of each operand; one TF32 pass keeps 11 and does not hold the 5e-4
-contract with any margin. Work items are (graph, 8 target rows) for K1 and
+Its five products run on the tensor cores in TF32 with a three-term split
+(``a b ~ a_big b_big + a_big b_small + a_small b_big``, f32 sums: 3xTF32),
+which keeps about 22 bits of each operand. One TF32 pass keeps 11 and does
+not hold the 5e-4 contract with any margin; a three-term bf16 split keeps 16
+and holds it, but its rounding showed in the attention head's gradient at
+N=64, where a softmax over 160 nearly equal conformers leaves the small
+residue of large terms. Work items are (graph, 8 target rows) for K1 and
 (graph, 8 source atoms) for K2, over a compacted edge list in tiles of 32
 edges; each item sums its own output rows on the tensor cores and writes
 them once. Both run a persistent grid of about one block per SM. K2's blocks
@@ -29,6 +32,15 @@ slabs: K1 by output filter, K2 by the filters of ``h``, whose four parts of
 shapes. Each width counts its launches under its own name (``kernel_name``).
 ``split_mm``, ``edge_list`` and ``cfconv_edges`` restate the kernels'
 arithmetic and edge order in plain PyTorch so the CPU tests can check them.
+
+Node features in bf16 (a ``compute_dtype: bfloat16`` trunk): ``x`` and the
+cotangent may be bf16, as the Pallas kernels take them; the weights stay
+f32. Each kernel has a bf16 variant (its own launch name, ``kernel_name``)
+that widens x and the cotangent to f32 as it loads them, computes as the f32
+variant does and rounds ``out`` and ``dx`` once to bf16, to nearest even;
+the weight gradients stay f32. So it gives the f32 variant's result on the
+widened inputs, rounded: what the JAX model's cast to f32, f32 kernel and
+cast back to bf16 give (``conan_fgw_tpu/models/schnet.py:92-98``).
 """
 
 from __future__ import annotations
@@ -52,22 +64,26 @@ BUILT = {128: 64, 256: 16}
 K1_ROWS, K2_ROWS = 4, 8
 
 
-def kernel_name(kernel: str, filters: int) -> str:
+def kernel_name(kernel: str, filters: int, dtype: torch.dtype = torch.float32) -> str:
     """The launch-count name of K1 (``"cfconv_fwd"``) or K2
-    (``"cfconv_bwd"``) at a width: F = 128 keeps the plain name, F = 256 is
-    ``"cfconv_fwd_f256"``."""
-    return kernel if filters == 128 else f"{kernel}_f{filters}"
+    (``"cfconv_bwd"``) at a width and node-feature type: F = 128 in f32
+    keeps the plain name, F = 256 adds ``"_f256"`` and bf16 ``"_bf16"``
+    (``"cfconv_fwd_f256_bf16"``)."""
+    name = kernel if filters == 128 else f"{kernel}_f{filters}"
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
 def _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
-    """Plain PyTorch formulation; materialises the (G, N, N, F) filter."""
+    """Plain PyTorch formulation; materialises the (G, N, N, F) filter. A
+    bf16 ``x`` is widened and the f32 result rounded to bf16, as the kernels'
+    bf16 variants do; autograd then gives a bf16 ``dx``."""
     dist = pairwise_distances(pos)
     nbr = radius_graph_mask(dist, mask > 0.5, cutoff, max_neighbors)
     rbf = gaussian_smearing(dist, num_gaussians, 0.0, cutoff)
     w = shifted_softplus(rbf @ w1 + b1) @ w2 + b2
     env = 0.5 * (torch.cos(dist * math.pi / cutoff) + 1.0)
-    gate = torch.where(nbr, env, torch.zeros_like(env)).to(x.dtype)
-    return torch.einsum("...ijf,...ij,...jf->...if", w, gate, x)
+    gate = torch.where(nbr, env, torch.zeros_like(env)).to(w.dtype)
+    return torch.einsum("...ijf,...ij,...jf->...if", w, gate, x.to(w.dtype)).to(x.dtype)
 
 
 def round_bits(t: torch.Tensor, drop: int) -> torch.Tensor:
@@ -78,11 +94,13 @@ def round_bits(t: torch.Tensor, drop: int) -> torch.Tensor:
     return ((bits + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
 
 
-def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3, drop: int = 16) -> torch.Tensor:
+def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3, drop: int = 13) -> torch.Tensor:
     """``a @ b`` as the kernels' tensor-core products compute it, with f32
-    sums. ``passes=3`` is their split ``a_lo b_hi + a_hi b_lo + a_hi b_hi``
-    with ``a_hi = bf16(a)`` and ``a_lo = bf16(a - a_hi)``; ``passes=1`` is a
-    single pass on operands rounded to ``drop`` bits fewer."""
+    sums. ``passes=3`` is the split ``a_lo b_hi + a_hi b_lo + a_hi b_hi``
+    with ``a_hi`` = ``a`` rounded to ``drop`` bits fewer and ``a_lo`` =
+    ``a - a_hi`` rounded so: the default 13 is the cfconv and FGW kernels'
+    3xTF32, 16 a three-term bf16 split. ``passes=1`` is a single pass on
+    operands rounded to ``drop`` bits fewer."""
     ah, bh = round_bits(a, drop), round_bits(b, drop)
     if passes == 1:
         return ah @ bh
@@ -113,7 +131,13 @@ def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=
     filters of ``h`` as the F = 256 kernel does: each slab's part of the
     filter W (``b2`` in the first) gives its own part of ``dx``, and the
     parts are summed in slab order. Returns ``out`` and ``(dx, dw1, db1,
-    dw2, db2)`` for the cotangent ``gout``."""
+    dw2, db2)`` for the cotangent ``gout``. A bf16 ``x`` and ``gout`` are
+    the bf16 variants' mode: widened to f32, with ``out`` and ``dx``
+    rounded to bf16 at the end."""
+    if x.dtype == torch.bfloat16:
+        out, (dx, *dw) = cfconv_edges(pos, mask, x.float(), w1, b1, w2, b2, gout.float(), cutoff,
+                                      max_neighbors, mm, slab)
+        return out.to(x.dtype), (dx.to(x.dtype), *dw)
     G, N, F = x.shape
     dist = pairwise_distances(pos)
 
@@ -127,18 +151,18 @@ def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=
 
     g, i, j = edge_list(pos, mask, cutoff, max_neighbors)
     *_, w, gate = mlp(g, i, j)
-    out = torch.zeros(G * N, F).index_add_(0, g * N + i, w * gate * x[g, j]).view(G, N, F)
+    out = x.new_zeros(G * N, F).index_add_(0, g * N + i, w * gate * x[g, j]).view(G, N, F)
     g, i, j = edge_list(pos, mask, cutoff, max_neighbors, source_major=True)
     rbf, pre, h, w, gate = mlp(g, i, j)
     gg = gout[g, i] * gate
     dw = gg * x[g, j]
     if slab is None:
-        dx = torch.zeros(G * N, F).index_add_(0, g * N + j, w * gg).view(G, N, F)
+        dx = x.new_zeros(G * N, F).index_add_(0, g * N + j, w * gg).view(G, N, F)
     else:
-        dx = torch.zeros(G * N, F)
+        dx = x.new_zeros(G * N, F)
         for c in range(0, F, slab):
             w_part = mm(h[:, c:c + slab], w2[c:c + slab]) + (b2 if c == 0 else 0.0)
-            dx = dx + torch.zeros(G * N, F).index_add_(0, g * N + j, w_part * gg)
+            dx = dx + x.new_zeros(G * N, F).index_add_(0, g * N + j, w_part * gg)
         dx = dx.view(G, N, F)
     dpre = mm(dw, w2.t()) * torch.sigmoid(pre)
     return out, (dx, mm(rbf.t(), dpre), dpre.sum(0), mm(h.t(), dw), dw.sum(0))
@@ -149,8 +173,10 @@ def _check(pos, mask, x, w1, b1, w2, b2):
     for name, t in tensors.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"cfconv kernel: {name} must lie on {x.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"cfconv kernel: {name} must be float32, got {t.dtype}")
+        allowed = (torch.float32, torch.bfloat16) if name == "x" else (torch.float32,)
+        if t.dtype not in allowed:
+            raise ValueError(f"cfconv kernel: {name} must be "
+                             f"{' or '.join(str(a) for a in allowed)}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"cfconv kernel: {name} must be contiguous")
         if t.data_ptr() % 16:
@@ -189,35 +215,42 @@ def _on(device: torch.device):
 
 
 def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors):
-    """Launch K1: messages ``(G, N, F)``."""
+    """Launch K1: messages ``(G, N, F)`` of ``x``'s type."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     lib = _build.load_library()
     blocks = _blocks(lib, x, G, N, F, bwd=False)
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
+    out32 = torch.empty(x.shape, device=x.device) if bf16 else None  # the f32 sums
     item_tiles = torch.empty(G * -(-N // K1_ROWS), dtype=torch.int32, device=x.device)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.cfconv_fwd(
-            *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out, item_tiles)),
-            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, stream,
+            *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out)),
+            out32.data_ptr() if bf16 else None, item_tiles.data_ptr(),
+            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, int(bf16), stream,
         )
     _build.check(code, "cfconv_fwd")
-    launches[kernel_name("cfconv_fwd", F)] += 1
+    launches[kernel_name("cfconv_fwd", F, x.dtype)] += 1
     return out
 
 
 def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors):
-    """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g``, the
-    weight gradients summed over all graphs."""
+    """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g`` of
+    ``x``'s type, ``dx`` of that type, the weight gradients f32 and summed
+    over all graphs."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
-    if g.shape != x.shape or g.dtype != torch.float32 or not g.is_contiguous() or g.data_ptr() % 16:
-        raise ValueError("cfconv backward: the cotangent must be a contiguous, 16-byte aligned"
-                         " f32 (G, N, F) tensor")
+    if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+            or not g.is_contiguous() or g.data_ptr() % 16):
+        raise ValueError(f"cfconv backward: the cotangent must be a contiguous, 16-byte aligned"
+                         f" {x.dtype} (G, N, F) tensor on {x.device}")
     lib = _build.load_library()
     blocks = _blocks(lib, x, G, N, F, bwd=True)
     slabs = lib.cfconv_slabs(F, 1)
+    bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
-    dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 else dx
+    # the f32 parts of dx the slabs sum into (one, rounded to bf16, at F=128)
+    dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 or bf16 else dx
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
     partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
@@ -227,10 +260,10 @@ def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors):
         code = lib.cfconv_bwd(
             *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dx_parts, dw1, db1, dw2,
                                      db2, partial, item_tiles)),
-            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, stream,
+            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, int(bf16), stream,
         )
     _build.check(code, "cfconv_bwd")
-    launches[kernel_name("cfconv_bwd", F)] += 1
+    launches[kernel_name("cfconv_bwd", F, x.dtype)] += 1
     return dx, dw1, db1, dw2, db2
 
 
@@ -256,7 +289,7 @@ class _CFConvFunction(torch.autograd.Function):
 
 def cfconv(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
     """Batched cfconv: ``pos (G, N, 3)``, ``mask (G, N)`` (0/1 floats),
-    ``x (G, N, F)`` -> messages ``(G, N, F)``.
+    ``x (G, N, F)`` f32 or bf16 -> messages ``(G, N, F)`` of x's type.
 
     CUDA tensors go to the kernels, CPU tensors to ``_cfconv_plain``.
     ``max_neighbors=None`` keeps every neighbour in range.

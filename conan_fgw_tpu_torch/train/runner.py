@@ -35,7 +35,7 @@ import os
 import torch
 
 from conan_fgw_tpu_torch.data.datasets import ConformerDataset, class_weight_ratio
-from conan_fgw_tpu_torch.device import resolve_device
+from conan_fgw_tpu_torch.device import compute_dtype, resolve_device
 from conan_fgw_tpu_torch.models import aux_heads
 from conan_fgw_tpu_torch.models.heads import ConanModel
 from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig
@@ -55,12 +55,10 @@ def check_supported(config: ExperimentConfig, device: torch.device) -> None:
     spec = config.spec
     if spec.dataset != "conformers":
         raise NotImplementedError(
-            f"dataset: {spec.dataset} is not ported yet (ROADMAP.md §1, item 7)")
+            f"dataset: {spec.dataset} is not ported yet (ROADMAP.md §1, item 2)")
     if config.model_name not in ("schnet", "visnet", "dimenet"):
         raise ValueError(f"unknown model_name {config.model_name!r}")
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype: {config.compute_dtype} is not ported yet (ROADMAP.md §1, item 9)")
+    compute_dtype(config.compute_dtype)  # float32 or bfloat16, else it raises
     if device.type == "cuda":
         for key in ("use_pallas_cfconv", "use_pallas_fgw"):
             if getattr(config, key) is False:
@@ -110,9 +108,11 @@ def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda"):
         fgw = dataclasses.replace(fgw, pgd_iters=config.fgw_pgd_iters)
     if config.fgw_sinkhorn_iters is not None:
         fgw = dataclasses.replace(fgw, sinkhorn_iters=config.fgw_sinkhorn_iters)
+    # compute_dtype reaches the SchNet and DimeNet backbones (ConanModel), not
+    # ViSNet or the aux heads, as in the JAX runner
     common = dict(task=task, hidden_channels=hidden,
                   agg_weight=config.agg_weight, bary_pad_mode=config.bary_pad_mode, seed=seed,
-                  device=dev)
+                  device=dev, compute_dtype=config.compute_dtype)
     if config.model_name == "visnet":
         # the wrapper's cutoff; the barycenter branch shifts by 1.0 and
         # L2-normalises the barycenter's columns (visnet.py:50,233-241)
@@ -324,7 +324,7 @@ def main(argv=None):
     if args.num_devices > 1 or args.distributed:
         raise NotImplementedError(
             "data-parallel training (--num_devices > 1, --distributed) is not ported yet "
-            "(ROADMAP.md §1, item 8)")
+            "(ROADMAP.md §1, item 4)")
     overrides = {"model_name": args.model_name} if args.model_name else {}
     if args.eval_guard:
         overrides["eval_guard"] = True

@@ -10,7 +10,7 @@ Prints, per shape:
 2. the CUDA-event time of the source as it is (``base``) and of textual
    variants, each built into its own library: ``no_mma`` (the tensor-core
    products skipped),
-   ``one_pass`` (only a_hi b_hi of the split kept). Their results are wrong;
+   ``one_pass`` (only a_big b_big of the 3xTF32 split kept). Their results are wrong;
    only the times say something;
 3. K1's and K2's cycles by phase: thread 0 of every team reads ``clock64``
    at each phase boundary (for K1: set-up of an item; gather, RBF and the
@@ -40,10 +40,10 @@ from conan_fgw_tpu_torch.ops.cuda.cfconv import cfconv_backward, cfconv_forward
 OUT = _build.BUILD_DIR / "probe"
 VARIANTS = {
     "base": [],
-    "no_mma": [("  static_assert(K % 16 == 0, \"mma.m16n8k16 steps\");\n",
-                "  static_assert(K % 16 == 0, \"mma.m16n8k16 steps\");\n  if (K > 0) return;\n")],
-    "one_pass": [(f"mma_bf16(acc[mt][nt], {a}, {b});", ";")
-                 for a, b in (("al[mt]", "bh[nt]"), ("ah[mt]", "bl[nt]"), ("al[mt]", "bh"), ("ah[mt]", "bl"))],
+    "no_mma": [("  static_assert(K % 8 == 0, \"mma.m16n8k8 steps\");\n",
+                "  static_assert(K % 8 == 0, \"mma.m16n8k8 steps\");\n  if (K > 0) return;\n")],
+    "one_pass": [(f"mma_tf32(acc[mt][nt], {a}, {b});", ";")
+                 for a, b in (("as[mt]", "bb[nt]"), ("ab[mt]", "bs[nt]"), ("as[mt]", "bb"), ("ab[mt]", "bs"))],
     "phases": [
         ("namespace {\n", "namespace {\n__device__ long long g_phase[1024][8], g_phase2[1024][10];\n"
          "#define TICK(k) { long long n_ = clock64(); T[k] += n_ - tc; tc = n_; }\n"),
@@ -52,9 +52,9 @@ VARIANTS = {
          "  long long T[8] = {}; long long tc = clock64();\n"),
         ("    const int E = build_edges<false, R1>(s, n, cutoff, i0);\n",
          "    const int E = build_edges<false, R1>(s, n, cutoff, i0);\n    TICK(0); T[6] += 1;\n"),
-        ("      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);\n      rbf_tile<C>(s, e0, ne, gs, step, coeff);\n"
+        ("      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);\n      rbf_tile<C>(s, e0, ne, gs, cutoff, step, coeff);\n"
          "      team_sync();\n",
-         "      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);\n      rbf_tile<C>(s, e0, ne, gs, step, coeff);\n"
+         "      gather_rows<FO, F>(xg, s.ej, e0, ne, xv);\n      rbf_tile<C>(s, e0, ne, gs, cutoff, step, coeff);\n"
          "      team_sync();\n      TICK(1); T[7] += 1;\n"),
         ("        store_h<C>(s, acc);\n      }\n      team_sync();\n",
          "        store_h<C>(s, acc);\n      }\n      team_sync();\n      TICK(2);\n"),
@@ -172,16 +172,16 @@ def main() -> int:
         part = torch.empty(blocks, libs["phases"].cfconv_partial_floats(F, Gs), device="cuda")
         item_tiles = torch.empty(G * -(-n // 4), dtype=torch.int32, device="cuda")  # K1's, the larger
         st = torch.cuda.current_stream().cuda_stream
-        ptrs_f = [t.data_ptr() for t in (*args, out, item_tiles)]
+        ptrs_f = [*(t.data_ptr() for t in (*args, out)), None, item_tiles.data_ptr()]
         ptrs_b = [t.data_ptr() for t in (*args, cot, dx, dx, grads[0], grads[1], grads[2], grads[3],
                                          part, item_tiles)]
         for name, lib in libs.items():
-            fwd_ms = smoke.cuda_ms(lambda: lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st), reps=20)
-            bwd_ms = smoke.cuda_ms(lambda: lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st), reps=20)
+            fwd_ms = smoke.cuda_ms(lambda: lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st), reps=20)
+            bwd_ms = smoke.cuda_ms(lambda: lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st), reps=20)
             print(f"[{label}] variant {name:8s} K1 {fwd_ms:.4f} ms, K2 {bwd_ms:.4f} ms (events)")
 
         lib = libs["phases"]
-        lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st)
+        lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st)
         torch.cuda.synchronize()
         buf = np.zeros((1024, 8), np.int64)
         if lib.phase_dump(buf.ctypes.data) != 0:
@@ -194,7 +194,7 @@ def main() -> int:
             print(f"[{label}]   {name:22s} {100 * b[:, k].sum() / tot.sum():5.1f}%,"
                   f" {b[:, k].sum() / max(1, b[:, 7].sum()):7.0f} cycles per tile,"
                   f" {b[:, k].sum() / max(1, b[:, 6].sum()):7.0f} per item")
-        lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, st)
+        lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st)
         torch.cuda.synchronize()
         buf2 = np.zeros((1024, 10), np.int64)
         if lib.phase_dump2(buf2.ctypes.data) != 0:

@@ -37,6 +37,8 @@ PHASES = {
     "backbones": lambda card: cs.phase_backbones("cuda", card, _rows()),
     "esan": lambda card: cs.phase_esan("cuda", card, _rows()),
     "determinism": lambda card: cs.phase_determinism(),
+    "bf16": lambda card: cs.phase_bf16("cuda", card, _rows()),
+    "bf16_kernels": lambda card: cs.phase_bf16_kernels("cuda", _rows()),
 }
 
 

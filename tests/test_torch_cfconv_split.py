@@ -4,10 +4,11 @@ the CPU (``ops/cuda/cfconv.py``: ``round_bits``, ``split_mm``,
 
 At the slice's width (F=128, 50 Gaussians, cap 32) on one N=32 set of
 packed synthetic conformers:
-- the kernels' three-term bf16 split holds the forward and all five
-  gradients within a tenth of the 5e-4 contract (max |emulated - plain| /
-  max |plain|); a single TF32 pass is computed beside it and its error is
-  reported in the assertion message, not asserted;
+- the kernels' three-term TF32 split (3xTF32; a three-term bf16 split
+  until the kernels moved to TF32, hence the tests' names) holds the
+  forward and all five gradients within a tenth of the 5e-4 contract (max
+  |emulated - plain| / max |plain|); a single TF32 pass is computed beside
+  it and its error is reported in the assertion message, not asserted;
 - the compacted edge lists (target-major for K1, source-major for K2) hold
   exactly the gated edges, and summing the messages over either list in
   its order reproduces ``_cfconv_plain`` to 1e-6 relative.
@@ -84,9 +85,9 @@ def test_split_bf16_holds_the_contract(k):
     plain, split, single, _ = _results()
     err, err1 = _rel(split[k], plain[k]), _rel(single[k], plain[k])
     assert err <= CONTRACT / MARGIN, (
-        f"{NAMES[k]}: 3-term bf16 rel err {err:.3e} > {CONTRACT / MARGIN:.1e}"
+        f"{NAMES[k]}: 3xTF32 rel err {err:.3e} > {CONTRACT / MARGIN:.1e}"
         f" (one TF32 pass: {err1:.3e}, contract {CONTRACT})")
-    print(f"{NAMES[k]}: 3-term bf16 rel err {err:.3e}; one TF32 pass {err1:.3e} (contract {CONTRACT})")
+    print(f"{NAMES[k]}: 3xTF32 rel err {err:.3e}; one TF32 pass {err1:.3e} (contract {CONTRACT})")
 
 
 def test_edge_formulation_matches_plain_in_f32():
@@ -154,7 +155,7 @@ def test_split_bf16_holds_the_contract_at_f256(k):
     plain, split, single, _ = _results(**CLASSIFICATION)
     err, err1 = _rel(split[k], plain[k]), _rel(single[k], plain[k])
     assert err <= CONTRACT / MARGIN, (
-        f"{NAMES[k]}: 3-term bf16 rel err {err:.3e} > {CONTRACT / MARGIN:.1e}"
+        f"{NAMES[k]}: 3xTF32 rel err {err:.3e} > {CONTRACT / MARGIN:.1e}"
         f" (one TF32 pass: {err1:.3e}, contract {CONTRACT})")
 
 

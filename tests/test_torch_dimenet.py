@@ -373,13 +373,18 @@ def test_build_model_follows_the_jax_runner(name):
 
 
 @pytest.mark.parametrize("backbone", ["visnet", "dimenet"])
-def test_check_supported_accepts_the_backbones_and_refuses_bf16(backbone, tmp_path):
+def test_check_supported_accepts_the_backbones_and_bf16(backbone, tmp_path):
     src = ROOT / "config" / backbone / "sol250_5_bc.yaml"
     trunner.check_supported(tconfig.load_config(str(src)), torch.device("cpu"))
     bf16 = tmp_path / "bf16.yaml"
     bf16.write_text(src.read_text() + "compute_dtype: bfloat16\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trunner.check_supported(tconfig.load_config(str(bf16)), torch.device("cpu"))
+    config = tconfig.load_config(str(bf16))
+    assert config.compute_dtype == "bfloat16"
+    trunner.check_supported(config, torch.device("cpu"))
+    bad = tmp_path / "f16.yaml"
+    bad.write_text(src.read_text() + "compute_dtype: float16\n")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        trunner.check_supported(tconfig.load_config(str(bad)), torch.device("cpu"))
 
 
 def test_one_fit_step_through_step_graphs():

@@ -180,7 +180,6 @@ def test_lr_finder_sets_the_learning_rate(tiny, tmp_path, caplog):
 @pytest.mark.parametrize("extra", [
     "experiment_override: conan_fgw.src.experiments.SOTAClassificationGEOMExperiment",
     "experiment_override: conan_fgw.src.experiments.DimeNetGEOMExperiment",
-    "compute_dtype: bfloat16",
 ])
 def test_what_the_port_lacks_raises(tiny, tmp_path, extra):
     key, value = extra.split(": ")
