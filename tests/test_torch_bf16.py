@@ -49,6 +49,7 @@ from conan_fgw_tpu.models.heads import ConanModel as JConan
 from conan_fgw_tpu.ops.pallas.cfconv import fused_cfconv
 from conan_fgw_tpu.ops.rbf import shifted_softplus as j_ssp
 from conan_fgw_tpu_torch.convert import params_from_flax
+from conan_fgw_tpu_torch.device import compute_dtype
 from conan_fgw_tpu_torch.data.packing import pack_batch as tpack
 from conan_fgw_tpu_torch.data.synthetic import random_dataset as tdataset
 from conan_fgw_tpu_torch.models import dimenet as tdimenet
@@ -413,6 +414,27 @@ def test_compute_dtype_leaves_visnet_and_the_aux_heads_unchanged(tmp_path):
                 outs.append(model(pb, use_barycenter=False)[0])
         assert outs[0].dtype == torch.float32
         assert torch.equal(outs[0], outs[1]), src.name
+
+
+@pytest.mark.parametrize("name", ["float32", "f4", "bfloat16", "float16", "float64", "int32",
+                                  "float8_e4m3fn", "bf16", "fp32", "float 32"])
+def test_compute_dtype_refuses_as_jnp_dtype_does(name):
+    """A name ``jnp.dtype`` takes is run (float32, bfloat16) or raises
+    ``NotImplementedError`` naming the ROADMAP; one it rejects raises
+    ``ValueError``."""
+    try:
+        expected = jnp.dtype(name)
+    except TypeError:
+        with pytest.raises(ValueError, match="compute_dtype"):
+            compute_dtype(name)
+        return
+    if expected == jnp.float32:
+        assert compute_dtype(name) is None
+    elif expected == jnp.bfloat16:
+        assert compute_dtype(name) is torch.bfloat16
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            compute_dtype(name)
 
 
 @pytest.fixture(scope="module")

@@ -381,8 +381,12 @@ def test_check_supported_accepts_the_backbones_and_bf16(backbone, tmp_path):
     config = tconfig.load_config(str(bf16))
     assert config.compute_dtype == "bfloat16"
     trunner.check_supported(config, torch.device("cpu"))
-    bad = tmp_path / "f16.yaml"
-    bad.write_text(src.read_text() + "compute_dtype: float16\n")
+    lacking = tmp_path / "f16.yaml"
+    lacking.write_text(src.read_text() + "compute_dtype: float16\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trunner.check_supported(tconfig.load_config(str(lacking)), torch.device("cpu"))
+    bad = tmp_path / "bad.yaml"
+    bad.write_text(src.read_text() + "compute_dtype: bf16\n")
     with pytest.raises(ValueError, match="compute_dtype"):
         trunner.check_supported(tconfig.load_config(str(bad)), torch.device("cpu"))
 
