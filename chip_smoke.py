@@ -58,7 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
    by bucket and ``fgw_diverged``. The steps run as CUDA graphs
    (``train/graphs.py``): each run must capture train and eval graphs, and
    the launch counts must be the eager path's (K2 three a train step;
-   three K1 and five K3 a forward). Their batches come through the host
+   three K1 a forward, and in stage 2 as many K3 a forward as the config's
+   barycenter has outer iterations: five). Their batches come through the host
    pipeline: every one packed natively on the prefetch thread into a
    pinned slot and copied from it without waiting, none packed by numpy or
    copied from pageable memory.
@@ -169,6 +170,27 @@ Phases (any failure exits non-zero and prints no result line):
    where 20 steps at the config's lr, in bf16 and in f32, must stay finite
    (the model starts near 1e20 at random weights, so this shows only that
    nothing reaches inf).
+13. The per-molecule FGW path and the rest of the solver
+   (``ops/fgw/``, ``ops/cuda/fgw.py::fgw_couplings``). K3 through its
+   per-molecule wrapper (counted as ``fgw_couplings_mol``; the padding of a
+   molecule's n atoms to a multiple of 32 left out of the solve) against
+   the unpadded plain solve on the CPU at K = 5, n = 11, 32 and 53: the
+   plans within ``FGW_ATOL``, equal diverged counts, one launch a call; its
+   eager and graph-replay time and bound. The per-molecule
+   ``fgw_barycenter`` (n = 23, K = 5) on the card against the same call on
+   the CPU for the default options, ``warmstart=False`` with ``init_C``,
+   ``fixed_features``, ``fixed_structure``, ``kl_loss`` and
+   ``stop_grad_couplings=False``: Y and C within 1e-3, the gradient with
+   respect to ``Ys`` within 1e-4 in norm, ``outer_iters`` K3 launches a
+   call on K3's route and none on the plain one (launch counts zeroed just
+   before and read just after: this slice's main path). The batched
+   barycenter against per-molecule calls on the card. The seven solvers
+   of ``ops/fgw/variants.py`` on the card against the CPU at the JAX
+   tests' sizes. The deep budget through the runner's ``main``:
+   ``config/schnet/sol1k_5.yaml`` and then ``sol1k_5_bc_deep.yaml`` (15
+   outer x 10 PGD x 10 Sinkhorn iterations, eps 0.05), 2 epochs each, with
+   phase 5's checks (K3 fifteen times a stage-2 forward), and one deep
+   stage-2 step card against CPU within ``DEEP_STEP_RTOL``.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -182,8 +204,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 Then it prints the per-kernel JSON line (every kernel, each width, type
 and shape held, with its launches on each runner path; the bf16 variants'
-``launches`` are those of phase 12's runner, this slice's main path), the
-card line and, last, ``{"ok": true, "device": {...}}``.
+``launches`` are those of phase 12's runner, K3's per-molecule wrapper's
+those of phase 13's per-molecule barycenters), the card line and, last,
+``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
 graph is captured and does not run when the graph is replayed, so each
@@ -243,6 +266,8 @@ REPLACES = {
     "cfconv_fwd": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     "fgw_couplings": "conan_fgw_tpu/ops/pallas/fgw.py:362",
+    # K3 through the per-molecule wrapper (padded to a multiple of 32)
+    "fgw_couplings_mol": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     "cfconv_fwd_f256": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd_f256": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     # the bf16 variants (bf16 node features: the Pallas kernels' x, out, g
@@ -256,6 +281,7 @@ SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "fgw_couplings": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "fgw_couplings_mol": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "cfconv_fwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd_f256": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_fwd_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
@@ -881,12 +907,13 @@ def graphed_launches(label, graphs, pb, steps: int = 3):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_parity(model, device, batch=B, label="parity"):
+def phase_parity(model, device, batch=B, label="parity", rtol=STEP_RTOL):
     from conan_fgw_tpu_torch.data.packing import pack_batch
     from conan_fgw_tpu_torch.data.synthetic import random_dataset
 
     recs = random_dataset(SEED + 3, batch, num_conformers=K, heavy_range=(8, 10), device=device)
-    return step_parity(model, pack_batch(recs, max_atoms=32, batch_size=batch), device, label)
+    return step_parity(model, pack_batch(recs, max_atoms=32, batch_size=batch), device, label,
+                       rtol=rtol)
 
 
 @contextlib.contextmanager
@@ -949,11 +976,11 @@ def _norm(norms: dict) -> float:
     return sum(v * v for v in norms.values()) ** 0.5
 
 
-def step_parity(model, pb, device, label, bary=True):
+def step_parity(model, pb, device, label, bary=True, rtol=STEP_RTOL):
     """One training step's loss and gradients from identical weights, on
     the host batch ``pb``, through the kernels on the card and through the
     plain versions on the CPU (stage 2 with ``bary``), within phase 4's
-    gates."""
+    gates (the loss and the global gradient norm within ``rtol``)."""
     from conan_fgw_tpu_torch.train.loop import masked_mse
 
     model.zero_grad(set_to_none=True)
@@ -971,12 +998,13 @@ def step_parity(model, pb, device, label, bary=True):
         print(f"[{label}] {k}: grad norm kernel {nk[k]:.6e} plain {np_[k]:.6e} rel {rel[k]:.3e}")
     stage = "stage-2" if bary else "stage-1"
     loss_rel, grad_rel = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
-    print(f"[{label}] loss kernel {lk:.6f} plain {lp:.6f}; grad norm kernel {gk:.6f} plain {gp:.6f};"
-          f" worst parameter grad-norm rel err {worst:.3e} (tol {STEP_RTOL}, {PARAM_RTOL})")
+    print(f"[{label}] loss kernel {lk:.6f} plain {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e});"
+          f" grad norm kernel {gk:.6f} plain {gp:.6f} (rel {abs(gk - gp) / gp:.3e});"
+          f" worst parameter grad-norm rel err {worst:.3e} (tol {rtol}, {PARAM_RTOL})")
     require(set(nk) == set(np_), f"{label}: card and CPU differ in which parameters get gradients")
     require(worst <= PARAM_RTOL, f"{label}: a parameter's gradient norm disagrees")
-    missed = [k for k, v in (("loss", loss_rel), ("gradient norm", grad_rel)) if v > STEP_RTOL]
-    require(not missed, f"{label}: {stage} {' and '.join(missed)} off by more than {STEP_RTOL}")
+    missed = [k for k, v in (("loss", loss_rel), ("gradient norm", grad_rel)) if v > rtol]
+    require(not missed, f"{label}: {stage} {' and '.join(missed)} off by more than {rtol}")
     model.zero_grad(set_to_none=True)
     return dict(loss_rel=loss_rel, grad_norm_rel=grad_rel, worst_param_rel=worst)
 
@@ -1086,6 +1114,7 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
     from conan_fgw_tpu_torch.train import runner
+    from conan_fgw_tpu_torch.train.config import load_config
 
     common, tmp, plain_calls, captures, host, device, card = ctx
     k1, k2, k3 = kernels  # K1 and K2 None: the path has no cfconv (ViSNet, DimeNet)
@@ -1120,7 +1149,8 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     require(not others, f"runner {label}: kernels of another width or path launched: {others}")
     # fit's steps ran as CUDA graphs; the counts must be the eager path's: every forward
     # (train or eval, a graph's capture standing for its first replay) per_forward K1 and,
-    # in stage 2, five K3; every train step per_forward K2 (ViSNet and DimeNet: no cfconv)
+    # in stage 2, the config's outer iterations of K3 (5, or 15 at the deep budget); every
+    # train step per_forward K2 (ViSNet and DimeNet: no cfconv)
     forwards = host["train_forwards"] + host["eval_forwards"]
     require(host["train_forwards"] == new_steps and host["eval_forwards"] > 0,
             f"runner {label}: {dict(host)} forwards in {new_steps} steps")
@@ -1129,8 +1159,10 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
                 f"runner {label}: K1 launched {grew[k1]} in {forwards} forwards")
         require(grew[k2] == per_forward * new_steps,
                 f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
-    require(grew[k3] == (5 * forwards if stage == "conan_fgw" else 0),
-            f"runner {label}: K3 launched {grew[k3]} in {forwards} {stage} forwards")
+    outer = runner.fgw_config(load_config(cfg)).outer_iters
+    require(grew[k3] == (outer * forwards if stage == "conan_fgw" else 0),
+            f"runner {label}: K3 launched {grew[k3]} in {forwards} {stage} forwards, want"
+            f" {outer} a forward")
     for r in history:
         n64 = r["steps_n64"] / r["train_steps"]
         print(f"[runner {label}] epoch {r['epoch']}: {r['epoch_time_s']:.3f} s, {r['train_steps']}"
@@ -2461,6 +2493,306 @@ def phase_determinism():
                 strict_step_ms=[1e3 * v for v in strict["step_s"]], strict_identical=same_strict)
 
 
+# ---------------------------------------------------------------- phase 13
+# the per-molecule K3 wrapper's atom counts: padded to 32, a full bucket,
+# padded to 64
+MOL_SIZES = (11, 32, 53)
+MOL_ATOMS = 23  # the per-molecule barycenter's molecule (padded to 32 on the card)
+MOL_D = 8       # its feature width
+BARY_ATOL = 1e-3   # barycenter Y and C, card against CPU: the CPU tests' tolerance
+BARY_GRAD_RTOL = 1e-4  # the gradient w.r.t. Ys in norm: the CPU tests' tolerance
+VARIANT_ATOL = 1e-5  # the seven variants' plans, card against CPU
+MOL_BATCH = 4  # molecules of the batched barycenter held against per-molecule calls
+# the deep budget through the runner: stage 1, then stage 2 warm-started
+DEEP_STAGES = (("conan_fgw_pre", "config/schnet/sol1k_5.yaml"),
+               ("conan_fgw", "config/schnet/sol1k_5_bc_deep.yaml"))
+DEEP_EPOCHS = 2  # the second epoch's steps are replays: its ms/step is the steady state
+# the deep stage-2 step, card against CPU: the larger of phase 4's gate and 4
+# times the largest distance of a plain f32 CPU step from its float64 step.
+# `scripts/torch_precision_probe.py --deep --cpu` measured that distance on
+# this step's model and batch before any card ran it: 1.046e-6 (loss and
+# gradient norm, the plain step and four draws of 1e-7 weight noise), so the
+# deep budget asks for no wider gate than phase 4's
+DEEP_STEP_RTOL = max(STEP_RTOL, 4 * 1.046e-6)
+# the barycenter's options held card against CPU: (label, FGWConfig fields,
+# init_C from the conformers' mean structure)
+BARY_OPTIONS = (("default", {}, False), ("warmstart off, init_C", {"warmstart": False}, True),
+                ("fixed_features", {"fixed_features": True}, False),
+                ("fixed_structure", {"fixed_structure": True}, False),
+                ("kl_loss", {"loss_fun": "kl_loss"}, False),
+                ("no stop-gradient", {"stop_grad_couplings": False}, False))
+
+
+def molecule_problem(n, seed, device, D=MOL_D):
+    """One molecule of ``n`` atoms in K conformers: features ``Ys (K, n, D)``
+    in [0.1, 1.1] (the JAX tests' well-conditioned range), the conformers'
+    0/1 radius-graph structure ``Cs (K, n, n)`` (random positions of 2 A
+    spread, cutoff 4 A), uniform marginals ``ps (K, n)`` and ``p (n,)``."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
+    gen = torch.Generator().manual_seed(seed)
+    pos = torch.randn(K, n, 3, generator=gen) * 2.0
+    Cs = radius_graph_mask(pairwise_distances(pos), torch.ones(K, n, dtype=torch.bool), 4.0,
+                           None).to(torch.float32)
+    Ys = torch.rand(K, n, D, generator=gen) + 0.1
+    p = torch.full((n,), 1.0 / n)
+    return [t.to(device) for t in (Ys, Cs, p.expand(K, n).contiguous(), p)]
+
+
+def check_fgw_mol(n, device, rows, kw=FGW_KW):
+    """K3's per-molecule wrapper (``fgw_couplings``, n padded to a multiple of
+    32 and left out of the solve) on the card against the unpadded plain
+    solve on the CPU, K = 5: the plans within ``FGW_ATOL``, equal counts of
+    diverged solves, exactly one K3 launch a call; its time and bound."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings
+    from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
+    from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
+
+    Ys, Cs, ps, p = molecule_problem(n, SEED + n, device)
+    gen = torch.Generator().manual_seed(SEED + 2 * n)
+    Y0 = (torch.rand(n, Ys.shape[-1], generator=gen) + 0.1).to(device)
+    Ms = sqdist(Y0[None], Ys).contiguous()  # a later outer iteration's features
+    T0 = (p[None, :, None] * ps[:, None, :]).contiguous()
+    args = (Ms, Cs[0], Cs, p, ps, T0)
+    # the Sinkhorn iterations K3 runs on the wrapper's padded input, for the bound
+    N = n + (-n % 32)
+    pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
+    _, _, iters = _launch(pad(Ms), pad(Cs[0].expand(K, n, n)), pad(Cs), pad(p.expand(K, n)),
+                          pad(ps), pad(T0), n=n, count="uncounted", **kw)
+    sk_run = int(iters.sum())
+    reset_launches()
+    T_k, count_k = fgw_couplings(*args, **kw)
+    torch.cuda.synchronize()
+    counted = {k: v for k, v in launches.items() if v}
+    Ms_c, Cb_c, Cs_c, p_c, ps_c, T0_c = (t.cpu() for t in args)
+    T_p, div_p = fgw_coupling(Ms_c, Cb_c.expand(K, n, n), Cs_c, p_c.expand(K, n), ps_c, T0_c, **kw)
+    err = float((T_k.cpu() - T_p).abs().max())
+    print(f"[fgw mol N{n}] K3 on {N} rows (n={n}) against the unpadded plain solve on the CPU:"
+          f" T max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel {int(count_k)} plain"
+          f" {int(div_p.sum())}; launches {counted}; {sk_run} Sinkhorn iterations run of"
+          f" {K * kw['pgd_iters'] * kw['sinkhorn_iters']} budgeted")
+    require(tuple(T_k.shape) == (K, n, n) and count_k.dtype == torch.int32 and count_k.dim() == 0,
+            f"fgw mol N{n}: returned {tuple(T_k.shape)}, {count_k.dtype}")
+    require(counted == {"fgw_couplings_mol": 1}, f"fgw mol N{n}: launches {counted}, want one K3")
+    require(err <= FGW_ATOL, f"fgw mol N{n} plans disagree: {err}")
+    require(int(count_k) == int(div_p.sum()), f"fgw mol N{n} diverged counts disagree")
+    ms = cuda_ms(lambda: fgw_couplings(*args, **kw))
+    replay_ms = graph_ms(lambda: fgw_couplings(*args, **kw))
+    plain_ms = cuda_ms(lambda: fgw_coupling(Ms, Cs[0].expand(K, n, n), Cs, p.expand(K, n), ps, T0,
+                                            **kw), reps=3, warmup=1)
+    tc, f32 = fgw_bound(K, n, sk_run, kw)
+    print(f"[fgw mol N{n}] K={K}: wrapper {ms:.4f} ms (eager calls, padding included; graph replays"
+          f" {replay_ms:.4f} ms), plain {plain_ms:.4f} ms on the card; bound {tc[0]:.6f} ms ({tc[1]},"
+          f" {100 * tc[0] / ms:.2f}% reached), {f32[0]:.6f} ms in f32 on the CUDA cores")
+    rows["fgw_couplings_mol"][f"N{n}"] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms,
+                                              plain_ms=plain_ms, bound=tc, bound_f32=f32,
+                                              sinkhorn_iters=sk_run)
+
+
+def _barycenter_run(Ys, Cs, ps, p, config, init_C, R):
+    """``fgw_barycenter`` with ``return_diverged``, then the gradient of
+    ``sum(Y * R)`` with respect to ``Ys`` (None with fixed features):
+    ``(Y, C, n_div, grad)``."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.fgw import fgw_barycenter
+
+    Ys = Ys.detach().clone().requires_grad_(True)
+    lam = torch.full((K,), 1.0 / K, device=Ys.device)
+    Y, C, n_div = fgw_barycenter(Ys, Cs, ps, p, lam, config, init_C=init_C, return_diverged=True)
+    grad = None
+    if Y.requires_grad:
+        (Y * R).sum().backward()
+        grad = Ys.grad
+    return Y.detach(), C.detach(), int(n_div), grad
+
+
+def check_barycenters(device):
+    """The per-molecule barycenter on the card against the same call on the
+    CPU for each option of ``BARY_OPTIONS``: Y and C within ``BARY_ATOL``,
+    equal diverged counts, the gradient w.r.t. ``Ys`` within
+    ``BARY_GRAD_RTOL`` in norm; ``outer_iters`` K3 launches a call on the
+    kernel's route and none on the plain one. Launch counts are zeroed just
+    before and read just after: this is the slice's main path."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.fgw import FGWConfig
+
+    Ys, Cs, ps, p = molecule_problem(MOL_ATOMS, SEED + 77, device)
+    R = torch.randn(MOL_ATOMS, MOL_D, generator=torch.Generator().manual_seed(SEED + 78)).to(device)
+    out = {}
+    reset_launches()
+    for label, opts, init in BARY_OPTIONS:
+        cfg = FGWConfig(**opts)
+        C_in = 0.1 + 0.8 * Cs if cfg.loss_fun == "kl_loss" else Cs  # the KL loss takes logs
+        init_C = C_in.mean(0) if init else None
+        before = collections.Counter(launches)
+        Y_k, C_k, nd_k, g_k = _barycenter_run(Ys, C_in, ps, p, cfg, init_C, R)
+        torch.cuda.synchronize()
+        grew = {k: v - before[k] for k, v in launches.items() if v - before[k]}
+        cpu = [t.cpu() for t in (Ys, C_in, ps, p)]
+        Y_c, C_c, nd_c, g_c = _barycenter_run(*cpu, cfg, None if init_C is None else init_C.cpu(),
+                                              R.cpu())
+        err_y = float((Y_k.cpu() - Y_c).abs().max())
+        err_c = float((C_k.cpu() - C_c).abs().max())
+        grad_rel = (None if g_c is None else
+                    float((g_k.cpu() - g_c).norm() / g_c.norm()))
+        want = {"fgw_couplings_mol": cfg.outer_iters} if cfg.uses_kernel() else {}
+        print(f"[fgw barycenter {label}] n={MOL_ATOMS}, K={K}: Y max_abs_err {err_y:.3e}, C"
+              f" {err_c:.3e} (tol {BARY_ATOL}); diverged card {nd_k} CPU {nd_c}; gradient"
+              f" w.r.t. Ys rel {grad_rel if grad_rel is None else f'{grad_rel:.3e}'}"
+              f" (tol {BARY_GRAD_RTOL}); launches {grew}")
+        require(grew == want, f"fgw barycenter {label}: launches {grew}, want {want}")
+        require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, f"fgw barycenter {label} disagrees")
+        require(nd_k == nd_c, f"fgw barycenter {label}: diverged counts disagree")
+        require((g_k is None) == (g_c is None) and (grad_rel is None or grad_rel <= BARY_GRAD_RTOL),
+                f"fgw barycenter {label}: the gradient disagrees")
+        out[label] = dict(y_err=err_y, c_err=err_c, grad_rel=grad_rel)
+    out["launches"] = {k: launches[k] for k in REPLACES}
+    require(out["launches"]["fgw_couplings_mol"] > 0, "the per-molecule K3 never launched")
+    return out
+
+
+def check_batched_barycenter(device):
+    """The batched barycenter (one ``fgw_couplings_flat`` launch an outer
+    iteration over all B*K solves) against per-molecule calls (one
+    ``fgw_couplings`` launch each), all on the card, at N = 32."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.fgw import FGWConfig, fgw_barycenter, fgw_barycenter_batch
+
+    mols = [molecule_problem(32, SEED + 90 + b, device) for b in range(MOL_BATCH)]
+    Ys = torch.stack([m[0] for m in mols])
+    Cs = torch.stack([m[1] for m in mols])
+    cfg = FGWConfig()
+    reset_launches()
+    Y_b, C_b, n_b = fgw_barycenter_batch(Ys, Cs, config=cfg)
+    lam = torch.full((K,), 1.0 / K, device=device)
+    per = [fgw_barycenter(m[0], m[1], m[2], m[3], lam, cfg, return_diverged=True) for m in mols]
+    torch.cuda.synchronize()
+    err_y = max(float((Y_b[b] - per[b][0]).abs().max()) for b in range(MOL_BATCH))
+    err_c = max(float((C_b[b] - per[b][1]).abs().max()) for b in range(MOL_BATCH))
+    counted = {k: v for k, v in launches.items() if v}
+    print(f"[fgw batched] B={MOL_BATCH}, K={K}, N=32: batched against per-molecule calls on the"
+          f" card: Y max_abs_err {err_y:.3e}, C {err_c:.3e} (tol {BARY_ATOL}); diverged"
+          f" {int(n_b)} and {sum(int(x[2]) for x in per)}; launches {counted}")
+    want = {"fgw_couplings": cfg.outer_iters, "fgw_couplings_mol": MOL_BATCH * cfg.outer_iters}
+    require(counted == want, f"fgw batched: launches {counted}, want {want}")
+    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, "fgw batched disagrees with per-molecule")
+    require(int(n_b) == sum(int(x[2]) for x in per), "fgw batched: diverged counts disagree")
+    return dict(y_err=err_y, c_err=err_c)
+
+
+def variant_calls():
+    """The seven solvers of ``ops/fgw/variants.py`` at ``tests/test_fgw_variants.py``'s
+    sizes: ``(label, function, numpy arguments, keywords)``."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.ops.fgw import variants as v
+
+    rng = np.random.default_rng(SEED)
+    cost = (rng.random((9, 9)) * 2).astype(np.float32)
+    u9 = np.full((9,), 1.0 / 9, np.float32)
+    N = 8
+    M = rng.random((N, N)).astype(np.float32)
+    A = (rng.random((N, N)) < 0.4).astype(np.float32)
+    Bm = (rng.random((N, N)) < 0.4).astype(np.float32)
+    u8 = np.full((N,), 1.0 / N, np.float32)
+    Ys = rng.random((3, N, 4)).astype(np.float32)
+    Cs = (rng.random((3, N, N)) < 0.4).astype(np.float32)
+    Cs = np.maximum(Cs, Cs.transpose(0, 2, 1))
+    bary = (Ys, Cs, np.full((3, N), 1.0 / N, np.float32), u8, np.full((3,), 1.0 / 3, np.float32))
+    return (("sinkhorn_knopp", v.sinkhorn_knopp, (u9, u9, cost, 0.1), {}),
+            ("sinkhorn_stabilized", v.sinkhorn_stabilized, (u9, u9, cost, 0.1), {}),
+            ("sinkhorn_epsilon_scaling", v.sinkhorn_epsilon_scaling, (u9, u9, cost, 0.1),
+             {"num_iters": 400}),
+            ("greenkhorn", v.greenkhorn, (u9, u9, cost, 0.1), {"num_iters": 3000}),
+            ("fgw_coupling_bapg", v.fgw_coupling_bapg, (M, A, Bm, u8, u8),
+             {"alpha": 0.3, "rho": 0.1, "num_iters": 40}),
+            ("fgw_coupling_bregman", v.fgw_coupling_bregman, (M, A, Bm, u8, u8),
+             {"alpha": 0.5, "epsilon": 0.5, "num_iters": 50}),
+            ("fgw_barycenter_bapg", v.fgw_barycenter_bapg, bary,
+             {"alpha": 0.5, "rho": 1.0, "outer_iters": 3, "coupling_iters": 30}))
+
+
+def check_variants(device):
+    """Each variant on CUDA tensors against the same call on the CPU, within
+    ``VARIANT_ATOL``; none launches a kernel of the port."""
+    import numpy as np
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+
+    out = {}
+    reset_launches()
+    for label, fn, args, kw in variant_calls():
+        def call(dev):
+            res = fn(*[torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                       for a in args], **kw)
+            return [t.detach().cpu() for t in (res if isinstance(res, tuple) else (res,))]
+
+        t0 = time.perf_counter()
+        card = call(device)
+        card_s = time.perf_counter() - t0
+        err = max(float((a - b).abs().max()) for a, b in zip(card, call("cpu")))
+        print(f"[fgw variants] {label}: card against CPU max_abs_err {err:.3e} (tol"
+              f" {VARIANT_ATOL}); {1e3 * card_s:.1f} ms on the card (host clock, first call)")
+        require(err <= VARIANT_ATOL and all(torch.isfinite(t).all() for t in card),
+                f"fgw variants: {label} disagrees")
+        out[label] = err
+    require(not any(launches.values()), f"fgw variants launched kernels: {dict(launches)}")
+    return out
+
+
+def phase_fgw(device, card, rows):
+    """Phase 13: the per-molecule FGW path and the rest of the solver. K3's
+    per-molecule wrapper at n = 11, 32 and 53; the per-molecule barycenter
+    with each option (the slice's main path, its launch counts zeroed just
+    before and read just after); the batched barycenter against
+    per-molecule calls; the seven variants; and the deep budget through the
+    runner (``config/schnet/sol1k_5.yaml``, then ``sol1k_5_bc_deep.yaml``
+    warm-started: phase 5's checks, with K3 at 15 launches a stage-2
+    forward) and one deep stage-2 step card against CPU."""
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import build_model
+
+    for n in MOL_SIZES:
+        check_fgw_mol(n, device, rows)
+    out = check_barycenters(device)
+    out["batched"] = check_batched_barycenter(device)
+    out["variants"] = check_variants(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deep_") as name, \
+            runner_spies() as (plain_calls, restores, captures, host):
+        tmp = Path(name)
+        common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        ctx = (common, tmp, plain_calls, captures, host, device, card)
+        runs = {}
+        for stage, src in DEEP_STAGES:
+            first_restore = len(restores)
+            label = "deep stage 1" if stage == "conan_fgw_pre" else "deep stage 2"
+            summary, history, grew = runner_stage(label, stage, config_copy(src, tmp, DEEP_EPOCHS),
+                                                  ctx)
+            runs[label] = dict(stage_row(history, summary, "rmse"), launches=grew)
+        check_warm_start(restores, first_restore,
+                         tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+    out["runner"] = runs
+    config = load_config(DEEP_STAGES[1][1])
+    out["parity"] = phase_parity(build_model(config, seed=SEED, device=device), device,
+                                 batch=config.batch_size, label="deep parity",
+                                 rtol=DEEP_STEP_RTOL)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2497,6 +2829,7 @@ def main() -> int:
     stage_rows["bf16"] = phase_bf16(device, card, rows, f32={
         "graphs": stage_rows["graphs"]["stage 2 N32"], "runner": stage_rows["runner"],
         "backbones": stage_rows["backbones"]})
+    stage_rows["fgw"] = phase_fgw(device, card, rows)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -2506,10 +2839,12 @@ def main() -> int:
 
     # launches: the regression kernels on the main path (phase 3), the F=256
     # ones on the classification path (phase 6), the bf16 variants on the
-    # bf16 runner's path (phase 12, this slice's), the F=256 bf16 ones on
-    # phase 12's classification step and graphs; each also by runner path,
-    # the ViSNet and DimeNet runners' (phase 10), the ESAN configs' (phase
-    # 11) and the bf16 runner's (phase 12) included.
+    # bf16 runner's path (phase 12), the F=256 bf16 ones on phase 12's
+    # classification step and graphs, K3 through its per-molecule wrapper
+    # on the per-molecule barycenter's path (phase 13, this slice's); each
+    # also by runner path, the ViSNet and DimeNet runners' (phase 10), the
+    # ESAN configs' (phase 11), the bf16 runner's (phase 12) and the deep
+    # budget's (phase 13) included.
     # All these paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
     bf16_launches = stage_rows["bf16"]["launches"]
@@ -2518,6 +2853,7 @@ def main() -> int:
         r = rows[name]["N32"]
         bound_ms, bound_by = r["bound"]
         main_path = (totals[name] if name in REGRESSION else
+                     stage_rows["fgw"]["launches"][name] if name == "fgw_couplings_mol" else
                      stage_rows["bf16"]["class_launches"][name] if name.endswith("_f256_bf16") else
                      bf16_launches[name] if name.endswith("_bf16") else class_launches[name])
         kernels.append({
@@ -2525,6 +2861,8 @@ def main() -> int:
             "launches": main_path,
             "runner_launches": stage_rows["runner"]["launches"][name],
             "bf16_runner_launches": bf16_launches[name],
+            "deep_runner_launches": sum(run["launches"][name]
+                                        for run in stage_rows["fgw"]["runner"].values()),
             "classification_launches": class_launches[name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             **{f"{cfg}_launches": run["launches"][name]

@@ -3,7 +3,11 @@
 // Replaces the Pallas TPU kernel of conan_fgw_tpu/ops/pallas/fgw.py
 // (pallas_fgw_couplings_flat -> _super_kernel / _sinkhorn_super).
 //
-// S independent solves (square loss, symmetric structure, PGD). Each PGD step
+// S independent solves (square loss, symmetric structure, PGD), each of n
+// atoms padded to a bucket size N: rows and columns >= n are left out of the
+// solve (their entries of mr are -inf, their potentials stay 0, and they take
+// no mass), so a padded solve is the n x n solve, and its plan is 0 on the
+// padding. Each PGD step
 //   G  = 2 alpha (constC - C1 T (2 C2)^T) + (1 - alpha) M,
 //   mr = -G / eps,
 // then log-domain Sinkhorn on mr: per-row and per-column log-sum-exp, each
@@ -178,19 +182,19 @@ __device__ __forceinline__ void warp_product(const float* a, int lda, const floa
 
 // out[l] = base[l] - LSE_c(mr[l, c] + vec[c]) over a row (ROWS) or
 // out[l] = base[l] - LSE_r(mr[r, l] + vec[r]) over a column of mr.
-// TPR lanes share each line. As jax.nn.logsumexp, a non-finite max is
-// replaced by 0 before the shift. Returns 1 where this thread wrote a
-// non-finite value.
+// TPR lanes share each line; lines >= n are padding and are not written.
+// As jax.nn.logsumexp, a non-finite max is replaced by 0 before the shift.
+// Returns 1 where this thread wrote a non-finite value.
 template <int N, bool ROWS>
 __device__ __forceinline__ int lse_update(const float* mr, const float* vec, const float* base,
-                                          float* out) {
+                                          float* out, int n) {
   constexpr int TPR = lse_tpr(N), LINES = THREADS / TPR, LDA = N + 4, PER = N / TPR;
   const int sub = threadIdx.x % TPR;
   int bad = 0;
 #pragma unroll
   for (int l0 = 0; l0 < N; l0 += LINES) {
     const int line = l0 + threadIdx.x / TPR;
-    const bool active = line < N;
+    const bool active = line < n;
     float x[PER];
     float m = -INFINITY;
 #pragma unroll
@@ -218,14 +222,14 @@ __device__ __forceinline__ int lse_update(const float* mr, const float* vec, con
 // the column marginal of the would-be plan against q, TPR lanes a column
 template <int N>
 __device__ __forceinline__ float col_marginal_err2(const float* mr, const float* un, const float* vn,
-                                                   const float* q) {
+                                                   const float* q, int n) {
   constexpr int TPR = lse_tpr(N), LINES = THREADS / TPR, LDA = N + 4, PER = N / TPR;
   const int sub = threadIdx.x % TPR;
   float e2 = 0.f;
 #pragma unroll
   for (int l0 = 0; l0 < N; l0 += LINES) {
     const int j = l0 + threadIdx.x / TPR;
-    const bool active = j < N;
+    const bool active = j < n;
     float col = 0.f;
     if (active) {
       const float vj = vn[j];
@@ -244,14 +248,18 @@ __device__ __forceinline__ float col_marginal_err2(const float* mr, const float*
   return e2;
 }
 
-template <int N>
+// PAD: some solves have n_real < N atoms. Without it n is the constant N and
+// every padding test folds away, so full buckets run the unmasked code.
+template <int N, bool PAD>
 __global__ void __launch_bounds__(THREADS, 1)
     fgw_couplings_kernel(const float* __restrict__ Ms, const float* __restrict__ C1s,
                          const float* __restrict__ C2s, const float* __restrict__ ps,
                          const float* __restrict__ qs, const float* __restrict__ T0s,
                          float* __restrict__ Tout, int* __restrict__ div_out,
-                         int* __restrict__ iters_out, int resident, float alpha, float epsilon,
+                         int* __restrict__ iters_out, int resident, int n_real, float alpha,
+                         float epsilon,
                          int pgd_iters, float pgd_tol, int sinkhorn_iters, float sinkhorn_thr) {
+  const int n = PAD ? n_real : N;  // atoms of each solve; rows and columns >= n are padding
   constexpr int LDA = N + 4, LDT = N + 8;
   constexpr int MT = N / 32, NT = N / 32;   // a warp's tiles: MT x NT of 16 x 8
   constexpr int V4 = N * N / 4 / THREADS;   // float4 loads per thread per matrix
@@ -306,14 +314,22 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int r = 0; r < V4; ++r) t0[r] = __ldg(T0v + tid + r * THREADS);
 #pragma unroll
-    for (int r = 0; r < V4; ++r)
+    for (int r = 0; r < V4; ++r) {
+      if (PAD) {  // the padding of T0 carries no mass
+        const int idx = tid + r * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+        if (i >= n || j + 0 >= n) t0[r].x = 0.f;
+        if (i >= n || j + 1 >= n) t0[r].y = 0.f;
+        if (i >= n || j + 2 >= n) t0[r].z = 0.f;
+        if (i >= n || j + 3 >= n) t0[r].w = 0.f;
+      }
       t0_nan |= isnan(t0[r].x) | isnan(t0[r].y) | isnan(t0[r].z) | isnan(t0[r].w);
+    }
     if (res) {
 #pragma unroll
       for (int r = 0; r < V4; ++r) c1[r] = __ldg(C1v + tid + r * THREADS), c2[r] = __ldg(C2v + tid + r * THREADS);
     }
-    const float pv = tid < N ? __ldg(ps + (size_t)s * N + tid) : 0.f;
-    const float qv = tid < N ? __ldg(qs + (size_t)s * N + tid) : 0.f;
+    const float pv = tid < n ? __ldg(ps + (size_t)s * N + tid) : 0.f;
+    const float qv = tid < n ? __ldg(qs + (size_t)s * N + tid) : 0.f;
 #pragma unroll
     for (int r = 0; r < V4; ++r) {
       const int idx = tid + r * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
@@ -372,6 +388,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         *reinterpret_cast<float2*>(a + 8 * LDA) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
       }
     if (tid < N) u[tid] = 0.f, v[tid] = 0.f;
+    // the padding's potentials stay 0 in both buffers of each pair
+    if (PAD && tid < N) un[tid] = 0.f, vn[tid] = 0.f;
     __syncthreads();
     // mr = -(2 alpha (constC - A (2 C2)^T) + (1 - alpha) M) / eps
     warp_product<N, false>(A, LDA, C2, ldc, r0, c0, acc);
@@ -385,7 +403,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int ie = i + 8 * (e >> 1), je = j + (e & 1);
           const float h = 2.f * acc[mt][nt][e];
           const float tens = alpha * (2.f * ((c1p[ie] + c2q[je]) - h)) + (1.f - alpha) * Mr[mt][nt][e];
-          mr[ie * LDA + je] = -tens / epsilon;
+          mr[ie * LDA + je] = PAD && (ie >= n || je >= n) ? -INFINITY : -tens / epsilon;
         }
       }
     __syncthreads();
@@ -393,14 +411,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     // log-domain Sinkhorn
     bool sfrozen = false, sdiv = false;
     for (int si = 0; si < sinkhorn_iters && !sfrozen; ++si) {
-      int bad = lse_update<N, false>(mr, u, logq, vn);  // columns
+      int bad = lse_update<N, false>(mr, u, logq, vn, n);  // columns
       __syncthreads();
-      bad |= lse_update<N, true>(mr, vn, logp, un);     // rows
+      bad |= lse_update<N, true>(mr, vn, logp, un, n);     // rows
       const bool newly_div = __syncthreads_or(bad) != 0;  // sfrozen is false here
       bool newly_frozen = newly_div;
       if (si % 10 == 0) {
         // column marginal of the would-be plan against q
-        const float e2 = block_sum(col_marginal_err2<N>(mr, un, vn, q), red);
+        const float e2 = block_sum(col_marginal_err2<N>(mr, un, vn, q, n), red);
         newly_frozen = newly_frozen || sqrtf(e2) < sinkhorn_thr;
       }
       if (!newly_div) {
@@ -454,9 +472,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int N>
+template <int N, bool PAD>
 int launch(const float* Ms, const float* C1s, const float* C2s, const float* ps, const float* qs,
-           const float* T0s, float* Tout, int* div_out, int* iters_out, int S, int resident,
+           const float* T0s, float* Tout, int* div_out, int* iters_out, int S, int n, int resident,
            float alpha, float epsilon, int pgd_iters, float pgd_tol, int sinkhorn_iters,
            float sinkhorn_thr, cudaStream_t stream) {
   // the dynamic shared-memory limit is raised once per device and size
@@ -466,15 +484,14 @@ int launch(const float* Ms, const float* C1s, const float* C2s, const float* ps,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES || raised[dev] < smem) {
-    err = cudaFuncSetAttribute(fgw_couplings_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(fgw_couplings_kernel<N, PAD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) raised[dev] = smem;
   }
-  fgw_couplings_kernel<N><<<S, THREADS, smem, stream>>>(Ms, C1s, C2s, ps, qs, T0s, Tout, div_out,
-                                                        iters_out, resident, alpha, epsilon,
-                                                        pgd_iters, pgd_tol, sinkhorn_iters,
-                                                        sinkhorn_thr);
+  fgw_couplings_kernel<N, PAD><<<S, THREADS, smem, stream>>>(
+      Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, resident, n, alpha, epsilon, pgd_iters,
+      pgd_tol, sinkhorn_iters, sinkhorn_thr);
   return (int)cudaGetLastError();
 }
 
@@ -486,20 +503,23 @@ extern "C" {
 size_t fgw_smem(int n, int resident) { return smem_floats(n, resident) * sizeof(float); }
 
 // K3. Ms, C1s, C2s, T0s (S,N,N), ps, qs (S,N), f32 contiguous on the device,
-// 16-byte aligned, N one of 32, 64, 96, 128 -> Tout (S,N,N) f32, div_out
+// 16-byte aligned, N one of 32, 64, 96, 128, each solve's first n <= N atoms
+// real and the rest padding (finite; its mass is taken as 0) -> Tout (S,N,N)
+// f32, 0 on the padding, div_out
 // (S,) int32 per-solve divergence flags and iters_out (S,) int32, the
 // Sinkhorn iterations each solve ran (a frozen solve leaves its Sinkhorn
-// loop early). Another N returns cudaErrorInvalidValue.
+// loop early). Another N, or n outside [1, N], returns cudaErrorInvalidValue.
 int fgw_couplings(const float* Ms, const float* C1s, const float* C2s, const float* ps,
                   const float* qs, const float* T0s, float* Tout, int* div_out, int* iters_out,
-                  int S, int N, int resident, float alpha, float epsilon, int pgd_iters,
+                  int S, int N, int n, int resident, float alpha, float epsilon, int pgd_iters,
                   float pgd_tol, int sinkhorn_iters, float sinkhorn_thr, void* stream) {
+  if (n < 1 || n > N) return (int)cudaErrorInvalidValue;
   switch (N) {
-#define FGW_CASE(n)                                                                               \
-  case n:                                                                                         \
-    return launch<n>(Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, S, resident, alpha,     \
-                     epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr,                   \
-                     (cudaStream_t)stream);
+#define FGW_CASE(NB)                                                                              \
+  case NB:                                                                                        \
+    return (n < NB ? launch<NB, true> : launch<NB, false>)(                                       \
+        Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, S, n, resident, alpha, epsilon,      \
+        pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr, (cudaStream_t)stream);
     FGW_CASE(32)
     FGW_CASE(64)
     FGW_CASE(96)

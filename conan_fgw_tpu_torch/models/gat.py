@@ -63,8 +63,9 @@ class GAT2D(nn.Module):
         ])
 
     def forward(self, x2d, adj, edge_attr, mask):
-        h = x2d.to(torch.float32)
-        e = edge_attr.to(torch.float32)
+        dt = self.convs[0].lin.weight.dtype  # float32 but in a float64 reference step
+        h = x2d.to(dt)
+        e = edge_attr.to(dt)
         for conv in self.convs:
             h = conv(h, adj, e, mask)
         return torch.sum(h * mask[..., None].to(h.dtype), dim=-2)

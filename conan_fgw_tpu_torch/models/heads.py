@@ -22,8 +22,16 @@ from conan_fgw_tpu_torch.models.dimenet import DimeNet3D
 from conan_fgw_tpu_torch.models.gat import GAT2D
 from conan_fgw_tpu_torch.models.schnet import SchNet3D
 from conan_fgw_tpu_torch.models.visnet import ViSNet3D
-from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter_batch, normalize_minmax
+from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter_batch
 from conan_fgw_tpu_torch.ops.graph import masked_sum
+
+
+def _minmax_per_matrix(x: torch.Tensor, a: float, b: float, eps: float = 0.0) -> torch.Tensor:
+    """Min-max rescale each matrix ``x[..., :, :]`` into ``[a, b]``: the JAX
+    model's ``normalize_minmax`` vmapped over molecules and conformers."""
+    lo = x.amin(dim=(-2, -1), keepdim=True)
+    hi = x.amax(dim=(-2, -1), keepdim=True)
+    return a + (x - lo) * (b - a) / (hi - lo + eps)
 
 
 def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
@@ -148,7 +156,7 @@ class ConanModel(nn.Module):
         if self.bary_pad_mode == "reference":
             # per-conformer min-max over the full padded matrix, pads included;
             # eps keeps fully padded (batch-filler) molecules NaN-free
-            ys = normalize_minmax(shifted, a, b, eps=1e-12)
+            ys = _minmax_per_matrix(shifted, a, b, eps=1e-12)
             ps = p = None
         else:
             node_mask = atom_mask[:, None, :, None]

@@ -38,7 +38,7 @@ SIGNATURES = {
     "cfconv_bwd": (_I, [_P] * 16 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
     "cfconv_partial_floats": (_I, [_I, _I]),
     "cfconv_slabs": (_I, [_I, _I]),
-    "fgw_couplings": (_I, [_P] * 9 + [_I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
+    "fgw_couplings": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
     "fgw_smem": (_Z, [_I, _I]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }

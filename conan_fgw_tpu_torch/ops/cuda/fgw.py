@@ -1,12 +1,15 @@
 """Batched FGW coupling solver: CUDA kernel K3.
 
-Replaces ``conan_fgw_tpu/ops/pallas/fgw.py::pallas_fgw_couplings_flat``
-(the Pallas ``_super_kernel`` with ``_sinkhorn_super``). The kernel lives in
+``fgw_couplings_flat`` replaces
+``conan_fgw_tpu/ops/pallas/fgw.py::pallas_fgw_couplings_flat`` (the Pallas
+``_super_kernel`` with ``_sinkhorn_super``), and ``fgw_couplings`` its
+per-molecule wrapper ``pallas_fgw_couplings``. The kernel lives in
 ``csrc/fgw.cu``, one CTA per solve; its header says what bounds it on this
-card and how the design answers it. The plain version is
-``ops/fgw/coupling.py::fgw_coupling``, reached here through
-``fgw_couplings_plain``. Forward only: the barycenter solves its couplings
-without gradient.
+card and how the design answers it. It takes a bucket size N (a multiple of
+32) and each solve's true atom count n <= N, and leaves the padding out of
+the solve. The plain version is ``ops/fgw/coupling.py::fgw_coupling`` on
+the leading n x n block, reached here through ``fgw_couplings_plain``.
+Forward only: the barycenter solves its couplings without gradient.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import contextlib
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from conan_fgw_tpu_torch.data.packing import DEFAULT_BUCKETS
 from conan_fgw_tpu_torch.ops.cuda import _build, launches
@@ -24,10 +28,17 @@ MAX_ATOMS = DEFAULT_BUCKETS[-1]
 _NAMES = ("Ms", "C1s", "C2s", "ps", "qs", "T0s")
 
 
-def fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, **solver):
-    """Plain PyTorch version: ``(T (S, N, N), diverged (S,) int32)``."""
-    T, div = fgw_coupling(Ms, C1s, C2s, ps, qs, T0s, **solver)
-    return T, div.to(torch.int32)
+def fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, n=None, **solver):
+    """Plain PyTorch version: ``(T (S, N, N), diverged (S,) int32)``. With
+    ``n`` < N, the solve of the leading ``n x n`` block, its plan zero on
+    the padding, as the kernel computes it."""
+    N = Ms.shape[-1]
+    if n is None or n == N:
+        T, div = fgw_coupling(Ms, C1s, C2s, ps, qs, T0s, **solver)
+        return T, div.to(torch.int32)
+    T, div = fgw_coupling(Ms[:, :n, :n], C1s[:, :n, :n], C2s[:, :n, :n], ps[:, :n], qs[:, :n],
+                          T0s[:, :n, :n], **solver)
+    return F.pad(T, (0, N - n, 0, N - n)), div.to(torch.int32)
 
 
 @functools.cache
@@ -54,12 +65,14 @@ def _complaint(name, t, dev, want):
 
 
 def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
-            sinkhorn_iters, sinkhorn_thr):
+            sinkhorn_iters, sinkhorn_thr, n=None, count="fgw_couplings"):
     """Launch K3: ``(T, diverged, sinkhorn_iters_run)``, the last an ``(S,)``
     int32 count of the Sinkhorn iterations each solve ran over all its PGD
     steps (a frozen solve leaves its Sinkhorn loop early). ``N`` must be a
-    bucket size (a multiple of 32 up to ``MAX_ATOMS``)."""
+    bucket size (a multiple of 32 up to ``MAX_ATOMS``); rows and columns
+    ``>= n`` (default N) are padding. Adds one to ``launches[count]``."""
     S, N, _ = Ms.shape
+    n = N if n is None else int(n)
     dev = Ms.device
     idx = Ms.get_device()  # -1 off the card
     for name, t in zip(_NAMES, (Ms, C1s, C2s, ps, qs, T0s)):
@@ -69,6 +82,8 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
             raise ValueError(f"fgw kernel: {_complaint(name, t, dev, want)}")
     if N % 32 or N > MAX_ATOMS:
         raise ValueError(f"fgw kernel: N={N} is not a multiple of 32 up to {MAX_ATOMS}")
+    if not 1 <= n <= N:
+        raise ValueError(f"fgw kernel: n={n} atoms outside [1, N={N}]")
     resident = _resident(N)
     T = torch.empty_like(Ms)
     flags = torch.empty((2, S), dtype=torch.int32, device=dev)
@@ -77,15 +92,27 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
     with switch:
         code = _build.load_library().fgw_couplings(
             Ms.data_ptr(), C1s.data_ptr(), C2s.data_ptr(), ps.data_ptr(), qs.data_ptr(),
-            T0s.data_ptr(), T.data_ptr(), div.data_ptr(), iters.data_ptr(), S, N, resident,
+            T0s.data_ptr(), T.data_ptr(), div.data_ptr(), iters.data_ptr(), S, N, n, resident,
             float(alpha), float(epsilon), int(pgd_iters), float(pgd_tol),
             int(sinkhorn_iters), float(sinkhorn_thr),
             # the current stream's raw handle, without building a Stream object
             torch._C._cuda_getCurrentRawStream(idx),
         )
     _build.check(code, "fgw_couplings")
-    launches["fgw_couplings"] += 1
+    launches[count] += 1
     return T, div, iters
+
+
+def _solve(args, n, count, solver):
+    """CUDA tensors to the kernel, CPU tensors to ``fgw_couplings_plain``;
+    a mix of the two raises."""
+    if all(t.device.type == "cpu" for t in args):
+        return fgw_couplings_plain(*args, n=n, **solver)
+    if args[0].is_cuda:
+        T, div, _ = _launch(*args, n=n, count=count, **solver)
+        return T, div
+    devices = sorted({str(t.device) for t in args})
+    raise ValueError(f"fgw couplings: unsupported device {', '.join(devices)}")
 
 
 def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
@@ -94,15 +121,38 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
 
     Args: ``Ms``/``C1s``/``C2s``/``T0s`` ``(S, N, N)``, ``ps``/``qs`` ``(S, N)``.
     Returns ``(T (S, N, N) f32, diverged (S,) int32 per-solve flags)``.
-    CUDA tensors go to the kernel, CPU tensors to ``fgw_couplings_plain``;
-    a mix of the two raises.
+    CUDA tensors go to the kernel (counted as ``fgw_couplings``), CPU
+    tensors to ``fgw_couplings_plain``; a mix of the two raises.
     """
     solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,
                   sinkhorn_iters=sinkhorn_iters, sinkhorn_thr=sinkhorn_thr)
-    if all(t.device.type == "cpu" for t in (Ms, C1s, C2s, ps, qs, T0s)):
-        return fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, **solver)
-    if Ms.is_cuda:
-        T, div, _ = _launch(Ms, C1s, C2s, ps, qs, T0s, **solver)
-        return T, div
-    devices = sorted({str(t.device) for t in (Ms, C1s, C2s, ps, qs, T0s)})
-    raise ValueError(f"fgw_couplings_flat: unsupported device {', '.join(devices)}")
+    return _solve((Ms, C1s, C2s, ps, qs, T0s), None, "fgw_couplings", solver)
+
+
+def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
+                  sinkhorn_iters, sinkhorn_thr):
+    """Solve the ``K`` couplings of one barycenter step of one molecule.
+
+    Args: ``Ms``/``Cks``/``T0s`` ``(K, n, n)``, ``Cb`` ``(n, n)`` (the
+    shared barycenter structure), ``p`` ``(n,)``, ``qs`` ``(K, n)``, for any
+    ``n`` up to ``MAX_ATOMS``. Returns ``(T (K, n, n), count)``, ``count``
+    an int32 0-d tensor: how many of the K solves hit a Sinkhorn numerical
+    failure and rolled back. The solves are padded to the next multiple of
+    32 with zero structure, mass and plan, and K3 (counted as
+    ``fgw_couplings_mol``) leaves the padding out; on the CPU the plain
+    version solves the leading n x n block of the same padded input.
+    """
+    K, n, _ = Ms.shape
+    if n > MAX_ATOMS:
+        raise ValueError(f"fgw_couplings: n={n} atoms, more than {MAX_ATOMS}")
+    pad = -n % 32
+
+    def padded(x):
+        return F.pad(x, (0, pad) if x.dim() == 2 else (0, pad, 0, pad)).contiguous()
+
+    args = (padded(Ms), padded(Cb.expand(K, n, n)), padded(Cks), padded(p.expand(K, n)),
+            padded(qs), padded(T0s))
+    solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,
+                  sinkhorn_iters=sinkhorn_iters, sinkhorn_thr=sinkhorn_thr)
+    T, div = _solve(args, n, "fgw_couplings_mol", solver)
+    return T[:, :n, :n], div.sum(dtype=torch.int32)

@@ -26,12 +26,17 @@ def radius_graph_mask(
     mask: torch.Tensor,
     cutoff: float,
     max_neighbors: int | None = 32,
+    cap_mode: str | None = "index",
 ) -> torch.Tensor:
     """Dense neighbour mask ``nbr[..., i, j]`` = "j is a message source for i".
 
-    PyG ``radius_graph(pos, r=cutoff, max_num_neighbors=cap)`` semantics with
-    torch-cluster's first-by-index cap: the first ``cap + 1`` candidates
-    (self included) are kept, then the self loop is dropped.
+    PyG ``radius_graph(pos, r=cutoff, max_num_neighbors=cap)`` semantics: for
+    each target, the neighbours within ``cutoff``. Where more than
+    ``max_neighbors`` qualify, ``cap_mode="index"`` keeps torch-cluster's
+    first ones by index (the first ``cap + 1`` candidates, self included,
+    then the self loop is dropped) and ``"nearest"`` the closest ones.
+    ``max_neighbors=None`` keeps all of them; another ``cap_mode`` (None
+    included, as in the JAX package) raises where the cap would bind.
     """
     n = dist.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=dist.device)
@@ -40,14 +45,27 @@ def radius_graph_mask(
     nbr = within & ~eye
     if max_neighbors is None or max_neighbors >= n:
         return nbr
-    cand = (within | (eye & valid_pair)).to(torch.int32)
-    rank = torch.cumsum(cand, dim=-1) - cand
-    return nbr & (rank < max_neighbors + 1)
+    if cap_mode == "index":
+        cand = (within | (eye & valid_pair)).to(torch.int32)
+        rank = torch.cumsum(cand, dim=-1) - cand
+        return nbr & (rank < max_neighbors + 1)
+    if cap_mode == "nearest":
+        big = torch.where(nbr, dist, torch.full_like(dist, float("inf")))
+        rank = torch.argsort(torch.argsort(big, dim=-1, stable=True), dim=-1, stable=True)
+        return nbr & (rank < max_neighbors)
+    raise ValueError(f"unknown cap_mode {cap_mode!r}")
 
 
 def masked_sum(h: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Tensor:
     """Sum-readout over the node axis under a validity mask."""
     return torch.sum(h * mask[..., None].to(h.dtype), dim=dim)
+
+
+def masked_mean(h: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Mean-readout over the node axis under a validity mask (at least one
+    node in the denominator)."""
+    m = mask[..., None].to(h.dtype)
+    return torch.sum(h * m, dim=dim) / torch.clamp(torch.sum(m, dim=dim), min=1.0)
 
 
 def embed_onehot(z: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

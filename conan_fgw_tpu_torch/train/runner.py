@@ -82,6 +82,23 @@ def build_aux_model(spec_model: str, hidden: int, *, seed: int = 0, device="cuda
     return head(hidden, seed=seed, device=device)
 
 
+def fgw_config(config: ExperimentConfig) -> FGWConfig:
+    """The barycenter's solver budget from a config (before a backbone's
+    own alpha and structure)."""
+    if config.fgw_from_config:
+        # opt-in: the YAML's max_iter/epsilon reach the solver
+        fgw = FGWConfig(outer_iters=config.max_iter, epsilon=config.epsilon)
+    else:
+        # the reference hardcodes 5/5/5 iterations and epsilon=0.1 whatever
+        # the YAML says (schnet_no_sum.py:294-300)
+        fgw = FGWConfig()
+    if config.fgw_pgd_iters is not None:
+        fgw = dataclasses.replace(fgw, pgd_iters=config.fgw_pgd_iters)
+    if config.fgw_sinkhorn_iters is not None:
+        fgw = dataclasses.replace(fgw, sinkhorn_iters=config.fgw_sinkhorn_iters)
+    return fgw
+
+
 def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda"):
     """A head family other than ``conan`` comes from ``build_aux_model``.
     Otherwise the config's backbone at hidden 128 for regression, 512 for
@@ -97,17 +114,7 @@ def build_model(config: ExperimentConfig, *, seed: int = 0, device="cuda"):
     hidden = 512 if task == "classification" else 128
     if config.spec.model != "conan":
         return build_aux_model(config.spec.model, hidden, seed=seed, device=dev)
-    if config.fgw_from_config:
-        # opt-in: the YAML's max_iter/epsilon reach the solver
-        fgw = FGWConfig(outer_iters=config.max_iter, epsilon=config.epsilon)
-    else:
-        # the reference hardcodes 5/5/5 iterations and epsilon=0.1 whatever
-        # the YAML says (schnet_no_sum.py:294-300)
-        fgw = FGWConfig()
-    if config.fgw_pgd_iters is not None:
-        fgw = dataclasses.replace(fgw, pgd_iters=config.fgw_pgd_iters)
-    if config.fgw_sinkhorn_iters is not None:
-        fgw = dataclasses.replace(fgw, sinkhorn_iters=config.fgw_sinkhorn_iters)
+    fgw = fgw_config(config)
     # compute_dtype reaches the SchNet and DimeNet backbones (ConanModel), not
     # ViSNet or the aux heads, as in the JAX runner
     common = dict(task=task, hidden_channels=hidden,

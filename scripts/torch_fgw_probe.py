@@ -161,8 +161,10 @@ def main() -> int:
         resident = int(lib.fgw_smem(N, 1) <= _build.MAX_SMEM_BYTES)
         T = torch.empty_like(args[0])
         flags = torch.empty((2, S), dtype=torch.int32, device="cuda")
+        # the atom count n (all N real) where the measured K3 takes one
+        n_arg = (N,) if len(_build.SIGNATURES["fgw_couplings"][1]) > 19 else ()
         code = lib.fgw_couplings(*(a.data_ptr() for a in args), T.data_ptr(), flags[0].data_ptr(),
-                                 flags[1].data_ptr(), S, N, resident, kw["alpha"], kw["epsilon"],
+                                 flags[1].data_ptr(), S, N, *n_arg, resident, kw["alpha"], kw["epsilon"],
                                  kw["pgd_iters"], kw["pgd_tol"], kw["sinkhorn_iters"],
                                  kw["sinkhorn_thr"], torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()

@@ -39,6 +39,7 @@ PHASES = {
     "determinism": lambda card: cs.phase_determinism(),
     "bf16": lambda card: cs.phase_bf16("cuda", card, _rows()),
     "bf16_kernels": lambda card: cs.phase_bf16_kernels("cuda", _rows()),
+    "fgw": lambda card: cs.phase_fgw("cuda", card, _rows()),
 }
 
 

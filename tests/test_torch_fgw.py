@@ -19,7 +19,7 @@ from conan_fgw_tpu.ops.fgw.coupling import fgw_coupling as j_coupling
 from conan_fgw_tpu.ops.fgw.sinkhorn import sinkhorn_log as j_sinkhorn
 from conan_fgw_tpu.ops.pallas.fgw import pallas_fgw_couplings_flat
 from conan_fgw_tpu_torch.ops.cuda.fgw import fgw_couplings_flat
-from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter_batch, normalize_minmax
+from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter_batch
 from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 from conan_fgw_tpu_torch.ops.fgw.sinkhorn import sinkhorn_log
 
@@ -98,11 +98,14 @@ def test_couplings_flat_plain_matches_pallas_interpret():
 
 
 def test_normalize_minmax_per_matrix():
-    """The port rescales each trailing matrix, as the JAX model's vmapped
-    call does (rtol 1e-6: the same few f32 operations)."""
+    """The model's rescale (``models/heads.py``) takes each trailing matrix,
+    as the JAX model's vmapped call does (rtol 1e-6: the same few f32
+    operations)."""
+    from conan_fgw_tpu_torch.models.heads import _minmax_per_matrix
+
     x = np.random.default_rng(6).standard_normal((2, 3, 5, 4)).astype(np.float32)
     y_j = jax.vmap(jax.vmap(lambda m: j_minmax(m, 0.1, 2.0, eps=1e-12)))(jnp.asarray(x))
-    y_t = normalize_minmax(torch.from_numpy(x), 0.1, 2.0, eps=1e-12)
+    y_t = _minmax_per_matrix(torch.from_numpy(x), 0.1, 2.0, eps=1e-12)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-6)
 
 
