@@ -71,9 +71,12 @@ Phases (any failure exits non-zero and prints no result line):
    no other width's kernel and no plain version may run, both buckets must
    run, the warm start must be bit-exact, losses finite, ``val_auroc`` and
    ``test_auroc`` in [0, 1], ``best`` at the epoch of the highest
-   ``val_auroc``, and the AUROC of ``predict.main``'s probabilities must
-   equal the runner's ``test_auroc`` to 1e-6. These steps run as CUDA
-   graphs too, with phase 5's checks on captures and launch counts.
+   ``val_auroc``, ``predict.main``'s probabilities must be the sigmoid of
+   the logits of the runner's test evaluation to 1e-6, and the AUROC of
+   those logits and (where no probability is 0 or 1, which would tie) of
+   the probabilities must equal the runner's ``test_auroc`` to 1e-6. These
+   steps run as CUDA graphs too, with phase 5's checks on captures and
+   launch counts.
 8. CUDA graphs at full width: the flagship regression model in stage 1 and
    stage 2 at N=32 and N=64 (B=24, K=5) and the classification model in
    stage 2 at N=32 (B=18). Each runs 20 synthetic batches eagerly and
@@ -191,6 +194,25 @@ Phases (any failure exits non-zero and prints no result line):
    outer x 10 PGD x 10 Sinkhorn iterations, eps 0.05), 2 epochs each, with
    phase 5's checks (K3 fifteen times a stage-2 forward), and one deep
    stage-2 step card against CPU within ``DEEP_STEP_RTOL``.
+14. The GEOM path (``data/geom.py``, the runner's ``dataset: geom``). K1
+   and K2 at N = 96 and N = 128 (F=128 with 50 Gaussians on G = 120, F=256
+   with 10 on G = 90; f32 and bf16 node features; seeded molecules of
+   65-121 atoms, the cap binding) with phase 2's and phase 12's gates, and
+   K3 on the barycenter's second outer iteration there (S = 90), within
+   ``FGW_ATOL``; these rows carry the shapes ``n96`` and ``n128`` in the
+   result line. Then a synthetic CoV-2 set in the GEOM layout (80/12/12
+   drug-like molecules of 65-128 atoms from ``SEED``, half in each bucket;
+   ``.npz`` stores of 3-8 conformers embedded by ``dg_generate`` in a pool
+   of processes; a few molecules without a store, re-embedded at every
+   access) in a temporary directory; the runner's ``main`` on
+   ``config/schnet/cov2_5.yaml`` and then ``cov2_5_bc.yaml`` (2 epochs
+   each) with phase 6's checks, both large buckets in every epoch, and
+   predict's AUROC equal to the runner's; one stage-2 step at N = 128
+   (B = 18) card against CPU within phase 4's gate; and
+   ``DimeNetGEOMExperiment``'s stage 1 (B = 8, 2 epochs) through the
+   runner, where no kernel may launch. Prints ms per step by bucket, epoch
+   times, the host time of ``GEOMDataset.records()`` and the peak memory by
+   stage, step kind and bucket.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -205,7 +227,8 @@ Phases (any failure exits non-zero and prints no result line):
 Then it prints the per-kernel JSON line (every kernel, each width, type
 and shape held, with its launches on each runner path; the bf16 variants'
 ``launches`` are those of phase 12's runner, K3's per-molecule wrapper's
-those of phase 13's per-molecule barycenters), the card line and, last,
+those of phase 13's per-molecule barycenters; ``geom_launches`` those of
+phase 14's runners, also on the ``[done]`` line), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
@@ -990,7 +1013,9 @@ def step_parity(model, pb, device, label, bary=True, rtol=STEP_RTOL):
     loss.backward()
     lk = float(loss.detach())
     nk = {k: float(p.grad.norm()) for k, p in model.named_parameters() if p.grad is not None}
+    t0 = time.perf_counter()
     lp, np_ = _plain_step(model, pb, bary)
+    cpu_s = time.perf_counter() - t0
     gk, gp = _norm(nk), _norm(np_)
     rel = {k: abs(nk[k] - np_[k]) / max(np_[k], PARAM_FLOOR * gp) for k in np_}
     worst = max(rel.values())
@@ -1000,13 +1025,14 @@ def step_parity(model, pb, device, label, bary=True, rtol=STEP_RTOL):
     loss_rel, grad_rel = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
     print(f"[{label}] loss kernel {lk:.6f} plain {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3e});"
           f" grad norm kernel {gk:.6f} plain {gp:.6f} (rel {abs(gk - gp) / gp:.3e});"
-          f" worst parameter grad-norm rel err {worst:.3e} (tol {rtol}, {PARAM_RTOL})")
+          f" worst parameter grad-norm rel err {worst:.3e} (tol {rtol}, {PARAM_RTOL}); the CPU"
+          f" step took {cpu_s:.1f} s")
     require(set(nk) == set(np_), f"{label}: card and CPU differ in which parameters get gradients")
     require(worst <= PARAM_RTOL, f"{label}: a parameter's gradient norm disagrees")
     missed = [k for k, v in (("loss", loss_rel), ("gradient norm", grad_rel)) if v > rtol]
     require(not missed, f"{label}: {stage} {' and '.join(missed)} off by more than {rtol}")
     model.zero_grad(set_to_none=True)
-    return dict(loss_rel=loss_rel, grad_norm_rel=grad_rel, worst_param_rel=worst)
+    return dict(loss_rel=loss_rel, grad_norm_rel=grad_rel, worst_param_rel=worst, cpu_s=cpu_s)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1098,7 +1124,7 @@ def run_main(main, argv):
 
 
 def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, metric="rmse",
-                 per_forward=3):
+                 per_forward=3, buckets=(32, 64)):
     """One runner run with the launch counts zeroed before it; checks and
     prints it, returns ``(summary, history, launches)``. ``ctx`` holds the
     common arguments, the temporary directory, the plain-call counts, the
@@ -1107,8 +1133,8 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     validation and test metric (``rmse``, or ``auroc`` for classification).
     ``per_forward`` is the path's K1 launches a forward and K2 launches a
     train step: 3 for the flagship's SchNet, its interactions for an ESAN or
-    aux head (phase 11). The run must capture at least one train and one
-    eval graph."""
+    aux head (phase 11). Every epoch must step in each of ``buckets``. The
+    run must capture at least one train and one eval graph."""
     import numpy as np
     import torch
 
@@ -1141,8 +1167,8 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     for r in history:
         require(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]),
                 f"runner {label} epoch {r['epoch']} has a non-finite loss")
-        require(r.get("steps_n32", 0) > 0 and r.get("steps_n64", 0) > 0,
-                f"runner {label} epoch {r['epoch']} did not run both buckets: {r}")
+        require(all(r.get(f"steps_n{n}", 0) > 0 for n in buckets),
+                f"runner {label} epoch {r['epoch']} did not run every bucket of {buckets}: {r}")
     require(np.isfinite(summary[f"test_{metric}"]["mean"]), f"runner {label}: test_{metric} not finite")
     new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
     others = [k for k in REPLACES if k not in kernels and grew[k]]
@@ -1164,27 +1190,27 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
             f"runner {label}: K3 launched {grew[k3]} in {forwards} {stage} forwards, want"
             f" {outer} a forward")
     for r in history:
-        n64 = r["steps_n64"] / r["train_steps"]
+        by_bucket = ", ".join(f"{r[f'steps_n{n}']} at N={n}"
+                              f" ({1e3 * r[f'train_s_n{n}'] / r[f'steps_n{n}']:.2f} ms/step)"
+                              for n in buckets)
         print(f"[runner {label}] epoch {r['epoch']}: {r['epoch_time_s']:.3f} s, {r['train_steps']}"
-              f" steps ({r['steps_n32']} at N=32, {r['steps_n64']} at N=64: {100 * n64:.1f}%),"
-              f" {1e3 * r['train_s_n32'] / r['steps_n32']:.2f} ms/step at N=32,"
-              f" {1e3 * r['train_s_n64'] / r['steps_n64']:.2f} ms/step at N=64,"
-              f" fgw_diverged {r['fgw_diverged']}, train_loss {r['train_loss']:.5f},"
-              f" {val_key} {r[val_key]:.5f}")
+              f" steps ({by_bucket}), fgw_diverged {r['fgw_diverged']}, train_loss"
+              f" {r['train_loss']:.5g}, {val_key} {r[val_key]:.5g}")
     print(f"[runner {label}] {steps} steps in all, {new_steps} in this run: {wall:.1f} s wall with"
           f" data and test on {card}; test_{metric} {summary[f'test_{metric}']['mean']:.6f};"
           f" launches {grew}; CUDA graphs captured {dict(captures)}; host pipeline {dict(host)}")
     return summary, history, grew
 
 
-def stage_row(history, summary, metric):
+def stage_row(history, summary, metric, buckets=(32, 64)):
     """What the result line keeps of one runner stage."""
     last = history[-1]
-    return dict(epoch_s=[r["epoch_time_s"] for r in history],
-                steps=last["train_steps"], steps_n64=last["steps_n64"],
-                ms_n32=1e3 * last["train_s_n32"] / last["steps_n32"],
-                ms_n64=1e3 * last["train_s_n64"] / last["steps_n64"],
-                fgw_diverged=[r["fgw_diverged"] for r in history],
+    by_bucket = {}
+    for n in buckets:
+        by_bucket[f"steps_n{n}"] = last[f"steps_n{n}"]
+        by_bucket[f"ms_n{n}"] = 1e3 * last[f"train_s_n{n}"] / last[f"steps_n{n}"]
+    return dict(epoch_s=[r["epoch_time_s"] for r in history], steps=last["train_steps"],
+                **by_bucket, fgw_diverged=[r["fgw_diverged"] for r in history],
                 **{f"test_{metric}": summary[f"test_{metric}"]["mean"]})
 
 
@@ -1264,13 +1290,6 @@ def phase_classification(device, card):
     """Phase 6: the classification model's two stages and predict on
     ``data/sol1k_class`` through the runner, at full width (hidden 512, 256
     filters, 10 Gaussians): the F=256 kernels and K3."""
-    import csv
-
-    import numpy as np
-
-    from conan_fgw_tpu_torch.train import metrics as metrics_lib
-    from conan_fgw_tpu_torch.train import predict
-
     out, totals = {}, collections.Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_class_") as name, \
             runner_spies() as (plain_calls, restores, captures, host):
@@ -1283,39 +1302,94 @@ def phase_classification(device, card):
             first_restore = len(restores)
             cfg = config_copy(src, tmp, RUNNER_EPOCHS)
             label = "class stage 1" if stage == "conan_fgw_pre" else "class stage 2"
-            summary, history, grew = runner_stage(label, stage, cfg, ctx, kernels=CLASSIFICATION,
-                                                  metric="auroc")
+            with last_evaluation() as test_eval:
+                summary, history, grew = runner_stage(label, stage, cfg, ctx,
+                                                      kernels=CLASSIFICATION, metric="auroc")
             totals.update(grew)
             out[label] = stage_row(history, summary, "auroc")
-            aurocs = [r["val_auroc"] for r in history]
-            require(all(0.0 <= v <= 1.0 for v in aurocs + [summary["test_auroc"]["mean"]]),
-                    f"{label}: an AUROC outside [0, 1]: {aurocs}, {summary['test_auroc']}")
-            run_dir = tmp / "models" / "smoke" / "0" / f"run_{stage}:0"
-            best_epoch = json.loads((run_dir / "best.meta.json").read_text())["epoch"]
-            require(best_epoch == int(np.argmax(aurocs)),
-                    f"{label}: best is epoch {best_epoch}, the highest val_auroc is at"
-                    f" {int(np.argmax(aurocs))} ({aurocs})")
-            print(f"[runner {label}] best: epoch {best_epoch} of val_auroc {aurocs} (higher is better)")
+            check_best_auroc(label, history, summary, tmp / "models" / "smoke" / "0" / f"run_{stage}:0")
         check_warm_start(restores, first_restore, tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
-
-        preds = tmp / "class_preds.csv"
-        run_main(predict.main, ["--config", cfg, "--checkpoint",
-                                str(tmp / "models" / "smoke" / "0" / "run_conan_fgw:0"),
-                                "--data_root", ".", "--device", device, "--out", str(preds)])
-        with open(preds) as f:
-            rows = list(csv.DictReader(f))
-        prob = np.asarray([float(r["prediction"]) for r in rows])
-        target = np.asarray([float(r["target"]) for r in rows])
-        require(bool(np.all((prob >= 0) & (prob <= 1))), "predict's probabilities leave [0, 1]")
-        auroc = metrics_lib.roc_auc(target.astype(np.int64), prob)
-        reported = summary["test_auroc"]["mean"]
-        print(f"[runner] predict on class stage 2's best: test AUROC from its probabilities"
-              f" {auroc!r}, the runner's {reported!r}, diff {abs(auroc - reported):.3e}"
-              f" (tol {PREDICT_RTOL})")
-        require(abs(auroc - reported) <= PREDICT_RTOL, "predict's test AUROC disagrees with the runner's")
+        check_predict_auroc("class stage 2", cfg, tmp, ".", summary, device, test_eval)
         require(not plain_calls, f"plain versions ran: {dict(plain_calls)}")
     out["launches"] = dict(totals)
     return out
+
+
+def check_best_auroc(label, history, summary, run_dir):
+    """Every AUROC in [0, 1], and ``best`` at the epoch of the highest
+    ``val_auroc``."""
+    import numpy as np
+
+    aurocs = [r["val_auroc"] for r in history]
+    require(all(0.0 <= v <= 1.0 for v in aurocs + [summary["test_auroc"]["mean"]]),
+            f"{label}: an AUROC outside [0, 1]: {aurocs}, {summary['test_auroc']}")
+    best_epoch = json.loads((run_dir / "best.meta.json").read_text())["epoch"]
+    require(best_epoch == int(np.argmax(aurocs)),
+            f"{label}: best is epoch {best_epoch}, the highest val_auroc is at"
+            f" {int(np.argmax(aurocs))} ({aurocs})")
+    print(f"[runner {label}] best: epoch {best_epoch} of val_auroc {aurocs} (higher is better)")
+
+
+@contextlib.contextmanager
+def last_evaluation():
+    """The logits and targets of the last ``loop.evaluate`` call inside: a
+    runner run's last is its test split on ``best``."""
+    from conan_fgw_tpu_torch.train import loop
+
+    seen, original = {}, loop.evaluate
+
+    def evaluate(*args, **kwargs):
+        out = original(*args, **kwargs)
+        seen["logits"], seen["y"] = out[1], out[2]
+        return out
+
+    loop.evaluate = evaluate
+    try:
+        yield seen
+    finally:
+        loop.evaluate = original
+
+
+def check_predict_auroc(label, cfg, tmp, data_root, summary, device, test_eval):
+    """``predict.main`` on the stage-2 run's ``best`` under ``tmp``: its
+    probabilities must be the sigmoid of the logits of the runner's test
+    evaluation (``test_eval``, from ``last_evaluation``) to
+    ``PREDICT_RTOL``, their targets equal, and the AUROC of those logits the
+    runner's ``test_auroc``; so must the AUROC of the probabilities, unless
+    some are 0 or 1 (a logit beyond about 37 is 1.0 in float64), where they
+    tie and lose the logits' order."""
+    import csv
+
+    import numpy as np
+
+    from conan_fgw_tpu_torch.train import metrics as metrics_lib
+    from conan_fgw_tpu_torch.train import predict
+
+    preds = tmp / "class_preds.csv"
+    run_main(predict.main, ["--config", cfg, "--checkpoint",
+                            str(tmp / "models" / "smoke" / "0" / "run_conan_fgw:0"),
+                            "--data_root", data_root, "--device", device, "--out", str(preds)])
+    with open(preds) as f:
+        rows = list(csv.DictReader(f))
+    prob = np.asarray([float(r["prediction"]) for r in rows])
+    target = np.asarray([float(r["target"]) for r in rows])
+    logits = np.asarray(test_eval["logits"], np.float64)
+    require(bool(np.all((prob >= 0) & (prob <= 1))), "predict's probabilities leave [0, 1]")
+    require(np.array_equal(target, test_eval["y"]), "predict's targets are not the runner's")
+    diff = float(np.abs(prob - 1.0 / (1.0 + np.exp(-logits))).max())
+    auroc = metrics_lib.roc_auc(target.astype(np.int64), logits)
+    auroc_prob = metrics_lib.roc_auc(target.astype(np.int64), prob)
+    reported = summary["test_auroc"]["mean"]
+    saturated = int(np.sum((prob == 0) | (prob == 1)))
+    print(f"[runner] predict on {label}'s best: probabilities {diff:.3e} from the sigmoid of the"
+          f" runner's test logits (tol {PREDICT_RTOL}); AUROC of those logits {auroc!r}, of the"
+          f" probabilities {auroc_prob!r}, the runner's {reported!r} ({saturated} of {len(prob)}"
+          f" probabilities at 0 or 1; logits {logits.min():.4g} to {logits.max():.4g})")
+    require(diff <= PREDICT_RTOL, "predict's probabilities disagree with the runner's test logits")
+    require(abs(auroc - reported) <= PREDICT_RTOL, "the runner's test logits do not give its AUROC")
+    require(saturated or abs(auroc_prob - reported) <= PREDICT_RTOL,
+            "predict's test AUROC disagrees with the runner's")
+    return auroc_prob
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2793,6 +2867,264 @@ def phase_fgw(device, card, rows):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+# K1/K2 at the large buckets: (label, heavy atoms a molecule, bucket), the
+# ranges chosen so that the seeded molecules fill each bucket (61-95 and
+# 82-128 atoms with hydrogens) and the cap binds
+LARGE_SHAPES = (("N96", (46, 52), 96), ("N128", (62, 68), 128))
+GEOM_STAGES = (("conan_fgw_pre", "config/schnet/cov2_5.yaml"),
+               ("conan_fgw", "config/schnet/cov2_5_bc.yaml"))
+GEOM_BUCKETS = (96, 128)
+# the synthetic CoV-2 set: molecules a split, half of 65-96 atoms (N=96)
+# and half of 97-128 (N=128); the first of each split's molecules listed in
+# GEOM_NO_STORE have no store (the dg_generate fallback); each store holds
+# 3-8 conformers, so K=5 resamples some stores and oversamples others
+GEOM_SPLITS = {"train": 80, "valid": 12, "test": 12}
+GEOM_NO_STORE = {"train": 2, "valid": 1, "test": 1}
+GEOM_STORED = (3, 8)
+# drug-like pieces, each bonded to the last atom of the one before: rings,
+# amides, esters, sulfonamides, ethers and alkyl linkers
+GEOM_FRAGMENTS = ("c1ccccc1", "c1ccncc1", "c1ccc(F)cc1", "c1ccc(Cl)cc1", "c1ccc(OC)cc1",
+                  "c1ccc(C(F)(F)F)cc1", "c1ccc2ccccc2c1", "c1cncnc1", "C1CCN(CC1)",
+                  "N1CCN(CC1)", "C1CCOC1", "C1CC1", "C(=O)N", "C(=O)O", "S(=O)(=O)N", "CC",
+                  "CCC", "COC", "CCO", "NC", "CC(C)", "C(=O)NC")
+# DimeNetGEOMExperiment's run: bench.py's dimenet_n96 batch, stage 1 only
+GEOM_DIMENET = """dataset_name: ['cov2']
+target: ['score']
+num_conformers: 5
+batch_size: 8
+experiment: conan_fgw.src.experiments.DimeNetGEOMExperiment
+num_epochs: 2
+learning_rate: 0.001
+model_name: dimenet
+"""
+
+
+def geom_smiles(rng, lo, hi):
+    """A drug-like SMILES of ``lo``-``hi`` atoms with hydrogens: fragments
+    chained until a size drawn in the range is reached."""
+    from conan_fgw_tpu_torch.data import smiles as smi
+
+    def atoms(s):
+        return smi.add_hydrogens(smi.parse_smiles(s)).num_atoms
+
+    while True:
+        target, s = int(rng.integers(lo, hi + 1)), "C"
+        while atoms(s) < target:
+            s += GEOM_FRAGMENTS[int(rng.integers(len(GEOM_FRAGMENTS)))]
+        if atoms(s) <= hi:
+            return s
+
+
+def geom_conformers(job):
+    """``dg_generate``'s conformers for one ``(smiles, count, seed)`` (a
+    worker of ``make_geom``'s process pool)."""
+    from conan_fgw_tpu_torch.data import smiles as smi
+    from conan_fgw_tpu_torch.data.conformers import dg_generate
+
+    smiles, count, seed = job
+    return dg_generate(smi.add_hydrogens(smi.parse_smiles(smiles)), count, seed=seed)
+
+
+def make_geom(root: Path) -> dict:
+    """The synthetic CoV-2 set in the GEOM layout under ``root/data/cov2``:
+    split CSVs with an ``active`` label (both classes in every split) and a
+    float ``score``, and ``.npz`` stores (``positions``, ``smiles``) under
+    ``conformers_npz``, embedded by ``dg_generate`` in a pool of worker
+    processes. Returns the molecules' atom counts by split."""
+    import csv
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    from conan_fgw_tpu_torch.data import smiles as smi
+    from conan_fgw_tpu_torch.data.conformers import store_path
+
+    rng = np.random.default_rng(SEED)
+    ddir = root / "data" / "cov2"
+    (ddir / "conformers_npz").mkdir(parents=True)
+    jobs, atoms = [], {}
+    for mode, count in GEOM_SPLITS.items():
+        rows = []
+        for i in range(count):
+            smiles = geom_smiles(rng, *((65, 96) if i % 2 == 0 else (97, 128)))
+            rows.append({"smiles": smiles, "active": int(i % 3 == 0),
+                         "score": round(float(rng.normal()), 4), "mol_id": f"{mode}{i}"})
+            if i >= GEOM_NO_STORE[mode]:
+                stored = int(rng.integers(GEOM_STORED[0], GEOM_STORED[1] + 1))
+                jobs.append((smiles, stored, len(jobs)))
+        with open(ddir / f"{mode}.csv", "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["smiles", "active", "score", "mol_id"])
+            w.writeheader()
+            w.writerows(rows)
+        atoms[mode] = [smi.add_hydrogens(smi.parse_smiles(r["smiles"])).num_atoms for r in rows]
+        n96 = sum(1 for a in atoms[mode] if a <= 96)
+        print(f"[geom data] {mode}: {count} molecules, {n96} at N=96 and {count - n96} at"
+              f" N=128 ({min(atoms[mode])}-{max(atoms[mode])} atoms), the first"
+              f" {GEOM_NO_STORE[mode]} without a store")
+        require(min(atoms[mode]) > 64 and max(atoms[mode]) <= 128 and n96 and n96 < count,
+                f"geom {mode}: molecules outside the N=96 and N=128 buckets")
+        require(len({r["active"] for r in rows}) == 2, f"geom {mode}: one class only")
+    t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        stores = pool.map(geom_conformers, jobs)
+    embed_s = time.perf_counter() - t0
+    for (smiles, _, _), pos in zip(jobs, stores):
+        np.savez_compressed(store_path(str(ddir / "conformers_npz"), smiles), positions=pos,
+                            smiles=np.str_(smiles))
+    counts = collections.Counter(stored for _, stored, _ in jobs)
+    n_conf = sum(stored for _, stored, _ in jobs)
+    print(f"[geom data] {len(jobs)} stores holding {dict(sorted(counts.items()))} conformers"
+          f" ({n_conf} in all), embedded by dg_generate in {embed_s:.1f} s on {workers}"
+          f" processes ({1e3 * embed_s * workers / n_conf:.0f} ms a conformer a process)")
+    return atoms
+
+
+@contextlib.contextmanager
+def geom_spies():
+    """Peak allocated device memory by step kind and batch shape (the
+    allocator's high-water mark over each step, reset before it: what the
+    run holds, graph pools included, plus the step), and the host seconds
+    of ``GEOMDataset.records`` calls (reading every store, re-embedding the
+    molecules without one): ``(peaks, records_s)``."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.geom import GEOMDataset
+    from conan_fgw_tpu_torch.train.graphs import StepGraphs
+
+    peaks, records_s = collections.Counter(), []
+    run, records = StepGraphs._run, GEOMDataset.records
+
+    def run_peak(self, kind, pb):
+        torch.cuda.reset_peak_memory_stats()
+        out = run(self, kind, pb)
+        key = f"{kind} N{pb.max_atoms}"
+        peaks[key] = max(peaks[key], torch.cuda.max_memory_allocated())
+        return out
+
+    def timed_records(self):
+        t0 = time.perf_counter()
+        out = records(self)
+        records_s.append((len(out), time.perf_counter() - t0))
+        return out
+
+    StepGraphs._run, GEOMDataset.records = run_peak, timed_records
+    try:
+        yield peaks, records_s
+    finally:
+        StepGraphs._run, GEOMDataset.records = run, records
+
+
+def geom_stage(label, stage, cfg, ctx, card, kernels, metric):
+    """One runner stage on the GEOM set, in both large buckets, with its
+    peak memory by step kind and bucket beyond what was held before, and
+    the host time of its record loading."""
+    import torch
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    with geom_spies() as (peaks, records_s):
+        summary, history, grew = runner_stage(label, stage, cfg, ctx, kernels=kernels,
+                                              metric=metric, buckets=GEOM_BUCKETS)
+    peak_gib = {k: (v - held) / 2**30 for k, v in sorted(peaks.items())}
+    loads = [f"{n} in {s:.2f} s" for n, s in records_s]
+    print(f"[runner {label}] peak allocated beyond what was held before, by step kind and bucket"
+          f" (GiB): {', '.join(f'{k} {v:.2f}' for k, v in peak_gib.items())} on {card};"
+          f" GEOMDataset.records() host time: {', '.join(loads)}")
+    row = dict(stage_row(history, summary, metric, GEOM_BUCKETS), peak_gib=peak_gib,
+               records_s=[s for _, s in records_s], launches=grew)
+    return summary, history, row
+
+
+def check_large_kernels(device, rows):
+    """K1 and K2 at N=96 and N=128 (F=128 with 50 Gaussians on G=120 graphs,
+    F=256 with 10 on G=90; f32 and bf16 node features) and K3 on the
+    barycenter's second outer iteration there at S=90 (the CoV-2 batch of
+    18 molecules x 5 conformers)."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    for label, heavy, n_atoms in LARGE_SHAPES:
+        # the F=256 case last: its molecules (S=90) serve K3 below
+        for seed, batch, width in ((3000, B, (F, GAUSS)), (4000, B_CLS, (F_CLS, GAUSS_CLS))):
+            pos, mask = packed_geometry(SEED + seed + n_atoms, batch, heavy, n_atoms, device)
+            atoms = mask.reshape(batch, K, -1)[:, 0].sum(-1)
+            within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
+            print(f"[large {label}] G={batch * K}: {int(atoms.min())}-{int(atoms.max())} atoms a"
+                  f" molecule, up to {int(within.max())} neighbours within the cutoff (cap {CAP})")
+            require(bool((within > CAP).any()), f"{label} inputs never engage the neighbour cap")
+            for dtype in (None, torch.bfloat16):
+                check_cfconv(label, pos, mask, gen, rows, *width, dtype=dtype)
+        args, Ys, Cs = fgw_problem(pos, mask, gen)
+        check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
+
+
+def phase_geom(device, card, rows):
+    """Phase 14: the GEOM path. K1/K2 (both widths and types) and K3 at N=96
+    and N=128; a synthetic CoV-2 set in the GEOM layout; the runner's
+    ``main`` on ``config/schnet/cov2_5.yaml`` and then ``cov2_5_bc.yaml`` (2
+    epochs each; phase 6's checks, both large buckets every epoch) and
+    predict; one stage-2 step at N=128 card against CPU; and
+    ``DimeNetGEOMExperiment``'s stage 1 through the runner (no kernel may
+    launch)."""
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import build_model, load_datasets
+
+    t0 = time.perf_counter()
+    check_large_kernels(device, rows)
+    print(f"[geom] the large-bucket kernel checks took {time.perf_counter() - t0:.1f} s")
+    out, totals = {}, collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_geom_") as name:
+        tmp = Path(name)
+        out["atoms"] = make_geom(tmp)
+        common = ["--data_root", str(tmp), "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        with runner_spies() as (plain_calls, restores, captures, host):
+            ctx = (common, tmp, plain_calls, captures, host, device, card)
+            for stage, src in GEOM_STAGES:
+                first_restore = len(restores)
+                cfg = config_copy(src, tmp, RUNNER_EPOCHS)
+                label = "geom stage 1" if stage == "conan_fgw_pre" else "geom stage 2"
+                with last_evaluation() as test_eval:
+                    summary, history, out[label] = geom_stage(label, stage, cfg, ctx, card,
+                                                              CLASSIFICATION, "auroc")
+                totals.update(out[label]["launches"])
+                check_best_auroc(label, history, summary,
+                                 tmp / "models" / "smoke" / "0" / f"run_{stage}:0")
+            check_warm_start(restores, first_restore,
+                             tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+            check_predict_auroc("geom stage 2", cfg, tmp, str(tmp), summary, device, test_eval)
+            require(not plain_calls, f"geom: plain versions ran: {dict(plain_calls)}")
+
+        # one stage-2 step at N=128 on 18 molecules of the train split; the
+        # CPU side runs the plain versions, so outside the spies
+        config = load_config(cfg)
+        records = [r for r in load_datasets(config, str(tmp / "data"))["train"].records()
+                   if r.num_atoms > 96][: config.batch_size]
+        pb = pack_batch(records, max_atoms=128, batch_size=config.batch_size)
+        out["parity"] = step_parity(build_model(config, seed=SEED, device=device), pb, device,
+                                    f"geom parity N128 B{len(records)}")
+
+        dimenet = tmp / "dimenet_geom.yaml"
+        dimenet.write_text(GEOM_DIMENET)
+        with runner_spies() as (plain_calls, restores, captures, host):
+            ctx = (common, tmp, plain_calls, captures, host, device, card)
+            _, _, out["dimenet stage 1"] = geom_stage("geom dimenet stage 1", "conan_fgw_pre",
+                                                       str(dimenet), ctx, card, BACKBONE_KERNELS,
+                                                       "rmse")
+            totals.update(out["dimenet stage 1"]["launches"])
+    out["launches"] = {k: totals[k] for k in REPLACES}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[geom] phase 14 took {out['phase_s']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2830,6 +3162,7 @@ def main() -> int:
         "graphs": stage_rows["graphs"]["stage 2 N32"], "runner": stage_rows["runner"],
         "backbones": stage_rows["backbones"]})
     stage_rows["fgw"] = phase_fgw(device, card, rows)
+    stage_rows["geom"] = phase_geom(device, card, rows)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -2841,10 +3174,10 @@ def main() -> int:
     # ones on the classification path (phase 6), the bf16 variants on the
     # bf16 runner's path (phase 12), the F=256 bf16 ones on phase 12's
     # classification step and graphs, K3 through its per-molecule wrapper
-    # on the per-molecule barycenter's path (phase 13, this slice's); each
+    # on the per-molecule barycenter's path (phase 13); each
     # also by runner path, the ViSNet and DimeNet runners' (phase 10), the
     # ESAN configs' (phase 11), the bf16 runner's (phase 12) and the deep
-    # budget's (phase 13) included.
+    # budget's (phase 13) and the GEOM runners' (phase 14) included.
     # All these paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
     bf16_launches = stage_rows["bf16"]["launches"]
@@ -2864,6 +3197,7 @@ def main() -> int:
             "deep_runner_launches": sum(run["launches"][name]
                                         for run in stage_rows["fgw"]["runner"].values()),
             "classification_launches": class_launches[name],
+            "geom_launches": stage_rows["geom"]["launches"][name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             **{f"{cfg}_launches": run["launches"][name]
                for cfg, run in stage_rows["esan"]["runner"].items()},
@@ -2879,7 +3213,8 @@ def main() -> int:
     flagship = stage_rows["graphs"]["stage 2 N32"]
     print(f"[done] {time.perf_counter() - t0:.1f} s; stage 2 {stage_rows[2]['step_ms']:.2f} ms/step"
           f" (phase 3, graphed); phase 8 at N=32: eager {min(flagship['eager_ms']):.3f}, graphed"
-          f" {min(flagship['graphed_ms']):.3f} ms/step")
+          f" {min(flagship['graphed_ms']):.3f} ms/step; geom_launches"
+          f" {json.dumps({k['name']: k['geom_launches'] for k in kernels})}")
     print(json.dumps({"kernels": kernels, "launches_counted": LAUNCHES_COUNTED, "train": stage_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""CSV-driven conformer datasets (the port's own copy of the regression
-part of ``conan_fgw_tpu/data/datasets.py``).
+"""CSV-driven conformer datasets (the port's own copy of
+``conan_fgw_tpu/data/datasets.py``).
 
 Layout matches the reference (``conan_fgw/src/data/datasets.py:107-220``):
 ``{data_dir}/{dataset}/{mode}.csv`` with columns ``smiles``, target,
@@ -132,6 +132,92 @@ class ConformerDataset:
             )
         return MoleculeRecord(
             z=z, pos=positions.astype(np.float32), x2d=x2d, bonds=bonds,
+            bond_attr=battr, y=row["y"], smiles=row["smiles"], mol_id=row["mol_id"],
+        )
+
+    def records(self) -> list[MoleculeRecord]:
+        return [self[i] for i in range(len(self))]
+
+
+class NTrialsConformerDataset(ConformerDataset):
+    """Per-item repeated conformer resamplings for variance studies
+    (``LargeConformerBasedDatasetNTrials``, datasets.py:263-285): each access
+    returns ``n_trials`` independently resampled K-subsets."""
+
+    def __init__(self, *args, n_trials: int = 10, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.n_trials = n_trials
+
+    def __getitem__(self, idx: int) -> list[MoleculeRecord]:
+        row = self.rows[idx]
+        x2d, bonds, battr, z = self._features(row["smiles"])
+        positions = self._positions(row)
+        out = []
+        for trial in range(self.n_trials):
+            # the JAX package's draw: seed 1, keyed on the epoch, molecule and trial
+            rng = resample_rng(1, self._epoch, row["mol_id"], trial)
+            sel = draw_k_subset(rng, positions.shape[0], self.num_conformers)
+            out.append(MoleculeRecord(
+                z=z, pos=positions[sel].astype(np.float32), x2d=x2d, bonds=bonds,
+                bond_attr=battr, y=row["y"], smiles=row["smiles"], mol_id=row["mol_id"],
+            ))
+        return out
+
+
+class BDEDataset(ConformerDataset):
+    """Bond-dissociation-energy dataset (``BDEDataset``, reference
+    ``datasets.py:223-260``).
+
+    Reference semantics kept: conformer stores must pre-exist (the reference
+    raises when ``{mol_id}.pkl`` is absent: BDE geometries come from an
+    external pipeline, not SMILES embedding), and the molecule identity used
+    for featurisation is taken from the *store* (``Chem.MolToSmiles(mol)``)
+    rather than the CSV column when the store recorded one. The reference
+    class is unrunnable upstream (its ``MolGraphFeaturizerBDE`` is defined
+    nowhere); the standard 3D featuriser stands in, as in the JAX package.
+    """
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("generate_missing", False)
+        super().__init__(*args, **kwargs)
+
+    def _store_smiles(self, mol_id: str) -> str | None:
+        path = conf_lib.store_path(self.conformers_dir, mol_id)
+        if not os.path.exists(path):
+            raise ValueError(f"Conformers for molecule {mol_id} not found")
+        with np.load(path, allow_pickle=False) as z:
+            if "smiles" in z.files:
+                return str(z["smiles"])
+        return None
+
+    def __getitem__(self, idx: int) -> MoleculeRecord:
+        row = self.rows[idx]
+        stored = self._store_smiles(row["mol_id"])
+        if stored:
+            self.rows[idx] = dict(row, smiles=stored)
+        return super().__getitem__(idx)
+
+
+class SmilesDataset:
+    """2D-only dataset (``SmilesBasedDataset``, datasets.py:67-83): featurises
+    the covalent graph without conformers (K=1, zero positions, no
+    hydrogens)."""
+
+    def __init__(self, mode: str, data_dir: str, dataset_name: str, target: str):
+        self.csv_path = os.path.join(data_dir, dataset_name, f"{mode}.csv")
+        self.rows = read_csv_rows(self.csv_path, target)
+        self._cache: dict[str, tuple] = {}
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> MoleculeRecord:
+        row = self.rows[idx]
+        if row["smiles"] not in self._cache:
+            self._cache[row["smiles"]] = smi.featurize(smi.parse_smiles(row["smiles"]))
+        x2d, bonds, battr, z = self._cache[row["smiles"]]
+        return MoleculeRecord(
+            z=z, pos=np.zeros((1, z.shape[0], 3), np.float32), x2d=x2d, bonds=bonds,
             bond_attr=battr, y=row["y"], smiles=row["smiles"], mol_id=row["mol_id"],
         )
 

@@ -18,9 +18,8 @@ Usage, on the card (``--device cpu`` runs on the CPU)::
 The port carries ``ConanModel`` with the SchNet, ViSNet and DimeNet
 backbones, for regression and classification, and the head families of
 ``experiment:`` other than ``conan`` (the ESAN variants and the aux heads,
-``build_aux_model``), on the conformer datasets; what else a config can ask
-for raises ``NotImplementedError`` naming its ``ROADMAP.md`` item
-(``check_supported``).
+``build_aux_model``), on the conformer and the GEOM datasets; what else a
+config can ask for raises naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ import os
 import torch
 
 from conan_fgw_tpu_torch.data.datasets import ConformerDataset, class_weight_ratio
+from conan_fgw_tpu_torch.data.geom import GEOMDataset
 from conan_fgw_tpu_torch.device import compute_dtype, resolve_device
 from conan_fgw_tpu_torch.models import aux_heads
 from conan_fgw_tpu_torch.models.heads import ConanModel
@@ -52,10 +52,6 @@ STAGE_BC = "conan_fgw"
 
 def check_supported(config: ExperimentConfig, device: torch.device) -> None:
     """Raise for what a config asks and the port does not carry."""
-    spec = config.spec
-    if spec.dataset != "conformers":
-        raise NotImplementedError(
-            f"dataset: {spec.dataset} is not ported yet (ROADMAP.md §1, item 2)")
     if config.model_name not in ("schnet", "visnet", "dimenet"):
         raise ValueError(f"unknown model_name {config.model_name!r}")
     compute_dtype(config.compute_dtype)  # float32 or bfloat16, else it raises
@@ -162,8 +158,13 @@ def build_settings(config: ExperimentConfig, stage: str,
     )
 
 
-def load_datasets(config: ExperimentConfig, data_dir: str) -> dict[str, ConformerDataset]:
+def load_datasets(config: ExperimentConfig, data_dir: str) -> dict:
+    """The train, valid and test datasets: ``GEOMDataset`` for ``dataset:
+    geom``, else ``ConformerDataset``."""
     name, target = config.dataset_name[0], config.target[0]
+    if config.spec.dataset == "geom":
+        return {mode: GEOMDataset(mode, data_dir, name, target, config.num_conformers)
+                for mode in ("train", "valid", "test")}
     return {
         mode: ConformerDataset(mode, data_dir, name, target, config.num_conformers,
                                prune_conformers=config.prune_conformers)

@@ -40,6 +40,7 @@ PHASES = {
     "bf16": lambda card: cs.phase_bf16("cuda", card, _rows()),
     "bf16_kernels": lambda card: cs.phase_bf16_kernels("cuda", _rows()),
     "fgw": lambda card: cs.phase_fgw("cuda", card, _rows()),
+    "geom": lambda card: cs.phase_geom("cuda", card, _rows()),
 }
 
 
