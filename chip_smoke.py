@@ -213,6 +213,31 @@ Phases (any failure exits non-zero and prints no result line):
    runner, where no kernel may launch. Prints ms per step by bucket, epoch
    times, the host time of ``GEOMDataset.records()`` and the peak memory by
    stage, step kind and bucket.
+15. Data-parallel training (``parallel/``, ``train/loop.py::SplitStep``,
+   the split train graphs of ``train/graphs.py``); the ranks are processes
+   spawned by ``parallel/mesh.py::launch``. 15a: a one-rank NCCL group on
+   the card runs 3 graphed flagship stage-2 steps (B=24, K=5, N=32) through
+   the split step (two graphs around the all-reduce) and must give the
+   single graph's losses, gradients and weights bit for bit. 15b: two ranks
+   share the card over gloo (CUDA tensors, the all-reduce through the
+   host); one global stage-2 step from the seeded model, 12 + 12 real rows
+   and then 12 + 5 (the global denominator), against the single-process
+   step on the card: the loss to 1e-6 relative, the global gradient norm
+   to 1e-5, each parameter's gradient to 1e-4 in norm beyond
+   ``PARAM_FLOOR`` of the global norm; K1/K2/K3 against their plain
+   versions at the rank's shape (G = 60, N = 32; rows ``dp-N32``); 3
+   graphed steps a rank, whose two train graphs' K1/K2/K3 nodes must equal
+   the launches their capture counted, and each rank's graphed ms/step.
+   15c: the runner's ``run_main`` on the two-rank mesh, ``sol250_5.yaml``
+   then ``sol250_5_bc.yaml`` (2 epochs each, stage 2 warm-started, the warm
+   start bit-exact on both ranks): equal summaries, trained weights
+   bit-identical (``check_replicas`` and a digest), rank 0 alone writing,
+   launches per rank K1 3 a forward, K2 3 a train step, K3 5 a stage-2
+   forward, phase 5's host-pipeline checks, both buckets every epoch, and
+   ``test_rmse`` within 2e-3 of phase 5's one-process run. 15d: 15b's
+   graphed steps again in fresh processes, bit for bit. Two processes
+   time-sharing one card show no data-parallel speed; the times printed
+   are each rank's share.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -228,7 +253,8 @@ Then it prints the per-kernel JSON line (every kernel, each width, type
 and shape held, with its launches on each runner path; the bf16 variants'
 ``launches`` are those of phase 12's runner, K3's per-molecule wrapper's
 those of phase 13's per-molecule barycenters; ``geom_launches`` those of
-phase 14's runners, also on the ``[done]`` line), the card line and, last,
+phase 14's runners and ``dp_launches`` rank 0's in phase 15's, also on the
+``[done]`` line), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
@@ -3125,6 +3151,352 @@ def phase_geom(device, card, rows):
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+DP_WORLD = 2           # ranks sharing the one card over gloo (15b-15d)
+DP_STEPS = 3           # steps of 15a and 15d: the eager warm-up, the capture, a replay
+DP_TIMED = 20          # warmed graphed steps a rank times
+DP_REAL = (B, 17)      # real rows of 15b's global batches: 12 + 12, then 12 + 5
+# 15b: the two ranks' step against one process's at the flagship shape
+DP_LOSS_RTOL, DP_NORM_RTOL, DP_PARAM_RTOL = 1e-6, 1e-5, 1e-4
+DP_RMSE_RTOL = 2e-3    # the JAX package's data-parallel CLI bound (tests/test_cli.py)
+DP_NOTE = ("two processes time-sharing one card show no data-parallel speed: these times are"
+           " one rank's share of the card")
+
+
+def dp_records(device):
+    """``DP_STEPS`` global batches of the flagship shape: B molecules of N <= 32."""
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+
+    return random_dataset(SEED + 15, DP_STEPS * B, num_conformers=K, heavy_range=(8, 10),
+                          device=device)
+
+
+def dp_graphed(model, settings, mesh, records, kept=False):
+    """``DP_STEPS`` graphed train steps of ``model`` over ``records`` through
+    the host pipeline (with ``mesh``: each rank's row block and the split
+    step), then ``DP_TIMED`` more for this process's ms/step. Returns the
+    per-step loss bits and gradient and weight digests, the ms/step, and the
+    ``StepGraphs``."""
+    import struct
+
+    import torch
+
+    from conan_fgw_tpu_torch.train.loop import make_optimizer, step_batches, step_graphs
+
+    dev = next(model.parameters()).device
+    opt = make_optimizer(model, settings)
+    with kept_graphs() if kept else contextlib.nullcontext():
+        graphs = (step_graphs(model, opt, settings, dev) if mesh is None
+                  else step_graphs(model, opt, settings, dev, mesh))
+        steps = []
+        with step_batches(records, settings, 32, graphs, mesh=mesh) as batches:
+            for pb in batches:
+                loss, _ = graphs.train(pb)
+                steps.append({"loss": struct.pack("<f", float(loss)).hex(),
+                              "grads": _digest(*(g.cpu().numpy() for g in graphs.grads
+                                                 if g is not None)),
+                              "weights": _digest(*(p.detach().cpu().numpy()
+                                                   for p in model.parameters()))})
+    require(len(steps) == DP_STEPS, f"{len(steps)} data-parallel steps, want {DP_STEPS}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED // DP_STEPS + 1):
+        with step_batches(records, settings, 32, graphs, mesh=mesh) as batches:
+            for pb in batches:
+                graphs.train(pb)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / ((DP_TIMED // DP_STEPS + 1) * DP_STEPS)
+    return steps, ms, graphs
+
+
+def dp_world1(mesh):
+    """15a, in a one-rank NCCL group: ``DP_STEPS`` graphed steps of the split
+    step (two graphs and the all-reduce) against the single graph, from the
+    same seeded model on the same batches; their losses, gradients and
+    weights must be bit-identical."""
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.train.loop import TrainSettings
+
+    require(mesh.world == 1, f"15a: {mesh}")
+    records = dp_records(mesh.device.type)
+    settings = TrainSettings(batch_size=B, use_barycenter=True, seed=SEED)
+    runs = {}
+    for label, m in (("single graph", None), ("split", mesh)):
+        steps, ms, graphs = dp_graphed(ConanModel(seed=SEED, device=mesh.device), settings, m,
+                                       records)
+        split = [st.after is not None for k, st in graphs.steps.items() if k[0] == "train"]
+        require(not graphs.graphed or split == [m is not None],
+                f"15a {label}: train graphs split {split}")
+        runs[label] = dict(steps=steps, ms=ms)
+    return runs
+
+
+def _flat_grads(split, model) -> dict:
+    """The summed gradients in a ``SplitStep``'s buffer, by parameter name."""
+    named = [(k, p) for k, p in model.named_parameters() if p.grad is not None]
+    flat = split.flat.cpu()
+    require(sum(p.numel() for _, p in named) + 2 == flat.numel(), "the all-reduce buffer's size")
+    out, at = {}, 0
+    for k, p in named:
+        out[k] = flat[at: at + p.numel()].reshape(p.shape).numpy().copy()
+        at += p.numel()
+    return out
+
+
+def dp_ranks(mesh, parity: bool):
+    """15b and 15d on one rank of the gloo mesh on the card: with
+    ``parity``, one eager split step from the seeded model on each of
+    ``DP_REAL``'s global batches (the summed loss and gradients); then
+    ``dp_graphed`` (its graphs kept, their K1/K2/K3 nodes read)."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.cuda import launches
+    from conan_fgw_tpu_torch.parallel.mesh import shard_batch
+    from conan_fgw_tpu_torch.train.loop import SplitStep, TrainSettings, make_optimizer
+
+    records = dp_records(mesh.device.type)
+    settings = TrainSettings(batch_size=B, use_barycenter=True, seed=SEED)
+    out = {"parity": {}}
+    for n_real in DP_REAL if parity else ():
+        model = ConanModel(seed=SEED, device=mesh.device)
+        split = SplitStep(model, make_optimizer(model, settings), settings, mesh)
+        pb = shard_batch(pack_batch(records[:n_real], max_atoms=32, batch_size=B), mesh)
+        split.before(pb.to(mesh.device), torch.tensor(float(n_real), device=mesh.device))
+        split.reduce()
+        out["parity"][n_real] = dict(loss=float(split.flat[-2]), grads=_flat_grads(split, model),
+                                     real=int(pb.mol_mask.sum()))
+    before = collections.Counter(launches)
+    steps, ms, graphs = dp_graphed(ConanModel(seed=SEED, device=mesh.device), settings, mesh,
+                                   records, kept=True)
+    (step,) = [st for k, st in graphs.steps.items() if k[0] == "train"]
+    nodes = [graph_kernels(g) for g in (step.graph, step.after)]
+    captured = {name: sum(step.counts.delta.get(k, 0) for k in names)
+                for name, names in PROFILED.items()}
+    require({k: nodes[0][k] + nodes[1][k] for k in PROFILED} == captured,
+            f"rank {mesh.rank}: the split train graphs hold {nodes}, the capture counted"
+            f" {captured}")
+    out.update(steps=steps, ms=ms, nodes=nodes, rows=B // mesh.world,
+               launches={k: launches[k] - before[k] for k in REGRESSION})
+    return out
+
+
+def dp_runner_rank(mesh, argv, pre_dir):
+    """15c on one rank: the runner's ``run_main`` on the gloo mesh of the
+    card (rank 0 alone writes) inside ``runner_spies``; ``fit``'s replicas
+    checked equal when it returns. Returns the summary, the launches, the
+    host pipeline's counts, the files written, a digest of the trained
+    weights and the history; with ``pre_dir``, the warm start is held to
+    stage 1's ``best`` bit for bit."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.parallel import collectives
+    from conan_fgw_tpu_torch.train import checkpoints, loop, runner
+
+    fit, write_npz, trained, written = loop.fit, checkpoints._write_npz, {}, []
+
+    def fit_checked(*args, **kwargs):
+        res = fit(*args, **kwargs)
+        collectives.check_replicas(res.model, kwargs["mesh"])
+        trained["digest"] = _digest(*(t.cpu().numpy() for t in res.model.state_dict().values()))
+        trained["history"] = res.history
+        return res
+
+    def write_counted(path, arrays):
+        written.append(path)
+        return write_npz(path, arrays)
+
+    loop.fit, checkpoints._write_npz = fit_checked, write_counted
+    with runner_spies() as (plain_calls, restores, captures, host):
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = runner.run_main(runner.parse_args(argv), mesh, writes=mesh.rank == 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if pre_dir is not None:
+            check_warm_start(restores, 0, Path(pre_dir))
+    return dict(summary=summary, launches={k: launches[k] for k in REPLACES}, host=dict(host),
+                captures=dict(captures), plain=dict(plain_calls), written=written, wall=wall,
+                **trained)
+
+
+def check_dp_runner(label, stage, ranks, cfg, single, device, card):
+    """15c's gates on the two ranks of one runner stage."""
+    from conan_fgw_tpu_torch.train import runner
+    from conan_fgw_tpu_torch.train.config import load_config
+
+    r0, r1 = ranks
+    require(r0["summary"] == r1["summary"], f"dp {label}: the ranks' summaries differ")
+    require(r0["digest"] == r1["digest"], f"dp {label}: the ranks' trained weights differ")
+    require(r0["written"] and not r1["written"],
+            f"dp {label}: rank 0 wrote {len(r0['written'])} files, rank 1 {len(r1['written'])}")
+    outer = runner.fgw_config(load_config(cfg)).outer_iters if stage == "conan_fgw" else 0
+    for rank, r in enumerate(ranks):
+        host, grew = r["host"], r["launches"]
+        steps = sum(row["train_steps"] for row in r["history"])
+        forwards = host["train_forwards"] + host["eval_forwards"]
+        require(not r["plain"], f"dp {label} rank {rank}: plain versions ran: {r['plain']}")
+        if device == "cuda":
+            require(r["captures"].get("train") and r["captures"].get("eval"),
+                    f"dp {label} rank {rank}: CUDA graphs captured {r['captures']}")
+            require(host["staged_copy"] > 0 and not host.get("numpy_pack")
+                    and not host.get("pageable_copy"),
+                    f"dp {label} rank {rank}: host pipeline {host}")
+        require(host["train_forwards"] == steps and host["eval_forwards"] > 0,
+                f"dp {label} rank {rank}: {host} forwards in {steps} steps")
+        want = {"cfconv_fwd": 3 * forwards, "cfconv_bwd": 3 * steps,
+                "fgw_couplings": outer * forwards}
+        require({k: grew[k] for k in want} == want and not any(
+            grew[k] for k in REPLACES if k not in want),
+            f"dp {label} rank {rank}: launches {grew}, want {want}")
+        for row in r["history"]:
+            require(all(row.get(f"steps_n{n}", 0) > 0 for n in (32, 64)),
+                    f"dp {label} rank {rank} epoch {row['epoch']} missed a bucket: {row}")
+            by_bucket = ", ".join(f"{row[f'steps_n{n}']} at N={n}"
+                                  f" ({1e3 * row[f'train_s_n{n}'] / row[f'steps_n{n}']:.2f}"
+                                  " ms/step)" for n in (32, 64))
+            print(f"[dp {label}] rank {rank} epoch {row['epoch']}: {row['epoch_time_s']:.3f} s,"
+                  f" {row['train_steps']} steps ({by_bucket}), train_loss"
+                  f" {row['train_loss']:.5g}, val_mse {row['val_mse']:.5g}")
+        print(f"[dp {label}] rank {rank}: {r['wall']:.1f} s wall; launches {want}"
+              f" = 3 x {forwards} forwards, 3 x {steps} steps, {outer} x {forwards}; host"
+              f" pipeline {host}")
+    rmse = r0["summary"]["test_rmse"]["mean"]
+    rel = abs(rmse - single) / abs(single)
+    print(f"[dp {label}] test_rmse {rmse!r} on both ranks, one process's (phase 5) {single!r}:"
+          f" rel {rel:.3e} (tol {DP_RMSE_RTOL}); trained weights bit-identical across the ranks;"
+          f" rank 0 wrote {len(r0['written'])} checkpoint files, rank 1 none; on {card}")
+    require(rel <= DP_RMSE_RTOL, f"dp {label}: test_rmse off one process's by {rel:.3e}")
+    last = r0["history"][-1]
+    return dict(test_rmse=rmse, rel=rel, wall_s=[r["wall"] for r in ranks],
+                ms_n32=[1e3 * r["history"][-1]["train_s_n32"] / r["history"][-1]["steps_n32"]
+                        for r in ranks],
+                ms_n64=[1e3 * r["history"][-1]["train_s_n64"] / r["history"][-1]["steps_n64"]
+                        for r in ranks],
+                steps=last["train_steps"], launches=r0["launches"])
+
+
+def check_dp_parity(ranks, device):
+    """15b: each ``DP_REAL`` global batch's two-rank step against the
+    single-process step on the card, from the same seeded weights."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.train.loop import masked_mse
+
+    records = dp_records(device)
+    out = {}
+    for n_real in DP_REAL:
+        require(ranks[0]["parity"][n_real]["loss"] == ranks[1]["parity"][n_real]["loss"],
+                f"dp parity {n_real}: the ranks' summed losses differ")
+        model = ConanModel(seed=SEED, device=device)
+        batch = pack_batch(records[:n_real], max_atoms=32, batch_size=B).to(device)
+        pred, _ = model(batch, use_barycenter=True)
+        loss = masked_mse(pred, batch)
+        loss.backward()
+        single = {k: p.grad.cpu().numpy() for k, p in model.named_parameters()
+                  if p.grad is not None}
+        got = ranks[0]["parity"][n_real]
+        require(set(got["grads"]) == set(single), f"dp parity {n_real}: gradients of other weights")
+        gs = float(np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in single.values())))
+        gd = float(np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                               for g in got["grads"].values())))
+        rel = {k: float(np.linalg.norm(got["grads"][k] - g))
+               / max(float(np.linalg.norm(g)), PARAM_FLOOR * gs) for k, g in single.items()}
+        loss_rel = abs(got["loss"] - float(loss.detach())) / abs(float(loss.detach()))
+        worst = max(rel, key=rel.get)
+        print(f"[dp parity] {n_real} real rows ({[r['parity'][n_real]['real'] for r in ranks]}"
+              f" a rank): loss two ranks {got['loss']:.8g} one process {float(loss):.8g} (rel"
+              f" {loss_rel:.3e}, tol {DP_LOSS_RTOL}); gradient norm {gd:.8g} / {gs:.8g} (rel"
+              f" {abs(gd - gs) / gs:.3e}, tol {DP_NORM_RTOL}); worst parameter {worst}"
+              f" {rel[worst]:.3e} (tol {DP_PARAM_RTOL})")
+        require(loss_rel <= DP_LOSS_RTOL, f"dp parity {n_real}: the loss is off by {loss_rel}")
+        require(abs(gd - gs) / gs <= DP_NORM_RTOL, f"dp parity {n_real}: the gradient norm")
+        require(rel[worst] <= DP_PARAM_RTOL, f"dp parity {n_real}: {worst}'s gradient")
+        out[n_real] = dict(loss_rel=loss_rel, grad_norm_rel=abs(gd - gs) / gs,
+                           worst_param_rel=rel[worst])
+    return out
+
+
+def phase_dp(device, card, rows, single):
+    """Phase 15: data-parallel training (``parallel/``, ``SplitStep``, the
+    split train graphs). 15a: a one-rank NCCL group, the split step
+    bit-identical to the single graph. 15b: two ranks sharing the card over
+    gloo, one global step against one process (12 + 12 real rows, then 12
+    + 5), K1/K2/K3 at the rank's shape, the split graphs' nodes against the
+    capture's counts. 15c: the runner's two stages on ``data/sol250`` on
+    the two-rank mesh. 15d: 15b's graphed steps again in fresh processes,
+    bit for bit. ``single`` holds phase 5's test RMSE by stage."""
+    import torch
+
+    from conan_fgw_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    out = {}
+    # every rank on the one card; the CPU (a rehearsal) has gloo only
+    dev, world1_backend = ("cuda:0", "nccl") if device == "cuda" else (device, "gloo")
+    # 15a
+    (w1,) = launch(dp_world1, 1, backend=world1_backend, device=dev)
+    a, b = w1["single graph"], w1["split"]
+    same = a["steps"] == b["steps"]
+    print(f"[dp world 1] {DP_STEPS} graphed steps, split around a one-rank {world1_backend}"
+          f" all-reduce, against the single graph: losses, gradients and weights bit-identical"
+          f" {same};"
+          f" ms/step single graph {a['ms']:.3f}, split {b['ms']:.3f} on {card}")
+    require(same, f"15a: the split step differs from the single graph: {a['steps']} {b['steps']}")
+    out["world1"] = dict(single_ms=a["ms"], split_ms=b["ms"])
+
+    # 15b and the first run of 15d
+    pos, mask = packed_geometry(SEED + 15, B // DP_WORLD, (8, 10), 32, device)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    check_cfconv("dp-N32", pos, mask, gen, rows)
+    check_fgw("dp-N32", fgw_problem(pos, mask, gen)[0], rows)
+    first = launch(dp_ranks, DP_WORLD, True, backend="gloo", device=dev)
+    out["parity"] = check_dp_parity(first, device)
+    for rank, r in enumerate(first):
+        print(f"[dp graphs] rank {rank}: {r['rows']} rows a rank; K1/K2/K3 nodes of the split"
+              f" train graphs {r['nodes'][0]} and {r['nodes'][1]}, as the capture counted;"
+              f" launches over {DP_STEPS} + {DP_TIMED // DP_STEPS * DP_STEPS + DP_STEPS} steps"
+              f" {r['launches']}; graphed {r['ms']:.3f} ms/step on {card}")
+    print(f"[dp graphs] {DP_NOTE}")
+    out["graphed_ms"] = [r["ms"] for r in first]
+
+    # 15c
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as name:
+        tmp = Path(name)
+        common = ["--data_root", ".", "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", dev]
+        pre_dir = tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0"
+        for stage, src in RUNNER_STAGES:
+            cfg = config_copy(src, tmp, RUNNER_EPOCHS)
+            label = "stage 1" if stage == "conan_fgw_pre" else "stage 2"
+            ranks = launch(dp_runner_rank, DP_WORLD, ["--config", cfg, "--stage", stage, *common],
+                           None if stage == "conan_fgw_pre" else str(pre_dir),
+                           backend="gloo", device=dev)
+            out[label] = check_dp_runner(f"runner {label}", stage, ranks, cfg, single[label],
+                                         device, card)
+        log = (tmp / "logs" / "smoke" / "0" / "run_conan_fgw" / "log.txt").read_text()
+        require("rank 0 of 2" in log and "rank 1 of 2" not in log, "dp: rank 1 wrote the log")
+    print(f"[dp runner] {DP_NOTE}; the warm start bit-exact on both ranks")
+
+    # 15d: the same steps in fresh processes
+    again = launch(dp_ranks, DP_WORLD, False, backend="gloo", device=dev)
+    runs = [r["steps"] for r in (*first, *again)]
+    same = all(s == runs[0] for s in runs)
+    print(f"[dp determinism] {DP_STEPS} graphed two-rank steps in two launches of fresh processes:"
+          f" losses, gradients and weights bit-identical across runs and ranks {same}")
+    require(same, f"15d: the two-rank steps differ: {runs}")
+    out["launches"] = {k: out["stage 1"]["launches"][k] + out["stage 2"]["launches"][k]
+                       for k in REPLACES}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[dp] phase 15 took {out['phase_s']:.1f} s; rank 0's runner launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3163,6 +3535,8 @@ def main() -> int:
         "backbones": stage_rows["backbones"]})
     stage_rows["fgw"] = phase_fgw(device, card, rows)
     stage_rows["geom"] = phase_geom(device, card, rows)
+    stage_rows["dp"] = phase_dp(device, card, rows, {
+        label: stage_rows["runner"][label]["test_rmse"] for label in ("stage 1", "stage 2")})
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -3198,6 +3572,7 @@ def main() -> int:
                                         for run in stage_rows["fgw"]["runner"].values()),
             "classification_launches": class_launches[name],
             "geom_launches": stage_rows["geom"]["launches"][name],
+            "dp_launches": stage_rows["dp"]["launches"][name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             **{f"{cfg}_launches": run["launches"][name]
                for cfg, run in stage_rows["esan"]["runner"].items()},
@@ -3214,7 +3589,8 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t0:.1f} s; stage 2 {stage_rows[2]['step_ms']:.2f} ms/step"
           f" (phase 3, graphed); phase 8 at N=32: eager {min(flagship['eager_ms']):.3f}, graphed"
           f" {min(flagship['graphed_ms']):.3f} ms/step; geom_launches"
-          f" {json.dumps({k['name']: k['geom_launches'] for k in kernels})}")
+          f" {json.dumps({k['name']: k['geom_launches'] for k in kernels})}; dp_launches (rank 0)"
+          f" {json.dumps({k['name']: k['dp_launches'] for k in kernels})}")
     print(json.dumps({"kernels": kernels, "launches_counted": LAUNCHES_COUNTED, "train": stage_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

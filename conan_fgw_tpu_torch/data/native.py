@@ -4,9 +4,11 @@ Port of the JAX package's ``data/native.py``, with its own source and
 library. The library is built with ``g++ -O3 -shared -fPIC`` on first use
 into ``conan_fgw_tpu_torch/_build/``, under a name that carries a hash of
 the source and flags, so an edited source is rebuilt and an unchanged one
-loaded as built. A build or load that fails raises: nothing falls back to
-the numpy packer (``data/packing.py::pack_batch``), which runs only where a
-caller asks for it.
+loaded as built; a build holds the directory's lock (``utils/filelock.py``),
+so processes that start at once build it once. A build or load that fails
+raises: nothing falls back to the numpy packer
+(``data/packing.py::pack_batch``), which runs only where a caller asks for
+it.
 
 The foreign call releases the interpreter lock; the concatenation of the
 records before it holds it.
@@ -27,6 +29,7 @@ import numpy as np
 
 from conan_fgw_tpu_torch.data.packing import MoleculeRecord, PackedBatch, batch_layout, bucket_for
 from conan_fgw_tpu_torch.data.vocab import NUM_ATOM_FEATURES, NUM_BOND_FEATURES
+from conan_fgw_tpu_torch.utils.filelock import locked
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR / "native" / "packer.cpp"
@@ -47,13 +50,15 @@ def build() -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError(f"g++ not found: the native packer is built from {SOURCE} with g++")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.{threading.get_ident()}"
-    proc = subprocess.run([gxx, *FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build the native packer {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
+    with locked(BUILD_DIR / ".lock"):
+        if lib.exists():  # built by another process while this one waited
+            return lib
+        tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.{threading.get_ident()}"
+        proc = subprocess.run([gxx, *FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build the native packer {SOURCE}:\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
     return lib
 
 

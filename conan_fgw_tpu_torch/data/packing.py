@@ -10,7 +10,7 @@ of padded ``(K, N, ...)`` arrays, ``N`` an atom-count bucket boundary.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import ClassVar, Sequence
 
 import numpy as np
 import torch
@@ -69,6 +69,11 @@ class PackedBatch:
     bond_attr: np.ndarray  # (B, N, N, 3) float32
     y: np.ndarray  # (B,) float32
     mol_mask: np.ndarray  # (B,) bool — False for batch-padding rows
+    # under data parallelism, the real molecules of the global batch whose
+    # row block this batch holds (``parallel/mesh.py::rank_packer`` sets it
+    # on the instance); None for a whole batch. Not a field: ``fields()``,
+    # ``to()`` and the packers leave it out
+    global_rows: ClassVar[int | None] = None
 
     @property
     def max_atoms(self) -> int:

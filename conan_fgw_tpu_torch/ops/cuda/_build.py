@@ -5,6 +5,9 @@ into an object file; the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The library's name carries a hash
 of the sources and flags, so an edited source is rebuilt on first use and an
 unchanged one is loaded as built. Output goes to ``conan_fgw_tpu_torch/_build``.
+A build holds the directory's lock (``utils/filelock.py``): processes that
+start at once (the ranks of a data-parallel run) build once, and none links
+an object file another is still writing.
 
 Nothing here runs at import time: ``load_library()`` builds on first call.
 """
@@ -19,6 +22,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from conan_fgw_tpu_torch.utils.filelock import locked
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -74,7 +79,15 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with locked(BUILD_DIR / ".lock"):
+        if lib.exists():  # built by another process while this one waited
+            return lib, time.perf_counter() - t0
+        _compile(nvcc, tag, lib)
+    return lib, time.perf_counter() - t0
+
+
+def _compile(nvcc: str, tag: str, lib: Path) -> None:
+    """Compile the sources in parallel and link ``lib`` (the build lock held)."""
     procs = []
     for name in SOURCES:
         obj = BUILD_DIR / f"{Path(name).stem}_{tag}.o"
@@ -101,7 +114,6 @@ def build() -> tuple[Path, float]:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}{link.stderr}")
     (BUILD_DIR / f"ptxas_{tag}.txt").write_text("\n".join(report))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
-    return lib, time.perf_counter() - t0
 
 
 @functools.cache

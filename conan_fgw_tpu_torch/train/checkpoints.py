@@ -91,16 +91,21 @@ class RunCheckpointer:
     """best/last checkpoints for one training run (see the module docstring
     for the format). ``fit`` calls ``save_best`` when ``monitor`` improves in
     its direction: up for ``val_auroc``, ``val_mean`` and ``val_prc``, down
-    for the rest (``train/loop.py::MAXIMIZED``)."""
+    for the rest (``train/loop.py::MAXIMIZED``). Without ``writes`` (a
+    data-parallel rank other than the writing one) the saves write
+    nothing; restores read as usual."""
 
-    def __init__(self, directory: str, monitor: str = "val_mse"):
+    def __init__(self, directory: str, monitor: str = "val_mse", writes: bool = True):
         self.directory = directory
         self.monitor = monitor
+        self.writes = writes
 
     def _path(self, name: str, ext: str) -> str:
         return os.path.join(self.directory, f"{name}.{ext}")
 
     def _save(self, name: str, arrays: dict, meta: dict) -> None:
+        if not self.writes:
+            return
         os.makedirs(self.directory, exist_ok=True)
         _write_npz(self._path(name, "npz"), arrays)
         _write_json(self._path(name, "meta.json"), meta)

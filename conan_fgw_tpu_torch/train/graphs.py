@@ -37,6 +37,17 @@ buffers stay single: stream order serialises a copy, the replay that
 reads it and the next copy. A batch that is not a slot's (a plain numpy
 batch) is copied synchronously.
 
+Under data parallelism (``reduce`` given, ``train/loop.py::SplitStep``)
+every step also takes the global batch's real molecules as a 0-d static
+input (``_Step.rows``, written in place before each step), the buffers and
+pinned slots take the rank's rows, ``(batch_size // world, K, N)``, and the
+train step is two graphs per shape: the first ends with the gradients in
+``SplitStep``'s flat buffer, the all-reduce runs on the current stream
+between the two replays (through the host with gloo, enqueued with NCCL),
+and the second reads the buffer back, clips and steps Adam. A collective
+inside a capture is later work. Without ``reduce`` the train step stays one
+graph per shape.
+
 On the CPU the same object runs the step eagerly through the same static
 buffers: there are no graphs and no pinned slots there.
 """
@@ -123,20 +134,25 @@ def host_batch(layout: dict, pin: bool) -> tuple[torch.Tensor, PackedBatch]:
 
 @dataclasses.dataclass
 class _Step:
-    """One shape's static input buffers (views of one flat device buffer),
-    and its graph once captured."""
+    """One shape's static input buffers (views of one flat device buffer;
+    under data parallelism also ``rows``, the global batch's real
+    molecules), and its graph once captured (a split train step's second
+    half in ``after``)."""
 
     flat: torch.Tensor
     batch: PackedBatch
+    rows: torch.Tensor | None = None
     warm: bool = False
     graph: torch.cuda.CUDAGraph | None = None
+    after: torch.cuda.CUDAGraph | None = None
     out: tuple = ()
     grads: list | None = None
     counts: LaunchReplays = dataclasses.field(default_factory=LaunchReplays)
 
     @classmethod
-    def like(cls, pb: PackedBatch, device: torch.device) -> "_Step":
-        return cls(*flat_batch(batch_layout(*pb.z.shape), device=device))
+    def like(cls, pb: PackedBatch, device: torch.device, rows: bool = False) -> "_Step":
+        flat, batch = flat_batch(batch_layout(*pb.z.shape), device=device)
+        return cls(flat, batch, torch.zeros((), device=device) if rows else None)
 
     def load(self, pb: PackedBatch) -> None:
         """Copy the host batch ``pb`` into the static buffers (from
@@ -223,11 +239,18 @@ class StepGraphs:
     ``train(pb)``/``eval(pb)`` take a host ``PackedBatch`` and return the
     step's outputs as device tensors of their own. Before a pass over the
     data, ``stage`` readies the pinned slots of its batch shapes and
-    returns ``pack``, which packs a batch into one of them."""
+    returns ``pack``, which packs a batch into one of them.
 
-    def __init__(self, train_fn: Callable, eval_fn: Callable,
-                 params: Sequence[torch.nn.Parameter], device):
+    With ``reduce`` (data parallelism), ``train_fn`` is the pair
+    ``(before, after)``: ``before(batch, rows)`` returns nothing,
+    ``reduce()`` sums its results over the ranks, and ``after()`` returns
+    ``(loss, n_div)``; ``eval_fn(batch, rows)``. ``rows`` is the host
+    batch's ``global_rows`` as a 0-d tensor."""
+
+    def __init__(self, train_fn, eval_fn: Callable, params: Sequence[torch.nn.Parameter],
+                 device, reduce: Callable | None = None):
         self.fns = {"train": train_fn, "eval": eval_fn}
+        self.reduce = reduce
         self.params = list(params)
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"  # the CPU runs the steps eagerly
@@ -276,17 +299,20 @@ class StepGraphs:
         key = (kind, pb.z.shape)
         step = self.steps.get(key)
         if step is None:
-            step = self.steps[key] = _Step.like(pb, self.device)
+            step = self.steps[key] = _Step.like(pb, self.device, self.reduce is not None)
         self._load(step, pb)
         fn = self.fns[kind]
         if not self.graphed:
-            out = fn(step.batch)
+            out = self._eager(step, fn)
         elif step.graph is None and not step.warm:
             out = self._warm_up(step, fn)
         else:
             if step.graph is None:
                 self._capture(step, fn, kind)
             step.graph.replay()
+            if step.after is not None:
+                self.reduce()
+                step.after.replay()
             step.counts.replayed()
             out = tuple(t.clone() for t in step.out)
         if kind == "train":
@@ -294,33 +320,61 @@ class StepGraphs:
         return out
 
     def _load(self, step: _Step, pb: PackedBatch) -> None:
-        """Stage a slot batch without waiting; copy any other batch."""
+        """Stage a slot batch without waiting; copy any other batch. Under
+        data parallelism also write its ``global_rows`` into ``step.rows``."""
+        if step.rows is not None:
+            if pb.global_rows is None:
+                raise ValueError("a data-parallel step needs the global batch's rows"
+                                 " (parallel/mesh.py::rank_packer)")
+            step.rows.fill_(pb.global_rows)
         pool = self.pools.get(pb.z.shape)
         if pool is not None and pool.owns(pb):
             pool.stage(pb, step.flat)
         else:
             step.load(pb)
 
-    def _warm_up(self, step: _Step, fn: Callable) -> tuple:
+    def _args(self, step: _Step) -> tuple:
+        return (step.batch,) if step.rows is None else (step.batch, step.rows)
+
+    def _eager(self, step: _Step, fn) -> tuple:
+        """The step without graphs; a split train step (``fn`` a pair) with
+        its all-reduce."""
+        if isinstance(fn, tuple):
+            before, after = fn
+            before(*self._args(step))
+            self.reduce()
+            return after()
+        return fn(*self._args(step))
+
+    def _warm_up(self, step: _Step, fn) -> tuple:
         """The shape's first batch, eagerly on a side stream, which waits
         for the current stream's work: the batch's copy too."""
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = fn(step.batch)
+            out = self._eager(step, fn)
         current.wait_stream(side)
         step.warm = True
         return out
 
-    def _capture(self, step: _Step, fn: Callable, kind: str) -> None:
-        """Capture the step into a graph of its own memory pool; its first
-        replay follows. The batch's copy was issued before, and entering
-        ``torch.cuda.graph`` synchronises the device: the copy lands before
-        the capture and is never recorded into the graph."""
+    def _capture(self, step: _Step, fn, kind: str) -> None:
+        """Capture the step into a graph of its own memory pool (a split
+        train step into two, around its all-reduce, which is not
+        captured); its first replay follows. The batch's copy was issued
+        before, and entering ``torch.cuda.graph`` synchronises the device:
+        the copy lands before the capture and is never recorded into the
+        graph."""
+        split = isinstance(fn, tuple)
         graph = torch.cuda.CUDAGraph()
-        with step.counts.capturing(), torch.cuda.graph(graph):
-            step.out = fn(step.batch)
+        with step.counts.capturing():
+            with torch.cuda.graph(graph):
+                out = (fn[0] if split else fn)(*self._args(step))
+            if split:
+                step.after = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(step.after):
+                    out = fn[1]()
+        step.out = out
         step.graph = graph
         if kind == "train":
             step.grads = [p.grad for p in self.params]

@@ -20,6 +20,12 @@ CUDA graph, replayed once per batch, whatever a config's ``scan_chunk``.
 Their batches come through ``batch_iterator``, as the JAX package's do:
 packed natively on a prefetch thread, on the card straight into
 ``StepGraphs``' pinned slots.
+
+Data parallelism (``fit(..., mesh=...)``, ``parallel/``): one process per
+rank consumes the global batch stream, packs its row block of each batch
+and divides its masked loss sum by the global batch's real molecules; the
+train step is split around one all-reduce of the gradients
+(``SplitStep``), and ``evaluate`` gathers every rank's predictions.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ from conan_fgw_tpu_torch.data.packing import (
     bucket_for,
 )
 from conan_fgw_tpu_torch.device import resolve_device
+from conan_fgw_tpu_torch.parallel import collectives
+from conan_fgw_tpu_torch.parallel import mesh as mesh_lib
 from conan_fgw_tpu_torch.train import metrics as metrics_lib
 from conan_fgw_tpu_torch.train.graphs import StepGraphs
 
@@ -81,34 +89,45 @@ class TrainSettings:
     eval_guard: bool = False
 
 
-def masked_mse(pred: torch.Tensor, batch) -> torch.Tensor:
-    """Mean squared error over real molecules (``mol_mask``)."""
+def _denominator(w: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
+    """``max(real molecules, 1)``: the batch's own, or under data
+    parallelism the global batch's ``rows`` (a 0-d tensor), so that the
+    ranks' losses sum to the global batch's mean."""
+    return torch.clamp(w.sum() if rows is None else rows, min=1.0)
+
+
+def masked_mse(pred: torch.Tensor, batch, rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean squared error over real molecules (``mol_mask``), divided by
+    ``rows`` where given (``_denominator``)."""
     y = batch.y[:, None]
     w = batch.mol_mask.to(pred.dtype)[:, None]
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = _denominator(w, rows)
     sq = torch.where(w > 0, (pred - y) ** 2, torch.zeros_like(pred))
     return sq.sum() / denom
 
 
-def masked_bce(pred: torch.Tensor, batch, scale: float | None = None) -> torch.Tensor:
+def masked_bce(pred: torch.Tensor, batch, scale: float | None = None,
+               rows: torch.Tensor | None = None) -> torch.Tensor:
     """Binary cross-entropy of logits over real molecules, times ``scale``:
     the stable form ``max(z, 0) - z y + log1p(exp(-|z|))``. The model
     returns logits; this equals the reference's probability-space BCE with
     its class-weight rescale, and keeps a gradient where the sigmoid
-    saturates in f32."""
+    saturates in f32. ``rows`` as in ``masked_mse``."""
     y = batch.y[:, None]
     w = batch.mol_mask.to(pred.dtype)[:, None]
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = _denominator(w, rows)
     bce = torch.clamp(pred, min=0.0) - pred * y + torch.log1p(torch.exp(-pred.abs()))
     total = torch.where(w > 0, bce, torch.zeros_like(bce)).sum() / denom
     return (1.0 if scale is None else scale) * total
 
 
-def task_loss(pred: torch.Tensor, batch, settings: "TrainSettings") -> torch.Tensor:
-    """The loss of ``settings.task``: masked MSE, or the scaled masked BCE."""
+def task_loss(pred: torch.Tensor, batch, settings: "TrainSettings",
+              rows: torch.Tensor | None = None) -> torch.Tensor:
+    """The loss of ``settings.task``: masked MSE, or the scaled masked BCE
+    (``rows`` as in ``masked_mse``)."""
     if settings.task == "regression":
-        return masked_mse(pred, batch)
-    return masked_bce(pred, batch, settings.loss_scale)
+        return masked_mse(pred, batch, rows)
+    return masked_bce(pred, batch, settings.loss_scale, rows)
 
 
 def clip_by_global_norm_(params: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -160,19 +179,77 @@ def train_step(model, optimizer, batch, settings: TrainSettings):
     return loss.detach(), n_div
 
 
-def eval_step(model, batch, settings: TrainSettings):
-    """One forward without gradient: ``(loss, pred, n_div)`` device tensors."""
+def eval_step(model, batch, settings: TrainSettings, rows: torch.Tensor | None = None):
+    """One forward without gradient: ``(loss, pred, n_div)`` device tensors
+    (``rows`` as in ``masked_mse``)."""
     with torch.no_grad():
         pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
-        return task_loss(pred, batch, settings), pred, n_div
+        return task_loss(pred, batch, settings, rows), pred, n_div
 
 
-def step_graphs(model, optimizer, settings: TrainSettings, device) -> StepGraphs:
+class SplitStep:
+    """One rank's train step under data parallelism, split around the
+    gradient all-reduce (the ``psum`` XLA inserts into the JAX step).
+
+    ``before(batch, rows)``: zero the gradients, forward, the loss over the
+    global batch's ``rows`` real molecules (so the ranks' losses sum to the
+    global batch's mean, as JAX's ``sum(masked loss) / max(sum(mol_mask),
+    1)`` over the sharded batch), backward, and the gradients, the loss and
+    ``n_div`` copied into ``flat``. ``reduce()``: ``all_reduce_`` of
+    ``flat`` over the mesh. ``after()``: the summed gradients copied back,
+    the global-norm clip and Adam; returns the summed ``(loss, n_div)``.
+    ``flat`` is one f32 buffer, made at the first step (when the gradients
+    the stage produces are known) and addressed by every later step, so
+    that both halves can be CUDA graphs (``train/graphs.py``)."""
+
+    def __init__(self, model, optimizer, settings: TrainSettings, mesh):
+        self.model, self.optimizer, self.settings, self.mesh = model, optimizer, settings, mesh
+        self.params = list(model.parameters())
+        self.flat: torch.Tensor | None = None
+        self._views: list = []  # one view of flat per gradient, then loss and n_div
+
+    def _grads(self) -> list:
+        return [p.grad for p in self.params if p.grad is not None]
+
+    def before(self, batch, rows: torch.Tensor) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+        pred, n_div = self.model(batch, use_barycenter=self.settings.use_barycenter)
+        loss = task_loss(pred, batch, self.settings, rows)
+        loss.backward()
+        grads = self._grads()
+        if self.flat is None:
+            sizes = [g.numel() for g in grads] + [1, 1]
+            self.flat = torch.empty(sum(sizes), dtype=torch.float32, device=loss.device)
+            self._views = [v.view_as(g) for v, g in zip(self.flat.split(sizes), grads)]
+            self._views += [self.flat[-2], self.flat[-1]]
+        if len(grads) + 2 != len(self._views):
+            raise RuntimeError(f"{len(grads)} gradients, the all-reduce buffer holds"
+                               f" {len(self._views) - 2}")
+        torch._foreach_copy_(self._views, grads + [loss.detach(), n_div.to(torch.float32)])
+
+    def reduce(self) -> None:
+        collectives.all_reduce_(self.flat, self.mesh)
+
+    def after(self) -> tuple:
+        torch._foreach_copy_(self._grads(), self._views[:-2])
+        clip_by_global_norm_(self.params, self.settings.grad_clip)
+        self.optimizer.step()
+        return self.flat[-2].clone(), self.flat[-1].to(torch.int64)
+
+
+def step_graphs(model, optimizer, settings: TrainSettings, device, mesh=None) -> StepGraphs:
     """``train_step`` and ``eval_step`` of ``model`` under ``settings``, to
-    be captured per batch shape on the card (``train/graphs.py``)."""
-    return StepGraphs(functools.partial(train_step, model, optimizer, settings=settings),
-                      functools.partial(eval_step, model, settings=settings),
-                      model.parameters(), device)
+    be captured per batch shape on the card (``train/graphs.py``). With a
+    ``mesh`` the train step is ``SplitStep``'s two halves around its
+    all-reduce, and both steps take the global batch's real rows."""
+    if mesh is None:
+        return StepGraphs(functools.partial(train_step, model, optimizer, settings=settings),
+                          functools.partial(eval_step, model, settings=settings),
+                          model.parameters(), device)
+    split = SplitStep(model, optimizer, settings, mesh)
+    return StepGraphs((split.before, split.after),
+                      lambda batch, rows: eval_step(model, batch, settings, rows),
+                      model.parameters(), device, reduce=split.reduce)
 
 
 def batch_iterator(
@@ -200,15 +277,21 @@ def batch_iterator(
 
 @contextlib.contextmanager
 def step_batches(records, settings: TrainSettings, max_atoms: int, graphs=None, *,
-                 prefetch: bool = True, native: bool = True):
+                 prefetch: bool = True, native: bool = True, mesh=None):
     """Bucketed ``batch_iterator`` over ``records`` at ``settings``' batch
     size for one pass of steps, closed on exit (its prefetch thread ends,
     also when the pass stops early). With ``native`` the native packer
     packs, into ``graphs``' pinned slots where it has them
-    (``StepGraphs.stage``); otherwise the numpy packer."""
+    (``StepGraphs.stage``); otherwise the numpy packer. With a ``mesh``
+    the batches are the global ones, and each is packed only in the rank's
+    row block (``mesh.rank_packer``: ``batch_size // world`` rows at the
+    global batch's bucket, its ``global_rows`` set)."""
+    rows = settings.batch_size if mesh is None else settings.batch_size // mesh.world
     pack = functools.partial(loader_lib.pack, native=native)
     if native and graphs is not None:
-        pack = graphs.stage(records, settings.batch_size, bucket_boundaries(max_atoms)) or pack
+        pack = graphs.stage(records, rows, bucket_boundaries(max_atoms)) or pack
+    if mesh is not None:
+        pack = mesh_lib.rank_packer(pack, mesh)
     it = batch_iterator(records, settings.batch_size, max_atoms, prefetch=prefetch,
                         bucketed=True, pack=pack)
     with contextlib.closing(it):
@@ -225,32 +308,48 @@ def dataset_max_atoms(records: Sequence[MoleculeRecord]) -> int:
 
 
 def evaluate(model, records, settings: TrainSettings, max_atoms: int, device, graphs=None, *,
-             prefetch: bool = True, native: bool = True):
+             prefetch: bool = True, native: bool = True, mesh=None):
     """Full-split predictions and metrics: ``(metrics, pred, y)``. With
     ``graphs`` (``fit``'s ``StepGraphs``) the eval steps go through it, as
     the JAX package's ``eval_scan``; without (predict's single pass, where
     a capture would not pay) they run eagerly. ``prefetch`` and ``native``
-    as in ``step_batches``."""
-    preds, ys, losses, divs = [], [], [], []
+    as in ``step_batches``. With a ``mesh`` each rank evaluates its row
+    block of every batch, and the predictions, per-batch losses and
+    ``n_div`` of every rank are gathered in rank order, so that every rank
+    computes the same metrics (the JAX ``evaluate``'s multi-host gather)."""
+    preds, masks, ys, losses, divs = [], [], [], [], []
     with step_batches(records, settings, max_atoms, graphs, prefetch=prefetch,
-                      native=native) as batches:
+                      native=native, mesh=mesh) as batches:
         for pb in batches:
             # copied before the step: a pinned slot's batch is refilled once
             # its copy to the card has landed
-            mask = pb.mol_mask.copy()
-            ys.append(pb.y[mask])
-            loss, pred, n_div = (graphs.eval(pb) if graphs is not None
-                                 else eval_step(model, pb.to(device), settings))
+            masks.append(pb.mol_mask.copy())
+            ys.append(pb.y.copy())
+            if graphs is not None:
+                loss, pred, n_div = graphs.eval(pb)
+            else:
+                rows = None if mesh is None else torch.tensor(float(pb.global_rows), device=device)
+                loss, pred, n_div = eval_step(model, pb.to(device), settings, rows)
             losses.append(loss)
             divs.append(n_div)
-            preds.append((pred.reshape(-1), mask))
-    pred = np.concatenate([p.cpu().numpy()[m] for p, m in preds])
-    y = np.concatenate(ys)
-    n_div = int(torch.stack(divs).sum())
+            preds.append(pred.reshape(-1))
+    # (rows, batches); with a mesh every rank's rows in rank order, so that
+    # column j holds global batch j's rows in order
+    mask = collectives.host_concat(np.stack(masks, 1).view(np.uint8), mesh).T.astype(bool)
+    pred = collectives.gather_to_host(torch.stack(preds, 1), mesh).T[mask]
+    y = collectives.host_concat(np.stack(ys, 1), mesh).T[mask]
+    if mesh is None:
+        loss, n_div = float(torch.stack(losses).mean()), int(torch.stack(divs).sum())
+    else:
+        # a global batch's loss: the sum of its ranks' (each divided by the
+        # global batch's real molecules)
+        batch_losses = collectives.gather_to_host(torch.stack(losses)[None], mesh).sum(0)
+        loss = float(torch.from_numpy(batch_losses).mean())
+        n_div = int(collectives.gather_to_host(torch.stack(divs)[None], mesh).sum())
     if n_div:
         log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                     "during evaluation", n_div)
-    out = {"loss": float(torch.stack(losses).mean())}
+    out = {"loss": loss}
     regression = settings.task == "regression"
     if settings.eval_guard:
         # the JAX package's divergence detector: report outliers, keep them
@@ -300,7 +399,7 @@ def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, max_atoms
     timing)``. A bucket's batches come one after another; ``timing`` holds
     each bucket's steps (``steps_n32``) and host seconds up to a
     synchronise at its end (``train_s_n32``). ``pipeline``:
-    ``step_batches``' ``prefetch`` and ``native``."""
+    ``step_batches``' ``prefetch``, ``native`` and ``mesh``."""
     losses, divs, timing = [], [], {}
     with step_batches(records, settings, max_atoms, graphs, **pipeline) as batches:
         for n, group in itertools.groupby(batches, key=lambda pb: pb.max_atoms):
@@ -321,7 +420,7 @@ def fit(settings: TrainSettings,
         train_records: Sequence[MoleculeRecord] | Callable[[int], Sequence[MoleculeRecord]],
         val_records: Sequence[MoleculeRecord], *, model=None, device="cuda",
         checkpointer=None, resume: bool = False, prefetch: bool = True,
-        native: bool = True) -> FitResult:
+        native: bool = True, mesh=None) -> FitResult:
     """Epoch loop with plateau LR, early stopping on ``val_loss`` and
     best-checkpoint tracking on ``settings.monitor``.
 
@@ -345,8 +444,16 @@ def fit(settings: TrainSettings,
     batches are packed natively on a prefetch thread; ``prefetch=False``
     packs on the calling thread, ``native=False`` with the numpy packer
     (byte for byte the same batches).
+
+    With a ``mesh`` (``parallel/mesh.py``) this is one rank's fit, on the
+    mesh's device: every rank steps through the same global batches, each
+    on its row block, with the gradients summed over the ranks
+    (``SplitStep``), and evaluates through ``evaluate``'s gather, so that
+    the ranks' schedule, early stopping and ``best`` epoch agree. The
+    replicas' weights are checked equal before the first step.
+    ``settings.batch_size`` must be a multiple of the ranks.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     if model is None:
         from conan_fgw_tpu_torch.models.heads import ConanModel
 
@@ -376,9 +483,12 @@ def fit(settings: TrainSettings,
         history = loop_meta.get("history", [])
         set_learning_rate(optimizer, plateau.lr)
         log.info("resumed from epoch %d (lr=%.2e)", start_epoch, plateau.lr)
+    collectives.check_replicas(model, mesh)
     # after restore_state, which replaces Adam's state tensors: a graph
     # holds the addresses of the tensors it was captured with
-    graphs = step_graphs(model, optimizer, settings, dev)
+    graphs = (step_graphs(model, optimizer, settings, dev) if mesh is None
+              else step_graphs(model, optimizer, settings, dev, mesh))
+    pipeline = dict(prefetch=prefetch, native=native, mesh=mesh)
 
     for epoch in range(start_epoch, settings.num_epochs):
         t0 = time.perf_counter()
@@ -387,7 +497,7 @@ def fit(settings: TrainSettings,
             epoch_records = train_records(epoch)
         t_train = time.perf_counter()
         losses, divs, timing = _train_epoch(graphs, epoch_records, settings, max_atoms, dev,
-                                            prefetch=prefetch, native=native)
+                                            **pipeline)
         train_s = time.perf_counter() - t_train
         train_loss = float(torch.stack(losses).mean())
         epoch_divs = int(torch.stack(divs).sum())
@@ -395,7 +505,7 @@ def fit(settings: TrainSettings,
             log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                         "in epoch %d", epoch_divs, epoch)
         val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev, graphs,
-                                     prefetch=prefetch, native=native)
+                                     **pipeline)
         val_loss = val_metrics["loss"]
         row = {
             "epoch": epoch,

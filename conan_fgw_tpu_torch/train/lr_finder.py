@@ -5,7 +5,9 @@ The reference delegates to Lightning's ``Tuner.lr_find``
 (``train_val.py:196-198``): sweep the LR exponentially over a short run,
 record the loss curve, and pick the steepest-descent point. The sweep trains
 a copy of the model, so the model passed in keeps its weights. Each step
-takes the task's loss (``settings.task``: MSE, or the scaled BCE).
+takes the task's loss (``settings.task``: MSE, or the scaled BCE). Under
+data parallelism rank 0 sweeps on its device and every rank takes its
+result.
 """
 
 from __future__ import annotations
@@ -15,12 +17,19 @@ import copy
 import numpy as np
 
 from conan_fgw_tpu_torch.device import resolve_device
+from conan_fgw_tpu_torch.parallel import collectives
 from conan_fgw_tpu_torch.train import loop as loop_lib
 
 
 def lr_find(model, settings, records, *, min_lr: float = 1e-6, max_lr: float = 1.0,
-            num_steps: int = 60, device="cuda") -> dict:
-    """Returns ``{"suggestion": lr, "lrs": [...], "losses": [...]}``."""
+            num_steps: int = 60, device="cuda", mesh=None) -> dict:
+    """Returns ``{"suggestion": lr, "lrs": [...], "losses": [...]}``. With a
+    ``mesh`` rank 0 sweeps, on the mesh's device, and every rank returns
+    rank 0's result."""
+    if mesh is not None:
+        found = (lr_find(model, settings, records, min_lr=min_lr, max_lr=max_lr,
+                         num_steps=num_steps, device=mesh.device) if mesh.rank == 0 else None)
+        return collectives.broadcast_object(found, mesh)
     dev = resolve_device(device)
     max_atoms = settings.max_atoms or loop_lib.dataset_max_atoms(records)
     lrs = np.exp(np.linspace(np.log(min_lr), np.log(max_lr), num_steps))

@@ -30,11 +30,15 @@ from conan_fgw_tpu_torch.train.config import load_config
 from conan_fgw_tpu_torch.train.runner import STAGE_BC, build_model, build_settings, load_datasets
 
 
-def predict_records(model, records, settings, max_atoms=None, device="cuda"):
+def predict_records(model, records, settings, max_atoms=None, device="cuda", mesh=None):
     """``(records_in_eval_order, predictions, targets)``: the evaluation
-    iterator groups molecules by bucket, so its order is ``bucket_order``'s."""
+    iterator groups molecules by bucket, so its order is ``bucket_order``'s.
+    With a ``mesh`` (``parallel/mesh.py``) each rank predicts its row block
+    of every batch on the mesh's device and every rank returns the whole
+    split (``loop.evaluate``'s gather)."""
     max_atoms = max_atoms or loop_lib.dataset_max_atoms(records)
-    _, pred, y = loop_lib.evaluate(model, records, settings, max_atoms, resolve_device(device))
+    dev = resolve_device(device if mesh is None else mesh.device)
+    _, pred, y = loop_lib.evaluate(model, records, settings, max_atoms, dev, mesh=mesh)
     order = bucket_order(records, buckets=loop_lib.bucket_boundaries(max_atoms))
     return [records[i] for i in order], pred, y
 

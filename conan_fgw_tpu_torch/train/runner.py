@@ -20,6 +20,16 @@ backbones, for regression and classification, and the head families of
 ``experiment:`` other than ``conan`` (the ESAN variants and the aux heads,
 ``build_aux_model``), on the conformer and the GEOM datasets; what else a
 config can ask for raises naming its ``ROADMAP.md`` item.
+
+Data parallelism (``parallel/``): ``--num_devices N`` spawns N ranks, one
+per card (``0``, the default, is every visible card; with ``--device cpu``
+N CPU ranks over gloo), of which rank 0 alone writes checkpoints, logs,
+metrics and ``--out_json``; ``--distributed`` joins the process group that
+torchrun's environment describes, one rank per process, each writing where
+its own arguments say::
+
+    python -m conan_fgw_tpu_torch.train.runner --config ... --num_devices 4
+    torchrun --nproc_per_node 4 -m conan_fgw_tpu_torch.train.runner --config ... --distributed
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import logging
 import os
 
 import torch
+import torch.distributed as dist
 
 from conan_fgw_tpu_torch.data.datasets import ConformerDataset, class_weight_ratio
 from conan_fgw_tpu_torch.data.geom import GEOMDataset
@@ -39,6 +50,7 @@ from conan_fgw_tpu_torch.device import compute_dtype, resolve_device
 from conan_fgw_tpu_torch.models import aux_heads
 from conan_fgw_tpu_torch.models.heads import ConanModel
 from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig
+from conan_fgw_tpu_torch.parallel import mesh as mesh_lib
 from conan_fgw_tpu_torch.train import loop as loop_lib
 from conan_fgw_tpu_torch.train.checkpoints import RunCheckpointer, find_pre_stage_dir
 from conan_fgw_tpu_torch.train.config import ExperimentConfig, load_config
@@ -198,11 +210,24 @@ def run_experiment(
     pre_ckpt_dir: str | None = None,
     allow_scratch: bool = False,
     device="cuda",
+    mesh=None,
+    writes: bool = True,
 ):
     """Train and evaluate ``number_of_runs`` times; returns ``(summary,
-    per_run)``, the second a list of ``{"metrics", "history"}``."""
-    dev = resolve_device(device)
+    per_run)``, the second a list of ``{"metrics", "history"}``.
+
+    With a ``mesh`` this is one rank's run on the mesh's device: the batch
+    size is padded up to a multiple of the ranks (the extra rows are
+    ``mol_mask``-padded), and every rank trains on its row block of the
+    same global batches. Without ``writes`` the run writes no checkpoint,
+    metrics file or trace (the ranks of ``--num_devices`` other than 0)."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     check_supported(config, dev)
+    if mesh is not None and config.batch_size % mesh.world:
+        padded = -(-config.batch_size // mesh.world) * mesh.world
+        log.info("batch_size %d not divisible by %d ranks; padding to %d (extra rows are "
+                 "mol_mask-padded)", config.batch_size, mesh.world, padded)
+        config = dataclasses.replace(config, batch_size=padded)
     ds = load_datasets(config, data_dir)
     datasets = {m: ds[m].records() for m in ("train", "valid", "test")}
 
@@ -226,7 +251,7 @@ def run_experiment(
         model = build_model(config, seed=settings.seed, device=dev)
         ckpt = RunCheckpointer(
             os.path.join(models_dir, run_name, str(run_id), f"run_{stage}:{run_idx}"),
-            monitor=settings.monitor,
+            monitor=settings.monitor, writes=writes,
         )
         warm = False
         if stage == STAGE_BC:
@@ -250,19 +275,22 @@ def run_experiment(
         if config.use_lr_finder and not warm:
             from conan_fgw_tpu_torch.train.lr_finder import lr_find
 
-            found = lr_find(model, settings, datasets["train"], device=dev)
+            found = lr_find(model, settings, datasets["train"], device=dev, mesh=mesh)
             log.info("lr finder suggestion: %.2e", found["suggestion"])
             settings.learning_rate = found["suggestion"]
 
         trace = contextlib.nullcontext()
-        if profile_dir:
+        if profile_dir and writes:
             from conan_fgw_tpu_torch.utils.profiling import device_trace
 
             trace = device_trace(os.path.join(profile_dir, f"run{run_idx}"))
         with trace:
             result = loop_lib.fit(settings, train_records, datasets["valid"], model=model,
-                                  device=dev, checkpointer=ckpt, resume=resume)
+                                  device=dev, checkpointer=ckpt, resume=resume, mesh=mesh)
 
+        if mesh is not None:
+            # the writing rank's last checkpoint files are in place
+            dist.barrier(group=mesh.host_group)
         # the best checkpoint on the test split (trainer.test(ckpt_path="best"))
         if ckpt.has("best"):
             ckpt.restore_params(model, "best")
@@ -270,11 +298,11 @@ def run_experiment(
             datasets["train"] + datasets["valid"] + datasets["test"])
         # through fit's eval graphs, as the JAX runner passes its eval_scan
         test_metrics, _, _ = loop_lib.evaluate(model, datasets["test"], settings, max_atoms, dev,
-                                               result.graphs)
+                                               result.graphs, mesh=mesh)
         run_metrics = {f"test_{k}": v for k, v in test_metrics.items()}
         run_metrics["best_epoch"] = result.best_epoch
         run_metrics[settings.monitor] = result.best_metric
-        if metrics_dir:
+        if metrics_dir and writes:
             # per-epoch metrics CSV, the Lightning CSVLogger analog; the
             # whole history is rewritten on every fit, resumed or not
             from conan_fgw_tpu_torch.utils.profiling import PhaseCSVLogger
@@ -294,7 +322,7 @@ def run_experiment(
     return avg.summary(), per_run
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="conan_fgw_tpu_torch experiment runner")
     ap.add_argument("--config", required=True)
     ap.add_argument("--stage", default=STAGE_PRE, choices=[STAGE_PRE, STAGE_BC])
@@ -323,23 +351,74 @@ def main(argv=None):
                     help="write a torch.profiler trace of each run's fit into this directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card; cpu runs on the CPU)")
-    ap.add_argument("--num_devices", type=int, default=1,
-                    help="data-parallel device count; the port runs on one device")
+    ap.add_argument("--num_devices", type=int, default=0,
+                    help="data-parallel ranks: 0 = every visible card (one on the CPU), 1 = one"
+                    " device, N = N ranks spawned by this command; with --device cpu, N CPU"
+                    " ranks over gloo")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training; not ported")
-    args = ap.parse_args(argv)
+                    help="join the process group of torchrun's environment (RANK, WORLD_SIZE,"
+                    " LOCAL_RANK, MASTER_ADDR, MASTER_PORT): one rank per process")
+    return ap.parse_args(argv)
 
-    if args.num_devices > 1 or args.distributed:
-        raise NotImplementedError(
-            "data-parallel training (--num_devices > 1, --distributed) is not ported yet "
-            "(ROADMAP.md §1, item 4)")
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if args.distributed:
+        joined = dist.is_initialized()
+        mesh_lib.initialize_distributed(backend)
+        try:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if args.num_devices not in (0, world):
+                raise ValueError(f"--num_devices {args.num_devices} with --distributed over"
+                                 f" {world} processes")
+            mesh = mesh_lib.create_mesh(world, args.device) if world > 1 else None
+            summary = run_main(args, mesh, writes=True)
+        finally:
+            if not joined and dist.is_initialized():
+                dist.destroy_process_group()
+    else:
+        n = num_ranks(args.num_devices, dev)
+        if n > 1:
+            summary = mesh_lib.launch(_rank_main, n, args, backend=backend,
+                                      device=args.device)[0]
+        else:
+            summary = run_main(args, None, writes=True)
+    print(json.dumps(summary, indent=2))
+    return summary
+
+
+def num_ranks(num_devices: int, device: torch.device) -> int:
+    """The ranks of ``--num_devices``: 0 is every visible card (one on the
+    CPU); more than the cards visible raises."""
+    if device.type != "cuda":
+        return num_devices or 1
+    visible = torch.cuda.device_count()
+    if num_devices > visible:
+        raise ValueError(f"--num_devices {num_devices}: only {visible} CUDA device(s) are visible")
+    return num_devices or visible
+
+
+def _rank_main(mesh, args) -> dict:
+    """One rank of ``--num_devices N`` (``mesh_lib.launch``): rank 0 alone
+    writes."""
+    return run_main(args, mesh, writes=mesh.rank == 0)
+
+
+def run_main(args, mesh, writes: bool) -> dict:
+    """``main``'s run of the parsed ``args`` on ``mesh`` (None: one
+    process); returns the summary, written to ``--out_json`` if ``writes``."""
     overrides = {"model_name": args.model_name} if args.model_name else {}
     if args.eval_guard:
         overrides["eval_guard"] = True
     config = load_config(args.config, **overrides)
-    build_logger(
-        os.path.join(args.logs_dir, args.run_name, args.run_id, f"run_{args.stage}", "log.txt")
-    )
+    log_path = os.path.join(args.logs_dir, args.run_name, args.run_id, f"run_{args.stage}",
+                            "log.txt")
+    build_logger(log_path if writes else None, logging.INFO if writes else logging.WARNING)
+    if mesh is not None:
+        log.info("data-parallel mesh: rank %d of %d on %s (%s)", mesh.rank, mesh.world,
+                 mesh.device, mesh.backend)
     summary, _ = run_experiment(
         config,
         stage=args.stage,
@@ -354,12 +433,13 @@ def main(argv=None):
         pre_ckpt_dir=args.pre_ckpt_dir,
         allow_scratch=args.allow_scratch,
         device=args.device,
+        mesh=mesh,
+        writes=writes,
     )
-    if args.out_json:
+    if args.out_json and writes:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)), exist_ok=True)
         with open(args.out_json, "w") as f:
             json.dump(summary, f, indent=2)
-    print(json.dumps(summary, indent=2))
     return summary
 
 

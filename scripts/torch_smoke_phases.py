@@ -6,6 +6,9 @@ many runs.
 
     python3 scripts/torch_smoke_phases.py esan [graphs ...] [--repeat N]
 
+``dp`` (phase 15) runs phase 5 first, for the one-process test RMSE it is
+held to.
+
 Each phase prints what it prints in ``chip_smoke.py`` and checks what it
 checks there; the first failed check ends the run with a non-zero code.
 This is not the smoke test: ``chip_smoke.py`` alone drives the main path
@@ -41,7 +44,15 @@ PHASES = {
     "bf16_kernels": lambda card: cs.phase_bf16_kernels("cuda", _rows()),
     "fgw": lambda card: cs.phase_fgw("cuda", card, _rows()),
     "geom": lambda card: cs.phase_geom("cuda", card, _rows()),
+    "dp": lambda card: cs.phase_dp("cuda", card, _rows(), _single(card)),
 }
+
+
+def _single(card) -> dict:
+    """Phase 5's one-process test RMSE by stage, which phase 15 holds its
+    two-rank runner to."""
+    out = cs.phase_runner("cuda", card)
+    return {label: out[label]["test_rmse"] for label in ("stage 1", "stage 2")}
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,6 @@
 """The port's two-stage runner, on the CPU: against the JAX runner from one
-stage-1 checkpoint, through its CLI with ``predict``, and its refusals.
+stage-1 checkpoint, through its CLI with ``predict``, and its refusals
+(its data-parallel flags: ``tests/test_torch_parallel.py``).
 
 The data is a tiny dataset written from ``data/sol250``: 20 molecules of at
 most 32 atoms (12 train, 4 valid, 4 test) with their 10-conformer stores,
@@ -180,7 +181,7 @@ def test_lr_finder_sets_the_learning_rate(tiny, tmp_path, caplog):
 @pytest.mark.parametrize("extra", ["compute_dtype: float16", "compute_dtype: float64"])
 def test_what_the_port_lacks_raises(tiny, tmp_path, extra):
     """A config asking for what the port does not carry fails in the
-    runner's CLI, naming its ROADMAP item (data-parallel flags: below)."""
+    runner's CLI, naming its ROADMAP item."""
     write_config(tmp_path, "c.yaml", "pre", extra=f"{extra}\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.main(_cli(tiny, str(tmp_path / "c.yaml"), "conan_fgw_pre"))
@@ -223,13 +224,6 @@ def test_predict_refuses_embeddings_of_an_aux_head(tiny, tmp_path):
     with pytest.raises(SystemExit, match=r"embeddings\(\) method .* EmbeddingsWithGAT has none"):
         tpredict.main(["--config", cfg, "--checkpoint", str(tmp_path / "ckpt"), "--data_root",
                        str(tiny), "--device", "cpu", "--embeddings", str(tmp_path / "e.npz")])
-
-
-@pytest.mark.parametrize("flags", [["--num_devices", "2"], ["--distributed"]])
-def test_data_parallel_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trunner.main(_cli(tmp_path, write_config(tmp_path, "c.yaml", "pre"), "conan_fgw_pre",
-                          *flags))
 
 
 @pytest.mark.parametrize("key", ["use_pallas_cfconv", "use_pallas_fgw"])
