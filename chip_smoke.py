@@ -238,6 +238,29 @@ Phases (any failure exits non-zero and prints no result line):
    graphed steps again in fresh processes, bit for bit. Two processes
    time-sharing one card show no data-parallel speed; the times printed
    are each rank's share.
+16. The tools (``conan_fgw_tpu_torch/tools``) and the K=3 runner path.
+   16a: ``python -m conan_fgw_tpu_torch.tools.prepare_data --builtin sol250
+   --store_conformers 10`` into a temporary ``--data_root`` on the host's
+   CPUs: its train/valid/test CSVs and every ``.npz`` store must be the
+   repo's ``data/sol250`` byte for byte, its manifest 322 molecules split
+   257/33/32; prints the seconds. 16b: K1/K2 on G = 72 and 96 graphs and
+   K3 on S = 72 and 96 solves (K = 3: sol250_3_bc's batch of 24 and
+   sol250_3's and synthetic_e2e's of 32) at N = 32 and at N = 64 with the
+   cap active, against their plain versions with phase 2's gates, times and
+   bounds (rows ``K3-N32-G72`` ... and ``K3-N32-S72`` ...). 16c: the runner's
+   ``main`` on ``config/schnet/sol250_3.yaml`` then ``sol250_3_bc.yaml`` (2
+   epochs each) on 16a's data, with phase 5's checks (captures, exact
+   K1/K2/K3 launches, no plain version, both buckets, the warm start bit
+   for bit, finite ``test_rmse``) and ``--out_json`` summaries equal to the
+   printed ones. 16d: ``tools.summarize_protocol`` over those two files
+   prints a row each with its ``test_rmse`` mean. 16e:
+   ``tools.synthetic_e2e --epochs 2 --size 64`` on the card (K = 3, B = 32),
+   exact launches by stage, losses and both stages' test RMSE finite. 16f:
+   ``tools.eval_geom_scale`` on 960 molecules (10 batches of 96, K = 5), K1
+   three a forward and nothing else, the predictions finite and aligned
+   with their records, the first 96 within ``STEP_RTOL`` of the same
+   model's ``evaluate`` on the CPU; prints ``eval_epoch_s`` and
+   ``molecules_per_s``.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -253,8 +276,9 @@ Then it prints the per-kernel JSON line (every kernel, each width, type
 and shape held, with its launches on each runner path; the bf16 variants'
 ``launches`` are those of phase 12's runner, K3's per-molecule wrapper's
 those of phase 13's per-molecule barycenters; ``geom_launches`` those of
-phase 14's runners and ``dp_launches`` rank 0's in phase 15's, also on the
-``[done]`` line), the card line and, last,
+phase 14's runners, ``dp_launches`` rank 0's in phase 15's and
+``tools_launches`` phase 16's runner, synthetic_e2e and eval_geom_scale's,
+also on the ``[done]`` line), the card line and, last,
 ``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
@@ -441,15 +465,16 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 2
-def packed_geometry(seed, n_mols, heavy, n_atoms, device):
-    """Positions and masks of packed synthetic molecules: (B*K, N, 3), (B*K, N)."""
+def packed_geometry(seed, n_mols, heavy, n_atoms, device, k=K):
+    """Positions and masks of packed synthetic molecules of ``k``
+    conformers: (B*k, N, 3), (B*k, N)."""
     from conan_fgw_tpu_torch.data.packing import pack_batch
     from conan_fgw_tpu_torch.data.synthetic import random_dataset
 
-    recs = random_dataset(seed, n_mols, num_conformers=K, heavy_range=heavy, device=device)
+    recs = random_dataset(seed, n_mols, num_conformers=k, heavy_range=heavy, device=device)
     pb = pack_batch(recs, max_atoms=n_atoms, batch_size=n_mols).to(device)
     pos = pb.pos.reshape(-1, n_atoms, 3).contiguous()
-    mask = pb.atom_mask.repeat_interleave(K, dim=0)
+    mask = pb.atom_mask.repeat_interleave(k, dim=0)
     return pos, mask
 
 
@@ -600,15 +625,16 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
         rows[name][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=tc, bound_f32=f32)
 
 
-def fgw_problem(pos, mask, gen, masked=False, cutoff=CUTOFF):
+def fgw_problem(pos, mask, gen, masked=False, cutoff=CUTOFF, k=K):
     """K3's inputs at the barycenter's first outer iteration: ``(Ms, C1, C2,
     ps, qs, T0)`` over ``S = B*K`` solves, with the conformer graphs' 0/1
     neighbour structure as C2 and the first conformer's as C1, random
     features, uniform marginals and the product plan as T0. ``masked``
     gives the marginals and features of ``bary_pad_mode: masked``
     (``models/heads.py``): mass 1/n on a molecule's n atoms and none on its
-    padding rows, whose features are 0. Also returns the features ``Ys (B,
-    K, N, D)`` and structures ``Cs (B, K, N, N)``."""
+    padding rows, whose features are 0. ``k`` is the conformers a molecule
+    (``K`` by default). Also returns the features ``Ys (B, K, N, D)`` and
+    structures ``Cs (B, K, N, N)``."""
     import torch
 
     from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
@@ -617,17 +643,17 @@ def fgw_problem(pos, mask, gen, masked=False, cutoff=CUTOFF):
     dev = pos.device
     S, N, _ = pos.shape
     nbr = radius_graph_mask(pairwise_distances(pos), mask, cutoff, CAP)
-    Cs = nbr.transpose(-1, -2).to(torch.float32).reshape(-1, K, N, N)
-    Ys = (torch.rand(S // K, K, N, F // 2, generator=gen) * 1.9 + 0.1).to(dev)
-    p = torch.full((S // K, N), 1.0 / N, device=dev)
+    Cs = nbr.transpose(-1, -2).to(torch.float32).reshape(-1, k, N, N)
+    Ys = (torch.rand(S // k, k, N, F // 2, generator=gen) * 1.9 + 0.1).to(dev)
+    p = torch.full((S // k, N), 1.0 / N, device=dev)
     if masked:
-        atoms = mask.reshape(-1, K, N)[:, 0].to(torch.float32)
+        atoms = mask.reshape(-1, k, N)[:, 0].to(torch.float32)
         p = atoms / atoms.sum(-1, keepdim=True).clamp(min=1.0)
         Ys = Ys * atoms[:, None, :, None]
     Ms = sqdist(torch.zeros_like(Ys[:, 0])[:, None], Ys).reshape(S, N, N).contiguous()
-    C1 = Cs[:, :1].expand(-1, K, N, N).reshape(S, N, N).contiguous()
+    C1 = Cs[:, :1].expand(-1, k, N, N).reshape(S, N, N).contiguous()
     C2 = Cs.reshape(S, N, N).contiguous()
-    ps = p[:, None].expand(-1, K, N).reshape(S, N).contiguous()
+    ps = p[:, None].expand(-1, k, N).reshape(S, N).contiguous()
     qs = ps.clone()
     T0 = (ps[:, :, None] * qs[:, None, :]).contiguous()
     return (Ms, C1, C2, ps, qs, T0), Ys, Cs
@@ -3497,6 +3523,250 @@ def phase_dp(device, card, rows, single):
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+TOOLS_STAGES = (("conan_fgw_pre", "config/schnet/sol250_3.yaml"),
+                ("conan_fgw", "config/schnet/sol250_3_bc.yaml"))
+K3 = 3               # the K=3 configs' conformers
+SOL250 = Path("data/sol250")
+SOL250_MOLECULES, SOL250_SPLITS = 322, {"train": 257, "valid": 33, "test": 32}
+# K1/K2 and K3 at the K=3 paths' shapes: (label, molecules, heavy atoms, bucket);
+# 24 molecules are sol250_3_bc's batch (G = S = 72), 32 sol250_3's and
+# synthetic_e2e's (G = S = 96)
+TOOLS_SHAPES = (("K3-N32-G72", 24, (8, 13), 32), ("K3-N32-G96", 32, (8, 13), 32),
+                ("K3-N64-G72", 24, (20, 26), 64), ("K3-N64-G96", 32, (20, 26), 64))
+TOOLS_E2E = ("--epochs", "2", "--size", "64")
+TOOLS_EVAL_N = 960   # 10 batches of 96
+TOOLS_CPU_N, TOOLS_CPU_BATCH = 96, 24  # 16f's CPU reference: the first 96, in batches of 24
+
+
+def check_k3_kernels(device, rows):
+    """16b: K1/K2 on G = 72 and 96 graphs and K3 on S = 72 and 96 solves, at
+    N=32 and at N=64 with the cap active, against their plain versions."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    for label, n_mols, heavy, n_atoms in TOOLS_SHAPES:
+        pos, mask = packed_geometry(SEED + 1600 + n_mols + n_atoms, n_mols, heavy, n_atoms,
+                                    device, k=K3)
+        if n_atoms == 64:
+            within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
+            require(bool((within > CAP).any()), f"{label} inputs never engage the neighbour cap")
+        check_cfconv(label, pos, mask, gen, rows)
+        check_fgw(label.replace("-G", "-S"), fgw_problem(pos, mask, gen, k=K3)[0], rows)
+
+
+def prepare_sol250(root: Path) -> float:
+    """16a: ``tools.prepare_data --builtin sol250`` into ``root`` on the
+    host's CPUs; its CSVs and stores must be the repo's ``data/sol250`` byte
+    for byte. Returns the seconds it took."""
+    import os
+
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "conan_fgw_tpu_torch.tools.prepare_data", "--builtin", "sol250",
+         "--store_conformers", "10", "--data_root", str(root), "--workers", str(workers)],
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(done.returncode == 0, f"prepare_data failed:\n{done.stdout[-2000:]}{done.stderr[-4000:]}")
+    out = root / "data" / "sol250"
+    for name in ("train.csv", "valid.csv", "test.csv"):
+        require((out / name).read_bytes() == (SOL250 / name).read_bytes(),
+                f"prepare_data: {name} differs from data/sol250's")
+    stores, differ = 0, []
+    for mode in SOL250_SPLITS:
+        made = sorted(p.name for p in (out / f"conformers_{mode}").iterdir())
+        committed = sorted(p.name for p in (SOL250 / f"conformers_{mode}").iterdir())
+        require(made == committed, f"prepare_data: conformers_{mode} holds other stores")
+        stores += len(made)
+        differ += [f"{mode}/{n}" for n in made if (out / f"conformers_{mode}" / n).read_bytes()
+                   != (SOL250 / f"conformers_{mode}" / n).read_bytes()]
+    manifest = json.loads((out / "manifest.json").read_text())
+    print(f"[tools prepare] prepare_data --builtin sol250 on {workers} processes: {seconds:.1f} s;"
+          f" {manifest['n_molecules']} molecules, splits {manifest['splits']}; train/valid/test.csv"
+          f" and {stores - len(differ)} of {stores} stores byte-identical to data/sol250")
+    require(not differ, f"prepare_data: {len(differ)} stores differ from data/sol250's, e.g."
+            f" {differ[:3]}")
+    require(manifest["n_molecules"] == SOL250_MOLECULES and manifest["splits"] == SOL250_SPLITS,
+            f"prepare_data: manifest {manifest}")
+    return seconds
+
+
+def check_summaries(summaries: dict, directory: Path) -> None:
+    """16d: ``tools.summarize_protocol`` over 16c's ``--out_json`` files: a
+    row each, with their ``test_rmse`` means."""
+    from conan_fgw_tpu_torch.tools import summarize_protocol
+
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        summarize_protocol.main([str(directory)])
+    lines = text.getvalue().splitlines()
+    print("[tools summarize] " + "\n[tools summarize] ".join(lines))
+    require(len(lines) == 1 + len(summaries), f"summarize_protocol printed {lines}")
+    for line, (name, summary) in zip(lines[1:], sorted(summaries.items())):
+        r = summary["test_rmse"]
+        require(line.split()[:2] == [name, f"{r['mean']:.4f}"],
+                f"summarize_protocol's row {line!r} is not {name}'s mean {r['mean']!r}")
+
+
+def synthetic_e2e_stages(tmp, spies, device):
+    """16e: ``tools.synthetic_e2e`` on the card, its two stages' launch
+    counts zeroed before and read after each; exact counts, as 16c's."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.tools import synthetic_e2e
+
+    plain_calls, _, captures, host = spies
+    stages, original = [], synthetic_e2e.run_experiment
+
+    def counted(config, **kw):
+        reset_launches()
+        captures.clear()
+        host.clear()
+        out = original(config, **kw)
+        stages.append((kw["stage"], {k: launches[k] for k in REPLACES}, dict(host),
+                       dict(captures)))
+        return out
+
+    synthetic_e2e.run_experiment = counted
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = synthetic_e2e.main([*TOOLS_E2E, "--models_dir", str(tmp / "synthetic"),
+                                     "--device", device])
+        wall = time.perf_counter() - t0
+    finally:
+        synthetic_e2e.run_experiment = original
+    require(not plain_calls, f"synthetic_e2e: plain versions ran: {dict(plain_calls)}")
+    totals = collections.Counter()
+    for (stage, grew, counts, graphs), key in zip(stages, ("stage1", "stage2")):
+        summary, runs = result[key]
+        forwards = counts.get("train_forwards", 0) + counts.get("eval_forwards", 0)
+        want = {"cfconv_fwd": 3 * forwards, "cfconv_bwd": 3 * counts.get("train_forwards", 0),
+                "fgw_couplings": 5 * forwards if stage == "conan_fgw" else 0}
+        got = {k: grew[k] for k in REGRESSION}
+        history = runs[0]["history"]
+        print(f"[tools synthetic_e2e] {stage}: {len(history)} epochs,"
+              f" {sum(r['train_steps'] for r in history)} steps, train_loss"
+              f" {[round(r['train_loss'], 5) for r in history]}, test_rmse"
+              f" {summary['test_rmse']['mean']:.6f}; {forwards} forwards, launches {got};"
+              f" CUDA graphs captured {graphs}")
+        require(got == want and not any(grew[k] for k in REPLACES if k not in REGRESSION),
+                f"synthetic_e2e {stage}: launches {grew}, want {want}")
+        require(device != "cuda" or (graphs.get("train") and graphs.get("eval")),
+                f"synthetic_e2e {stage}: CUDA graphs captured {graphs}")
+        require(all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]) for r in history)
+                and np.isfinite(summary["test_rmse"]["mean"]),
+                f"synthetic_e2e {stage}: a loss or test_rmse is not finite")
+        totals.update(got)
+    print(f"[tools synthetic_e2e] stage-1 test RMSE {result['stage1'][0]['test_rmse']['mean']:.4f},"
+          f" stage-2 {result['stage2'][0]['test_rmse']['mean']:.4f}, target std"
+          f" {result['target_std']:.4f}; {wall:.1f} s wall on the card")
+    return dict(wall_s=wall, launches=dict(totals),
+                test_rmse=[result[k][0]["test_rmse"]["mean"] for k in ("stage1", "stage2")])
+
+
+def eval_at_scale(device, card, plain_calls):
+    """16f: ``tools.eval_geom_scale`` at ``TOOLS_EVAL_N`` molecules on the
+    card (K1 three a forward, nothing else), then its first 96 molecules'
+    predictions against the same model's ``evaluate`` on the CPU (the plain
+    versions)."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.data.loader import bucket_order
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.tools import eval_geom_scale
+    from conan_fgw_tpu_torch.train import loop as loop_lib
+
+    forwards, original = [], loop_lib.eval_step
+
+    def counted(*args, **kwargs):
+        forwards.append(1)
+        return original(*args, **kwargs)
+
+    loop_lib.eval_step = counted
+    reset_launches()
+    try:
+        summary, pred = eval_geom_scale.run(TOOLS_EVAL_N, device=device)
+    finally:
+        loop_lib.eval_step = original
+    grew = {k: launches[k] for k in REPLACES}
+    print(f"[tools eval_geom_scale] {json.dumps(summary)} on {card}; {len(forwards)} forwards,"
+          f" launches {grew}")
+    require(summary["n_molecules"] == TOOLS_EVAL_N and pred.shape == (TOOLS_EVAL_N,),
+            f"eval_geom_scale: {summary['n_molecules']} molecules, {pred.shape} predictions")
+    require(grew["cfconv_fwd"] == 3 * len(forwards) and not any(
+        v for k, v in grew.items() if k != "cfconv_fwd"), f"eval_geom_scale: launches {grew}")
+    require(not plain_calls, f"eval_geom_scale: plain versions ran: {dict(plain_calls)}")
+
+    # the first molecules of the same seed (a molecule's bucket is its own
+    # atom count's, and its prediction does not depend on its batch)
+    cpu = eval_geom_scale.records(TOOLS_CPU_N, "cpu")
+    max_atoms = loop_lib.dataset_max_atoms(cpu)
+    settings = loop_lib.TrainSettings(use_barycenter=False, batch_size=TOOLS_CPU_BATCH)
+    t0 = time.perf_counter()
+    _, cpu_pred, _ = loop_lib.evaluate(ConanModel(device="cpu"), cpu, settings, max_atoms, "cpu")
+    order = bucket_order(cpu, buckets=loop_lib.bucket_boundaries(max_atoms))
+    want = np.empty_like(cpu_pred)
+    want[np.asarray(order)] = cpu_pred
+    rel = float(np.abs(pred[:TOOLS_CPU_N] - want).max() / np.abs(want).max())
+    print(f"[tools eval_geom_scale] the first {TOOLS_CPU_N} predictions against the CPU's"
+          f" evaluate (plain versions, batches of {TOOLS_CPU_BATCH}, {time.perf_counter() - t0:.1f}"
+          f" s): {rel:.3e} of the largest (tol {STEP_RTOL}); eval epoch"
+          f" {summary['eval_epoch_s']:.3f} s, {summary['molecules_per_s']:.1f} molecules/s")
+    require(rel <= STEP_RTOL, f"eval_geom_scale: the card's predictions are {rel} off the CPU's")
+    return dict(summary, cpu_rel=rel, launches=grew)
+
+
+def phase_tools(device, card, rows):
+    """Phase 16: the tools (``conan_fgw_tpu_torch/tools``) and the K=3
+    runner path. 16a ``prepare_data --builtin sol250`` byte for byte; 16b
+    K1/K2/K3 at the K=3 shapes; 16c ``sol250_3.yaml`` then
+    ``sol250_3_bc.yaml`` through the runner on 16a's data with phase 5's
+    checks and ``--out_json``; 16d ``summarize_protocol`` over them; 16e
+    ``synthetic_e2e``; 16f ``eval_geom_scale`` against the CPU."""
+    t0 = time.perf_counter()
+    out, totals = {}, collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as name:
+        tmp = Path(name)
+        out["prepare_s"] = prepare_sol250(tmp)
+        check_k3_kernels(device, rows)
+        common = ["--data_root", str(tmp), "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        summaries = {}
+        with runner_spies() as spies:
+            plain_calls, restores, captures, host = spies
+            ctx = (common, tmp, plain_calls, captures, host, device, card)
+            for stage, src in TOOLS_STAGES:
+                first_restore = len(restores)
+                cfg = config_copy(src, tmp, RUNNER_EPOCHS)
+                label = f"K3 {'stage 1' if stage == 'conan_fgw_pre' else 'stage 2'}"
+                out_json = tmp / "protocol" / f"{Path(src).stem}.json"
+                summary, history, grew = runner_stage(label, stage, cfg, ctx,
+                                                      "--out_json", str(out_json))
+                require(json.loads(out_json.read_text()) == summary,
+                        f"runner {label}: --out_json differs from the summary")
+                summaries[Path(src).stem] = summary
+                totals.update(grew)
+                out[label] = stage_row(history, summary, "rmse")
+            check_warm_start(restores, first_restore,
+                             tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+            check_summaries(summaries, tmp / "protocol")
+            out["synthetic_e2e"] = synthetic_e2e_stages(tmp, spies, device)
+            totals.update(out["synthetic_e2e"]["launches"])
+            plain_calls.clear()
+            out["eval_geom_scale"] = eval_at_scale(device, card, plain_calls)
+            totals.update(out["eval_geom_scale"]["launches"])
+    out["launches"] = {k: totals[k] for k in REPLACES}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[tools] phase 16 took {out['phase_s']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3537,6 +3807,7 @@ def main() -> int:
     stage_rows["geom"] = phase_geom(device, card, rows)
     stage_rows["dp"] = phase_dp(device, card, rows, {
         label: stage_rows["runner"][label]["test_rmse"] for label in ("stage 1", "stage 2")})
+    stage_rows["tools"] = phase_tools(device, card, rows)
     stage_rows["determinism"] = phase_determinism()
 
     def extra(row):
@@ -3551,7 +3822,9 @@ def main() -> int:
     # on the per-molecule barycenter's path (phase 13); each
     # also by runner path, the ViSNet and DimeNet runners' (phase 10), the
     # ESAN configs' (phase 11), the bf16 runner's (phase 12) and the deep
-    # budget's (phase 13) and the GEOM runners' (phase 14) included.
+    # budget's (phase 13), the GEOM runners' (phase 14), rank 0's of the
+    # data-parallel runner (phase 15) and the tools' K=3 paths' (phase 16)
+    # included.
     # All these paths step through CUDA graphs: see the module docstring
     class_launches = stage_rows["classification"]["launches"]
     bf16_launches = stage_rows["bf16"]["launches"]
@@ -3573,6 +3846,7 @@ def main() -> int:
             "classification_launches": class_launches[name],
             "geom_launches": stage_rows["geom"]["launches"][name],
             "dp_launches": stage_rows["dp"]["launches"][name],
+            "tools_launches": stage_rows["tools"]["launches"][name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             **{f"{cfg}_launches": run["launches"][name]
                for cfg, run in stage_rows["esan"]["runner"].items()},
@@ -3590,7 +3864,8 @@ def main() -> int:
           f" (phase 3, graphed); phase 8 at N=32: eager {min(flagship['eager_ms']):.3f}, graphed"
           f" {min(flagship['graphed_ms']):.3f} ms/step; geom_launches"
           f" {json.dumps({k['name']: k['geom_launches'] for k in kernels})}; dp_launches (rank 0)"
-          f" {json.dumps({k['name']: k['dp_launches'] for k in kernels})}")
+          f" {json.dumps({k['name']: k['dp_launches'] for k in kernels})}; tools_launches"
+          f" {json.dumps({k['name']: k['tools_launches'] for k in kernels})}")
     print(json.dumps({"kernels": kernels, "launches_counted": LAUNCHES_COUNTED, "train": stage_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
-"""Conformer stores: loading, and generation for molecules without one (the
-port's own copy of ``conan_fgw_tpu/data/conformers.py``, without its
-offline process-pool ``generate_store``).
+"""Conformer stores: offline generation, loading, and generation for
+molecules without one (the port's own copy of
+``conan_fgw_tpu/data/conformers.py``).
 
 The reference generates conformers offline with RDKit ETKDG
 (``conan_fgw/src/data/conformers/generators.py:119-130``). Here:
@@ -19,9 +19,11 @@ to exactly K conformers at featurise time (``data/datasets.py``).
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import random
 import re
+from concurrent.futures import ProcessPoolExecutor, as_completed
 
 import numpy as np
 
@@ -216,6 +218,33 @@ def resample_indices(available: int, k: int, seed: int = 1) -> list[int]:
 def store_path(conformers_dir: str, mol_id: str) -> str:
     safe = re.sub(r"[!@#$%^&*(){};:,./<>?|`~=_+]", "_", str(mol_id).strip())
     return os.path.join(conformers_dir, f"{safe}.npz")
+
+
+def generate_store(
+    smiles_list, mol_ids, conformers_dir: str, num_conformers: int,
+    prune: bool = False, max_workers: int | None = None, seed: int = 1,
+):
+    """Write one store a molecule into ``conformers_dir``, in a pool of
+    ``max_workers`` spawned processes (the reference's
+    ``RDKitConformersGenerator.generate`` fan-out). A molecule whose store
+    exists is skipped; returns the ``(mol_id, repr(error))`` of each
+    molecule that failed, the others' stores written."""
+    os.makedirs(conformers_dir, exist_ok=True)
+    failed = []
+    jobs = {}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=max_workers, mp_context=spawn) as ex:
+        for s, mid in zip(smiles_list, mol_ids):
+            path = store_path(conformers_dir, mid)
+            if os.path.exists(path):
+                continue
+            jobs[ex.submit(_generate_one, s, path, num_conformers, prune, seed)] = mid
+        for fut in as_completed(jobs):
+            try:
+                fut.result()
+            except Exception as e:  # noqa: BLE001 - a molecule's failure is reported, not raised
+                failed.append((jobs[fut], repr(e)))
+    return failed
 
 
 def _generate_one(smiles: str, path: str, num_conformers: int, prune: bool, seed: int):

@@ -29,6 +29,14 @@ DEPTH = 2  # batches a Prefetcher's queue holds ahead of its consumer
 _DONE = object()  # the end of a prefetch queue
 
 
+def shard_range(n: int, process_index: int, process_count: int) -> range:
+    """Process ``process_index``'s contiguous share of ``n`` items, the last
+    one shorter (``DistributedSampler(shuffle=False)``'s split)."""
+    per = (n + process_count - 1) // process_count
+    start = process_index * per
+    return range(start, min(start + per, n))
+
+
 def pack(records: Sequence[MoleculeRecord], *, native: bool = True, **kw) -> PackedBatch:
     """One padded batch: the native packer, or with ``native=False`` the
     numpy one (byte for byte the same)."""

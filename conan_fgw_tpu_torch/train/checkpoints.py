@@ -87,6 +87,18 @@ def _named_parameters(model, optimizer) -> list[tuple[str, torch.nn.Parameter]]:
     return named
 
 
+def merge_params(target, source):
+    """Copy every entry present (by path) in ``source`` into ``target``;
+    the others keep ``target``'s values. ``target`` and ``source`` are
+    state dicts (their keys are the paths) or nested dicts of them, as the
+    JAX function's parameter trees: the stage-1 into stage-2 semantics of
+    loading a smaller ``state_dict`` into a larger model."""
+    if isinstance(target, dict) and isinstance(source, dict):
+        return {k: merge_params(v, source[k]) if k in source else v
+                for k, v in target.items()}
+    return source
+
+
 class RunCheckpointer:
     """best/last checkpoints for one training run (see the module docstring
     for the format). ``fit`` calls ``save_best`` when ``monitor`` improves in

@@ -40,6 +40,7 @@ import dataclasses
 import json
 import logging
 import os
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -204,6 +205,8 @@ def run_experiment(
     run_name: str = "run",
     run_id: str = "0",
     models_dir: str = "outputs/models",
+    datasets: dict | None = None,
+    records_provider: Callable[[str], Sequence] | None = None,
     resume: bool = False,
     profile_dir: str | None = None,
     metrics_dir: str | None = None,
@@ -220,7 +223,12 @@ def run_experiment(
     size is padded up to a multiple of the ranks (the extra rows are
     ``mol_mask``-padded), and every rank trains on its row block of the
     same global batches. Without ``writes`` the run writes no checkpoint,
-    metrics file or trace (the ranks of ``--num_devices`` other than 0)."""
+    metrics file or trace (the ranks of ``--num_devices`` other than 0).
+
+    The records come from ``datasets`` (``{"train", "valid", "test"}`` to
+    record lists, e.g. ``data/synthetic.py``'s), else from
+    ``records_provider(split)``, else from the datasets under ``data_dir``;
+    only the last re-draws the train split's K-subsets every epoch."""
     dev = resolve_device(device if mesh is None else mesh.device)
     check_supported(config, dev)
     if mesh is not None and config.batch_size % mesh.world:
@@ -228,15 +236,20 @@ def run_experiment(
         log.info("batch_size %d not divisible by %d ranks; padding to %d (extra rows are "
                  "mol_mask-padded)", config.batch_size, mesh.world, padded)
         config = dataclasses.replace(config, batch_size=padded)
-    ds = load_datasets(config, data_dir)
-    datasets = {m: ds[m].records() for m in ("train", "valid", "test")}
+    if datasets is None and records_provider is not None:
+        datasets = {m: records_provider(m) for m in ("train", "valid", "test")}
+    if datasets is not None:
+        train_records = datasets["train"]
+    else:
+        ds = load_datasets(config, data_dir)
+        datasets = {m: ds[m].records() for m in ("train", "valid", "test")}
 
-    def train_records(epoch: int):
-        # stores holding more than K conformers re-draw the K-subset every
-        # epoch (the reference's per-__getitem__ resampling,
-        # conan_fgw/src/data/datasets.py:150-168), keyed on the epoch
-        ds["train"].set_epoch(epoch)
-        return ds["train"].records()
+        def train_records(epoch: int):
+            # stores holding more than K conformers re-draw the K-subset every
+            # epoch (the reference's per-__getitem__ resampling,
+            # conan_fgw/src/data/datasets.py:150-168), keyed on the epoch
+            ds["train"].set_epoch(epoch)
+            return ds["train"].records()
 
     loss_scale = None
     if config.spec.task == "classification":

@@ -45,6 +45,7 @@ PHASES = {
     "fgw": lambda card: cs.phase_fgw("cuda", card, _rows()),
     "geom": lambda card: cs.phase_geom("cuda", card, _rows()),
     "dp": lambda card: cs.phase_dp("cuda", card, _rows(), _single(card)),
+    "tools": lambda card: cs.phase_tools("cuda", card, _rows()),
 }
 
 
