@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line), in the
+order 1-6, 8-15, 7 (beside 16a), 16, 17; the seconds of each are printed
+on a ``[phases]`` line:
 
 1. Build the CUDA kernels from ``conan_fgw_tpu_torch/csrc`` and print the
    build time, each kernel's registers and spills (a cfconv or K3 kernel
@@ -86,7 +88,7 @@ Phases (any failure exits non-zero and prints no result line):
    must be equal, and the eval graph's predictions must equal eager eval's
    to 1e-6. The eager steps take pre-packed batches, the graphed ones the
    host pipeline's (prefetch, native packing into pinned slots,
-   non-blocking copies). Then 50 warmed steps a turn give ms per step and
+   non-blocking copies). Then 25 warmed steps a turn give ms per step and
    graphs/s by host clock ending in a synchronise, in turns eager,
    graphed, pipelined, serial and back: eager and graphed steps on
    pre-packed batches copied from pageable memory, pipelined ones through
@@ -241,9 +243,12 @@ Phases (any failure exits non-zero and prints no result line):
 16. The tools (``conan_fgw_tpu_torch/tools``) and the K=3 runner path.
    16a: ``python -m conan_fgw_tpu_torch.tools.prepare_data --builtin sol250
    --store_conformers 10`` into a temporary ``--data_root`` on the host's
-   CPUs: its train/valid/test CSVs and every ``.npz`` store must be the
-   repo's ``data/sol250`` byte for byte, its manifest 322 molecules split
-   257/33/32; prints the seconds. 16b: K1/K2 on G = 72 and 96 graphs and
+   CPUs, started before phase 7 and run beside it (it is waited for
+   before 16b): its train/valid/test CSVs and every ``.npz`` store
+   must be the repo's ``data/sol250`` byte for byte, its manifest 322
+   molecules split 257/33/32; prints the seconds from its start to its
+   end. 16b: K1/K2 at ``eval_geom_scale``'s shape (G = 480: 96 molecules x
+   5 conformers, N = 32; rows ``eval-N32-G480``), and K1/K2 on G = 72 and 96 graphs and
    K3 on S = 72 and 96 solves (K = 3: sol250_3_bc's batch of 24 and
    sol250_3's and synthetic_e2e's of 32) at N = 32 and at N = 64 with the
    cap active, against their plain versions with phase 2's gates, times and
@@ -261,6 +266,46 @@ Phases (any failure exits non-zero and prints no result line):
    with their records, the first 96 within ``STEP_RTOL`` of the same
    model's ``evaluate`` on the CPU; prints ``eval_epoch_s`` and
    ``molecules_per_s``.
+17. The last of the JAX package in the port. 17a: K3 on the flat path
+   (``fgw_couplings_flat``) at sizes that are no bucket, padded to the next
+   multiple of 32 with the true n passed to K3: N = 22 at S = 2,560 (the
+   demo's 256 x 10 solves), n = 11 and n = 53 at S = 120, against the plain
+   unpadded solve (``FGW_ATOL``, flags equal, one launch a call), eager
+   and graph-replay ms and the bound of the n x n work (rows
+   ``N22-S2560``, ``n11-S120``, ``n53-S120``); a bucket size (N = 32) must
+   reach K3 unpadded. 17b: ``examples/fgw_parity_demo_torch.py``'s ``main``
+   on the card (one barycenter of K = 10 graphs at N = 22 timed ten times,
+   then 256 at once): exact K3 launches (55 through the per-molecule
+   wrapper, 10 flat), Y of both within the larger of 1e-3 and 1.5 times
+   the CPU f32 solve's distance from a float64 CPU solve. 17c: float16
+   compute: K1/K2's f16 variants (counted as ``cfconv_fwd_f16``,
+   ``cfconv_bwd_f16``, ``cfconv_fwd_f256_f16``, ``cfconv_bwd_f256_f16``)
+   at phase 12's shapes with phase 12's gates in f16 ulps (bit for bit the
+   f32 kernels rounded; the plain version's f16 route, the filter MLP in
+   f16 as JAX's XLA cfconv, within ``F16_ROUTE_RTOL``); the f16 flagship's
+   graphed stage-2 step (B = 8, without the clip) against a CPU step in the
+   f16 variants' arithmetic (loss and gradient within ``STEP_RTOL``) and
+   against a float64 CPU step, no farther from it than 1.5 times the CPU's
+   f16 route (the filter MLP in f16, JAX's XLA semantics) lies; f16 and f32
+   graphed ms in turns at B = 24; one eager f16 classification step (F=256).
+   17d: the nearest-neighbour cap: K1/K2 with ``cap_mode="nearest"`` at
+   N = 64 (the cap binding) with phase 2's gates (rows ``N64-nearest``);
+   K1's own neighbour sets (read from K1 with the filter fixed at 1 and
+   one-hot features) against the plain version's, rows that differ
+   allowed only at near ties (1e-5 A); the nearest-cap SchNet's stage-2
+   step at N = 64 (B = 8) card against CPU (phase 4's gates) and three
+   graphed steps against eager (phase 8's gate). 17e: ``remat``: three
+   graphed flagship stage-2 steps bit for bit those of ``remat=False``,
+   the train graph's K1 nodes 6 against 3 (K2 3); the peak memory of eager
+   steps with and without remat at B = 24 and at ``bench.py``'s
+   ``large_batch`` shape (B = 256, K = 5, N = 32, f32). 17f:
+   ``accumulate_steps=4``: ``fit`` through CUDA graphs for one epoch of
+   sol250's stage 1 at batch 32 (9 mini-steps, 2 updates, 1 pending):
+   "train" and "train_update" graphs, Adam's count in ``last_state`` the
+   updates, the weights within 1e-5 of the same fit stepped eagerly and
+   within 1e-3 of it on the CPU (of the largest weight), and a second
+   epoch resumed in the middle of the accumulation bit for bit the
+   straight two-epoch run; ms per mini-step.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -270,15 +315,17 @@ Phases (any failure exits non-zero and prints no result line):
    gradients and weights; a
    third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. It runs last.
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish.
 
 Then it prints the per-kernel JSON line (every kernel, each width, type
 and shape held, with its launches on each runner path; the bf16 variants'
 ``launches`` are those of phase 12's runner, K3's per-molecule wrapper's
-those of phase 13's per-molecule barycenters; ``geom_launches`` those of
-phase 14's runners, ``dp_launches`` rank 0's in phase 15's and
+those of phase 13's per-molecule barycenters; the f16 variants' those of phase
+17's f16 flagship and classification steps; ``geom_launches`` those of
+phase 14's runners, ``dp_launches`` rank 0's in phase 15's,
 ``tools_launches`` phase 16's runner, synthetic_e2e and eval_geom_scale's,
-also on the ``[done]`` line), the card line and, last,
+also on the ``[done]`` line, and ``f16_launches`` phase 17's), the card
+line and, last,
 ``{"ok": true, "device": {...}}``.
 
 Launch counts under CUDA graphs: a kernel's wrapper counts once while a
@@ -349,6 +396,12 @@ REPLACES = {
     "cfconv_bwd_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     "cfconv_fwd_f256_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd_f256_bf16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
+    # the f16 variants (compute_dtype: float16, which the JAX model sends to
+    # its XLA cfconv; the kernels it replaces are the Pallas ones all the same)
+    "cfconv_fwd_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
+    "cfconv_bwd_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
+    "cfconv_fwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
+    "cfconv_bwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
 }
 SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
@@ -361,6 +414,10 @@ SOURCES = {
     "cfconv_bwd_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_fwd_f256_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd_f256_bf16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_fwd_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_bwd_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_fwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "cfconv_bwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
 }
 # seconds between the edges of the profiler's window and the steps it profiles
 PROFILE_MARGIN_S = 0.05
@@ -371,6 +428,13 @@ CLASSIFICATION = ("cfconv_fwd_f256", "cfconv_bwd_f256", "fgw_couplings")
 # the same two paths in bf16 compute (phase 12)
 REGRESSION_BF16 = ("cfconv_fwd_bf16", "cfconv_bwd_bf16", "fgw_couplings")
 CLASSIFICATION_BF16 = ("cfconv_fwd_f256_bf16", "cfconv_bwd_f256_bf16", "fgw_couplings")
+# and in f16 compute (phase 17)
+REGRESSION_F16 = ("cfconv_fwd_f16", "cfconv_bwd_f16", "fgw_couplings")
+CLASSIFICATION_F16 = ("cfconv_fwd_f256_f16", "cfconv_bwd_f256_f16", "fgw_couplings")
+# the f16 kernels against the plain version's f16 route (the filter MLP in
+# f16, as JAX's XLA cfconv computes an f16 trunk): it lies about 2e-3 of the
+# largest from the f32 result rounded at phase 2's shapes (a CPU measurement)
+F16_ROUTE_RTOL = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -478,10 +542,10 @@ def packed_geometry(seed, n_mols, heavy, n_atoms, device, k=K):
     return pos, mask
 
 
-def count_edges(pos, mask, cap):
+def count_edges(pos, mask, cap, cap_mode="index"):
     from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 
-    return int(radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, cap).sum())
+    return int(radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, cap, cap_mode).sum())
 
 
 def cfconv_params(G, N, gen, dev, F=F, GAUSS=GAUSS):
@@ -497,17 +561,26 @@ def cfconv_params(G, N, gen, dev, F=F, GAUSS=GAUSS):
     return x, w1, b1, w2, b2, rnd(G, N, F)
 
 
-def bf16_ulp(t):
+def bf16_ulp(t, bits=8, tiny=0.0):
     """The spacing of bf16 values at each element of ``t`` (f32): 2^(e - 8)
-    for ``t = m 2^e``, ``0.5 <= |m| < 1``; 0 at 0."""
+    for ``t = m 2^e``, ``0.5 <= |m| < 1``; 0 at 0. ``bits`` 11 and ``tiny``
+    2^-24 give f16's (whose subnormals are spaced 2^-24)."""
     import torch
 
     mant, exp = torch.frexp(t.float())
-    return torch.where(mant == 0, torch.zeros_like(t.float()), torch.ldexp(torch.ones_like(mant),
-                                                                           exp - 8))
+    ulp = torch.where(mant == 0, torch.zeros_like(t.float()),
+                      torch.ldexp(torch.ones_like(mant), exp - bits))
+    return ulp.clamp_min(tiny)
 
 
-def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
+def type_ulp(t, dtype):
+    """The spacing of ``dtype`` (bf16 or f16) values at each element of ``t``."""
+    import torch
+
+    return bf16_ulp(t) if dtype == torch.bfloat16 else bf16_ulp(t, 11, 2.0**-24)
+
+
+def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_mode="index"):
     """K1 and K2 against the plain version at one shape; ``F``/``GAUSS``
     pick the width (the classification model's is 256 filters and 10
     Gaussians), whose rows go under its launch-count names. With ``dtype``
@@ -518,7 +591,13 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
     results they round (an element that cancels to 1e-6 of the largest
     differs by many of its own ulps in f32 already; that distance is held to
     ``CFCONV_RTOL`` of the largest). The weight gradients (f32) are held to
-    ``CFCONV_RTOL`` and must equal the f32 kernel's bit for bit."""
+    ``CFCONV_RTOL`` and must equal the f32 kernel's bit for bit. With
+    ``dtype`` f16 (phase 17) the same, in f16 ulps, against the plain
+    version of the f16 variants' arithmetic (the f32 plain version on the
+    widened inputs, rounded); ``_cfconv_plain``'s own f16 route (the filter
+    MLP in f16, as JAX's XLA cfconv) must lie within ``F16_ROUTE_RTOL``.
+    ``cap_mode`` "nearest" (phase 17) runs the kernels and the plain version
+    with the nearest-neighbour cap; its rows go under ``label``."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.cfconv import (
@@ -530,14 +609,16 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
 
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
-    tag = f"{label} F{F}" + (" bf16" if bf16 else "")
+    f16 = dtype == torch.float16
+    narrow = bf16 or f16
+    tag = f"{label} F{F}" + (" bf16" if bf16 else " f16" if f16 else "")
     G, N, _ = pos.shape
     maskf = mask.to(torch.float32).contiguous()
     x, w1, b1, w2, b2, cot = cfconv_params(G, N, gen, pos.device, F, GAUSS)
     x, cot = x.to(dtype), cot.to(dtype)
-    out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP)
-    grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
-    grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP)
+    out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP, cap_mode)
+    grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP, cap_mode)
+    grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP, cap_mode)
     torch.cuda.synchronize()
     same = [n for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_again)
             if torch.equal(a, b)]
@@ -547,7 +628,13 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
             and all(t.dtype == torch.float32 for t in grads_k[1:]),
             f"cfconv {tag}: out {out_k.dtype}, grads {[t.dtype for t in grads_k]}")
     leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
-    out_p = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP)
+    if f16:
+        # the f16 variants' plain version: the f32 one on the widened
+        # inputs, rounded (autograd then rounds dx to f16 too)
+        out_p = _cfconv_plain(pos, maskf, leaves[0].float(), *leaves[1:], CUTOFF, GAUSS, CAP,
+                              cap_mode).to(dtype)
+    else:
+        out_p = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP, cap_mode)
     grads_p = torch.autograd.grad(out_p, leaves, cot)
     torch.cuda.synchronize()
 
@@ -561,45 +648,56 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None):
     print(f"[cfconv {tag}] fwd max_abs_err {err_fwd:.3e} rel {rel_fwd:.3e} (tol {CFCONV_RTOL})")
     print(f"[cfconv {tag}] bwd rel errors "
           + " ".join(f"{n} {v:.3e}" for n, v in rels_bwd.items()) + f" (tol {CFCONV_RTOL})")
-    if bf16:
-        # the bf16 variants widen, compute as the f32 ones and round once
+    if narrow:
+        # the bf16 and f16 variants widen, compute as the f32 ones and round once
+        kind = "bf16" if bf16 else "f16"
         wide = [t.float().contiguous() for t in (x, cot)]
-        out_w = cfconv_forward(pos, maskf, wide[0], w1, b1, w2, b2, CUTOFF, CAP)
-        grads_w = cfconv_backward(pos, maskf, wide[0], w1, b1, w2, b2, wide[1], CUTOFF, CAP)
+        out_w = cfconv_forward(pos, maskf, wide[0], w1, b1, w2, b2, CUTOFF, CAP, cap_mode)
+        grads_w = cfconv_backward(pos, maskf, wide[0], w1, b1, w2, b2, wide[1], CUTOFF, CAP,
+                                  cap_mode)
         equal = [torch.equal(out_k, out_w.to(dtype)), torch.equal(grads_k[0], grads_w[0].to(dtype)),
                  *(torch.equal(a, b) for a, b in zip(grads_k[1:], grads_w[1:]))]
         print(f"[cfconv {tag}] against the f32 kernels on the widened inputs, rounded: bit-identical"
               f" out, dx, dw1, db1, dw2, db2 {equal}")
-        require(all(equal), f"cfconv {tag}: the bf16 variants differ from the f32 kernels rounded")
+        require(all(equal), f"cfconv {tag}: the {kind} variants differ from the f32 kernels rounded")
         leaves32 = [t.float().requires_grad_(True) for t in leaves]
-        out_p32 = _cfconv_plain(pos, maskf, *leaves32, CUTOFF, GAUSS, CAP)
+        out_p32 = _cfconv_plain(pos, maskf, *leaves32, CUTOFF, GAUSS, CAP, cap_mode)
         dx_p32 = torch.autograd.grad(out_p32, leaves32[0], wide[1])[0]
         for name, k, p, k32, p32 in (("out", out_k, out_p.detach(), out_w, out_p32.detach()),
                                      ("dx", grads_k[0], grads_p[0], grads_w[0], dx_p32)):
             k, p = k.float(), p.float()
-            ulp = torch.maximum(bf16_ulp(k), bf16_ulp(p))
+            ulp = torch.maximum(type_ulp(k, dtype), type_ulp(p, dtype))
             beyond = float(((k - p).abs() - (k32 - p32).abs()).div(ulp.clamp_min(1e-38)).max())
             over = float(((k - p).abs() > ulp).to(torch.float32).mean())
             differ = float((k != p).to(torch.float32).mean())
             f32_rel = rel(k32, p32)
             print(f"[cfconv {tag}] {name}: {100 * differ:.3f}% of elements differ from the plain"
-                  f" version's, {100 * over:.4f}% by more than one bf16 ulp; at most {beyond:.2f}"
+                  f" version's, {100 * over:.4f}% by more than one {kind} ulp; at most {beyond:.2f}"
                   f" ulp beyond the f32 results' distance (tol 1), which is {f32_rel:.3e} of the"
                   f" largest (tol {CFCONV_RTOL})")
             require(beyond <= 1.0 and f32_rel <= CFCONV_RTOL,
-                    f"cfconv {tag} {name} is more than one bf16 ulp off")
+                    f"cfconv {tag} {name} is more than one {kind} ulp off")
+        if f16:
+            route = _cfconv_plain(pos, maskf, x, w1, b1, w2, b2, CUTOFF, GAUSS, CAP, cap_mode)
+            route_rel = rel(out_k, route)
+            print(f"[cfconv {tag}] out against the plain version's f16 route (the filter MLP in"
+                  f" f16, as JAX's XLA cfconv): {route_rel:.3e} of the largest (tol"
+                  f" {F16_ROUTE_RTOL})")
+            require(route_rel <= F16_ROUTE_RTOL, f"cfconv {tag}: the f16 route is {route_rel} off")
     else:
         require(rel_fwd <= CFCONV_RTOL, f"cfconv {tag} forward disagrees: {rel_fwd}")
     for n, v in rels_bwd.items():
-        require(bf16 and n == "dx" or v <= CFCONV_RTOL, f"cfconv {tag} backward {n} disagrees: {v}")
+        require(narrow and n == "dx" or v <= CFCONV_RTOL, f"cfconv {tag} backward {n} disagrees: {v}")
 
-    edges = count_edges(pos, mask, CAP)
-    fwd_ms = cuda_ms(lambda: cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP))
-    bwd_ms = cuda_ms(lambda: cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP))
-    plain_fwd_ms = cuda_ms(lambda: _cfconv_plain(pos, maskf, x, w1, b1, w2, b2, CUTOFF, GAUSS, CAP))
+    edges = count_edges(pos, mask, CAP, cap_mode)
+    fwd_ms = cuda_ms(lambda: cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP, cap_mode))
+    bwd_ms = cuda_ms(lambda: cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP,
+                                             cap_mode))
+    plain_fwd_ms = cuda_ms(lambda: _cfconv_plain(pos, maskf, x, w1, b1, w2, b2, CUTOFF, GAUSS, CAP,
+                                                 cap_mode))
 
     def plain_bwd():
-        o = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP)
+        o = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP, cap_mode)
         torch.autograd.grad(o, leaves, cot)
 
     plain_bwd_ms = cuda_ms(plain_bwd)
@@ -1003,20 +1101,23 @@ def kernel_arithmetic():
 
     class Split(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors):
+        def forward(ctx, pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode):
             ctx.save_for_backward(pos, mask, x, w1, b1, w2, b2)
             ctx.params = (cutoff, max_neighbors)
+            ctx.cap_mode = cap_mode
             return cfconv_edges(pos, mask, x, w1, b1, w2, b2, torch.zeros_like(x), cutoff,
-                                max_neighbors, mm=split_mm)[0]
+                                max_neighbors, mm=split_mm, cap_mode=cap_mode)[0]
 
         @staticmethod
         def backward(ctx, g):
-            grads = cfconv_edges(*ctx.saved_tensors, g.contiguous(), *ctx.params, mm=split_mm)[1]
-            return (None, None, *grads, None, None)
+            grads = cfconv_edges(*ctx.saved_tensors, g.contiguous(), *ctx.params, mm=split_mm,
+                                 cap_mode=ctx.cap_mode)[1]
+            return (None, None, *grads, None, None, None)
 
-    def split(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
+    def split(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32,
+              cap_mode="index"):
         require(w1.shape[0] == num_gaussians, "kernel arithmetic: the filter's width")
-        return Split.apply(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors)
+        return Split.apply(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode)
 
     original = schnet.cfconv
     schnet.cfconv = split
@@ -1451,7 +1552,7 @@ LAUNCHES_COUNTED = ("wrapper counts over CUDA-graphed steps: each graph's captur
                     " profiler's kernel executions in phase 8")
 GRAPH_STEPS = 20     # batches of the eager-against-graphed run
 GRAPH_LR_AT = 10     # set_learning_rate after this many steps, in both runs
-GRAPH_TIMED = 50     # warmed steps in each timing turn
+GRAPH_TIMED = 25     # warmed steps in each timing turn (50 before PR 16)
 GRAPH_RTOL = 1e-5    # per-step losses and final weights, relative
 GRAPH_EVAL_RTOL = 1e-6
 # label, classification?, stage 2?, bucket N, heavy atoms per molecule, batch.
@@ -1465,9 +1566,9 @@ GRAPH_CASES = (("stage 1 N32", False, False, 32, (8, 13), B),
                ("class stage 2 N32", True, True, 32, (8, 13), B_CLS),
                ("stage 1 N32 B96", False, False, 32, (8, 13), 96))
 PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_bf16",
-                                  "cfconv_fwd_f256_bf16"),
+                                  "cfconv_fwd_f256_bf16", "cfconv_fwd_f16", "cfconv_fwd_f256_f16"),
             "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256", "cfconv_bwd_bf16",
-                                  "cfconv_bwd_f256_bf16"),
+                                  "cfconv_bwd_f256_bf16", "cfconv_bwd_f16", "cfconv_bwd_f256_f16"),
             "fgw_couplings_kernel": ("fgw_couplings",)}
 
 
@@ -1968,7 +2069,8 @@ def phase_backbones(device, card, rows):
         require(row["launches"]["fgw_couplings"] > 0, f"{name}: K3 never launched")
         config = load_config(bc_cfg)
         row["parity"] = phase_parity(build_model(config, seed=SEED, device=device), device,
-                                     batch=config.batch_size, label=f"{name} parity")
+                                     batch=config.batch_size // 2,
+                                     label=f"{name} parity B{config.batch_size // 2}")
         row["graphs"] = graph_case(f"{name} stage 2 N32", False, True, 32, (8, 13),
                                    config.batch_size, device, card,
                                    base=build_model(config, seed=SEED, device=device),
@@ -2370,7 +2472,8 @@ def phase_bf16(device, card, rows, f32=None):
     require(cfg.compute_dtype == "bfloat16", "the DimeNet copy is not bf16")
     f32_cfg = load_config(BACKBONES["dimenet"][1])
     out["dimenet_parity"] = phase_parity(build_model(cfg, seed=SEED, device=device), device,
-                                         batch=cfg.batch_size, label="bf16 dimenet parity")
+                                         batch=cfg.batch_size // 2,
+                                         label=f"bf16 dimenet parity B{cfg.batch_size // 2}")
     before = collections.Counter(launches)
     out["dimenet_graphs"] = graph_case("bf16 dimenet stage 2 N32", False, True, 32, (8, 13),
                                        cfg.batch_size, device, card,
@@ -3154,12 +3257,14 @@ def phase_geom(device, card, rows):
             check_predict_auroc("geom stage 2", cfg, tmp, str(tmp), summary, device, test_eval)
             require(not plain_calls, f"geom: plain versions ran: {dict(plain_calls)}")
 
-        # one stage-2 step at N=128 on 18 molecules of the train split; the
-        # CPU side runs the plain versions, so outside the spies
+        # one stage-2 step at N=128 on 9 molecules of the train split (half
+        # the config's batch: the CPU side's cost); the CPU side runs the
+        # plain versions, so outside the spies
         config = load_config(cfg)
+        half = config.batch_size // 2
         records = [r for r in load_datasets(config, str(tmp / "data"))["train"].records()
-                   if r.num_atoms > 96][: config.batch_size]
-        pb = pack_batch(records, max_atoms=128, batch_size=config.batch_size)
+                   if r.num_atoms > 96][:half]
+        pb = pack_batch(records, max_atoms=128, batch_size=half)
         out["parity"] = step_parity(build_model(config, seed=SEED, device=device), pb, device,
                                     f"geom parity N128 B{len(records)}")
 
@@ -3536,17 +3641,21 @@ TOOLS_SHAPES = (("K3-N32-G72", 24, (8, 13), 32), ("K3-N32-G96", 32, (8, 13), 32)
                 ("K3-N64-G72", 24, (20, 26), 64), ("K3-N64-G96", 32, (20, 26), 64))
 TOOLS_E2E = ("--epochs", "2", "--size", "64")
 TOOLS_EVAL_N = 960   # 10 batches of 96
+TOOLS_EVAL_BATCH = 96  # eval_geom_scale's batch: K1 on G = 480 graphs
 TOOLS_CPU_N, TOOLS_CPU_BATCH = 96, 24  # 16f's CPU reference: the first 96, in batches of 24
 
 
 def check_k3_kernels(device, rows):
-    """16b: K1/K2 on G = 72 and 96 graphs and K3 on S = 72 and 96 solves, at
-    N=32 and at N=64 with the cap active, against their plain versions."""
+    """16b: K1/K2 at ``eval_geom_scale``'s G = 480 (N=32), on G = 72 and 96
+    graphs and K3 on S = 72 and 96 solves, at N=32 and at N=64 with the cap
+    active, against their plain versions."""
     import torch
 
     from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 
     gen = torch.Generator().manual_seed(SEED + 16)
+    pos, mask = packed_geometry(SEED + 1696, TOOLS_EVAL_BATCH, (8, 13), 32, device)
+    check_cfconv("eval-N32-G480", pos, mask, gen, rows)
     for label, n_mols, heavy, n_atoms in TOOLS_SHAPES:
         pos, mask = packed_geometry(SEED + 1600 + n_mols + n_atoms, n_mols, heavy, n_atoms,
                                     device, k=K3)
@@ -3557,20 +3666,34 @@ def check_k3_kernels(device, rows):
         check_fgw(label.replace("-G", "-S"), fgw_problem(pos, mask, gen, k=K3)[0], rows)
 
 
-def prepare_sol250(root: Path) -> float:
-    """16a: ``tools.prepare_data --builtin sol250`` into ``root`` on the
-    host's CPUs; its CSVs and stores must be the repo's ``data/sol250`` byte
-    for byte. Returns the seconds it took."""
+def start_prepare_sol250(root: Path):
+    """16a's ``tools.prepare_data --builtin sol250`` into ``root``, started
+    in a process of its own on the host's CPUs; ``finish_prepare_sol250``
+    waits for it. ``main`` starts it before phase 7, which it runs beside:
+    phase 7 is held to bits, not to times."""
     import os
 
     workers = os.cpu_count() or 1
-    t0 = time.perf_counter()
-    done = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "conan_fgw_tpu_torch.tools.prepare_data", "--builtin", "sol250",
          "--store_conformers", "10", "--data_root", str(root), "--workers", str(workers)],
-        capture_output=True, text=True, timeout=600)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), workers
+
+
+def finish_prepare_sol250(root: Path, started) -> float:
+    """16a: wait for ``start_prepare_sol250``'s run; its CSVs and stores
+    must be the repo's ``data/sol250`` byte for byte. Returns the seconds
+    from its start to its end."""
+    proc, t0, workers = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.perf_counter() - t0
-    require(done.returncode == 0, f"prepare_data failed:\n{done.stdout[-2000:]}{done.stderr[-4000:]}")
+    require(proc.returncode == 0, f"prepare_data failed:\n{stdout[-2000:]}{stderr[-4000:]}")
     out = root / "data" / "sol250"
     for name in ("train.csv", "valid.csv", "test.csv"):
         require((out / name).read_bytes() == (SOL250 / name).read_bytes(),
@@ -3592,6 +3715,11 @@ def prepare_sol250(root: Path) -> float:
     require(manifest["n_molecules"] == SOL250_MOLECULES and manifest["splits"] == SOL250_SPLITS,
             f"prepare_data: manifest {manifest}")
     return seconds
+
+
+def prepare_sol250(root: Path) -> float:
+    """16a in line: ``start_prepare_sol250`` and ``finish_prepare_sol250``."""
+    return finish_prepare_sol250(root, start_prepare_sol250(root))
 
 
 def check_summaries(summaries: dict, directory: Path) -> None:
@@ -3721,18 +3849,23 @@ def eval_at_scale(device, card, plain_calls):
     return dict(summary, cpu_rel=rel, launches=grew)
 
 
-def phase_tools(device, card, rows):
+def phase_tools(device, card, rows, prepared=None):
     """Phase 16: the tools (``conan_fgw_tpu_torch/tools``) and the K=3
-    runner path. 16a ``prepare_data --builtin sol250`` byte for byte; 16b
-    K1/K2/K3 at the K=3 shapes; 16c ``sol250_3.yaml`` then
-    ``sol250_3_bc.yaml`` through the runner on 16a's data with phase 5's
-    checks and ``--out_json``; 16d ``summarize_protocol`` over them; 16e
+    runner path. 16a ``prepare_data --builtin sol250`` byte for byte (or
+    ``prepared``, ``(its data root, its seconds)`` where ``main`` ran it
+    beside phase 7); 16b K1/K2/K3 at the K=3 shapes; 16c ``sol250_3.yaml``
+    then ``sol250_3_bc.yaml`` through the runner on 16a's data with phase
+    5's checks and ``--out_json``; 16d ``summarize_protocol`` over them; 16e
     ``synthetic_e2e``; 16f ``eval_geom_scale`` against the CPU."""
     t0 = time.perf_counter()
     out, totals = {}, collections.Counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as name:
         tmp = Path(name)
-        out["prepare_s"] = prepare_sol250(tmp)
+        if prepared is None:
+            out["prepare_s"] = prepare_sol250(tmp)
+        else:
+            data_root, out["prepare_s"] = prepared
+            (tmp / "data").symlink_to(Path(data_root).resolve() / "data")
         check_k3_kernels(device, rows)
         common = ["--data_root", str(tmp), "--run_name", "smoke", "--run_id", "0",
                   "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
@@ -3767,6 +3900,537 @@ def phase_tools(device, card, rows):
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+# K3 on the flat path at sizes that are no bucket: the demo's 256 x 10 solves
+# at N=22, and n = 11 and 53 (padded to 32 and 64); (label, solves, n)
+ANYN_CASES = (("N22-S2560", 2560, 22), ("n11-S120", 120, 11), ("n53-S120", 120, 53))
+DEMO = Path("examples/fgw_parity_demo_torch.py")
+DEMO_ATOL = 1e-3  # the barycenter's 1e-3 (BARY_ATOL), or 1.5x the CPU f32 distance from f64
+# the f16 step's gate against float64 (tests/test_torch_dtypes.py): no
+# farther than F16_FARTHER times the CPU's f16 route (JAX's XLA cfconv in f16)
+F16_FARTHER = 1.5
+F16_PARITY_B = 8  # the f16 step held against the CPU (three CPU steps at full width)
+F16_TIMED = 20  # graphed steps a timing turn
+NEAR_N, NEAR_B = 64, 8  # the nearest cap's SchNet step: N=64 (the cap binds), batch 8
+NEAR_TIE = 1e-5  # A: a neighbour set may differ only where two distances lie this close
+REMAT_STEPS = 3  # graphed steps: the eager warm-up, the capture, a replay
+LARGE_B = 256  # bench.py's large_batch rows: B=256, K=5, N=32
+ACC_K = 4  # accumulate_steps of 17f
+ACC_B = 32  # its batch (sol250_3's): 9 mini-steps an epoch, so one is pending at its end
+ACC_CPU_RTOL = 1e-3  # 17f's weights on the card against the CPU, of the largest weight
+ACC_EAGER_RTOL = 1e-5  # graphed against eager (phase 8's GRAPH_RTOL)
+
+
+def anyn_problem(S, n, seed, device):
+    """``S`` seeded FGW coupling problems of ``n`` atoms: ``(Ms, C1, C2, ps,
+    qs, T0)``, random features' squared distances, 0/1 structures, uniform
+    marginals and the product plan."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    Y0, Ys = torch.rand(S, n, 4, generator=gen), torch.rand(S, n, 4, generator=gen) + 0.1
+    Ms = ((Y0[:, :, None, :] - Ys[:, None, :, :]) ** 2).sum(-1)
+    C1 = (torch.rand(S, n, n, generator=gen) > 0.6).to(torch.float32)
+    C2 = (torch.rand(S, n, n, generator=gen) > 0.6).to(torch.float32)
+    ps = torch.full((S, n), 1.0 / n)
+    T0 = ps[:, :, None] * ps[:, None, :]
+    return tuple(t.to(device).contiguous() for t in (Ms, C1, C2, ps, ps.clone(), T0))
+
+
+def check_fgw_anyn(device, rows):
+    """17a: ``fgw_couplings_flat`` at ``ANYN_CASES`` (padded to the next
+    multiple of 32, the true n passed to K3) against the plain unpadded
+    solve on the card: plans within ``FGW_ATOL``, flags equal, one launch a
+    call; eager and graph-replay ms, the bound of the n x n work. Then a
+    bucket size (N=32) must reach K3 unpadded, as the runner's buckets do."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from conan_fgw_tpu_torch.ops.cuda import fgw as k3
+    from conan_fgw_tpu_torch.ops.cuda import launches
+
+    for label, S, n in ANYN_CASES:
+        args = anyn_problem(S, n, SEED + 1700 + n, device)
+        before = collections.Counter(launches)
+        T_k, div_k = k3.fgw_couplings_flat(*args, **FGW_KW)
+        grew = {k: v - before[k] for k, v in launches.items() if v != before[k]}
+        T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
+        torch.cuda.synchronize()
+        err = float((T_k - T_p).abs().max())
+        N = n + (-n % 32)
+        pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
+        _, _, iters = k3._launch(*map(pad, args), n=n, count="uncounted", **FGW_KW)
+        sk_run = int(iters.sum())
+        print(f"[fgw anyn {label}] K3 on {N} rows (n={n}) against the plain unpadded solve: T"
+              f" max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel {int(div_k.sum())} plain"
+              f" {int(div_p.sum())}; launches {grew}; {sk_run} Sinkhorn iterations run")
+        require(tuple(T_k.shape) == (S, n, n), f"fgw anyn {label}: T {tuple(T_k.shape)}")
+        require(grew == {"fgw_couplings": 1}, f"fgw anyn {label}: launches {grew}")
+        require(err <= FGW_ATOL, f"fgw anyn {label} plans disagree: {err}")
+        require(bool(torch.equal(div_k, div_p)), f"fgw anyn {label} diverged flags disagree")
+        ms = cuda_ms(lambda: k3.fgw_couplings_flat(*args, **FGW_KW))
+        replay_ms = graph_ms(lambda: k3.fgw_couplings_flat(*args, **FGW_KW))
+        plain_ms = cuda_ms(lambda: k3.fgw_couplings_plain(*args, **FGW_KW), reps=3, warmup=1)
+        tc, f32 = fgw_bound(S, n, sk_run)
+        print(f"[fgw anyn {label}] S={S}: {ms:.4f} ms (eager calls, padding included; graph"
+              f" replays {replay_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {tc[0]:.5f} ms"
+              f" ({tc[1]}, {100 * tc[0] / ms:.2f}% reached, {100 * tc[0] / replay_ms:.2f}% of the"
+              f" replays), {f32[0]:.5f} ms in f32 on the CUDA cores")
+        rows["fgw_couplings"][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms,
+                                            plain_ms=plain_ms, bound=tc, bound_f32=f32,
+                                            sinkhorn_iters=sk_run)
+    # a bucket size takes the unpadded launch (n unset), as on the runner's path
+    seen, launch = [], k3._launch
+    k3._launch = lambda *a, **kw: seen.append((tuple(a[0].shape), kw.get("n"))) or launch(*a, **kw)
+    try:
+        k3.fgw_couplings_flat(*anyn_problem(120, 32, SEED + 1732, device), **FGW_KW)
+    finally:
+        k3._launch = launch
+    print(f"[fgw anyn N32] a bucket size reaches K3 as {seen} (shape, n): unpadded")
+    require(seen == [((120, 32, 32), None)], f"fgw anyn N32: K3 saw {seen}")
+
+
+def run_demo(device, card):
+    """17b: ``examples/fgw_parity_demo_torch.py``'s ``main`` on the card (its
+    random-graph branch): the single solve (K3's per-molecule wrapper, ten
+    timed after a warm-up) and the batch of 256 (one flat K3 launch an outer
+    iteration). Y of both, against a float64 solve on the CPU of the same
+    graphs, within the larger of ``DEMO_ATOL`` and 1.5 times the CPU f32
+    solve's own distance from it (the barycenter amplifies f32 rounding)."""
+    import importlib.util
+
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches
+    from conan_fgw_tpu_torch.ops.fgw.barycenter import FGWConfig, fgw_barycenter
+
+    spec = importlib.util.spec_from_file_location("fgw_parity_demo_torch", DEMO)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    missing = str(Path(tempfile.gettempdir()) / "chip_smoke_no_fixture.pt")
+    before = collections.Counter(launches)
+    out = demo.main(["--fixture", missing, "--device", device])
+    grew = {k: v - before[k] for k, v in launches.items() if v != before[k]}
+    outer = FGWConfig().outer_iters
+    want = {"fgw_couplings_mol": 11 * outer, "fgw_couplings": 2 * outer}
+    require(grew == want, f"demo: launches {grew}, want {want}")
+    Ys, Cs, ps, lam, _ = demo.load_problem(missing)
+    N = Ys.shape[1]
+    refs = {}
+    for dt in (torch.float32, torch.float64):
+        args = [torch.from_numpy(a).to(dt) for a in (Ys, Cs, ps)]
+        refs[dt] = fgw_barycenter(*args, torch.full((N,), 1.0 / N, dtype=dt),
+                                  torch.from_numpy(lam).to(dt), FGWConfig())[0]
+    y64 = refs[torch.float64]
+    cpu_err = float((refs[torch.float32].double() - y64).abs().max())
+    gate = max(DEMO_ATOL, 1.5 * cpu_err)
+    single = float((out["Y"].double() - y64).abs().max())
+    batch = float((out["Y_batch"].double() - y64[None]).abs().max())
+    print(f"[demo] single solve {out['single_ms']:.4f} ms, {out['batch']} at once"
+          f" {out['batch_ms']:.4f} ms ({out['batch_ms'] / out['batch']:.5f} ms/molecule) on {card};"
+          f" launches {grew}; Y against a float64 CPU solve: single {single:.3e}, batch {batch:.3e}"
+          f" (tol {gate:.3e}: the CPU f32 solve lies {cpu_err:.3e} from it)")
+    require(single <= gate and batch <= gate, f"demo: Y {single}, {batch} off (tol {gate})")
+    return dict(single_ms=out["single_ms"], batch_ms=out["batch_ms"], batch=out["batch"],
+                single_err=single, batch_err=batch, cpu_err=cpu_err, launches=grew)
+
+
+def _step_vector(model, batch, bary=True):
+    """One train step's loss and its gradient as one float64 vector (zeros
+    for a parameter without a gradient), on the model's device."""
+    import numpy as np
+
+    from conan_fgw_tpu_torch.train.loop import masked_mse
+
+    model.zero_grad(set_to_none=True)
+    pred, _ = model(batch, use_barycenter=bary)
+    loss = masked_mse(pred, batch)
+    loss.backward()
+    grads = [np.zeros(p.shape) if p.grad is None else p.grad.detach().cpu().double().numpy()
+             for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), np.concatenate([g.ravel() for g in grads])
+
+
+def _f32_reference(model, dtype):
+    """A CPU copy of the f16 ``model`` computing in ``dtype`` (float64, or
+    float32 where ``dtype`` is None would keep f16): its blocks' compute
+    type cleared, its parameters cast."""
+    m = copy.deepcopy(model).to("cpu")
+    for blk in m.backbone.blocks:
+        blk.compute_dtype = None
+    return m.to(dtype)
+
+
+def check_f16_step(device, card):
+    """17c's model part: the f16 flagship's stage-2 step graphed on the card
+    (the replay of the third step, at batch ``F16_PARITY_B``) against the
+    same step of a CPU copy in the f16 variants' arithmetic
+    (``kernel_arithmetic``: the f32 products widened from f16 and rounded
+    back) within phase 4's ``STEP_RTOL``, loss and gradient; and against a
+    float64 step, no farther than ``F16_FARTHER`` times the CPU's f16 step
+    by the plain version's f16 route (the filter MLP in f16, as JAX's XLA
+    cfconv) lies from it. The graphed steps leave out the clip
+    (``grad_clip`` 1e30), whose scaling would hide the gradient's norm.
+    Then the f16 and f32 graphed ms at the flagship shape (B=24) in turns,
+    and one eager stage-2 step of the f16 classification model (F=256) for
+    its variants."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.cuda import launches
+    from conan_fgw_tpu_torch.train import loop
+
+    def graphed(dtype, pb, settings):
+        model = ConanModel(seed=SEED, device=device, compute_dtype=dtype)
+        graphs = loop.step_graphs(model, loop.make_optimizer(model, settings), settings, device)
+        for _ in range(REMAT_STEPS - 1):  # the eager warm-up, the capture and its replay
+            graphs.train(pb)
+        return model, graphs
+
+    before = collections.Counter(launches)
+    recs = random_dataset(SEED + 3, F16_PARITY_B, num_conformers=K, heavy_range=(8, 10),
+                          device=device)
+    pb = pack_batch(recs, max_atoms=32, batch_size=F16_PARITY_B)
+    settings = loop.TrainSettings(batch_size=F16_PARITY_B, use_barycenter=True, grad_clip=1e30)
+    model, graphs = graphed("float16", pb, settings)
+    snapshot = copy.deepcopy(model)
+    loss_k, _ = graphs.train(pb)  # a replay
+    torch.cuda.synchronize()
+    on_card = (float(loss_k), np.concatenate([
+        (np.zeros(p.shape) if g is None else g.detach().cpu().double().numpy()).ravel()
+        for p, g in zip(model.parameters(), graphs.grads)]))
+    cpu_batch = pb.to("cpu")
+    t0 = time.perf_counter()
+    with kernel_arithmetic():
+        arith = _step_vector(copy.deepcopy(snapshot).to("cpu"), cpu_batch)
+    route = _step_vector(copy.deepcopy(snapshot).to("cpu"), cpu_batch)
+    ref = _step_vector(_f32_reference(snapshot, torch.float64),
+                       dataclasses.replace(cpu_batch, pos=cpu_batch.pos.double()))
+    cpu_s = time.perf_counter() - t0
+
+    def d(a, b):
+        return abs(a[0] - b[0]) / abs(b[0]), float(np.linalg.norm(a[1] - b[1]) / np.linalg.norm(b[1]))
+
+    out = dict(card_arith=d(on_card, arith), card_f64=d(on_card, ref), route_f64=d(route, ref),
+               card_route=d(on_card, route), cpu_s=cpu_s)
+    print(f"[f16 parity B{F16_PARITY_B}] graphed replay (loss, gradient) against the CPU step in"
+          f" the f16 variants' arithmetic {out['card_arith'][0]:.3e}, {out['card_arith'][1]:.3e}"
+          f" (tol {STEP_RTOL}); against float64 {out['card_f64'][0]:.3e}, {out['card_f64'][1]:.3e},"
+          f" where the CPU's f16 route (JAX's XLA cfconv in f16) lies {out['route_f64'][0]:.3e},"
+          f" {out['route_f64'][1]:.3e} (tol {F16_FARTHER}x); card against that route"
+          f" {out['card_route'][0]:.3e}, {out['card_route'][1]:.3e}; the CPU steps took"
+          f" {cpu_s:.1f} s")
+    require(max(out["card_arith"]) <= STEP_RTOL, f"f16 parity: {out['card_arith']} from the CPU")
+    require(all(c <= F16_FARTHER * r for c, r in zip(out["card_f64"], out["route_f64"])),
+            f"f16 parity: {out['card_f64']} from float64, the CPU's f16 route {out['route_f64']}")
+    del model, graphs, snapshot
+
+    recs = random_dataset(SEED + 3, B, num_conformers=K, heavy_range=(8, 10), device=device)
+    pb = pack_batch(recs, max_atoms=32, batch_size=B)
+    settings = loop.TrainSettings(batch_size=B, use_barycenter=True)
+    graphs = {dtype: graphed(dtype, pb, settings)[1] for dtype in ("float32", "float16")}
+    turns = {"float32": [], "float16": []}
+    for dtype in ("float32", "float16", "float16", "float32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(F16_TIMED):
+            graphs[dtype].train(pb)
+        torch.cuda.synchronize()
+        turns[dtype].append(1e3 * (time.perf_counter() - t0) / F16_TIMED)
+    grew = _grew_only("f16 flagship", before, REGRESSION + REGRESSION_F16)
+    require(all(grew.get(k, 0) > 0 for k in REGRESSION_F16), f"f16 flagship: launches {grew}")
+    out["graphed_ms"] = {k: min(v) for k, v in turns.items()}
+    print(f"[f16 graphs stage 2 N32] graphed {out['graphed_ms']['float16']:.3f} ms/step in f16,"
+          f" {out['graphed_ms']['float32']:.3f} in f32 (best of two turns of {F16_TIMED}) on {card}")
+    del graphs
+
+    cls = ConanModel(seed=SEED, device=device, task="classification", hidden_channels=512,
+                     num_filters=256, num_gaussians=GAUSS_CLS, compute_dtype="float16")
+    recs = random_dataset(SEED + 18, B_CLS, num_conformers=K, heavy_range=(8, 13), device=device)
+    cls_batch = pack_batch(recs, max_atoms=32, batch_size=B_CLS).to(device)
+    cls_settings = loop.TrainSettings(task="classification", batch_size=B_CLS, use_barycenter=True)
+    before = collections.Counter(launches)
+    loss, _ = loop.train_step(cls, loop.make_optimizer(cls, cls_settings), cls_batch, cls_settings)
+    out["class_launches"] = _grew_only("f16 classification", before, CLASSIFICATION_F16)
+    require(bool(loss.isfinite()) and all(out["class_launches"].get(k, 0) > 0
+                                          for k in CLASSIFICATION_F16),
+            f"f16 classification: loss {float(loss)}, launches {out['class_launches']}")
+    print(f"[f16 classification] one eager stage-2 step: loss {float(loss):.6f}, launches"
+          f" {out['class_launches']}")
+    out["launches"] = {**grew, **out["class_launches"]}
+    return out
+
+
+def kernel_neighbours(pos, maskf, cap_mode):
+    """The neighbour set K1 computes, read from K1 itself: with the filter W
+    fixed at 1 (zero weights, a bias of 1) and x the one-hot atom index,
+    ``out[g, i, j]`` is the gate of edge (i, j), non-zero exactly where j is
+    a neighbour of i. F=128 channels hold N <= 128 atoms."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda.cfconv import cfconv_forward
+
+    G, N, _ = pos.shape
+    dev = pos.device
+    x = torch.zeros(G, N, F, device=dev)
+    x[:, torch.arange(N), torch.arange(N)] = 1.0
+    w1, b1 = torch.zeros(GAUSS, F, device=dev), torch.zeros(F, device=dev)
+    w2, b2 = torch.zeros(F, F, device=dev), torch.ones(F, device=dev)
+    out = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP, cap_mode)
+    return out[..., :N] > 0
+
+
+def check_nearest(device, card, rows):
+    """17d: K1/K2 with the nearest cap against the plain version at N=64
+    (phase 2's inputs there, the cap binding); the kernels' neighbour sets
+    against the plain version's, where a row may differ only by a near tie
+    (two distances within ``NEAR_TIE``, which the card's distance arithmetic
+    may order otherwise); a stage-2 step of the nearest-cap SchNet model at
+    N=64 card against CPU (phase 4's gates) and eager against graphed
+    (phase 8's gate)."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+    from conan_fgw_tpu_torch.train import loop
+
+    gen = torch.Generator().manual_seed(SEED + 1764)
+    label, heavy, n_atoms = FGW_SHAPES[1]
+    pos, mask = packed_geometry(SEED + n_atoms, B, heavy, n_atoms, device)
+    within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
+    require(bool((within > CAP).any()), "nearest: the N=64 inputs never engage the cap")
+    check_cfconv(f"{label}-nearest", pos, mask, gen, rows, cap_mode="nearest")
+
+    got = kernel_neighbours(pos, mask.to(torch.float32).contiguous(), "nearest").cpu()
+    want = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, CAP, "nearest").cpu()
+    dist = pairwise_distances(pos.cpu().double())  # to tell a near tie
+    bad = (got != want).any(-1)
+    for g, i in bad.nonzero().tolist():
+        # the farthest neighbour the plain version keeps: the cap's edge, or
+        # the cutoff's where the cap does not bind
+        edge = float(dist[g, i][want[g, i]].max())
+        moved = dist[g, i][got[g, i] != want[g, i]]
+        tie = ((moved - edge).abs() <= NEAR_TIE) | ((moved - CUTOFF).abs() <= NEAR_TIE)
+        require(bool(tie.all()), f"nearest: graph {g} row {i} keeps other neighbours than the plain"
+                f" version, at {moved.tolist()} against its edge {edge}")
+    ties = int(bad.sum())
+    print(f"[nearest N64] K1's neighbour sets against the plain version's: {ties} of"
+          f" {int(mask.sum())} rows differ, all by near ties (within {NEAR_TIE} A); the cap binds"
+          f" in {int((within > CAP).sum())} rows")
+
+    recs = random_dataset(SEED + 64, NEAR_B, num_conformers=K, heavy_range=heavy, device=device)
+    pb = pack_batch(recs, max_atoms=NEAR_N, batch_size=NEAR_B)
+    model = ConanModel(seed=SEED, device=device, neighbor_cap_mode="nearest")
+    out = {"parity": step_parity(model, pb, device, "nearest parity")}
+    settings = loop.TrainSettings(batch_size=NEAR_B, use_barycenter=True)
+    losses, weights = {}, {}
+    for mode in ("eager", "graphed"):
+        m = copy.deepcopy(model)
+        opt = loop.make_optimizer(m, settings)
+        graphs = loop.step_graphs(m, opt, settings, device)
+        losses[mode] = torch.stack([
+            loop.train_step(m, opt, pb.to(device), settings)[0] if mode == "eager"
+            else graphs.train(pb)[0] for _ in range(REMAT_STEPS)])
+        weights[mode] = list(m.parameters())
+    loss_rel = _max_rel(losses["graphed"], losses["eager"])
+    w_rel = max(_max_rel(q.detach(), p.detach()) for p, q in zip(weights["eager"],
+                                                                   weights["graphed"]))
+    print(f"[nearest graphs N64 B{NEAR_B}] {REMAT_STEPS} graphed steps against eager: losses"
+          f" {loss_rel:.3e}, weights {w_rel:.3e} (tol {GRAPH_RTOL})")
+    require(loss_rel <= GRAPH_RTOL and w_rel <= GRAPH_RTOL, "nearest: graphed against eager")
+    out.update(ties=ties, graphs_loss_rel=loss_rel, graphs_weight_rel=w_rel)
+    return out
+
+
+def check_remat(device, card):
+    """17e: the flagship stage-2 step with ``remat`` through CUDA graphs:
+    the replay's gradients, loss and weights bit for bit those of
+    ``remat=False``; the train graph's K1 nodes twice those without (K1
+    recomputes each block in the backward); then the peak memory of eager
+    steps with and without remat at B=24 and at B=256 (``bench.py``'s
+    ``large_batch`` shape, K=5, N=32, f32)."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.train import loop
+
+    recs = random_dataset(SEED + 3, B, num_conformers=K, heavy_range=(8, 10), device=device)
+    pb = pack_batch(recs, max_atoms=32, batch_size=B)
+    settings = loop.TrainSettings(batch_size=B, use_barycenter=True)
+    runs = {}
+    with kept_graphs():
+        for remat in (False, True):
+            model = ConanModel(seed=SEED, device=device, remat=remat)
+            graphs = loop.step_graphs(model, loop.make_optimizer(model, settings), settings, device)
+            losses = [graphs.train(pb)[0] for _ in range(REMAT_STEPS)]
+            torch.cuda.synchronize()
+            nodes = graph_kernels(graphs.steps[("train", pb.z.shape)].graph)
+            runs[remat] = (model, graphs, torch.stack(losses), nodes)
+    (m0, g0, l0, n0), (m1, g1, l1, n1) = runs[False], runs[True]
+    same_grads = all((a is None and b is None) or torch.equal(a, b)
+                     for a, b in zip(g0.grads, g1.grads))
+    same = same_grads and torch.equal(l0, l1) and all(
+        torch.equal(p, q) for p, q in zip(m0.parameters(), m1.parameters()))
+    print(f"[remat] {REMAT_STEPS} graphed stage-2 steps: gradients, losses and weights bit-identical"
+          f" to remat=False {same}; train graph nodes {n1} against {n0}")
+    require(same, "remat: the graphed steps differ from remat=False")
+    require(n1["cfconv_fwd_kernel"] == 2 * n0["cfconv_fwd_kernel"] == 6
+            and n1["cfconv_bwd_kernel"] == n0["cfconv_bwd_kernel"] == 3,
+            f"remat: K1/K2 nodes {n1} against {n0}")
+    del runs, m0, m1, g0, g1
+    out = {"nodes": {"remat": n1, "no_remat": n0}, "memory": {}}
+    for b in (B, LARGE_B):
+        recs = random_dataset(SEED + b, b, num_conformers=K, heavy_range=(8, 10), device=device)
+        batch = pack_batch(recs, max_atoms=32, batch_size=b).to(device)
+        settings = loop.TrainSettings(batch_size=b, use_barycenter=True)
+        for remat in (False, True):
+            out["memory"][f"B{b} remat {remat}"] = eager_peak(
+                f"remat memory B{b} remat={remat}", ConanModel(seed=SEED, device=device, remat=remat),
+                batch, settings, card)
+        del batch
+        ratio = (out["memory"][f"B{b} remat True"]["peak_gib"]
+                 / out["memory"][f"B{b} remat False"]["peak_gib"])
+        print(f"[remat memory B{b}] peak with remat / without: {ratio:.3f} on {card}")
+    torch.cuda.empty_cache()
+    return out
+
+
+class _EagerAccumulating:
+    """``fit``'s steps without graphs, each batch moved with ``to`` and
+    stepped eagerly, with the accumulation's mini-steps: the reference of
+    the graphed accumulation."""
+
+    def __init__(self, model, optimizer, settings, device, accumulation=None):
+        from conan_fgw_tpu_torch.train import loop
+
+        def train(pb):
+            update = accumulation.begin()
+            out = loop.train_step(model, optimizer, pb.to(device), settings, accumulation, update)
+            accumulation.end()
+            return out
+
+        self.train = train
+        self.eval = lambda pb: loop.eval_step(model, pb.to(device), settings)
+
+    def stage(self, records, batch_size, buckets):
+        return None
+
+
+def check_accumulate(device, card):
+    """17f: ``fit`` with ``accumulate_steps=4`` through CUDA graphs, one
+    epoch of sol250's stage 1 (``ACC_B``): two train graphs a shape ("train",
+    "train_update"); the weights within ``ACC_EAGER_RTOL`` of the same fit
+    stepped eagerly on the card and within ``ACC_CPU_RTOL`` of it on the
+    CPU (each the largest difference over the largest weight); Adam's count
+    in ``last_state`` equal to the updates; a second epoch resumed from that
+    ``last_state`` (in the middle of an accumulation) bit for bit the
+    straight two-epoch run; ms per mini-step."""
+    import numpy as np
+    import torch
+
+    from conan_fgw_tpu_torch.data.datasets import ConformerDataset
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.train import loop
+    from conan_fgw_tpu_torch.train.checkpoints import RunCheckpointer
+
+    train = ConformerDataset("train", "data", "sol250", "logS_surrogate", K).records()
+    val = ConformerDataset("valid", "data", "sol250", "logS_surrogate", K).records()
+    max_atoms = loop.dataset_max_atoms(train + val)
+
+    def run(epochs, dev, directory=None, resume=False):
+        settings = loop.TrainSettings(batch_size=ACC_B, num_epochs=epochs, accumulate_steps=ACC_K,
+                                      max_atoms=max_atoms, seed=SEED)
+        ckpt = RunCheckpointer(str(directory)) if directory else None
+        return loop.fit(settings, train, val, model=ConanModel(seed=SEED, device=dev), device=dev,
+                        checkpointer=ckpt, resume=resume)
+
+    def rel(a, b):
+        diff = max(float((p.detach().cpu() - q.detach().cpu()).abs().max())
+                   for p, q in zip(a.parameters(), b.parameters()))
+        return diff / max(float(q.detach().abs().max()) for q in b.parameters())
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_acc_") as name:
+        tmp = Path(name)
+        graphed = run(1, device, tmp / "a")
+        kinds = sorted({k[0] for k in graphed.graphs.steps if k[0] != "eval"})
+        captured = sorted(f"{k[0]} N{k[1][2]}" for k, st in graphed.graphs.steps.items()
+                          if k[0] != "eval" and st.graph is not None)
+        require(kinds == ["train", "train_update"] and captured,
+                f"accumulate: train kinds {kinds}, graphs captured {captured}")
+        steps = graphed.history[0]["train_steps"]
+        with np.load(tmp / "a" / "last_state.npz") as data:
+            adam = {float(data[k]) for k in data.files if k.startswith("adam/") and k.endswith("/step")}
+            m = int(data["accumulate/mini_step"])
+        require(adam == {float(steps // ACC_K)} and m == steps % ACC_K and m > 0,
+                f"accumulate: Adam's steps {adam}, mini-step {m} after {steps} mini-steps")
+        original = loop.step_graphs
+        loop.step_graphs = _EagerAccumulating
+        try:
+            eager = run(1, device)
+        finally:
+            loop.step_graphs = original
+        t0 = time.perf_counter()
+        cpu = run(1, "cpu")
+        cpu_s = time.perf_counter() - t0
+        straight = run(2, device, tmp / "b")
+        resumed = run(2, device, tmp / "a", resume=True)
+        out.update(eager_rel=rel(graphed.model, eager.model), cpu_rel=rel(graphed.model, cpu.model),
+                   steps=steps, updates=steps // ACC_K, cpu_s=cpu_s,
+                   step_ms=1e3 * straight.history[1]["train_s"] / straight.history[1]["train_steps"])
+        same = all(torch.equal(p, q) for p, q in zip(straight.model.parameters(),
+                                                     resumed.model.parameters()))
+        print(f"[accumulate k={ACC_K}] one sol250 stage-1 epoch of {steps} mini-steps, {steps // ACC_K}"
+              f" updates (Adam's count), {m} mini-steps pending: weights against eager"
+              f" {out['eager_rel']:.3e} (tol {ACC_EAGER_RTOL}), against the CPU {out['cpu_rel']:.3e}"
+              f" (tol {ACC_CPU_RTOL}; the CPU fit took {cpu_s:.1f} s); the resumed second epoch bit"
+              f" for bit the straight run's {same}; graphed {out['step_ms']:.3f} ms per mini-step"
+              f" (second epoch) on {card}; train graphs captured in the first epoch {captured}")
+        require(out["eager_rel"] <= ACC_EAGER_RTOL, "accumulate: graphed against eager")
+        require(out["cpu_rel"] <= ACC_CPU_RTOL, "accumulate: card against the CPU")
+        require(same, "accumulate: the resumed run differs from the straight one")
+    return out
+
+
+def phase_last(device, card, rows):
+    """Phase 17: the last of the JAX package in the port. 17a K3's flat
+    path at any atom count; 17b the FGW demo; 17c float16 (K1/K2's f16
+    variants, the f16 flagship step graphed against the CPU, f16 against
+    f32 graphed ms); 17d the nearest-neighbour cap; 17e ``remat``; 17f
+    ``accumulate_steps``."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    check_fgw_anyn(device, rows)
+    out["demo"] = run_demo(device, card)
+    gen = torch.Generator().manual_seed(SEED + 1716)
+    for label, heavy, n_atoms in FGW_SHAPES[:2]:
+        pos, mask = packed_geometry(SEED + n_atoms, B, heavy, n_atoms, device)
+        check_cfconv(label, pos, mask, gen, rows, dtype=torch.float16)
+        pos, mask = packed_geometry(SEED + 1000 + n_atoms, B_CLS, heavy, n_atoms, device)
+        check_cfconv(label, pos, mask, gen, rows, F_CLS, GAUSS_CLS, dtype=torch.float16)
+    out["f16"] = check_f16_step(device, card)
+    out["nearest"] = check_nearest(device, card, rows)
+    out["remat"] = check_remat(device, card)
+    out["accumulate"] = check_accumulate(device, card)
+    out["launches"] = {k: out["f16"]["launches"].get(k, 0) for k in REPLACES}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[last] phase 17 took {out['phase_s']:.1f} s; the f16 paths' launches"
+          f" {out['f16']['launches']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3789,26 +4453,47 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
-    rows = phase_kernels(device)
-    model, totals, stage_rows = phase_train(device, card)
-    profile_stage2(model, device)
-    phase_parity(model, device)
-    stage_rows["runner"] = phase_runner(device, card)
-    stage_rows["classification"] = phase_classification(device, card)
-    stage_rows["graphs"] = phase_graphs(device, card)
-    stage_rows["pipeline"] = phase_pipeline(device, card)
-    stage_rows["backbones"] = phase_backbones(device, card, rows)
-    stage_rows["esan"] = phase_esan(device, card, rows)
-    stage_rows["bf16"] = phase_bf16(device, card, rows, f32={
+    phase_s = {}
+
+    def timed(label, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[label] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("1", phase_build)
+    rows = timed("2", phase_kernels, device)
+    model, totals, stage_rows = timed("3", phase_train, device, card)
+    timed("3 profile", profile_stage2, model, device)
+    timed("4", phase_parity, model, device)
+    stage_rows["runner"] = timed("5", phase_runner, device, card)
+    stage_rows["classification"] = timed("6", phase_classification, device, card)
+    stage_rows["graphs"] = timed("8", phase_graphs, device, card)
+    stage_rows["pipeline"] = timed("9", phase_pipeline, device, card)
+    stage_rows["backbones"] = timed("10", phase_backbones, device, card, rows)
+    stage_rows["esan"] = timed("11", phase_esan, device, card, rows)
+    stage_rows["bf16"] = timed("12", phase_bf16, device, card, rows, f32={
         "graphs": stage_rows["graphs"]["stage 2 N32"], "runner": stage_rows["runner"],
         "backbones": stage_rows["backbones"]})
-    stage_rows["fgw"] = phase_fgw(device, card, rows)
-    stage_rows["geom"] = phase_geom(device, card, rows)
-    stage_rows["dp"] = phase_dp(device, card, rows, {
+    stage_rows["fgw"] = timed("13", phase_fgw, device, card, rows)
+    stage_rows["geom"] = timed("14", phase_geom, device, card, rows)
+    stage_rows["dp"] = timed("15", phase_dp, device, card, rows, {
         label: stage_rows["runner"][label]["test_rmse"] for label in ("stage 1", "stage 2")})
-    stage_rows["tools"] = phase_tools(device, card, rows)
-    stage_rows["determinism"] = phase_determinism()
+    # 16a's data is made on the host's CPUs while phase 7's fresh processes
+    # run, which time nothing they are held to
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prepare_") as data_root:
+        started = start_prepare_sol250(Path(data_root))
+        try:
+            stage_rows["determinism"] = timed("7", phase_determinism)
+        except BaseException:
+            started[0].kill()
+            started[0].wait()
+            raise
+        prepared = (data_root, timed("16a wait", finish_prepare_sol250, Path(data_root), started))
+        stage_rows["tools"] = timed("16", phase_tools, device, card, rows, prepared)
+    stage_rows["last"] = timed("17", phase_last, device, card, rows)
+    stage_rows["phase_s"] = phase_s
+    print(f"[phases] seconds by phase {json.dumps(phase_s)}")
 
     def extra(row):
         out = {"bound_f32_ms": row["bound_f32"][0]} if "bound_f32" in row else {}
@@ -3834,6 +4519,7 @@ def main() -> int:
         bound_ms, bound_by = r["bound"]
         main_path = (totals[name] if name in REGRESSION else
                      stage_rows["fgw"]["launches"][name] if name == "fgw_couplings_mol" else
+                     stage_rows["last"]["launches"][name] if name.endswith("_f16") else
                      stage_rows["bf16"]["class_launches"][name] if name.endswith("_f256_bf16") else
                      bf16_launches[name] if name.endswith("_bf16") else class_launches[name])
         kernels.append({
@@ -3847,6 +4533,7 @@ def main() -> int:
             "geom_launches": stage_rows["geom"]["launches"][name],
             "dp_launches": stage_rows["dp"]["launches"][name],
             "tools_launches": stage_rows["tools"]["launches"][name],
+            "f16_launches": stage_rows["last"]["launches"][name],
             **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
             **{f"{cfg}_launches": run["launches"][name]
                for cfg, run in stage_rows["esan"]["runner"].items()},
@@ -3865,7 +4552,8 @@ def main() -> int:
           f" {min(flagship['graphed_ms']):.3f} ms/step; geom_launches"
           f" {json.dumps({k['name']: k['geom_launches'] for k in kernels})}; dp_launches (rank 0)"
           f" {json.dumps({k['name']: k['dp_launches'] for k in kernels})}; tools_launches"
-          f" {json.dumps({k['name']: k['tools_launches'] for k in kernels})}")
+          f" {json.dumps({k['name']: k['tools_launches'] for k in kernels})}; phase 17"
+          f" {stage_rows['last']['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels, "launches_counted": LAUNCHES_COUNTED, "train": stage_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

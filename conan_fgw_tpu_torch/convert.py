@@ -16,7 +16,8 @@ head's ``Dense_0..3`` ``q``, ``k``, ``v`` and ``head``, the others'
 ``Dense_0`` ``head``), ``GAT2D_0`` ``gat``, and an ESAN variant's module
 (``AverageConformerESAN_0``, ...) ``net``, with its ``siamese``,
 ``info_sharing``, GATs, ``deep_sets/Dense_0`` and ``transformation`` under
-it. A SchNet's covalent ``blocks_cov_i`` map as its ``blocks_i`` do. A leaf
+it. A SchNet's covalent ``blocks_cov_i`` map as its ``blocks_i`` do. A
+tree of one ``Dense_0`` is an ``AttentionLayer``'s, whose ``lin`` it is. A leaf
 that no rule maps raises.
 ``state_dict_from_flax_checkpoint`` does the same for a parameter
 checkpoint file of the JAX package, reading it with numpy alone.
@@ -145,6 +146,8 @@ def _conan_rules(tree: dict) -> tuple:
 def _aux_rules(tree: dict) -> tuple:
     """The rules of an aux head's tree (``models/aux_heads.py``), told
     apart by its top-level modules."""
+    if set(tree) == {"Dense_0"} and set(tree["Dense_0"]) == {"kernel", "bias"}:
+        return _dense("Dense_0", "lin")  # models/attention.py::AttentionLayer
     if "SchNet3D_0" in tree:
         # the attention head's Dense_0..3 are q, k, v and the head
         heads = ("q", "k", "v", "head") if "Dense_3" in tree else ("head",)

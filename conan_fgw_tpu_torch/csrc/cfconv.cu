@@ -4,8 +4,8 @@
 //   K1 cfconv_fwd  <- _fused_fwd_impl / _kernel      (forward messages)
 //   K2 cfconv_bwd  <- _fused_bwd_impl / _bwd_kernel  (dx and filter-MLP grads)
 //
-// Per conformer graph: Gram-form distances, the valid & radius & first-cap-
-// by-index neighbour gate with cosine envelope, the Gaussian RBF, the filter
+// Per conformer graph: Gram-form distances, the valid & radius & capped
+// neighbour gate with cosine envelope, the Gaussian RBF, the filter
 // MLP W = ssp(rbf W1 + b1) W2 + b2 and m_i = sum_j W_ij gate_ij x_j. No
 // (G, N, N, F) tensor reaches device memory: the edge pipeline runs per tile
 // of ET edges in shared memory and registers.
@@ -71,19 +71,28 @@
 //   cfconv_sum_parts_kernel sums them in slab order. The edge list and the
 //   gathers are built once per slab.
 //
-// Node features: x and the cotangent are f32 or bf16 (the element type T
-// of the kernels), as the Pallas kernels take bf16 x in a bf16 trunk. A
-// bf16 element is widened to f32 as it is loaded and everything after is
-// the f32 arithmetic above, so the bf16 variant computes exactly what the
-// f32 one does on the widened inputs. Its out and dx are summed in an f32
-// scratch and rounded once to bf16, to nearest even (__float2bfloat16_rn,
-// as XLA's convert rounds), by cfconv_sum_parts_kernel; the weight
-// gradients stay f32 and are summed as in the f32 variant.
+// Node features: x and the cotangent are f32, bf16 or f16 (the element
+// type T of the kernels), as the Pallas kernels take bf16 x in a bf16 trunk
+// (an f16 trunk, which the Pallas kernels refuse, takes the same route
+// here). A bf16 or f16 element is widened to f32 as it is loaded and
+// everything after is the f32 arithmetic above, so those variants compute
+// exactly what the f32 one does on the widened inputs. Their out and dx are
+// summed in an f32 scratch and rounded once to T, to nearest even
+// (__float2bfloat16_rn, __float2half_rn, as XLA's convert rounds), by
+// cfconv_sum_parts_kernel; the weight gradients stay f32 and are summed as
+// in the f32 variant.
+//
+// The neighbour cap is a runtime argument (cap_mode), not a template flag,
+// which would double the instantiations: 0 keeps torch-cluster's first
+// candidates by index (the Pallas kernels' only rule), 1 the nearest ones
+// (radius_graph_mask's cap_mode "nearest"). The rule is applied once per
+// row when a row's neighbour bits are built, outside the edge tiles.
 //
 // Limits: F = 128 with 2 <= Gs <= 64, or F = 256 with 2 <= Gs <= 16;
 // N <= 128 atoms.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -377,11 +386,58 @@ __device__ void load_graph(const Smem& s, const float* pos, const float* mask, i
   team_sync();
 }
 
+// Neighbour bits of rows [r0, r1) under the nearest rule: j is kept when
+// it is within the cutoff, is not i, and fewer than cap other such
+// neighbours k have (d_k, k) < (d_j, j), ties going to the lower index as a
+// stable argsort orders them. One warp per row; lane l holds the distances
+// of j = l, l + 32, l + 64, l + 96 (infinity where j is no neighbour), and
+// each rank is a count over the row's values, shuffled lane by lane.
+__device__ void row_bits_nearest(const Smem& s, int n, float cutoff, int cap, int r0, int r1) {
+  const int warp = tid() >> 5, lane = tid() & 31;
+  const int words = (n + 31) >> 5;
+  for (int i = r0 + warp; i < r1; i += THREADS / 32) {
+    const bool vi = s.mask[i] > 0.5f;
+    float d[NWORD];
+    int rank[NWORD];
+#pragma unroll
+    for (int w = 0; w < NWORD; ++w) {
+      const int j = 32 * w + lane;
+      d[w] = INFINITY;
+      rank[w] = 0;
+      if (j < n && j != i && vi && s.mask[j] > 0.5f) {
+        const float dj = pair_dist(s.pos, s.sq, i, j);
+        if (dj <= cutoff) d[w] = dj;
+      }
+    }
+#pragma unroll
+    for (int w2 = 0; w2 < NWORD; ++w2) {
+      if (w2 >= words) break;  // uniform across the warp
+      for (int src = 0; src < 32; ++src) {
+        const float dk = __shfl_sync(0xffffffffu, d[w2], src);  // neighbour k = 32 w2 + src
+        const int k = 32 * w2 + src;
+#pragma unroll
+        for (int w = 0; w < NWORD; ++w) rank[w] += dk < d[w] || (dk == d[w] && k < 32 * w + lane);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < NWORD; ++w) {
+      const uint32_t nb = __ballot_sync(0xffffffffu, d[w] < INFINITY && rank[w] < cap);
+      if (w < words && lane == 0) s.bits[i * NWORD + w] = nb;
+    }
+  }
+}
+
 // Neighbour bits of rows [r0, r1), one warp per row: torch-cluster's radius
 // graph with the first-(cap+1)-candidates-by-index rule (self included as a
-// candidate, then dropped). The rank of candidate j is a popcount prefix of
-// the row's candidate ballots.
-__device__ void row_bits(const Smem& s, int n, float cutoff, int cap, int r0, int r1) {
+// candidate, then dropped; cap_mode 0), or the nearest rule
+// (row_bits_nearest; cap_mode 1). The rank of candidate j is a popcount
+// prefix of the row's candidate ballots.
+__device__ void row_bits(const Smem& s, int n, float cutoff, int cap, int cap_mode, int r0,
+                         int r1) {
+  if (cap_mode) {
+    row_bits_nearest(s, n, cutoff, cap, r0, r1);
+    return;
+  }
   const int warp = tid() >> 5, lane = tid() & 31;
   const uint32_t lt = (1u << lane) - 1u;
   const int words = (n + 31) >> 5;
@@ -529,6 +585,9 @@ __device__ __forceinline__ float2 load_feature_pair(const float* p) {
 __device__ __forceinline__ float2 load_feature_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
+__device__ __forceinline__ float2 load_feature_pair(const __half* p) {
+  return __half22float2(__ldg(reinterpret_cast<const __half2*>(p)));
+}
 
 // Rows key[e] of a graph's (N, ld) tensor, columns of an (ET x W) tile, at
 // this thread's fragment positions of the edge tile (edge e, channels c,
@@ -646,7 +705,7 @@ __device__ __forceinline__ void store_rows(const float (&rows)[W / 64][4], float
 template <bool SOURCE_MAJOR>
 __global__ void __launch_bounds__(THREADS)
     cfconv_count_kernel(const float* __restrict__ pos, const float* __restrict__ mask, int n,
-                        float cutoff, int cap, int* __restrict__ item_tiles) {
+                        float cutoff, int cap, int cap_mode, int* __restrict__ item_tiles) {
   __shared__ float pos_s[3 * MAXN], sq_s[MAXN], mask_s[MAXN];
   __shared__ uint32_t bits_s[MAXN * NWORD];
   __shared__ int col_s[MAXN];
@@ -658,7 +717,7 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int NR = SOURCE_MAJOR ? R2 : R1;
   const int g = blockIdx.x, per_graph = (n + NR - 1) / NR;
   load_graph(s, pos, mask, g, n);
-  row_bits(s, n, cutoff, cap, 0, n);
+  row_bits(s, n, cutoff, cap, cap_mode, 0, n);
   team_sync();
   for (int a = tid(); a < n; a += THREADS) {  // edges of row a (K1) or source a (K2)
     int c = 0;
@@ -743,7 +802,8 @@ __global__ void __launch_bounds__(Cfg<F, KG, false>::TEAMS * THREADS, 1)
                       const T* __restrict__ x, const float* __restrict__ w1,
                       const float* __restrict__ b1, const float* __restrict__ w2,
                       const float* __restrict__ b2, const int* __restrict__ item_tiles,
-                      float* __restrict__ out, int G, int n, int gs, float cutoff, int cap) {
+                      float* __restrict__ out, int G, int n, int gs, float cutoff, int cap,
+                      int cap_mode) {
   using C = Cfg<F, KG, false>;
   constexpr int FO = C::FO;
   extern __shared__ __align__(16) float smem[];
@@ -768,7 +828,7 @@ __global__ void __launch_bounds__(Cfg<F, KG, false>::TEAMS * THREADS, 1)
     if (first >= last) continue;  // a row block without edges: its rows stay zero
     team_sync();  // the previous item is done with the lists
     load_graph(s, pos, mask, g, n);
-    row_bits(s, n, cutoff, cap, i0, min(i0 + R1, n));
+    row_bits(s, n, cutoff, cap, cap_mode, i0, min(i0 + R1, n));
     team_sync();
     const int E = build_edges<false, R1>(s, n, cutoff, i0);
     const T* xg = x + (size_t)g * n * F + o0;
@@ -817,7 +877,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const float* __restrict__ b1, const float* __restrict__ w2,
                       const float* __restrict__ b2, const T* __restrict__ gout,
                       const int* __restrict__ item_tiles, float* __restrict__ dx,
-                      float* __restrict__ partial, int G, int n, int gs, float cutoff, int cap) {
+                      float* __restrict__ partial, int G, int n, int gs, float cutoff, int cap,
+                      int cap_mode) {
   using C = Cfg<F, KG, true>;
   constexpr int SC = C::SC;
   extern __shared__ __align__(16) float smem[];
@@ -853,7 +914,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     if (g != loaded) {  // consecutive items of a graph share its neighbour bits
       load_graph(s, pos, mask, g, n);
-      row_bits(s, n, cutoff, cap, 0, n);
+      row_bits(s, n, cutoff, cap, cap_mode, 0, n);
       loaded = g;
     }
     __syncthreads();
@@ -987,10 +1048,11 @@ __global__ void cfconv_reduce_kernel(const float* __restrict__ partial, int bloc
 }
 
 // dst = the sum of the NS f32 parts, in part order, stored as T: K2's dx
-// from its slabs' parts, and the bf16 variants' out and dx from their f32
-// scratch (NS = 1), rounded to nearest even.
+// from its slabs' parts, and the bf16 and f16 variants' out and dx from
+// their f32 scratch (NS = 1), rounded to nearest even.
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_elem(__half* p, float v) { *p = __float2half_rn(v); }
 
 template <int NS, class T>
 __global__ void cfconv_sum_parts_kernel(const float* __restrict__ parts, size_t count,
@@ -1033,19 +1095,20 @@ int sum_parts(const float* parts, size_t count, T* dst, cudaStream_t st) {
 template <int F, int KG, class T>
 int fwd(const float* pos, const float* mask, const T* x, const float* w1, const float* b1,
         const float* w2, const float* b2, T* out, float* out32, int* item_tiles, int G, int N,
-        int Gs, float cutoff, int cap, int blocks, cudaStream_t st) {
+        int Gs, float cutoff, int cap, int cap_mode, int blocks, cudaStream_t st) {
   using C = Cfg<F, KG, false>;
   constexpr bool direct = std::is_same<T, float>::value;  // f32 sums straight into out
   float* acc = direct ? reinterpret_cast<float*>(out) : out32;
   const size_t count = (size_t)G * N * F;
   cudaError_t err;
   if ((err = cudaMemsetAsync(acc, 0, count * sizeof(float), st)) != cudaSuccess) return (int)err;
-  cfconv_count_kernel<false><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
+  cfconv_count_kernel<false><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, cap_mode,
+                                                    item_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int code = set_smem(cfconv_fwd_kernel<F, KG, T>, C::SMEM);
   if (code != 0) return code;
   cfconv_fwd_kernel<F, KG, T><<<blocks, C::TEAMS * THREADS, C::SMEM, st>>>(
-      pos, mask, x, w1, b1, w2, b2, item_tiles, acc, G, N, Gs, cutoff, cap);
+      pos, mask, x, w1, b1, w2, b2, item_tiles, acc, G, N, Gs, cutoff, cap, cap_mode);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if constexpr (!direct) return sum_parts<1, T>(acc, count, out, st);
   return 0;
@@ -1055,7 +1118,7 @@ template <int F, int KG, class T>
 int bwd(const float* pos, const float* mask, const T* x, const float* w1, const float* b1,
         const float* w2, const float* b2, const T* gout, T* dx, float* dx_parts, float* dw1,
         float* db1, float* dw2, float* db2, float* partial, int* item_tiles, int G, int N, int Gs,
-        float cutoff, int cap, int blocks, cudaStream_t st) {
+        float cutoff, int cap, int cap_mode, int blocks, cudaStream_t st) {
   using C = Cfg<F, KG, true>;
   constexpr bool direct = std::is_same<T, float>::value && C::NS == 1;  // dx written in place
   const size_t count = (size_t)G * N * F;
@@ -1063,12 +1126,14 @@ int bwd(const float* pos, const float* mask, const T* x, const float* w1, const 
   cudaError_t err;
   if ((err = cudaMemsetAsync(parts, 0, C::NS * count * sizeof(float), st)) != cudaSuccess)
     return (int)err;
-  cfconv_count_kernel<true><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, item_tiles);
+  cfconv_count_kernel<true><<<G, THREADS, 0, st>>>(pos, mask, N, cutoff, cap, cap_mode,
+                                                   item_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int code = set_smem(cfconv_bwd_kernel<F, KG, T>, C::SMEM);
   if (code != 0) return code;
   cfconv_bwd_kernel<F, KG, T><<<blocks, THREADS, C::SMEM, st>>>(
-      pos, mask, x, w1, b1, w2, b2, gout, item_tiles, parts, partial, G, N, Gs, cutoff, cap);
+      pos, mask, x, w1, b1, w2, b2, gout, item_tiles, parts, partial, G, N, Gs, cutoff, cap,
+      cap_mode);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int total = F * F + Gs * F + 2 * F;
   cfconv_reduce_kernel<F, KG><<<(total + 255) / 256, 256, 0, st>>>(partial, blocks, Gs, dw1, db1,
@@ -1081,6 +1146,11 @@ int bwd(const float* pos, const float* mask, const T* x, const float* w1, const 
 // The compiled widths: F = 128 with Gs <= 64, F = 256 with Gs <= 16.
 bool compiled(int F, int Gs) {
   return Gs >= 2 && ((F == 128 && Gs <= 64) || (F == 256 && Gs <= 16));
+}
+
+// Node-feature types 0 (f32), 1 (bf16), 2 (f16); cap modes 0 (index), 1 (nearest).
+bool valid_modes(int dtype, int cap_mode) {
+  return dtype >= 0 && dtype <= 2 && (cap_mode == 0 || cap_mode == 1);
 }
 
 }  // namespace
@@ -1106,62 +1176,62 @@ int cfconv_partial_floats(int F, int gs) {
 }
 
 // K1. pos (G,N,3), mask (G,N) as 0/1 floats, x (G,N,F), w1 (Gs,F), b1 (F),
-// w2 (F,F), b2 (F) -> out (G,N,F) of x's type: f32, or bf16 where bf16 is
-// 1, and then out32 is an f32 scratch of G*N*F floats (unused otherwise).
-// The rest is f32; all contiguous, 16-byte aligned, on the device.
+// w2 (F,F), b2 (F) -> out (G,N,F) of x's type: f32 (dtype 0), bf16 (1) or
+// f16 (2); for the last two out32 is an f32 scratch of G*N*F floats
+// (unused otherwise). The rest is f32; all contiguous, 16-byte aligned, on
+// the device. cap_mode 0 keeps the first neighbours by index, 1 the nearest.
 // `blocks` is the persistent grid size, a multiple of cfconv_slabs(F, 0),
 // and item_tiles a scratch of G * ceil(N/4) ints.
 int cfconv_fwd(const float* pos, const float* mask, const void* x, const float* w1,
                const float* b1, const float* w2, const float* b2, void* out, float* out32,
-               int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int blocks,
-               int bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 0)) return (int)cudaErrorInvalidValue;
-  using B = __nv_bfloat16;
-  const auto xb = static_cast<const B*>(x);
-  const auto xf = static_cast<const float*>(x);
-  if (F == 128 && bf16)
-    return fwd<128, 64, B>(pos, mask, xb, w1, b1, w2, b2, static_cast<B*>(out), out32, item_tiles,
-                           G, N, Gs, cutoff, cap, blocks, st);
-  if (F == 128)
-    return fwd<128, 64, float>(pos, mask, xf, w1, b1, w2, b2, static_cast<float*>(out), out32,
-                               item_tiles, G, N, Gs, cutoff, cap, blocks, st);
-  if (bf16)
-    return fwd<256, 16, B>(pos, mask, xb, w1, b1, w2, b2, static_cast<B*>(out), out32, item_tiles,
-                           G, N, Gs, cutoff, cap, blocks, st);
-  return fwd<256, 16, float>(pos, mask, xf, w1, b1, w2, b2, static_cast<float*>(out), out32,
-                             item_tiles, G, N, Gs, cutoff, cap, blocks, st);
+               int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int cap_mode,
+               int blocks, int dtype, void* stream) {
+  if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 0) || !valid_modes(dtype, cap_mode))
+    return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto tag) {
+    using T = decltype(tag);
+    const auto xt = static_cast<const T*>(x);
+    const auto ot = static_cast<T*>(out);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (F == 128)
+      return fwd<128, 64, T>(pos, mask, xt, w1, b1, w2, b2, ot, out32, item_tiles, G, N, Gs,
+                             cutoff, cap, cap_mode, blocks, st);
+    return fwd<256, 16, T>(pos, mask, xt, w1, b1, w2, b2, ot, out32, item_tiles, G, N, Gs, cutoff,
+                           cap, cap_mode, blocks, st);
+  };
+  if (dtype == 1) return run(__nv_bfloat16{});
+  if (dtype == 2) return run(__half{});
+  return run(0.f);
 }
 
 // K2. As K1 plus the cotangent gout (G,N,F) of x's type, a scratch of
 // blocks * cfconv_partial_floats(F, Gs) floats, one of G * ceil(N/8) ints
-// and, where cfconv_slabs(F, 1) > 1 or bf16 is 1, one of that many (at
+// and, where cfconv_slabs(F, 1) > 1 or dtype is not 0, one of that many (at
 // least one) f32 (G,N,F) dx parts (dx_parts; unused otherwise). `blocks`
 // is a multiple of cfconv_slabs(F, 1). Writes dx (G,N,F) of x's type and
 // the f32 weight gradients summed over all graphs.
 int cfconv_bwd(const float* pos, const float* mask, const void* x, const float* w1,
                const float* b1, const float* w2, const float* b2, const void* gout, void* dx,
                float* dx_parts, float* dw1, float* db1, float* dw2, float* db2, float* partial,
-               int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int blocks,
-               int bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 1)) return (int)cudaErrorInvalidValue;
-  using B = __nv_bfloat16;
-  const auto xb = static_cast<const B*>(x), gb = static_cast<const B*>(gout);
-  const auto xf = static_cast<const float*>(x), gf = static_cast<const float*>(gout);
-  if (F == 128 && bf16)
-    return bwd<128, 64, B>(pos, mask, xb, w1, b1, w2, b2, gb, static_cast<B*>(dx), dx_parts, dw1,
-                           db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
-  if (F == 128)
-    return bwd<128, 64, float>(pos, mask, xf, w1, b1, w2, b2, gf, static_cast<float*>(dx),
-                               dx_parts, dw1, db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff,
-                               cap, blocks, st);
-  if (bf16)
-    return bwd<256, 16, B>(pos, mask, xb, w1, b1, w2, b2, gb, static_cast<B*>(dx), dx_parts, dw1,
-                           db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff, cap, blocks, st);
-  return bwd<256, 16, float>(pos, mask, xf, w1, b1, w2, b2, gf, static_cast<float*>(dx), dx_parts,
-                             dw1, db1, dw2, db2, partial, item_tiles, G, N, Gs, cutoff, cap, blocks,
-                             st);
+               int* item_tiles, int G, int N, int F, int Gs, float cutoff, int cap, int cap_mode,
+               int blocks, int dtype, void* stream) {
+  if (!compiled(F, Gs) || blocks % cfconv_slabs(F, 1) || !valid_modes(dtype, cap_mode))
+    return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto tag) {
+    using T = decltype(tag);
+    const auto xt = static_cast<const T*>(x);
+    const auto gt = static_cast<const T*>(gout);
+    const auto dt = static_cast<T*>(dx);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (F == 128)
+      return bwd<128, 64, T>(pos, mask, xt, w1, b1, w2, b2, gt, dt, dx_parts, dw1, db1, dw2, db2,
+                             partial, item_tiles, G, N, Gs, cutoff, cap, cap_mode, blocks, st);
+    return bwd<256, 16, T>(pos, mask, xt, w1, b1, w2, b2, gt, dt, dx_parts, dw1, db1, dw2, db2,
+                           partial, item_tiles, G, N, Gs, cutoff, cap, cap_mode, blocks, st);
+  };
+  if (dtype == 1) return run(__nv_bfloat16{});
+  if (dtype == 2) return run(__half{});
+  return run(0.f);
 }
 
 }  // extern "C"

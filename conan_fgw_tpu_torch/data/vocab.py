@@ -57,6 +57,15 @@ BOND_TYPES = [
     "ZERO",
 ]
 
+BOND_STEREO = [
+    "STEREONONE",
+    "STEREOANY",
+    "STEREOZ",
+    "STEREOE",
+    "STEREOCIS",
+    "STEREOTRANS",
+]
+
 FORMAL_CHARGE_OFFSET = 5  # formal_charge index = charge + 5, range(-5, 7)
 
 BOND_SINGLE = BOND_TYPES.index("SINGLE")

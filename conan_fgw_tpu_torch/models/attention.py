@@ -1,15 +1,29 @@
 """Self-attention of the classification model (port of
-``conan_fgw_tpu/models/attention.py::SelfAttention``).
+``conan_fgw_tpu/models/attention.py``).
 
-The model applies it to sequences of length 1 (one fused embedding per
-conformer), where the softmax over a singleton is 1 and the block reduces
-to its value projection; the general form is kept, as in the JAX package.
+The model applies ``SelfAttention`` to sequences of length 1 (one fused
+embedding per conformer), where the softmax over a singleton is 1 and the
+block reduces to its value projection; the general form is kept, as in the
+JAX package. ``AttentionLayer`` is the reference's unused
+``Attention_Layer``, which the JAX package keeps for inventory parity.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+class AttentionLayer(nn.Module):
+    """Gated softmax attention map ``softmax(x * lin(x), dim=1)``; ``lin``
+    is flax's ``Dense_0``."""
+
+    def __init__(self, n_feats: int):
+        super().__init__()
+        self.lin = nn.Linear(n_feats, n_feats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(x * self.lin(x), dim=1)
 
 
 class SelfAttention(nn.Module):

@@ -15,8 +15,8 @@ Gathers of differentiable rows (the atom embeddings, each block's
 fixed order. Each interaction block is recomputed in the backward
 (``torch.utils.checkpoint``), as the JAX module remats it.
 
-``compute_dtype`` bf16 (a config's ``compute_dtype: bfloat16``) makes only
-what the JAX module makes bf16, the N·M² triplet tensors: the spherical
+``compute_dtype`` bf16 (a config's ``compute_dtype: bfloat16``; f16 alike)
+makes only what the JAX module makes bf16, the N·M² triplet tensors: the spherical
 basis, ``lin_sbf``'s output (flax ``Dense(dtype=bf16)``,
 ``models/schnet.py::dense``) and the gathered ``x_kj``. The triplet
 contraction ``s1`` sums the bf16 products in f32 and comes out in f32
@@ -119,12 +119,12 @@ def glorot_orthogonal_(w: torch.Tensor, generator: torch.Generator, scale: float
 
 
 class _F32Product(torch.autograd.Function):
-    """``a @ b`` of two bf16 tensors with f32 sums and an f32 result; the
+    """``a @ b`` of two bf16 (or f16) tensors with f32 sums and an f32 result; the
     gradients are the f32 products with the other operand, rounded to the
     operand's type (what JAX's ``preferred_element_type=float32`` VJP gives).
     On the card one ``torch.bmm(..., out_dtype=float32)``; on the CPU, where
-    that has no kernel, the product of the widened operands (bf16 products
-    are exact in f32)."""
+    that has no kernel, the product of the widened operands (bf16 and f16
+    products are exact in f32)."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -144,9 +144,9 @@ class _F32Product(torch.autograd.Function):
 
 
 def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched ``a @ b``, in f32 for bf16 operands (``_F32Product``), in
-    their own type otherwise."""
-    if a.dtype == torch.bfloat16:
+    """Batched ``a @ b``, in f32 for bf16 or f16 operands (``_F32Product``),
+    in their own type otherwise."""
+    if a.dtype in (torch.bfloat16, torch.float16):
         return _F32Product.apply(a, b)
     return a @ b
 
@@ -226,7 +226,8 @@ class OutputBlock(nn.Module):
 class DimeNet3D(nn.Module):
     """Dense DimeNet with the SchNet backbone's API (``forward``,
     ``embed_dual``); ``out_channels`` 0 means ``hidden_channels // 2``;
-    ``compute_dtype`` "float32" or "bfloat16" (the triplet tensors')."""
+    ``compute_dtype`` a name ``device.py::compute_dtype`` takes (the
+    triplet tensors' type)."""
 
     def __init__(self, hidden_channels: int = 128, out_channels: int = 0, num_blocks: int = 6,
                  num_bilinear: int = 8, num_spherical: int = 2, num_radial: int = 3,

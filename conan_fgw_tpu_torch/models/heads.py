@@ -62,6 +62,14 @@ def _init_module(mod: nn.Module, generator: torch.Generator) -> None:
         _init_module(child, generator)
 
 
+class RegressionHead(nn.Linear):
+    """One Linear to a single output (the JAX package's ``RegressionHead``,
+    flax's ``Dense_0``); ``weight``/``bias`` as ``nn.Linear``'s."""
+
+    def __init__(self, in_features: int):
+        super().__init__(in_features, 1)
+
+
 class ClassificationHead(nn.Module):
     """Linear -> ReLU -> Linear(channels // 2) -> ReLU -> Linear(1) (the JAX
     package's ``ClassificationHead``; ``lins.0/1/2`` are flax's
@@ -96,9 +104,11 @@ class ConanModel(nn.Module):
     padding from marginals and normalisation. ``bary_postnorm`` "l2col"
     (ViSNet's wrapper) zeroes a non-finite barycenter and normalises each
     feature column of the barycenter to unit L2 norm before the readout.
-    ``compute_dtype`` ("float32" or "bfloat16") reaches the SchNet and
-    DimeNet backbones only, as in the JAX model: ViSNet, the heads, the GAT
-    and the FGW solver stay f32.
+    ``compute_dtype`` (a name ``device.py::compute_dtype`` takes) reaches
+    the SchNet and DimeNet backbones only, as in the JAX model: ViSNet, the
+    heads, the GAT and the FGW solver stay f32. ``neighbor_cap_mode`` and
+    ``remat`` reach the SchNet backbone (``models/schnet.py::SchNet3D``);
+    the JAX model leaves them at their defaults.
     """
 
     def __init__(self, task: str = "regression", backbone_name: str = "schnet",
@@ -108,7 +118,8 @@ class ConanModel(nn.Module):
                  fgw: FGWConfig = FGWConfig(), bary_shift: float = 0.5,
                  bary_norm: tuple[float, float] = (0.1, 2.0),
                  bary_pad_mode: str = "reference", bary_postnorm: str = "none", seed: int = 0,
-                 device: str | torch.device = "cuda", compute_dtype: str = "float32"):
+                 device: str | torch.device = "cuda", compute_dtype: str = "float32",
+                 neighbor_cap_mode: str = "index", remat: bool = False):
         super().__init__()
         if bary_pad_mode not in ("reference", "masked"):
             raise ValueError(f"unknown bary_pad_mode {bary_pad_mode!r}")
@@ -128,7 +139,8 @@ class ConanModel(nn.Module):
         if backbone_name == "schnet":
             self.backbone = SchNet3D(hidden_channels, num_filters, num_interactions,
                                      num_gaussians, cutoff, max_neighbors,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype,
+                                     neighbor_cap_mode=neighbor_cap_mode, remat=remat)
         elif backbone_name == "visnet":
             self.backbone = ViSNet3D(hidden_channels, cutoff=cutoff, max_neighbors=max_neighbors)
         elif backbone_name == "dimenet":
@@ -144,7 +156,7 @@ class ConanModel(nn.Module):
             self.head = ClassificationHead(half)
             self.self_attention = SelfAttention(half)
         else:
-            self.head = nn.Linear(half, 1)
+            self.head = RegressionHead(half)
         init_like_flax(self, torch.Generator().manual_seed(seed))
         self.to(dev)
 

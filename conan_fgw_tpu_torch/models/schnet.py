@@ -22,7 +22,18 @@ cast to bf16, ``lin1``/``lin2``/``lin`` as flax's ``Dense(dtype=bf16)``
 (``dense``), the activation on bf16, and the cfconv on bf16 node features
 through the kernels' bf16 variants, which give what the JAX model's cast to
 f32, f32 kernel and cast back give. The residual sum promotes to f32 again;
-the parameters, the heads and the covalent stack stay f32.
+the parameters, the heads and the covalent stack stay f32. ``float16`` runs
+the same way in f16; there the JAX module takes its XLA cfconv, which the
+plain version follows on the CPU, while the card's f16 kernels compute in
+f32 and round once (``ops/cuda/cfconv.py``). A float64 name computes in
+float32, as JAX without x64 does (``device.py::compute_dtype``).
+
+``neighbor_cap_mode`` ("index" or "nearest") picks the neighbours a binding
+cap keeps, for the FGW structure graph (``neighbor_graph``) and every
+block's cfconv alike. ``remat=True`` recomputes each interaction block in
+the backward (``torch.utils.checkpoint``), as the JAX module's
+``nn.remat`` does: the cfconv's forward kernel then runs twice a block a
+train step, and the gradients are bit-identical to ``remat=False``.
 
 The atom embedding is a product of the one-hot atomic numbers with the
 table (``ops/graph.py::embed_onehot``), not ``nn.Embedding``'s lookup: the
@@ -38,6 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from conan_fgw_tpu_torch.data.vocab import NUM_BOND_FEATURES
 from conan_fgw_tpu_torch.device import compute_dtype as resolve_compute_dtype
@@ -60,13 +72,15 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None) -> 
 
 class InteractionBlock(nn.Module):
     """One continuous-filter convolution block (PyG ``InteractionBlock``),
-    computed in ``compute_dtype`` (bf16, or None: the parameters' type)."""
+    computed in ``compute_dtype`` (bf16, f16, or None: the parameters'
+    type), its neighbours capped by ``cap_mode``."""
 
     def __init__(self, hidden_channels: int, num_filters: int, cutoff: float,
                  num_gaussians: int = 50, max_neighbors: int | None = 32,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, cap_mode: str = "index"):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.cap_mode = cap_mode
         self.cutoff = cutoff
         self.num_gaussians = num_gaussians
         self.max_neighbors = max_neighbors
@@ -86,7 +100,7 @@ class InteractionBlock(nn.Module):
         m = cfconv(
             pos.contiguous(), mask.to(torch.float32).contiguous(), x.contiguous(),
             self.filter_w1, self.filter_b1, self.filter_w2, self.filter_b2,
-            self.cutoff, self.num_gaussians, self.max_neighbors,
+            self.cutoff, self.num_gaussians, self.max_neighbors, cap_mode=self.cap_mode,
         )
         return dense(self.lin, shifted_softplus(dense(self.lin2, m, dt)), dt)
 
@@ -135,24 +149,30 @@ class SchNet3D(nn.Module):
     filters=128, gaussians=50, interactions=3, cutoff=10, 32 neighbours.
     ``heads``: "dual" (``lin1/lin2`` and ``lin1_bary/lin2_bary``) or
     "simple" (``lin1`` alone, for ``embed_simple``). ``compute_dtype``:
-    the interaction blocks' type, "float32" or "bfloat16".
+    the interaction blocks' type, a name ``device.py::compute_dtype``
+    takes. ``neighbor_cap_mode`` and ``remat`` as in the module docstring.
     """
 
     def __init__(self, hidden_channels: int = 128, num_filters: int = 128,
                  num_interactions: int = 3, num_gaussians: int = 50, cutoff: float = 10.0,
                  max_neighbors: int | None = 32, use_covalent: bool = False,
-                 heads: str = "dual", compute_dtype: str = "float32"):
+                 heads: str = "dual", compute_dtype: str = "float32",
+                 neighbor_cap_mode: str = "index", remat: bool = False):
         super().__init__()
         if heads not in ("dual", "simple"):
             raise ValueError(f"unknown heads {heads!r}")
+        if neighbor_cap_mode not in ("index", "nearest"):
+            raise ValueError(f"unknown neighbor_cap_mode {neighbor_cap_mode!r}")
         self.cutoff = cutoff
         self.num_gaussians = num_gaussians
         self.max_neighbors = max_neighbors
+        self.neighbor_cap_mode = neighbor_cap_mode
+        self.remat = remat
         self.use_covalent = use_covalent
         self.embedding = nn.Embedding(100, hidden_channels)
         self.blocks = nn.ModuleList(
             InteractionBlock(hidden_channels, num_filters, cutoff, num_gaussians, max_neighbors,
-                             resolve_compute_dtype(compute_dtype))
+                             resolve_compute_dtype(compute_dtype), neighbor_cap_mode)
             for _ in range(num_interactions)
         )
         if use_covalent:
@@ -171,20 +191,36 @@ class SchNet3D(nn.Module):
     def _embed(self, z, mask):
         return embed_onehot(z, self.embedding.weight) * mask[..., None].to(torch.float32)
 
+    def _block(self, blk, *args):
+        """``blk(*args)``; with ``remat``, while gradients are recorded,
+        recomputed in the backward. Nothing in a block draws random numbers,
+        and reading the RNG state would break a graph capture."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+        return blk(*args)
+
+    def neighbor_graph(self, pos, mask):
+        """Distances and the capped neighbour mask; also the FGW structure
+        graph's source."""
+        dist = pairwise_distances(pos)
+        nbr = radius_graph_mask(dist, mask, self.cutoff, self.max_neighbors,
+                                self.neighbor_cap_mode)
+        return dist, nbr
+
     def trunk(self, z, pos, mask, bond_adj=None, bond_attr=None):
         """Per-node features of the interaction stacks; with ``use_covalent``
         the covalent stack's over ``bond_adj``/``bond_attr`` (one per
         molecule, see ``CovalentInteractionBlock``) are concatenated."""
         h = self._embed(z, mask)
         for blk in self.blocks:
-            h = h + blk(h, pos, mask)
+            h = h + self._block(blk, h, pos, mask)
         if not self.use_covalent:
             return h
         if bond_adj is None or bond_attr is None:
             raise ValueError("use_covalent=True requires bond_adj and bond_attr")
         h_cov = self._embed(z, mask)
         for blk in self.blocks_cov:
-            h_cov = h_cov + blk(h_cov, bond_adj, bond_attr)
+            h_cov = h_cov + self._block(blk, h_cov, bond_adj, bond_attr)
         return torch.cat([h, h_cov], dim=-1)
 
     def forward(self, z, pos, mask, bond_adj=None, bond_attr=None):
@@ -196,7 +232,7 @@ class SchNet3D(nn.Module):
         """Both heads off the shared trunk: ``(h_3d, h_bary, nbr_mask)``; the
         neighbour mask doubles as the conformer structure graph for FGW."""
         h = self.trunk(z, pos, mask)
-        nbr = radius_graph_mask(pairwise_distances(pos), mask, self.cutoff, self.max_neighbors)
+        _, nbr = self.neighbor_graph(pos, mask)
         h3 = shifted_softplus(self.lin2(self.lin1(h)))
         hb = shifted_softplus(self.lin2_bary(self.lin1_bary(h)))
         return h3, hb, nbr
@@ -209,7 +245,6 @@ class SchNet3D(nn.Module):
         compute the radius graph, RBF and envelope of the JAX function's
         XLA formulation."""
         h = shifted_softplus(self.lin1(self.trunk(z, pos, mask)))
-        dist = pairwise_distances(pos)
-        nbr = radius_graph_mask(dist, mask, self.cutoff, self.max_neighbors)
+        dist, nbr = self.neighbor_graph(pos, mask)
         rbf = gaussian_smearing(dist, self.num_gaussians, 0.0, self.cutoff)
         return h, nbr, rbf * nbr[..., None].to(rbf.dtype)

@@ -39,8 +39,8 @@ MAX_SMEM_BYTES = 232_448
 _P, _I, _F, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 SIGNATURES = {
     # name: (restype, argtypes); every pointer and the stream are c_void_p
-    "cfconv_fwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
-    "cfconv_bwd": (_I, [_P] * 16 + [_I, _I, _I, _I, _F, _I, _I, _I, _P]),
+    "cfconv_fwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+    "cfconv_bwd": (_I, [_P] * 16 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "cfconv_partial_floats": (_I, [_I, _I]),
     "cfconv_slabs": (_I, [_I, _I]),
     "fgw_couplings": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),

@@ -33,14 +33,22 @@ shapes. Each width counts its launches under its own name (``kernel_name``).
 ``split_mm``, ``edge_list`` and ``cfconv_edges`` restate the kernels'
 arithmetic and edge order in plain PyTorch so the CPU tests can check them.
 
-Node features in bf16 (a ``compute_dtype: bfloat16`` trunk): ``x`` and the
-cotangent may be bf16, as the Pallas kernels take them; the weights stay
-f32. Each kernel has a bf16 variant (its own launch name, ``kernel_name``)
-that widens x and the cotangent to f32 as it loads them, computes as the f32
-variant does and rounds ``out`` and ``dx`` once to bf16, to nearest even;
-the weight gradients stay f32. So it gives the f32 variant's result on the
-widened inputs, rounded: what the JAX model's cast to f32, f32 kernel and
-cast back to bf16 give (``conan_fgw_tpu/models/schnet.py:92-98``).
+Node features in bf16 or f16 (a ``compute_dtype: bfloat16`` or
+``float16`` trunk): ``x`` and the cotangent may be bf16, as the Pallas
+kernels take them, or f16; the weights stay f32. Each kernel has a bf16 and
+an f16 variant (their own launch names, ``kernel_name``) that widen x and
+the cotangent to f32 as they load them, compute as the f32 variant does and
+round ``out`` and ``dx`` once to the node type, to nearest even; the weight
+gradients stay f32. So a variant gives the f32 variant's result on the
+widened inputs, rounded: for bf16 what the JAX model's cast to f32, f32
+kernel and cast back give (``conan_fgw_tpu/models/schnet.py:92-98``). The
+JAX model sends an f16 trunk to its XLA cfconv (the Pallas kernels take
+f32 and bf16 only), which runs the filter MLP in f16; ``_cfconv_plain``
+does the same on the CPU, and the card's f16 variant is the more precise.
+
+The neighbour cap: ``cap_mode="index"`` keeps torch-cluster's first
+neighbours by index (the Pallas kernels' rule), ``"nearest"`` the nearest
+(``ops/graph.py::radius_graph_mask``), a runtime argument of both kernels.
 """
 
 from __future__ import annotations
@@ -62,26 +70,40 @@ MAX_ATOMS = DEFAULT_BUCKETS[-1]
 # sources of one K2 work item (R2)
 BUILT = {128: 64, 256: 16}
 K1_ROWS, K2_ROWS = 4, 8
+# the node-feature types and neighbour-cap rules the kernels take, by the
+# codes of their C entry points
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+CAP_MODES = {"index": 0, "nearest": 1}
+_SUFFIX = {torch.bfloat16: "_bf16", torch.float16: "_f16"}
 
 
 def kernel_name(kernel: str, filters: int, dtype: torch.dtype = torch.float32) -> str:
     """The launch-count name of K1 (``"cfconv_fwd"``) or K2
     (``"cfconv_bwd"``) at a width and node-feature type: F = 128 in f32
-    keeps the plain name, F = 256 adds ``"_f256"`` and bf16 ``"_bf16"``
-    (``"cfconv_fwd_f256_bf16"``)."""
+    keeps the plain name, F = 256 adds ``"_f256"``, bf16 ``"_bf16"`` and
+    f16 ``"_f16"`` (``"cfconv_fwd_f256_bf16"``)."""
     name = kernel if filters == 128 else f"{kernel}_f{filters}"
-    return f"{name}_bf16" if dtype == torch.bfloat16 else name
+    return name + _SUFFIX.get(dtype, "")
 
 
-def _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
+def _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32,
+                  cap_mode="index"):
     """Plain PyTorch formulation; materialises the (G, N, N, F) filter. A
     bf16 ``x`` is widened and the f32 result rounded to bf16, as the kernels'
-    bf16 variants do; autograd then gives a bf16 ``dx``."""
+    bf16 variants do; autograd then gives a bf16 ``dx``. An f16 ``x`` runs
+    JAX's XLA cfconv in f16 (``conan_fgw_tpu/models/schnet.py:100-109``):
+    the filter MLP and the gated filter in f16, the sum over neighbours of
+    the f16 products in f32, the messages rounded to f16."""
     dist = pairwise_distances(pos)
-    nbr = radius_graph_mask(dist, mask > 0.5, cutoff, max_neighbors)
+    nbr = radius_graph_mask(dist, mask > 0.5, cutoff, max_neighbors, cap_mode)
     rbf = gaussian_smearing(dist, num_gaussians, 0.0, cutoff)
-    w = shifted_softplus(rbf @ w1 + b1) @ w2 + b2
     env = 0.5 * (torch.cos(dist * math.pi / cutoff) + 1.0)
+    if x.dtype == torch.float16:
+        dt = x.dtype
+        w = shifted_softplus(rbf.to(dt) @ w1.to(dt) + b1.to(dt)) @ w2.to(dt) + b2.to(dt)
+        w = w * (env * nbr.to(env.dtype))[..., None].to(dt)
+        return torch.einsum("...ijf,...jf->...if", w.float(), x.float()).to(dt)
+    w = shifted_softplus(rbf @ w1 + b1) @ w2 + b2
     gate = torch.where(nbr, env, torch.zeros_like(env)).to(w.dtype)
     return torch.einsum("...ijf,...ij,...jf->...if", w, gate, x.to(w.dtype)).to(x.dtype)
 
@@ -108,7 +130,7 @@ def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3, drop: int = 13) 
     return al @ bh + ah @ bl + ah @ bh
 
 
-def edge_list(pos, mask, cutoff, max_neighbors, source_major=False):
+def edge_list(pos, mask, cutoff, max_neighbors, source_major=False, cap_mode="index"):
     """The kernels' compacted edge list: index tensors ``(g, i, j)`` of every
     edge with a non-zero gate (j a message source for target i), in the
     order the kernels walk them. K1 (``source_major=False``) goes by graph,
@@ -116,7 +138,7 @@ def edge_list(pos, mask, cutoff, max_neighbors, source_major=False):
     i. A work item is a run of ``K1_ROWS`` consecutive rows (``K2_ROWS``
     sources), and the kernels cut this sequence into runs of tiles, so it is
     also the order within and across items and runs."""
-    nbr = radius_graph_mask(pairwise_distances(pos), mask > 0.5, cutoff, max_neighbors)
+    nbr = radius_graph_mask(pairwise_distances(pos), mask > 0.5, cutoff, max_neighbors, cap_mode)
     if not source_major:
         return torch.nonzero(nbr, as_tuple=True)
     g, j, i = torch.nonzero(nbr.transpose(-1, -2), as_tuple=True)
@@ -124,19 +146,19 @@ def edge_list(pos, mask, cutoff, max_neighbors, source_major=False):
 
 
 def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=32,
-                 mm=torch.matmul, slab=None):
+                 mm=torch.matmul, slab=None, cap_mode="index"):
     """K1's forward and K2's backward as the kernels compute them, over
     their edge lists, with the filter MLP's five products done by ``mm``
     (``split_mm`` for the tensor cores' arithmetic). ``slab`` splits K2's
     filters of ``h`` as the F = 256 kernel does: each slab's part of the
     filter W (``b2`` in the first) gives its own part of ``dx``, and the
     parts are summed in slab order. Returns ``out`` and ``(dx, dw1, db1,
-    dw2, db2)`` for the cotangent ``gout``. A bf16 ``x`` and ``gout`` are
-    the bf16 variants' mode: widened to f32, with ``out`` and ``dx``
-    rounded to bf16 at the end."""
-    if x.dtype == torch.bfloat16:
+    dw2, db2)`` for the cotangent ``gout``. A bf16 or f16 ``x`` and
+    ``gout`` are those variants' mode: widened to f32, with ``out`` and
+    ``dx`` rounded to the node type at the end."""
+    if x.dtype in (torch.bfloat16, torch.float16):
         out, (dx, *dw) = cfconv_edges(pos, mask, x.float(), w1, b1, w2, b2, gout.float(), cutoff,
-                                      max_neighbors, mm, slab)
+                                      max_neighbors, mm, slab, cap_mode)
         return out.to(x.dtype), (dx.to(x.dtype), *dw)
     G, N, F = x.shape
     dist = pairwise_distances(pos)
@@ -149,10 +171,10 @@ def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=
         gate = 0.5 * (torch.cos(d * math.pi / cutoff) + 1.0)
         return rbf, pre, h, mm(h, w2) + b2, gate[:, None]
 
-    g, i, j = edge_list(pos, mask, cutoff, max_neighbors)
+    g, i, j = edge_list(pos, mask, cutoff, max_neighbors, cap_mode=cap_mode)
     *_, w, gate = mlp(g, i, j)
     out = x.new_zeros(G * N, F).index_add_(0, g * N + i, w * gate * x[g, j]).view(G, N, F)
-    g, i, j = edge_list(pos, mask, cutoff, max_neighbors, source_major=True)
+    g, i, j = edge_list(pos, mask, cutoff, max_neighbors, source_major=True, cap_mode=cap_mode)
     rbf, pre, h, w, gate = mlp(g, i, j)
     gg = gout[g, i] * gate
     dw = gg * x[g, j]
@@ -173,7 +195,7 @@ def _check(pos, mask, x, w1, b1, w2, b2):
     for name, t in tensors.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"cfconv kernel: {name} must lie on {x.device}")
-        allowed = (torch.float32, torch.bfloat16) if name == "x" else (torch.float32,)
+        allowed = tuple(DTYPES) if name == "x" else (torch.float32,)
         if t.dtype not in allowed:
             raise ValueError(f"cfconv kernel: {name} must be "
                              f"{' or '.join(str(a) for a in allowed)}, got {t.dtype}")
@@ -214,28 +236,29 @@ def _on(device: torch.device):
     return torch.cuda.device(device)
 
 
-def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors):
+def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode="index"):
     """Launch K1: messages ``(G, N, F)`` of ``x``'s type."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     lib = _build.load_library()
     blocks = _blocks(lib, x, G, N, F, bwd=False)
-    bf16 = x.dtype == torch.bfloat16
+    narrow = x.dtype != torch.float32
     out = torch.empty_like(x)
-    out32 = torch.empty(x.shape, device=x.device) if bf16 else None  # the f32 sums
+    out32 = torch.empty(x.shape, device=x.device) if narrow else None  # the f32 sums
     item_tiles = torch.empty(G * -(-N // K1_ROWS), dtype=torch.int32, device=x.device)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.cfconv_fwd(
             *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out)),
-            out32.data_ptr() if bf16 else None, item_tiles.data_ptr(),
-            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, int(bf16), stream,
+            out32.data_ptr() if narrow else None, item_tiles.data_ptr(),
+            G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
+            DTYPES[x.dtype], stream,
         )
     _build.check(code, "cfconv_fwd")
     launches[kernel_name("cfconv_fwd", F, x.dtype)] += 1
     return out
 
 
-def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors):
+def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors, cap_mode="index"):
     """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g`` of
     ``x``'s type, ``dx`` of that type, the weight gradients f32 and summed
     over all graphs."""
@@ -247,10 +270,10 @@ def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors):
     lib = _build.load_library()
     blocks = _blocks(lib, x, G, N, F, bwd=True)
     slabs = lib.cfconv_slabs(F, 1)
-    bf16 = x.dtype == torch.bfloat16
+    narrow = x.dtype != torch.float32
     dx = torch.empty_like(x)
-    # the f32 parts of dx the slabs sum into (one, rounded to bf16, at F=128)
-    dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 or bf16 else dx
+    # the f32 parts of dx the slabs sum into (one, rounded to bf16 or f16, at F=128)
+    dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 or narrow else dx
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
     partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
@@ -260,7 +283,8 @@ def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors):
         code = lib.cfconv_bwd(
             *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dx_parts, dw1, db1, dw2,
                                      db2, partial, item_tiles)),
-            G, N, F, Gs, float(cutoff), int(max_neighbors), blocks, int(bf16), stream,
+            G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
+            DTYPES[x.dtype], stream,
         )
     _build.check(code, "cfconv_bwd")
     launches[kernel_name("cfconv_bwd", F, x.dtype)] += 1
@@ -275,30 +299,34 @@ def _aligned(t):
 
 class _CFConvFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors):
+    def forward(ctx, pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode):
         args = [_aligned(t) for t in (pos, mask, x, w1, b1, w2, b2)]
         ctx.save_for_backward(*args)
-        ctx.params = (cutoff, max_neighbors)
-        return cfconv_forward(*args, cutoff, max_neighbors)
+        ctx.params = (cutoff, max_neighbors, cap_mode)
+        return cfconv_forward(*args, cutoff, max_neighbors, cap_mode)
 
     @staticmethod
     def backward(ctx, g):
         grads = cfconv_backward(*ctx.saved_tensors, _aligned(g), *ctx.params)
-        return (None, None, *grads, None, None)
+        return (None, None, *grads, None, None, None)
 
 
-def cfconv(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32):
+def cfconv(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32,
+           cap_mode="index"):
     """Batched cfconv: ``pos (G, N, 3)``, ``mask (G, N)`` (0/1 floats),
-    ``x (G, N, F)`` f32 or bf16 -> messages ``(G, N, F)`` of x's type.
+    ``x (G, N, F)`` f32, bf16 or f16 -> messages ``(G, N, F)`` of x's type.
 
     CUDA tensors go to the kernels, CPU tensors to ``_cfconv_plain``.
-    ``max_neighbors=None`` keeps every neighbour in range.
+    ``max_neighbors=None`` keeps every neighbour in range; ``cap_mode``
+    ("index" or "nearest") picks which neighbours a binding cap keeps.
     """
     cap = x.shape[-2] if max_neighbors is None else int(max_neighbors)
+    if cap_mode not in CAP_MODES:
+        raise ValueError(f"unknown cap_mode {cap_mode!r}")
     if x.device.type == "cpu":
-        return _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff, num_gaussians, cap)
+        return _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff, num_gaussians, cap, cap_mode)
     if x.is_cuda:
         if w1.shape[0] != num_gaussians:
             raise ValueError(f"w1 has {w1.shape[0]} rows, want num_gaussians={num_gaussians}")
-        return _CFConvFunction.apply(pos, mask, x, w1, b1, w2, b2, cutoff, cap)
+        return _CFConvFunction.apply(pos, mask, x, w1, b1, w2, b2, cutoff, cap, cap_mode)
     raise ValueError(f"cfconv: unsupported device {x.device}")

@@ -7,7 +7,8 @@ per-molecule wrapper ``pallas_fgw_couplings``. The kernel lives in
 ``csrc/fgw.cu``, one CTA per solve; its header says what bounds it on this
 card and how the design answers it. It takes a bucket size N (a multiple of
 32) and each solve's true atom count n <= N, and leaves the padding out of
-the solve. The plain version is ``ops/fgw/coupling.py::fgw_coupling`` on
+the solve; both wrappers pad any other size up to the next multiple of 32.
+The plain version is ``ops/fgw/coupling.py::fgw_coupling`` on
 the leading n x n block, reached here through ``fgw_couplings_plain``.
 Forward only: the barycenter solves its couplings without gradient.
 """
@@ -115,18 +116,36 @@ def _solve(args, n, count, solver):
     raise ValueError(f"fgw couplings: unsupported device {', '.join(devices)}")
 
 
+def _padded(x, pad):
+    """``(S, n)`` or ``(S, n, n)`` zero-padded by ``pad`` rows (and columns)."""
+    return F.pad(x, (0, pad) if x.dim() == 2 else (0, pad, 0, pad)).contiguous()
+
+
 def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
                        sinkhorn_iters, sinkhorn_thr):
     """Solve ``S`` independent FGW couplings.
 
-    Args: ``Ms``/``C1s``/``C2s``/``T0s`` ``(S, N, N)``, ``ps``/``qs`` ``(S, N)``.
+    Args: ``Ms``/``C1s``/``C2s``/``T0s`` ``(S, N, N)``, ``ps``/``qs`` ``(S, N)``
+    for any ``N`` up to ``MAX_ATOMS``, as JAX's flat solver takes any ``n``.
     Returns ``(T (S, N, N) f32, diverged (S,) int32 per-solve flags)``.
     CUDA tensors go to the kernel (counted as ``fgw_couplings``), CPU
-    tensors to ``fgw_couplings_plain``; a mix of the two raises.
+    tensors to ``fgw_couplings_plain``; a mix of the two raises. A bucket
+    size (a multiple of 32) is launched as it is. Any other ``N`` is padded
+    to the next multiple of 32 with zero structure, mass and plan, the
+    kernel (or the plain version, on the CPU) solves the leading ``N x N``
+    block of every solve, and the result is cut back to ``N``.
     """
     solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,
                   sinkhorn_iters=sinkhorn_iters, sinkhorn_thr=sinkhorn_thr)
-    return _solve((Ms, C1s, C2s, ps, qs, T0s), None, "fgw_couplings", solver)
+    args = (Ms, C1s, C2s, ps, qs, T0s)
+    N = Ms.shape[-1]
+    pad = -N % 32
+    if not pad:
+        return _solve(args, None, "fgw_couplings", solver)
+    if N > MAX_ATOMS:
+        raise ValueError(f"fgw_couplings_flat: N={N} atoms, more than {MAX_ATOMS}")
+    T, div = _solve(tuple(_padded(x, pad) for x in args), N, "fgw_couplings", solver)
+    return T[:, :N, :N], div
 
 
 def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
@@ -146,12 +165,7 @@ def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol
     if n > MAX_ATOMS:
         raise ValueError(f"fgw_couplings: n={n} atoms, more than {MAX_ATOMS}")
     pad = -n % 32
-
-    def padded(x):
-        return F.pad(x, (0, pad) if x.dim() == 2 else (0, pad, 0, pad)).contiguous()
-
-    args = (padded(Ms), padded(Cb.expand(K, n, n)), padded(Cks), padded(p.expand(K, n)),
-            padded(qs), padded(T0s))
+    args = tuple(_padded(x, pad) for x in (Ms, Cb.expand(K, n, n), Cks, p.expand(K, n), qs, T0s))
     solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,
                   sinkhorn_iters=sinkhorn_iters, sinkhorn_thr=sinkhorn_thr)
     T, div = _solve(args, n, "fgw_couplings_mol", solver)

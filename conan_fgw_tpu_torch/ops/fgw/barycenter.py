@@ -227,8 +227,8 @@ def fgw_barycenter_batch(
 
     Marginals default to uniform over the padded node axis, weights to
     ``1/K``; each molecule starts from its first conformer's structure and
-    zero features. On the K3 route (``config.uses_kernel()``) ``N`` must be
-    a bucket size (a multiple of 32) on the card. Returns ``(Y (B, N, D),
+    zero features. On the K3 route (``config.uses_kernel()``) any ``N`` up
+    to 128 (``fgw_couplings_flat`` pads it to a multiple of 32). Returns ``(Y (B, N, D),
     C (B, N, N), n_div)``: ``n_div`` is the batch-total count (an int64
     tensor) of coupling solves that rolled back a Sinkhorn numerical
     failure while their molecule was not yet frozen.

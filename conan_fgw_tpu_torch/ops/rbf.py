@@ -41,19 +41,23 @@ class _LogAddExp0(torch.autograd.Function):
         return g * torch.exp(x - out)
 
 
-# log 2 rounded to bf16: the JAX function subtracts its weakly typed Python
-# scalar in the array's type; on the card PyTorch would subtract it in f32
+# log 2 rounded to bf16 and to f16: the JAX function subtracts its weakly
+# typed Python scalar in the array's type; on the card PyTorch would
+# subtract it in f32
 LOG2_BF16 = 0.69140625
+LOG2_F16 = 0.693359375
+_LOG2 = {torch.bfloat16: LOG2_BF16, torch.float16: LOG2_F16}
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
-    """``softplus(x) - log(2)``. On bf16 it rounds where the JAX function's
-    ``jnp.logaddexp(x, 0.0) - log 2`` rounds, forward and backward
-    (``_LogAddExp0``, then ``LOG2_BF16``): ``F.softplus`` rounds once and
-    differs from it in the last bit of about 6% of elements, and near 0,
-    where the subtraction cancels, by far more."""
-    if x.dtype == torch.bfloat16:
-        return _LogAddExp0.apply(x) - LOG2_BF16
+    """``softplus(x) - log(2)``. On bf16 and f16 it rounds where the JAX
+    function's ``jnp.logaddexp(x, 0.0) - log 2`` rounds, forward and
+    backward (``_LogAddExp0``, then ``log 2`` rounded to the type):
+    ``F.softplus`` rounds once and differs from it in the last bit of about
+    6% of bf16 elements, and near 0, where the subtraction cancels, by far
+    more."""
+    if x.dtype in _LOG2:
+        return _LogAddExp0.apply(x) - _LOG2[x.dtype]
     return F.softplus(x) - math.log(2.0)
 
 

@@ -15,7 +15,10 @@ Format, per checkpoint ``<name>`` in the run directory:
   state of every parameter that has one, as ``adam/<name>/exp_avg``,
   ``adam/<name>/exp_avg_sq`` and ``adam/<name>/step``. A parameter that has
   never had a gradient (the barycenter head in stage 1) has no Adam state,
-  in the file as in ``torch.optim.Adam``.
+  in the file as in ``torch.optim.Adam``. Under gradient accumulation
+  (``train/loop.py::Accumulation``) it also holds the running mean of the
+  gradients, ``accumulate/<name>`` for every parameter, and the mini-steps
+  so far, ``accumulate/mini_step`` (optax's ``MultiStepsState``).
 - ``<name>.meta.json``: ``epoch`` and ``metrics`` (``best``, ``last``), or
   ``epoch`` and ``loop`` (``last_state``: the LR plateau and early-stopping
   state, the best metric and epoch, and the history), as the JAX package
@@ -87,6 +90,24 @@ def _named_parameters(model, optimizer) -> list[tuple[str, torch.nn.Parameter]]:
     return named
 
 
+def _restore_accumulation(accumulation, model, optimizer, data, path: str) -> None:
+    """Copy a checkpoint's accumulation into ``accumulation`` in place: all
+    of it, or none where it has no ``accumulate/mini_step``."""
+    if "accumulate/mini_step" not in data:
+        for acc in accumulation.acc:
+            acc.zero_()
+        accumulation.m = 0
+        return
+    m = int(data["accumulate/mini_step"])
+    if not 0 <= m < accumulation.k:
+        raise ValueError(f"checkpoint at {path}: {m} accumulated mini-steps, not below"
+                         f" accumulate_steps={accumulation.k}")
+    with torch.no_grad():
+        for (name, _), acc in zip(_named_parameters(model, optimizer), accumulation.acc):
+            acc.copy_(torch.from_numpy(data[f"accumulate/{name}"]))
+    accumulation.m = m
+
+
 def merge_params(target, source):
     """Copy every entry present (by path) in ``source`` into ``target``;
     the others keep ``target``'s values. ``target`` and ``source`` are
@@ -128,30 +149,43 @@ class RunCheckpointer:
     def save_last(self, model, epoch: int):
         self._save("last", _model_arrays(model), {"epoch": epoch, "metrics": {}})
 
-    def save_state(self, model, optimizer, epoch: int, loop_state: dict | None = None):
+    def save_state(self, model, optimizer, epoch: int, loop_state: dict | None = None,
+                   accumulation=None):
         """Weights, Adam's state and the loop's state after ``epoch``, for
-        ``fit(..., resume=True)``. A capturable Adam keeps ``step`` on the
-        card; it is written as the same 0-d float array. The lr is not
-        written: the loop's state holds the schedule's."""
+        ``fit(..., resume=True)``, and an ``accumulation``'s state where
+        given. A capturable Adam keeps ``step`` on the card; it is written
+        as the same 0-d float array. The lr is not written: the loop's state
+        holds the schedule's."""
         arrays = _model_arrays(model)
-        for name, p in _named_parameters(model, optimizer):
+        named = _named_parameters(model, optimizer)
+        for name, p in named:
             st = optimizer.state.get(p)
             if st:
                 for key in _ADAM_KEYS:
                     arrays[f"adam/{name}/{key}"] = st[key].detach().cpu().numpy()
+        if accumulation is not None:
+            for (name, _), acc in zip(named, accumulation.acc):
+                arrays[f"accumulate/{name}"] = acc.detach().cpu().numpy()
+            arrays["accumulate/mini_step"] = np.asarray(accumulation.m, dtype=np.int32)
         self._save("last_state", arrays, {"epoch": epoch, "loop": loop_state or {}})
 
-    def restore_state(self, model, optimizer, which: str = "last_state") -> dict:
+    def restore_state(self, model, optimizer, which: str = "last_state",
+                      accumulation=None) -> dict:
         """Load weights and Adam's state into ``model`` and ``optimizer`` in
         place; return the meta dict (``epoch``, ``loop``). ``load_state_dict``
         puts the moments on their parameter's device, and ``step`` too where
         Adam is capturable (on the card). It replaces Adam's state tensors,
         and the lr tensor with a copy (it deep-copies ``param_groups``), so
         ``set_learning_rate`` and any CUDA graph of the optimizer
-        (``train/graphs.py``) must come after this call."""
+        (``train/graphs.py``) must come after this call. An
+        ``accumulation`` takes the checkpoint's running mean and mini-step
+        count in place, or starts empty where the checkpoint has none (one
+        written without accumulation)."""
         path = self._path(which, "npz")
         with np.load(path, allow_pickle=False) as data:
             _restore_model(model, data, path)
+            if accumulation is not None:
+                _restore_accumulation(accumulation, model, optimizer, data, path)
             opt_state = optimizer.state_dict()
             state = {}
             for i, (name, _) in enumerate(_named_parameters(model, optimizer)):

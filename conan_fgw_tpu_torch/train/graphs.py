@@ -48,6 +48,16 @@ and the second reads the buffer back, clips and steps Adam. A collective
 inside a capture is later work. Without ``reduce`` the train step stays one
 graph per shape.
 
+Gradient accumulation (``accumulation`` given,
+``train/loop.py::Accumulation``) makes two train kinds per shape, each
+captured as its own graph: ``"train"``, a mini-step that only adds its
+gradients to the running mean, and ``"train_update"``, one that also
+clips and steps Adam. The host knows the mini-step count and picks which
+to replay; the count's ``m + 1`` reaches the graphs through the
+accumulation's 0-d device tensor, written before the replay, so nothing
+branches inside a graph. Without it the train step stays one graph per
+shape.
+
 On the CPU the same object runs the step eagerly through the same static
 buffers: there are no graphs and no pinned slots there.
 """
@@ -245,11 +255,19 @@ class StepGraphs:
     ``(before, after)``: ``before(batch, rows)`` returns nothing,
     ``reduce()`` sums its results over the ranks, and ``after()`` returns
     ``(loss, n_div)``; ``eval_fn(batch, rows)``. ``rows`` is the host
-    batch's ``global_rows`` as a 0-d tensor."""
+    batch's ``global_rows`` as a 0-d tensor.
+
+    With an ``accumulation``, ``train_fn`` is the mini-step that only
+    accumulates and ``train_update_fn`` (of the same form) the one that
+    also updates; ``train`` picks one by the accumulation's count."""
 
     def __init__(self, train_fn, eval_fn: Callable, params: Sequence[torch.nn.Parameter],
-                 device, reduce: Callable | None = None):
+                 device, reduce: Callable | None = None, accumulation=None,
+                 train_update_fn=None):
         self.fns = {"train": train_fn, "eval": eval_fn}
+        self.accumulation = accumulation
+        if accumulation is not None:
+            self.fns["train_update"] = train_update_fn
         self.reduce = reduce
         self.params = list(params)
         self.device = torch.device(device)
@@ -290,7 +308,11 @@ class StepGraphs:
                                  out=pool.acquire())
 
     def train(self, pb: PackedBatch) -> tuple:
-        return self._run("train", pb)
+        if self.accumulation is None:
+            return self._run("train", pb)
+        out = self._run("train_update" if self.accumulation.begin() else "train", pb)
+        self.accumulation.end()
+        return out
 
     def eval(self, pb: PackedBatch) -> tuple:
         return self._run("eval", pb)
@@ -315,7 +337,7 @@ class StepGraphs:
                 step.after.replay()
             step.counts.replayed()
             out = tuple(t.clone() for t in step.out)
-        if kind == "train":
+        if kind != "eval":
             self.grads = step.grads if step.graph is not None else [p.grad for p in self.params]
         return out
 
@@ -376,5 +398,5 @@ class StepGraphs:
                     out = fn[1]()
         step.out = out
         step.graph = graph
-        if kind == "train":
+        if kind != "eval":
             step.grads = [p.grad for p in self.params]

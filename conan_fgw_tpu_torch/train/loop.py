@@ -21,6 +21,14 @@ Their batches come through ``batch_iterator``, as the JAX package's do:
 packed natively on a prefetch thread, on the card straight into
 ``StepGraphs``' pinned slots.
 
+``TrainSettings.accumulate_steps`` k > 1 accumulates gradients over k
+mini-steps before each update, as the JAX package wraps Adam in
+``optax.MultiSteps`` (``Accumulation``): a running mean of the mini-steps'
+gradients, and on every k-th mini-step the clip and Adam on the mean; the
+other mini-steps leave the weights and Adam's state as they were. On the
+card each shape then has two train graphs, one that accumulates and one
+that accumulates and updates; the host picks one by the mini-step count.
+
 Data parallelism (``fit(..., mesh=...)``, ``parallel/``): one process per
 rank consumes the global batch stream, packs its row block of each batch
 and divides its masked loss sum by the global batch's real molecules; the
@@ -87,6 +95,9 @@ class TrainSettings:
     max_atoms: int | None = None  # the largest bucket; None: the data's
     # flag non-finite and outlier predictions in `evaluate` (pred_outliers)
     eval_guard: bool = False
+    # mini-steps a gradient update averages over (optax.MultiSteps'
+    # every_k_schedule); 1 updates every step
+    accumulate_steps: int = 1
 
 
 def _denominator(w: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
@@ -166,16 +177,75 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
             group["lr"] = lr
 
 
-def train_step(model, optimizer, batch, settings: TrainSettings):
+class Accumulation:
+    """``optax.MultiSteps``' state beside Adam, for ``accumulate_steps`` k:
+    ``acc``, the running mean of this accumulation's gradients (one tensor
+    per parameter, zero where none came yet), and ``m``, its mini-steps so
+    far (``MultiStepsState.mini_step``), a host integer.
+
+    ``begin()`` before each mini-step writes ``m + 1`` into ``divisor``, a
+    0-d device tensor that a captured step reads, and says whether this
+    mini-step updates; ``fold(update)`` inside the step takes the fresh
+    gradients into the mean, ``acc += (g - acc) / (m + 1)`` (a division,
+    as optax divides), and on an update leaves the mean in the gradients
+    for the clip and Adam and zeroes ``acc``; ``end()`` after the step
+    moves ``m`` on, back to 0 after an update."""
+
+    def __init__(self, params, k: int, device):
+        if k < 2:
+            raise ValueError(f"accumulate_steps={k}: an accumulation has at least 2 mini-steps")
+        self.k = k
+        self.params = list(params)
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.m = 0
+        self.divisor = torch.ones((), dtype=torch.float32, device=device)
+
+    def begin(self) -> bool:
+        self.divisor.fill_(self.m + 1)
+        return self.m == self.k - 1
+
+    def end(self) -> None:
+        self.m = (self.m + 1) % self.k
+
+    def fold(self, update: bool) -> None:
+        pairs = [(p.grad, a) for p, a in zip(self.params, self.acc) if p.grad is not None]
+        grads, acc = [g for g, _ in pairs], [a for _, a in pairs]
+        torch._foreach_sub_(grads, acc)
+        torch._foreach_div_(grads, self.divisor)
+        torch._foreach_add_(acc, grads)
+        if update:
+            torch._foreach_copy_(grads, acc)
+            torch._foreach_zero_(acc)
+
+
+def make_accumulation(model, settings: TrainSettings, device) -> Accumulation | None:
+    """The ``Accumulation`` of ``settings.accumulate_steps``, or None for 1."""
+    if settings.accumulate_steps == 1:
+        return None
+    return Accumulation(model.parameters(), settings.accumulate_steps, device)
+
+
+def _apply(model, optimizer, settings: TrainSettings, accumulation, update: bool) -> None:
+    """After the backward: fold the gradients into ``accumulation`` (if
+    any), then on an update the global-norm clip and Adam."""
+    if accumulation is not None:
+        accumulation.fold(update)
+    if update:
+        clip_by_global_norm_(list(model.parameters()), settings.grad_clip)
+        optimizer.step()
+
+
+def train_step(model, optimizer, batch, settings: TrainSettings,
+               accumulation: Accumulation | None = None, update: bool = True):
     """One optimisation step; returns ``(loss, n_div)`` as device tensors.
     Gradients are set to None first, so under capture backward allocates
-    them in the graph's memory pool."""
+    them in the graph's memory pool. With an ``accumulation`` it is a
+    mini-step, which updates the weights only where ``update``."""
     optimizer.zero_grad(set_to_none=True)
     pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
     loss = task_loss(pred, batch, settings)
     loss.backward()
-    clip_by_global_norm_(list(model.parameters()), settings.grad_clip)
-    optimizer.step()
+    _apply(model, optimizer, settings, accumulation, update)
     return loss.detach(), n_div
 
 
@@ -200,10 +270,16 @@ class SplitStep:
     the global-norm clip and Adam; returns the summed ``(loss, n_div)``.
     ``flat`` is one f32 buffer, made at the first step (when the gradients
     the stage produces are known) and addressed by every later step, so
-    that both halves can be CUDA graphs (``train/graphs.py``)."""
+    that both halves can be CUDA graphs (``train/graphs.py``). With an
+    ``accumulation``, ``after(update)`` folds the summed gradients into it
+    and clips and steps Adam only where ``update``: each mini-step's
+    gradient is the all-reduced one, as in the JAX package's sharded
+    step."""
 
-    def __init__(self, model, optimizer, settings: TrainSettings, mesh):
+    def __init__(self, model, optimizer, settings: TrainSettings, mesh,
+                 accumulation: Accumulation | None = None):
         self.model, self.optimizer, self.settings, self.mesh = model, optimizer, settings, mesh
+        self.accumulation = accumulation
         self.params = list(model.parameters())
         self.flat: torch.Tensor | None = None
         self._views: list = []  # one view of flat per gradient, then loss and n_div
@@ -230,26 +306,32 @@ class SplitStep:
     def reduce(self) -> None:
         collectives.all_reduce_(self.flat, self.mesh)
 
-    def after(self) -> tuple:
+    def after(self, update: bool = True) -> tuple:
         torch._foreach_copy_(self._grads(), self._views[:-2])
-        clip_by_global_norm_(self.params, self.settings.grad_clip)
-        self.optimizer.step()
+        _apply(self.model, self.optimizer, self.settings, self.accumulation, update)
         return self.flat[-2].clone(), self.flat[-1].to(torch.int64)
 
 
-def step_graphs(model, optimizer, settings: TrainSettings, device, mesh=None) -> StepGraphs:
+def step_graphs(model, optimizer, settings: TrainSettings, device, mesh=None,
+                accumulation: Accumulation | None = None) -> StepGraphs:
     """``train_step`` and ``eval_step`` of ``model`` under ``settings``, to
     be captured per batch shape on the card (``train/graphs.py``). With a
     ``mesh`` the train step is ``SplitStep``'s two halves around its
-    all-reduce, and both steps take the global batch's real rows."""
+    all-reduce, and both steps take the global batch's real rows. With an
+    ``accumulation`` the train step has two kinds, a mini-step that only
+    accumulates and one that also updates."""
     if mesh is None:
-        return StepGraphs(functools.partial(train_step, model, optimizer, settings=settings),
+        train = functools.partial(train_step, model, optimizer, settings=settings,
+                                  accumulation=accumulation)
+        return StepGraphs(functools.partial(train, update=accumulation is None),
                           functools.partial(eval_step, model, settings=settings),
-                          model.parameters(), device)
-    split = SplitStep(model, optimizer, settings, mesh)
-    return StepGraphs((split.before, split.after),
+                          model.parameters(), device, accumulation=accumulation,
+                          train_update_fn=functools.partial(train, update=True))
+    split = SplitStep(model, optimizer, settings, mesh, accumulation)
+    return StepGraphs((split.before, functools.partial(split.after, update=accumulation is None)),
                       lambda batch, rows: eval_step(model, batch, settings, rows),
-                      model.parameters(), device, reduce=split.reduce)
+                      model.parameters(), device, reduce=split.reduce, accumulation=accumulation,
+                      train_update_fn=(split.before, functools.partial(split.after, update=True)))
 
 
 def batch_iterator(
@@ -433,7 +515,10 @@ def fit(settings: TrainSettings,
     With a ``checkpointer`` (``train/checkpoints.py``) every epoch saves
     ``last`` and ``last_state``, and an improved monitor saves ``best``;
     ``resume=True`` restores the weights, Adam and the loop's state from
-    ``last_state`` and continues at the epoch after it.
+    ``last_state`` and continues at the epoch after it. With
+    ``settings.accumulate_steps`` above 1 the accumulation carries over
+    epochs, and ``last_state`` holds it, so a resume in the middle of an
+    accumulation continues it.
 
     Each history row carries ``train_steps`` and ``train_s``, the host time
     of the epoch's training steps ending in a device synchronise, and the
@@ -460,6 +545,7 @@ def fit(settings: TrainSettings,
         model = ConanModel(seed=settings.seed, device=dev)
     model.to(dev)
     optimizer = make_optimizer(model, settings)
+    accumulation = make_accumulation(model, settings, dev)
     epoch_records = train_records(0) if callable(train_records) else train_records
     max_atoms = settings.max_atoms or dataset_max_atoms(list(epoch_records) + list(val_records))
     plateau = metrics_lib.ReduceLROnPlateau(
@@ -470,7 +556,7 @@ def fit(settings: TrainSettings,
     best, best_epoch, history, start_epoch = -np.inf if maximize else np.inf, -1, [], 0
 
     if resume and checkpointer is not None and checkpointer.has("last_state"):
-        meta = checkpointer.restore_state(model, optimizer)
+        meta = checkpointer.restore_state(model, optimizer, accumulation=accumulation)
         loop_meta = meta.get("loop", {})
         start_epoch = meta["epoch"] + 1
         plateau.lr = loop_meta.get("lr", plateau.lr)
@@ -486,8 +572,9 @@ def fit(settings: TrainSettings,
     collectives.check_replicas(model, mesh)
     # after restore_state, which replaces Adam's state tensors: a graph
     # holds the addresses of the tensors it was captured with
-    graphs = (step_graphs(model, optimizer, settings, dev) if mesh is None
-              else step_graphs(model, optimizer, settings, dev, mesh))
+    extra = {} if accumulation is None else {"accumulation": accumulation}
+    graphs = (step_graphs(model, optimizer, settings, dev, **extra) if mesh is None
+              else step_graphs(model, optimizer, settings, dev, mesh, **extra))
     pipeline = dict(prefetch=prefetch, native=native, mesh=mesh)
 
     for epoch in range(start_epoch, settings.num_epochs):
@@ -533,7 +620,7 @@ def fit(settings: TrainSettings,
         should_stop = stopper.step(val_loss)
         if checkpointer is not None:
             checkpointer.save_last(model, epoch)
-            checkpointer.save_state(model, optimizer, epoch, {
+            checkpointer.save_state(model, optimizer, epoch, accumulation=accumulation, loop_state={
                 "lr": plateau.lr,
                 "plateau_best": plateau.best,
                 "plateau_num_bad": plateau.num_bad,

@@ -176,12 +176,12 @@ def main() -> int:
         ptrs_b = [t.data_ptr() for t in (*args, cot, dx, dx, grads[0], grads[1], grads[2], grads[3],
                                          part, item_tiles)]
         for name, lib in libs.items():
-            fwd_ms = smoke.cuda_ms(lambda: lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st), reps=20)
-            bwd_ms = smoke.cuda_ms(lambda: lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st), reps=20)
+            fwd_ms = smoke.cuda_ms(lambda: lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, 0, blocks, 0, st), reps=20)
+            bwd_ms = smoke.cuda_ms(lambda: lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, 0, blocks, 0, st), reps=20)
             print(f"[{label}] variant {name:8s} K1 {fwd_ms:.4f} ms, K2 {bwd_ms:.4f} ms (events)")
 
         lib = libs["phases"]
-        lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st)
+        lib.cfconv_fwd(*ptrs_f, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, 0, blocks, 0, st)
         torch.cuda.synchronize()
         buf = np.zeros((1024, 8), np.int64)
         if lib.phase_dump(buf.ctypes.data) != 0:
@@ -194,7 +194,7 @@ def main() -> int:
             print(f"[{label}]   {name:22s} {100 * b[:, k].sum() / tot.sum():5.1f}%,"
                   f" {b[:, k].sum() / max(1, b[:, 7].sum()):7.0f} cycles per tile,"
                   f" {b[:, k].sum() / max(1, b[:, 6].sum()):7.0f} per item")
-        lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, blocks, 0, st)
+        lib.cfconv_bwd(*ptrs_b, G, n, F, Gs, smoke.CUTOFF, smoke.CAP, 0, blocks, 0, st)
         torch.cuda.synchronize()
         buf2 = np.zeros((1024, 10), np.int64)
         if lib.phase_dump2(buf2.ctypes.data) != 0:

@@ -52,8 +52,9 @@ def plain_cfconv():
 
     original = schnet.cfconv
     schnet.cfconv = lambda pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, \
-        max_neighbors=32: _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff, num_gaussians,
-                                        x.shape[-2] if max_neighbors is None else max_neighbors)
+        max_neighbors=32, cap_mode="index": _cfconv_plain(
+            pos, mask, x, w1, b1, w2, b2, cutoff, num_gaussians,
+            x.shape[-2] if max_neighbors is None else max_neighbors, cap_mode)
     try:
         yield
     finally:

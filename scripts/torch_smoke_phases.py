@@ -46,6 +46,7 @@ PHASES = {
     "geom": lambda card: cs.phase_geom("cuda", card, _rows()),
     "dp": lambda card: cs.phase_dp("cuda", card, _rows(), _single(card)),
     "tools": lambda card: cs.phase_tools("cuda", card, _rows()),
+    "last": lambda card: cs.phase_last("cuda", card, _rows()),
 }
 
 

@@ -416,25 +416,50 @@ def test_compute_dtype_leaves_visnet_and_the_aux_heads_unchanged(tmp_path):
         assert torch.equal(outs[0], outs[1]), src.name
 
 
+def _jax_trunk_error(name):
+    """The exception the JAX SchNet trunk raises at ``compute_dtype=name``
+    on a tiny input, or None where it runs."""
+    from conan_fgw_tpu.models.schnet import SchNet3D as JSchNet
+
+    rng = np.random.default_rng(0)
+    z, pos = jnp.asarray(rng.integers(1, 9, (2, 6))), jnp.asarray(rng.standard_normal((2, 6, 3)))
+    mask = jnp.ones((2, 6), bool)
+    kw = dict(hidden_channels=8, num_filters=8, num_gaussians=4, num_interactions=1)
+    params = JSchNet(**kw).init(jax.random.PRNGKey(0), z, pos, mask)
+    try:
+        JSchNet(**kw, compute_dtype=name).apply(params, z, pos, mask, method=JSchNet.trunk)
+    except (TypeError, ValueError) as e:
+        return e
+    return None
+
+
 @pytest.mark.parametrize("name", ["float32", "f4", "bfloat16", "float16", "float64", "int32",
                                   "float8_e4m3fn", "bf16", "fp32", "float 32"])
 def test_compute_dtype_refuses_as_jnp_dtype_does(name):
-    """A name ``jnp.dtype`` takes is run (float32, bfloat16) or raises
-    ``NotImplementedError`` naming the ROADMAP; one it rejects raises
-    ``ValueError``."""
+    """Each name maps as the JAX SchNet trunk treats it: float32 names to
+    None (the parameters' type), bfloat16 and float16 to their types, a
+    float64 name to None with a warning (JAX without x64 truncates it to
+    float32); where the JAX trunk raises (an integer type, a float8 type
+    with no promotion path), the port raises an error of the same class.
+    A name ``jnp.dtype`` rejects raises ``ValueError``."""
     try:
         expected = jnp.dtype(name)
     except TypeError:
         with pytest.raises(ValueError, match="compute_dtype"):
             compute_dtype(name)
         return
-    if expected == jnp.float32:
-        assert compute_dtype(name) is None
-    elif expected == jnp.bfloat16:
-        assert compute_dtype(name) is torch.bfloat16
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error = _jax_trunk_error(name)
+    if error is not None:
+        with pytest.raises((TypeError, ValueError)) as raised:
             compute_dtype(name)
+        assert type(raised.value).__name__ == type(error).__name__, (raised.value, error)
+        return
+    if expected == jnp.float64:
+        with pytest.warns(UserWarning, match="float32"):
+            assert compute_dtype(name) is None
+        return
+    want = {jnp.float32: None, jnp.bfloat16: torch.bfloat16, jnp.float16: torch.float16}
+    assert compute_dtype(name) is want[expected.type]
 
 
 @pytest.fixture(scope="module")

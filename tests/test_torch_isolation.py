@@ -20,8 +20,11 @@ NAMED = re.compile(r"\bjax\b|\bconan_fgw_tpu\.")
 IMPORTED = re.compile(r"\b(jax|flax|optax|yaml)\b|\bconan_fgw_tpu\b(?!_)")
 
 
+DEMO = ROOT / "examples" / "fgw_parity_demo_torch.py"
+
+
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", DEMO]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -42,9 +45,11 @@ def test_package_imports_with_jax_blocked():
         "import sys\n"
         "for name in ('jax', 'flax', 'optax', 'yaml', 'conan_fgw_tpu'):\n"
         "    sys.modules[name] = None\n"
-        "import importlib\n"
+        "import importlib, importlib.util\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('demo', {str(DEMO)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print('ok')\n"
     )
     env = {**os.environ, "PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}

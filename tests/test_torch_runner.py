@@ -178,10 +178,11 @@ def test_lr_finder_sets_the_learning_rate(tiny, tmp_path, caplog):
     assert f"lr={suggestion:.2e}" in caplog.text  # the epoch ran at the suggested rate
 
 
-@pytest.mark.parametrize("extra", ["compute_dtype: float16", "compute_dtype: float64"])
+@pytest.mark.parametrize("extra", ["compute_dtype: complex64", "compute_dtype: complex128"])
 def test_what_the_port_lacks_raises(tiny, tmp_path, extra):
-    """A config asking for what the port does not carry fails in the
-    runner's CLI, naming its ROADMAP item."""
+    """A config asking for what the port does not carry (a complex compute
+    type, which the JAX trunk runs) fails in the runner's CLI, naming its
+    ROADMAP item."""
     write_config(tmp_path, "c.yaml", "pre", extra=f"{extra}\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.main(_cli(tiny, str(tmp_path / "c.yaml"), "conan_fgw_pre"))
