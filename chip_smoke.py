@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line), in the
-order 1-6, 8-15, 7 (beside 16a), 16, 17; the seconds of each are printed
+order 1-6, 8-15, 7 (beside 16a), 16, 17, 18; the seconds of each are printed
 on a ``[phases]`` line:
 
 1. Build the CUDA kernels from ``conan_fgw_tpu_torch/csrc`` and print the
@@ -306,6 +306,32 @@ on a ``[phases]`` line:
    within 1e-3 of it on the CPU (of the largest weight), and a second
    epoch resumed in the middle of the accumulation bit for bit the
    straight two-epoch run; ms per mini-step.
+18. Molecules above 128 atoms and the last options. 18a: K1/K2 on their
+   large route (``csrc/cfconv_large.cu``, counted under ``_large`` names)
+   at N = 160, 192, 256 and 181 (no multiple of 32), F=128 with 50
+   Gaussians and F=256 with 10 on G = 90 seeded graphs of 109-251 atoms,
+   the cap binding, with phase 2's gates; at N = 192 also the nearest cap
+   and the bf16 and f16 variants with phase 12's and 17's gates (rows
+   ``n160`` ... ``n192-nearest``). 18b: K3's global route on the F=256
+   molecules (S = 90) at N = 160, 192 and 256, first and second outer
+   iteration, and at N = 181 through ``fgw_couplings_flat`` (padded to
+   192), within ``FGW_ATOL``, flags equal; K3' at n = 150 and the
+   per-molecule barycenter at n = 150 on the card against the CPU. 18c: a
+   synthetic CoV-2 set of 36/8/8 molecules of 97-128 and 129-181 atoms in
+   turn; the runner's ``main`` on ``cov2_5.yaml`` then ``cov2_5_bc.yaml``
+   with ``max_atoms: 192`` (2 epochs each) with phase 14's checks, both the
+   N = 128 and the N = 192 bucket every epoch, K1/K2/K3 counted over the
+   small and large routes, and every train graph's K1/K2/K3 nodes equal to
+   what its capture counted (the N = 192 graph's on the large kernels);
+   predict; one stage-2 step at N = 192 card against CPU. 18d: one graphed
+   ``fit`` of the flagship (F=128, stage 2) with ``shuffle=True,
+   bucketed=False``: every batch at N = 192 on the large kernels alone, and
+   the batches it stepped equal to a CPU replay of ``batch_iterator`` under
+   ``loop.epoch_rng``, molecule by molecule. 18e: one ViSNet stage-2 step
+   with ``vertex``, ``vecnorm_type="max_min"``, ``trainable_vecnorm`` and
+   ``trainable_rbf`` card against CPU (phase 4's gates). 18f: two graphed
+   stage-2 steps at N = 192 of the F=128 and the F=256 model in bf16 and
+   in f16, each launching its own large variants.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -324,7 +350,9 @@ those of phase 13's per-molecule barycenters; the f16 variants' those of phase
 17's f16 flagship and classification steps; ``geom_launches`` those of
 phase 14's runners, ``dp_launches`` rank 0's in phase 15's,
 ``tools_launches`` phase 16's runner, synthetic_e2e and eval_geom_scale's,
-also on the ``[done]`` line, and ``f16_launches`` phase 17's), the card
+also on the ``[done]`` line, ``f16_launches`` phase 17's and
+``phase18_launches`` phase 18's; the large routes' ``launches`` are phase
+18's and their row N = 192's, n = 150's for K3'), the card
 line and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -402,7 +430,17 @@ REPLACES = {
     "cfconv_bwd_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     "cfconv_fwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
+    # graphs above 128 atoms (phase 18): K3's global route, through both
+    # wrappers, and csrc/cfconv_large.cu's K1/K2 at both widths and types
+    "fgw_couplings_large": "conan_fgw_tpu/ops/pallas/fgw.py:362",
+    "fgw_couplings_mol_large": "conan_fgw_tpu/ops/pallas/fgw.py:394",
+    **{f"cfconv_{kind}{width}_large{dtype}": f"conan_fgw_tpu/ops/pallas/cfconv.py:{line}"
+       for kind, line in (("fwd", 223), ("bwd", 146)) for width in ("", "_f256")
+       for dtype in ("", "_bf16", "_f16")},
 }
+# the launch names of phase 18's large routes
+LARGE_NAMES = tuple(name for name in REPLACES if name.endswith(("_large", "_large_bf16",
+                                                                "_large_f16")))
 SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
@@ -418,6 +456,10 @@ SOURCES = {
     "cfconv_bwd_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_fwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    **{name: "conan_fgw_tpu_torch/csrc/cfconv_large.cu" for name in LARGE_NAMES
+       if name.startswith("cfconv")},
 }
 # seconds between the edges of the profiler's window and the steps it profiles
 PROFILE_MARGIN_S = 0.05
@@ -521,10 +563,13 @@ def phase_build():
                 print("[ptxas]", line.strip())
             if "Compiling entry" in line:
                 entry = line.split("'")[1]
-            elif "spill" in line and ("cfconv" in entry or "fgw_couplings_kernel" in entry):
+            elif "spill" in line and ("cfconv" in entry or "fgw_couplings" in entry):
                 spills[entry] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
         print(f"[ptxas] spill bytes (stores + loads) by kernel: {spills}")
         require(any("fgw_couplings_kernel" in e for e in spills), "no ptxas report for K3")
+        require(any("fgw_couplings_large_kernel" in e for e in spills)
+                and any("cfconv_bwd_large_kernel" in e for e in spills),
+                "no ptxas report for the large-N kernels")
         require(spills and not any(spills.values()), "a kernel spills registers")
 
 
@@ -580,7 +625,8 @@ def type_ulp(t, dtype):
     return bf16_ulp(t) if dtype == torch.bfloat16 else bf16_ulp(t, 11, 2.0**-24)
 
 
-def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_mode="index"):
+def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_mode="index",
+                 plain_reps=10):
     """K1 and K2 against the plain version at one shape; ``F``/``GAUSS``
     pick the width (the classification model's is 256 filters and 10
     Gaussians), whose rows go under its launch-count names. With ``dtype``
@@ -597,10 +643,13 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     widened inputs, rounded); ``_cfconv_plain``'s own f16 route (the filter
     MLP in f16, as JAX's XLA cfconv) must lie within ``F16_ROUTE_RTOL``.
     ``cap_mode`` "nearest" (phase 17) runs the kernels and the plain version
-    with the nearest-neighbour cap; its rows go under ``label``."""
+    with the nearest-neighbour cap; its rows go under ``label``. Above 128
+    atoms the kernels are csrc/cfconv_large.cu's, under their ``_large``
+    names; ``plain_reps`` cuts the plain version's timed calls there."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.cfconv import (
+        LARGEST_TEMPLATE,
         _cfconv_plain,
         cfconv_backward,
         cfconv_forward,
@@ -694,13 +743,13 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     bwd_ms = cuda_ms(lambda: cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP,
                                              cap_mode))
     plain_fwd_ms = cuda_ms(lambda: _cfconv_plain(pos, maskf, x, w1, b1, w2, b2, CUTOFF, GAUSS, CAP,
-                                                 cap_mode))
+                                                 cap_mode), reps=plain_reps)
 
     def plain_bwd():
         o = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP, cap_mode)
         torch.autograd.grad(o, leaves, cot)
 
-    plain_bwd_ms = cuda_ms(plain_bwd)
+    plain_bwd_ms = cuda_ms(plain_bwd, reps=plain_reps)
     w_bytes = 4 * (GAUSS * F + F * F + 2 * F)
     feat = x.element_size()  # x, out, the cotangent and dx
     io_fwd = 4 * (G * N * 3 + G * N) + feat * 2 * G * N * F + w_bytes
@@ -711,9 +760,9 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     print(f"[cfconv {tag}] G={G} N={N} F={F} Gs={GAUSS} edges={edges}: fwd {fwd_ms:.4f} ms"
           f" (plain {plain_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f})")
     for name, ms, plain_ms, err, io, flops, mlp in (
-        (kernel_name("cfconv_fwd", F, dtype), fwd_ms, plain_fwd_ms, err_fwd, io_fwd, flops_fwd,
-         mlp_fwd),
-        (kernel_name("cfconv_bwd", F, dtype), bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd,
+        (kernel_name("cfconv_fwd", F, dtype, N > LARGEST_TEMPLATE), fwd_ms, plain_fwd_ms, err_fwd,
+         io_fwd, flops_fwd, mlp_fwd),
+        (kernel_name("cfconv_bwd", F, dtype, N > LARGEST_TEMPLATE), bwd_ms, plain_bwd_ms, err_bwd, io_bwd, flops_bwd,
          mlp_bwd),
     ):
         tc, f32 = bound(io, flops, mlp), bound(io, flops)
@@ -805,9 +854,10 @@ def check_fgw(label, args, rows, kw=FGW_KW):
     solver budget ``kw``."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
+    from conan_fgw_tpu_torch.ops.cuda.fgw import LARGEST_TEMPLATE, _launch, fgw_couplings_plain
 
     S, N, _ = args[0].shape
+    name = "fgw_couplings_large" if N > LARGEST_TEMPLATE else "fgw_couplings"
     T_k, div_k, sk_iters = _launch(*args, **kw)
     T_p, div_p = fgw_couplings_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -830,8 +880,8 @@ def check_fgw(label, args, rows, kw=FGW_KW):
           f" {replay_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {tc[0]:.5f} ms on the tensor"
           f" cores ({tc[1]}, {100 * tc[0] / ms:.1f}% reached, {100 * tc[0] / replay_ms:.1f}% of"
           f" the replays), {f32[0]:.5f} ms in f32 on the CUDA cores")
-    rows["fgw_couplings"][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms, plain_ms=plain_ms,
-                                        bound=tc, bound_f32=f32, sinkhorn_iters=sk_run)
+    rows[name][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms, plain_ms=plain_ms,
+                             bound=tc, bound_f32=f32, sinkhorn_iters=sk_run)
 
 
 def check_fgw_nan(args):
@@ -1049,6 +1099,18 @@ def graph_kernels(graph) -> dict:
     return {name: sum(name in body for body in nodes) for name in PROFILED}
 
 
+def captured_nodes(label, step) -> dict:
+    """The K1/K2/K3 kernel nodes of a captured step's graph (made under
+    ``kept_graphs``), which must equal the launches its capture counted:
+    every node runs once a replay."""
+    nodes = graph_kernels(step.graph)
+    captured = {name: sum(step.counts.delta.get(k, 0) for k in names)
+                for name, names in PROFILED.items()}
+    require(nodes == captured, f"{label}: the train graph holds the K1/K2/K3 nodes {nodes},"
+            f" its capture counted {captured}")
+    return nodes
+
+
 def graphed_launches(label, graphs, pb, steps: int = 3):
     """Backs the derived launch counts (``LaunchReplays``) of the graphed
     train step of ``pb``'s shape: the K1/K2/K3 kernel nodes of its graph
@@ -1059,12 +1121,7 @@ def graphed_launches(label, graphs, pb, steps: int = 3):
     the graph run, but may fall short: it drops a few of the thousands of
     device records of a window (PERF.md section 7). Returns ``(busy share,
     kernels per step, {kernel name: executions seen})``."""
-    step = graphs.steps[("train", pb.z.shape)]
-    nodes = graph_kernels(step.graph)
-    captured = {name: sum(step.counts.delta.get(k, 0) for k in names)
-                for name, names in PROFILED.items()}
-    require(nodes == captured, f"{label}: the train graph holds the K1/K2/K3 nodes {nodes},"
-            f" its capture counted {captured}")
+    nodes = captured_nodes(label, graphs.steps[("train", pb.z.shape)])
     prof = profile_steps(label, lambda: graphs.train(pb), steps)
     require(prof is not None, f"{label}: the profiler saw no device activity")
     busy, per_step, counts, grew = prof
@@ -1282,7 +1339,8 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     prints it, returns ``(summary, history, launches)``. ``ctx`` holds the
     common arguments, the temporary directory, the plain-call counts, the
     device and the card line; ``start`` is the first epoch this run trains;
-    ``kernels`` names the path's K1, K2 and K3 counts, and ``metric`` its
+    ``kernels`` names the path's K1, K2 and K3 counts (each a name, or a
+    tuple of names whose counts add up: a small and a large route), and ``metric`` its
     validation and test metric (``rmse``, or ``auroc`` for classification).
     ``per_forward`` is the path's K1 launches a forward and K2 launches a
     train step: 3 for the flagship's SchNet, its interactions for an ESAN or
@@ -1306,6 +1364,8 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grew = {k: launches[k] for k in REPLACES}
+    names = {k: (k,) if isinstance(k, str) else k for k in kernels if k is not None}
+    total = {k: sum(grew[n] for n in names[k]) for k in names}
     run_dir = tmp / "models" / "smoke" / "0" / f"run_{stage}:0"
     history = json.loads((run_dir / "last_state.meta.json").read_text())["loop"]["history"]
     steps = sum(r["train_steps"] for r in history)
@@ -1324,7 +1384,7 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
                 f"runner {label} epoch {r['epoch']} did not run every bucket of {buckets}: {r}")
     require(np.isfinite(summary[f"test_{metric}"]["mean"]), f"runner {label}: test_{metric} not finite")
     new_steps = sum(r["train_steps"] for r in history if r["epoch"] >= start)
-    others = [k for k in REPLACES if k not in kernels and grew[k]]
+    others = [k for k in REPLACES if not any(k in v for v in names.values()) and grew[k]]
     require(not others, f"runner {label}: kernels of another width or path launched: {others}")
     # fit's steps ran as CUDA graphs; the counts must be the eager path's: every forward
     # (train or eval, a graph's capture standing for its first replay) per_forward K1 and,
@@ -1334,13 +1394,13 @@ def runner_stage(label, stage, cfg, ctx, *extra, start=0, kernels=REGRESSION, me
     require(host["train_forwards"] == new_steps and host["eval_forwards"] > 0,
             f"runner {label}: {dict(host)} forwards in {new_steps} steps")
     if k1 is not None:
-        require(grew[k1] == per_forward * forwards,
-                f"runner {label}: K1 launched {grew[k1]} in {forwards} forwards")
-        require(grew[k2] == per_forward * new_steps,
-                f"runner {label}: K2 launched {grew[k2]} in {new_steps} steps")
+        require(total[k1] == per_forward * forwards,
+                f"runner {label}: K1 launched {total[k1]} in {forwards} forwards")
+        require(total[k2] == per_forward * new_steps,
+                f"runner {label}: K2 launched {total[k2]} in {new_steps} steps")
     outer = runner.fgw_config(load_config(cfg)).outer_iters
-    require(grew[k3] == (outer * forwards if stage == "conan_fgw" else 0),
-            f"runner {label}: K3 launched {grew[k3]} in {forwards} {stage} forwards, want"
+    require(total[k3] == (outer * forwards if stage == "conan_fgw" else 0),
+            f"runner {label}: K3 launched {total[k3]} in {forwards} {stage} forwards, want"
             f" {outer} a forward")
     for r in history:
         by_bucket = ", ".join(f"{r[f'steps_n{n}']} at N={n}"
@@ -1569,7 +1629,12 @@ PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_b
                                   "cfconv_fwd_f256_bf16", "cfconv_fwd_f16", "cfconv_fwd_f256_f16"),
             "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256", "cfconv_bwd_bf16",
                                   "cfconv_bwd_f256_bf16", "cfconv_bwd_f16", "cfconv_bwd_f256_f16"),
-            "fgw_couplings_kernel": ("fgw_couplings",)}
+            "fgw_couplings_kernel": ("fgw_couplings",),
+            "cfconv_fwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_fwd")),
+            "cfconv_bwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_bwd")),
+            "fgw_couplings_large_kernel": ("fgw_couplings_large",)}
+# the kernels of graphs up to 128 atoms, which phase 8's graphs run
+SMALL_PROFILED = ("cfconv_fwd_kernel", "cfconv_bwd_kernel", "fgw_couplings_kernel")
 
 
 def _max_rel(a, b) -> float:
@@ -1792,7 +1857,7 @@ def graph_case(label, classify, bary, n_atoms, heavy, batch, device, card, base=
         # graph's nodes and the profiler's executions must back them
         busy, per_step, seen = graphed_launches(f"[graphs {label}] profile, graphed", graphs,
                                                 batches[0])
-        ran = seen.values() if schnet else [seen["fgw_couplings_kernel"]]
+        ran = [seen[k] for k in SMALL_PROFILED] if schnet else [seen["fgw_couplings_kernel"]]
         require(all(ran), f"graphs {label}: the profiler saw {seen}")
         row.update(busy_share=busy, kernels_per_step=per_step)
     del runs, graphs, m_e, m_g, opt_e, opt_g
@@ -2779,10 +2844,11 @@ def check_fgw_mol(n, device, rows, kw=FGW_KW):
     import torch.nn.functional as Fn
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings
+    from conan_fgw_tpu_torch.ops.cuda.fgw import LARGEST_TEMPLATE, _launch, fgw_couplings
     from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
     from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 
+    name = "fgw_couplings_mol" + ("_large" if n + (-n % 32) > LARGEST_TEMPLATE else "")
     Ys, Cs, ps, p = molecule_problem(n, SEED + n, device)
     gen = torch.Generator().manual_seed(SEED + 2 * n)
     Y0 = (torch.rand(n, Ys.shape[-1], generator=gen) + 0.1).to(device)
@@ -2808,7 +2874,7 @@ def check_fgw_mol(n, device, rows, kw=FGW_KW):
           f" {K * kw['pgd_iters'] * kw['sinkhorn_iters']} budgeted")
     require(tuple(T_k.shape) == (K, n, n) and count_k.dtype == torch.int32 and count_k.dim() == 0,
             f"fgw mol N{n}: returned {tuple(T_k.shape)}, {count_k.dtype}")
-    require(counted == {"fgw_couplings_mol": 1}, f"fgw mol N{n}: launches {counted}, want one K3")
+    require(counted == {name: 1}, f"fgw mol N{n}: launches {counted}, want one K3")
     require(err <= FGW_ATOL, f"fgw mol N{n} plans disagree: {err}")
     require(int(count_k) == int(div_p.sum()), f"fgw mol N{n} diverged counts disagree")
     ms = cuda_ms(lambda: fgw_couplings(*args, **kw))
@@ -2819,7 +2885,7 @@ def check_fgw_mol(n, device, rows, kw=FGW_KW):
     print(f"[fgw mol N{n}] K={K}: wrapper {ms:.4f} ms (eager calls, padding included; graph replays"
           f" {replay_ms:.4f} ms), plain {plain_ms:.4f} ms on the card; bound {tc[0]:.6f} ms ({tc[1]},"
           f" {100 * tc[0] / ms:.2f}% reached), {f32[0]:.6f} ms in f32 on the CUDA cores")
-    rows["fgw_couplings_mol"][f"N{n}"] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms,
+    rows[name][f"N{n}"] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms,
                                               plain_ms=plain_ms, bound=tc, bound_f32=f32,
                                               sinkhorn_iters=sk_run)
 
@@ -3081,12 +3147,18 @@ def geom_conformers(job):
     return dg_generate(smi.add_hydrogens(smi.parse_smiles(smiles)), count, seed=seed)
 
 
-def make_geom(root: Path) -> dict:
+def make_geom(root: Path, splits=None, no_store=None, sizes=((65, 96), (97, 128)),
+              buckets=GEOM_BUCKETS) -> dict:
     """The synthetic CoV-2 set in the GEOM layout under ``root/data/cov2``:
     split CSVs with an ``active`` label (both classes in every split) and a
     float ``score``, and ``.npz`` stores (``positions``, ``smiles``) under
     ``conformers_npz``, embedded by ``dg_generate`` in a pool of worker
-    processes. Returns the molecules' atom counts by split."""
+    processes. ``splits`` molecules a split (``GEOM_SPLITS``), the first
+    ``no_store`` of each without a store (``GEOM_NO_STORE``), their atom
+    counts drawn in turn from the ranges of ``sizes``, each range the
+    atoms of one bucket of ``buckets``. Returns the molecules' atom counts
+    by split."""
+    splits, no_store = splits or GEOM_SPLITS, no_store or GEOM_NO_STORE
     import csv
     import multiprocessing
     import os
@@ -3100,13 +3172,13 @@ def make_geom(root: Path) -> dict:
     ddir = root / "data" / "cov2"
     (ddir / "conformers_npz").mkdir(parents=True)
     jobs, atoms = [], {}
-    for mode, count in GEOM_SPLITS.items():
+    for mode, count in splits.items():
         rows = []
         for i in range(count):
-            smiles = geom_smiles(rng, *((65, 96) if i % 2 == 0 else (97, 128)))
+            smiles = geom_smiles(rng, *sizes[i % len(sizes)])
             rows.append({"smiles": smiles, "active": int(i % 3 == 0),
                          "score": round(float(rng.normal()), 4), "mol_id": f"{mode}{i}"})
-            if i >= GEOM_NO_STORE[mode]:
+            if i >= no_store[mode]:
                 stored = int(rng.integers(GEOM_STORED[0], GEOM_STORED[1] + 1))
                 jobs.append((smiles, stored, len(jobs)))
         with open(ddir / f"{mode}.csv", "w", newline="") as f:
@@ -3114,12 +3186,15 @@ def make_geom(root: Path) -> dict:
             w.writeheader()
             w.writerows(rows)
         atoms[mode] = [smi.add_hydrogens(smi.parse_smiles(r["smiles"])).num_atoms for r in rows]
-        n96 = sum(1 for a in atoms[mode] if a <= 96)
-        print(f"[geom data] {mode}: {count} molecules, {n96} at N=96 and {count - n96} at"
-              f" N=128 ({min(atoms[mode])}-{max(atoms[mode])} atoms), the first"
-              f" {GEOM_NO_STORE[mode]} without a store")
-        require(min(atoms[mode]) > 64 and max(atoms[mode]) <= 128 and n96 and n96 < count,
-                f"geom {mode}: molecules outside the N=96 and N=128 buckets")
+        by_bucket = collections.Counter(next((b for b in buckets if a <= b), None)
+                                        for a in atoms[mode])
+        print(f"[geom data] {mode}: {count} molecules, "
+              + ", ".join(f"{by_bucket[b]} at N={b}" for b in buckets)
+              + f" ({min(atoms[mode])}-{max(atoms[mode])} atoms), the first {no_store[mode]}"
+              f" without a store")
+        require(min(atoms[mode]) >= sizes[0][0] and all(by_bucket[b] for b in buckets)
+                and sum(by_bucket[b] for b in buckets) == count,
+                f"geom {mode}: molecules outside the buckets {buckets}")
         require(len({r["active"] for r in rows}) == 2, f"geom {mode}: one class only")
     t0 = time.perf_counter()
     workers = min(8, os.cpu_count() or 1)
@@ -3172,8 +3247,8 @@ def geom_spies():
         StepGraphs._run, GEOMDataset.records = run, records
 
 
-def geom_stage(label, stage, cfg, ctx, card, kernels, metric):
-    """One runner stage on the GEOM set, in both large buckets, with its
+def geom_stage(label, stage, cfg, ctx, card, kernels, metric, buckets=GEOM_BUCKETS):
+    """One runner stage on the GEOM set, in each of ``buckets``, with its
     peak memory by step kind and bucket beyond what was held before, and
     the host time of its record loading."""
     import torch
@@ -3182,13 +3257,13 @@ def geom_stage(label, stage, cfg, ctx, card, kernels, metric):
     held = torch.cuda.memory_allocated()
     with geom_spies() as (peaks, records_s):
         summary, history, grew = runner_stage(label, stage, cfg, ctx, kernels=kernels,
-                                              metric=metric, buckets=GEOM_BUCKETS)
+                                              metric=metric, buckets=buckets)
     peak_gib = {k: (v - held) / 2**30 for k, v in sorted(peaks.items())}
     loads = [f"{n} in {s:.2f} s" for n, s in records_s]
     print(f"[runner {label}] peak allocated beyond what was held before, by step kind and bucket"
           f" (GiB): {', '.join(f'{k} {v:.2f}' for k, v in peak_gib.items())} on {card};"
           f" GEOMDataset.records() host time: {', '.join(loads)}")
-    row = dict(stage_row(history, summary, metric, GEOM_BUCKETS), peak_gib=peak_gib,
+    row = dict(stage_row(history, summary, metric, buckets), peak_gib=peak_gib,
                records_s=[s for _, s in records_s], launches=grew)
     return summary, history, row
 
@@ -3937,48 +4012,59 @@ def anyn_problem(S, n, seed, device):
     return tuple(t.to(device).contiguous() for t in (Ms, C1, C2, ps, ps.clone(), T0))
 
 
-def check_fgw_anyn(device, rows):
-    """17a: ``fgw_couplings_flat`` at ``ANYN_CASES`` (padded to the next
+def check_flat(tag, args, rows, label):
+    """``fgw_couplings_flat`` on ``args`` of ``n`` atoms (padded to the next
     multiple of 32, the true n passed to K3) against the plain unpadded
-    solve on the card: plans within ``FGW_ATOL``, flags equal, one launch a
-    call; eager and graph-replay ms, the bound of the n x n work. Then a
-    bucket size (N=32) must reach K3 unpadded, as the runner's buckets do."""
+    solve on the card: plans within ``FGW_ATOL``, flags equal, one launch
+    (of K3's global route above 128 atoms); eager and graph-replay ms and
+    the bound of the n x n work, under ``rows[...][label]``."""
     import torch
     import torch.nn.functional as Fn
 
     from conan_fgw_tpu_torch.ops.cuda import fgw as k3
     from conan_fgw_tpu_torch.ops.cuda import launches
 
+    S, n, _ = args[0].shape
+    N = n + (-n % 32)
+    name = "fgw_couplings_large" if N > k3.LARGEST_TEMPLATE else "fgw_couplings"
+    before = collections.Counter(launches)
+    T_k, div_k = k3.fgw_couplings_flat(*args, **FGW_KW)
+    grew = {k: v - before[k] for k, v in launches.items() if v != before[k]}
+    T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
+    torch.cuda.synchronize()
+    err = float((T_k - T_p).abs().max())
+    pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
+    _, _, iters = k3._launch(*map(pad, args), n=n, count="uncounted", **FGW_KW)
+    sk_run = int(iters.sum())
+    print(f"[fgw {tag}] K3 on {N} rows (n={n}) against the plain unpadded solve: T"
+          f" max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel {int(div_k.sum())} plain"
+          f" {int(div_p.sum())}; launches {grew}; {sk_run} Sinkhorn iterations run")
+    require(tuple(T_k.shape) == (S, n, n), f"fgw {tag}: T {tuple(T_k.shape)}")
+    require(grew == {name: 1}, f"fgw {tag}: launches {grew}")
+    require(err <= FGW_ATOL, f"fgw {tag} plans disagree: {err}")
+    require(bool(torch.equal(div_k, div_p)), f"fgw {tag} diverged flags disagree")
+    ms = cuda_ms(lambda: k3.fgw_couplings_flat(*args, **FGW_KW))
+    replay_ms = graph_ms(lambda: k3.fgw_couplings_flat(*args, **FGW_KW))
+    plain_ms = cuda_ms(lambda: k3.fgw_couplings_plain(*args, **FGW_KW), reps=3, warmup=1)
+    tc, f32 = fgw_bound(S, n, sk_run)
+    print(f"[fgw {tag}] S={S}: {ms:.4f} ms (eager calls, padding included; graph"
+          f" replays {replay_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {tc[0]:.5f} ms"
+          f" ({tc[1]}, {100 * tc[0] / ms:.2f}% reached, {100 * tc[0] / replay_ms:.2f}% of the"
+          f" replays), {f32[0]:.5f} ms in f32 on the CUDA cores")
+    rows[name][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms, plain_ms=plain_ms,
+                             bound=tc, bound_f32=f32, sinkhorn_iters=sk_run)
+
+
+def check_fgw_anyn(device, rows):
+    """17a: ``fgw_couplings_flat`` at ``ANYN_CASES`` (padded to the next
+    multiple of 32, the true n passed to K3) against the plain unpadded
+    solve on the card: plans within ``FGW_ATOL``, flags equal, one launch a
+    call; eager and graph-replay ms, the bound of the n x n work. Then a
+    bucket size (N=32) must reach K3 unpadded, as the runner's buckets do."""
+    from conan_fgw_tpu_torch.ops.cuda import fgw as k3
+
     for label, S, n in ANYN_CASES:
-        args = anyn_problem(S, n, SEED + 1700 + n, device)
-        before = collections.Counter(launches)
-        T_k, div_k = k3.fgw_couplings_flat(*args, **FGW_KW)
-        grew = {k: v - before[k] for k, v in launches.items() if v != before[k]}
-        T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
-        torch.cuda.synchronize()
-        err = float((T_k - T_p).abs().max())
-        N = n + (-n % 32)
-        pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
-        _, _, iters = k3._launch(*map(pad, args), n=n, count="uncounted", **FGW_KW)
-        sk_run = int(iters.sum())
-        print(f"[fgw anyn {label}] K3 on {N} rows (n={n}) against the plain unpadded solve: T"
-              f" max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel {int(div_k.sum())} plain"
-              f" {int(div_p.sum())}; launches {grew}; {sk_run} Sinkhorn iterations run")
-        require(tuple(T_k.shape) == (S, n, n), f"fgw anyn {label}: T {tuple(T_k.shape)}")
-        require(grew == {"fgw_couplings": 1}, f"fgw anyn {label}: launches {grew}")
-        require(err <= FGW_ATOL, f"fgw anyn {label} plans disagree: {err}")
-        require(bool(torch.equal(div_k, div_p)), f"fgw anyn {label} diverged flags disagree")
-        ms = cuda_ms(lambda: k3.fgw_couplings_flat(*args, **FGW_KW))
-        replay_ms = graph_ms(lambda: k3.fgw_couplings_flat(*args, **FGW_KW))
-        plain_ms = cuda_ms(lambda: k3.fgw_couplings_plain(*args, **FGW_KW), reps=3, warmup=1)
-        tc, f32 = fgw_bound(S, n, sk_run)
-        print(f"[fgw anyn {label}] S={S}: {ms:.4f} ms (eager calls, padding included; graph"
-              f" replays {replay_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {tc[0]:.5f} ms"
-              f" ({tc[1]}, {100 * tc[0] / ms:.2f}% reached, {100 * tc[0] / replay_ms:.2f}% of the"
-              f" replays), {f32[0]:.5f} ms in f32 on the CUDA cores")
-        rows["fgw_couplings"][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms,
-                                            plain_ms=plain_ms, bound=tc, bound_f32=f32,
-                                            sinkhorn_iters=sk_run)
+        check_flat(f"anyn {label}", anyn_problem(S, n, SEED + 1700 + n, device), rows, label)
     # a bucket size takes the unpadded launch (n unset), as on the runner's path
     seen, launch = [], k3._launch
     k3._launch = lambda *a, **kw: seen.append((tuple(a[0].shape), kw.get("n"))) or launch(*a, **kw)
@@ -4431,6 +4517,362 @@ def phase_last(device, card, rows):
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# K1/K2 and K3 above 128 atoms: (label, heavy atoms a molecule, N), the
+# ranges chosen so that the seeded molecules fill each N (109-154, 137-165
+# and 190-241 atoms with hydrogens at sol1k_class's batch; 126-160 at
+# N=181, no multiple of 32) and the cap binds
+BIG_SHAPES = (("N160", (80, 88), 160), ("N192", (96, 104), 192), ("N256", (136, 148), 256),
+              ("N181", (90, 98), 181))
+BIG_MOL = 150  # K3' (the per-molecule wrapper, padded to 160) and its barycenter
+BIG_PLAIN_REPS = 3  # timed calls of the plain cfconv at these shapes (0.1-1 s each)
+
+
+def check_big_kernels(device, rows):
+    """18a/18b: K1 and K2 at N=160, 192, 256 and 181 (csrc/cfconv_large.cu),
+    F=128 with 50 Gaussians and F=256 with 10, on G=90 graphs (the CoV-2
+    batch of 18 molecules x 5 conformers), f32 with the index cap; at N=192
+    also the nearest cap and bf16 and f16 node features; phase 2's and
+    12's gates. K3's global route on the F=256 molecules (S=90): the first
+    and second outer iteration at N=160, 192 and 256, and N=181 through
+    ``fgw_couplings_flat`` (padded to 192); K3' at n=150."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    for label, heavy, n_atoms in BIG_SHAPES:
+        for seed, width in ((5000, (F, GAUSS)), (6000, (F_CLS, GAUSS_CLS))):
+            pos, mask = packed_geometry(SEED + seed + n_atoms, B_CLS, heavy, n_atoms, device)
+            atoms = mask.reshape(B_CLS, K, -1)[:, 0].sum(-1)
+            within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
+            print(f"[big {label}] G={B_CLS * K}: {int(atoms.min())}-{int(atoms.max())} atoms a"
+                  f" molecule, up to {int(within.max())} neighbours within the cutoff (cap {CAP})")
+            require(bool((within > CAP).any()), f"{label} inputs never engage the neighbour cap")
+            check_cfconv(label, pos, mask, gen, rows, *width, plain_reps=BIG_PLAIN_REPS)
+            if n_atoms == 192:
+                check_cfconv(f"{label}-nearest", pos, mask, gen, rows, *width, cap_mode="nearest",
+                             plain_reps=BIG_PLAIN_REPS)
+                for dtype in (torch.bfloat16, torch.float16):
+                    check_cfconv(label, pos, mask, gen, rows, *width, dtype=dtype,
+                                 plain_reps=BIG_PLAIN_REPS)
+        args, Ys, Cs = fgw_problem(pos, mask, gen)
+        if n_atoms % 32:
+            check_flat(f"big {label}", args, rows, label)
+        else:
+            check_fgw(label, args, rows)
+            check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
+    check_fgw_mol(BIG_MOL, device, rows)
+
+
+def check_big_barycenter(device):
+    """18b: the per-molecule barycenter at n=150 (K3' on its global route,
+    five launches) on the card against the CPU: Y and C within
+    ``BARY_ATOL``, the gradient w.r.t. ``Ys`` within ``BARY_GRAD_RTOL``;
+    its launch counts are zeroed just before and read just after."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.fgw import FGWConfig
+
+    Ys, Cs, ps, p = molecule_problem(BIG_MOL, SEED + 1877, device)
+    R = torch.randn(BIG_MOL, MOL_D, generator=torch.Generator().manual_seed(SEED + 1878))
+    cfg = FGWConfig()
+    reset_launches()
+    Y_k, C_k, nd_k, g_k = _barycenter_run(Ys, Cs, ps, p, cfg, None, R.to(device))
+    torch.cuda.synchronize()
+    grew = {k: v for k, v in launches.items() if v}
+    Y_c, C_c, nd_c, g_c = _barycenter_run(*(t.cpu() for t in (Ys, Cs, ps, p)), cfg, None, R)
+    err_y = float((Y_k.cpu() - Y_c).abs().max())
+    err_c = float((C_k.cpu() - C_c).abs().max())
+    grad_rel = float((g_k.cpu() - g_c).norm() / g_c.norm())
+    print(f"[big barycenter] n={BIG_MOL}, K={K}: Y max_abs_err {err_y:.3e}, C {err_c:.3e} (tol"
+          f" {BARY_ATOL}); diverged card {nd_k} CPU {nd_c}; gradient w.r.t. Ys rel"
+          f" {grad_rel:.3e} (tol {BARY_GRAD_RTOL}); launches {grew}")
+    want = {"fgw_couplings_mol_large": cfg.outer_iters}
+    require(grew == want, f"big barycenter: launches {grew}, want {want}")
+    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, "big barycenter disagrees")
+    require(nd_k == nd_c and grad_rel <= BARY_GRAD_RTOL, "big barycenter: flags or gradient")
+    return dict(y_err=err_y, c_err=err_c, grad_rel=grad_rel, launches=grew)
+
+
+# 18c: the runner at max_atoms 192 on a synthetic CoV-2 set whose molecules
+# fill the N=128 and the N=192 bucket in turn (97-128 and 129-181 atoms)
+GEOM18_SPLITS = {"train": 36, "valid": 8, "test": 8}
+GEOM18_NO_STORE = {"train": 1, "valid": 1, "test": 1}
+GEOM18_SIZES = ((97, 128), (129, 181))
+GEOM18_BUCKETS = (128, 192)
+BIG_DTYPE_B = 4  # 18f's batch (B x K = 20 graphs at N=192)
+# 18e: ViSNet with every option the JAX module has
+VISNET_OPTIONS = dict(vertex=True, vecnorm_type="max_min", trainable_vecnorm=True,
+                      trainable_rbf=True)
+VISNET_B = 8
+
+
+def max_atoms_copy(src: str, out_dir: Path, epochs: int, max_atoms: int = 192) -> str:
+    """A copy of the YAML config ``src`` with ``num_epochs: epochs`` and
+    ``max_atoms: max_atoms`` appended."""
+    path = Path(config_copy(src, out_dir, epochs))
+    text = path.read_text()
+    require("max_atoms" not in text, f"{src} already sets max_atoms")
+    out = path.with_name(f"{path.stem}_n{max_atoms}.yaml")
+    out.write_text(text + f"max_atoms: {max_atoms}\n")
+    return str(out)
+
+
+@contextlib.contextmanager
+def made_step_graphs():
+    """Inside, every ``StepGraphs`` made is appended to the list it yields."""
+    from conan_fgw_tpu_torch.train.graphs import StepGraphs
+
+    made, init = [], StepGraphs.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    StepGraphs.__init__ = spy
+    try:
+        yield made
+    finally:
+        StepGraphs.__init__ = init
+
+
+def check_train_graph_nodes(label, made) -> dict:
+    """The K1/K2/K3 kernel nodes of every train graph of ``made`` (captured
+    under ``kept_graphs``) against the launches its capture counted, by
+    shape: ``{N: nodes}``."""
+    out = {}
+    for graphs in made:
+        for (kind, shape), step in graphs.steps.items():
+            if kind == "train" and step.graph is not None:
+                nodes = captured_nodes(f"{label} N{shape[-1]}", step)
+                out[shape[-1]] = {k: v for k, v in nodes.items() if v}
+    print(f"[{label}] K1/K2/K3 nodes of the train graphs by N, as their captures counted: {out}")
+    return out
+
+
+def check_big_runner(device, card, tmp, common):
+    """18c: ``cov2_5.yaml`` then ``cov2_5_bc.yaml`` with ``max_atoms: 192``
+    (2 epochs each) on the set of ``GEOM18_*``: phase 14's checks (warm
+    start, best at the highest ``val_auroc``, predict equal to the runner,
+    no plain version, both buckets every epoch, exact K1/K2/K3 counts
+    summed over the small and large routes), and every train graph's
+    K1/K2/K3 nodes equal to what its capture counted, the N=192 graph's on
+    the large kernels; then one stage-2 step at N=192 card against CPU, on
+    half the config's batch as phase 14's N=128 step (the CPU's f32 step is
+    the less precise of the two there: at 4 molecules it lay 1.34e-3 from
+    a float64 step in the loss, the card 9.7e-5; PERF.md §6)."""
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import build_model, load_datasets
+
+    kernels = (("cfconv_fwd_f256", "cfconv_fwd_f256_large"),
+               ("cfconv_bwd_f256", "cfconv_bwd_f256_large"),
+               ("fgw_couplings", "fgw_couplings_large"))
+    out, totals = {}, collections.Counter()
+    with runner_spies() as (plain_calls, restores, captures, host), kept_graphs():
+        ctx = (common, tmp, plain_calls, captures, host, device, card)
+        for stage, src in GEOM_STAGES:
+            first_restore = len(restores)
+            cfg = max_atoms_copy(src, tmp, RUNNER_EPOCHS)
+            label = "geom192 stage 1" if stage == "conan_fgw_pre" else "geom192 stage 2"
+            with last_evaluation() as test_eval, made_step_graphs() as made:
+                summary, history, out[label] = geom_stage(label, stage, cfg, ctx, card, kernels,
+                                                          "auroc", GEOM18_BUCKETS)
+            out[label]["nodes"] = check_train_graph_nodes(label, made)
+            big = out[label]["nodes"].get(192, {})
+            require(big.get("cfconv_fwd_large_kernel") and big.get("cfconv_bwd_large_kernel")
+                    and bool(big.get("fgw_couplings_large_kernel")) == (stage == "conan_fgw"),
+                    f"{label}: the N=192 train graph's large-kernel nodes {big}")
+            del made
+            totals.update(out[label]["launches"])
+            check_best_auroc(label, history, summary,
+                             tmp / "models" / "smoke" / "0" / f"run_{stage}:0")
+        check_warm_start(restores, first_restore,
+                         tmp / "models" / "smoke" / "0" / "run_conan_fgw_pre:0")
+        check_predict_auroc("geom192 stage 2", cfg, tmp, str(tmp), summary, device, test_eval)
+        require(not plain_calls, f"geom192: plain versions ran: {dict(plain_calls)}")
+    config = load_config(cfg)
+    half = config.batch_size // 2
+    records = [r for r in load_datasets(config, str(tmp / "data"))["train"].records()
+               if r.num_atoms > 128][:half]
+    pb = pack_batch(records, max_atoms=192, batch_size=half)
+    out["parity"] = step_parity(build_model(config, seed=SEED, device=device), pb, device,
+                                f"geom192 parity N192 B{len(records)}")
+    out["launches"] = dict(totals)
+    return out, config
+
+
+def check_shuffled_fit(device, config, tmp):
+    """18d: one graphed ``fit`` of the flagship regression model (F=128,
+    stage 2) on the set's train molecules with ``shuffle=True,
+    bucketed=False``: every batch at N=192, on the large kernels alone; the
+    batches it stepped, epoch by epoch, equal a CPU replay of
+    ``batch_iterator`` under ``epoch_rng`` (numpy packer, no prefetch),
+    molecule by molecule; the launch counts, zeroed just before and read
+    just after, are this path's."""
+    import numpy as np
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.models.heads import ConanModel
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.train import graphs as graphs_mod
+    from conan_fgw_tpu_torch.train import loop
+    from conan_fgw_tpu_torch.train.runner import load_datasets
+
+    data = load_datasets(config, str(tmp / "data"))
+    train, val = data["train"].records(), data["valid"].records()
+    settings = loop.TrainSettings(batch_size=config.batch_size, num_epochs=RUNNER_EPOCHS,
+                                  use_barycenter=True, shuffle=True, bucketed=False,
+                                  max_atoms=192, seed=SEED)
+    seen, train_step = [], graphs_mod.StepGraphs.train
+
+    def spy(self, pb):
+        seen.append((pb.z.copy(), pb.pos[:, 0, 0].copy()))
+        return train_step(self, pb)
+
+    graphs_mod.StepGraphs.train = spy
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = loop.fit(settings, train, val, model=ConanModel(seed=SEED, device=device),
+                          device=device)
+        torch.cuda.synchronize()
+    finally:
+        graphs_mod.StepGraphs.train = train_step
+    wall = time.perf_counter() - t0
+    grew = {k: v for k, v in launches.items() if v}
+    replay = [(pb.z, pb.pos[:, 0, 0]) for epoch in range(RUNNER_EPOCHS)
+              for pb in loop.batch_iterator(train, settings.batch_size, 192, shuffle=True,
+                                            rng=loop.epoch_rng(settings, epoch), prefetch=False,
+                                            bucketed=False, pack=pack_batch)]
+    same = len(seen) == len(replay) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(seen, replay))
+    shapes = sorted({z.shape[-1] for z, _ in seen})
+    losses = [r["train_loss"] for r in result.history]
+    # the last epoch's steps are replays of the N=192 train graph
+    last = result.history[-1]
+    replay_ms = 1e3 * last["train_s_n192"] / last["steps_n192"]
+    print(f"[shuffled fit] {len(seen)} graphed steps over {RUNNER_EPOCHS} epochs, shuffle=True,"
+          f" bucketed=False: batch N {shapes}; order equal to the CPU replay {same}; train loss"
+          f" {losses}; launches {grew}; {wall:.1f} s; the last epoch's stage-2 steps at N=192"
+          f" (B={settings.batch_size}, F=128, graph replays) {replay_ms:.2f} ms/step")
+    require(same, "shuffled fit: the batch order differs from the CPU replay")
+    require(shapes == [192], f"shuffled fit: batches at N={shapes}")
+    require(all(np.isfinite(losses)), "shuffled fit: a non-finite loss")
+    want = {"cfconv_fwd_large", "cfconv_bwd_large", "fgw_couplings_large"}
+    require(set(grew) == want, f"shuffled fit: launches {grew}, want {sorted(want)} only")
+    return dict(steps=len(seen), losses=losses, launches=grew, wall_s=wall, replay_ms=replay_ms)
+
+
+def check_visnet_options(device):
+    """18e: one ViSNet stage-2 step with ``VISNET_OPTIONS`` (the runner's
+    ViSNet model, its backbone rebuilt with them and initialised as flax
+    does) on the card against the CPU within phase 4's gates."""
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.data.synthetic import random_dataset
+    from conan_fgw_tpu_torch.models.heads import init_like_flax
+    from conan_fgw_tpu_torch.models.visnet import ViSNet3D
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import build_model
+
+    model = build_model(load_config(BACKBONES["visnet"][1]), seed=SEED, device="cpu")
+    model.backbone = ViSNet3D(128, cutoff=5.0, max_neighbors=CAP, **VISNET_OPTIONS)
+    init_like_flax(model.backbone, torch.Generator().manual_seed(SEED + 1850))
+    recs = random_dataset(SEED + 1851, VISNET_B, num_conformers=K, heavy_range=(8, 10),
+                          device=device)
+    pb = pack_batch(recs, max_atoms=32, batch_size=VISNET_B)
+    return step_parity(model.to(device), pb, device, f"visnet options B{VISNET_B}")
+
+
+def check_big_dtypes(device, config, tmp):
+    """18f: the large kernels' bf16 and f16 variants on their path: two
+    graphed stage-2 train steps (the eager warm-up, then the capture and
+    its replay) at N=192 of the regression model (F=128) and of the
+    classification model (F=256) in each type, launch counts zeroed just
+    before and read just after; each must launch its own variants and no
+    other cfconv kernel, and its losses must be finite."""
+    import dataclasses
+
+    import torch
+
+    from conan_fgw_tpu_torch.data.packing import pack_batch
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.train import loop
+    from conan_fgw_tpu_torch.train.config import load_config
+    from conan_fgw_tpu_torch.train.runner import build_model, load_datasets
+
+    records = [r for r in load_datasets(config, str(tmp / "data"))["train"].records()
+               if r.num_atoms > 128][:BIG_DTYPE_B]
+    pb = pack_batch(records, max_atoms=192, batch_size=BIG_DTYPE_B)
+    regression = load_config(RUNNER_STAGES[1][1])
+    out = collections.Counter()
+    for cfg in (regression, config):
+        for dtype in ("bfloat16", "float16"):
+            model = build_model(dataclasses.replace(cfg, compute_dtype=dtype), seed=SEED,
+                                device=device)
+            settings = loop.TrainSettings(task=cfg.spec.task, batch_size=BIG_DTYPE_B,
+                                          use_barycenter=True)
+            graphs = loop.step_graphs(model, loop.make_optimizer(model, settings), settings,
+                                      device)
+            reset_launches()
+            losses = [float(graphs.train(pb)[0]) for _ in range(2)]
+            torch.cuda.synchronize()
+            grew = {k: v for k, v in launches.items() if v}
+            F = 256 if cfg.spec.task == "classification" else 128
+            suffix = "_bf16" if dtype == "bfloat16" else "_f16"
+            width = "" if F == 128 else "_f256"
+            want = {f"cfconv_fwd{width}_large{suffix}", f"cfconv_bwd{width}_large{suffix}",
+                    "fgw_couplings_large"}
+            print(f"[big {dtype} F{F}] two graphed stage-2 steps at N=192 (B={BIG_DTYPE_B}):"
+                  f" losses {losses}; launches {grew}")
+            require(set(grew) == want, f"big {dtype} F{F}: launches {grew}, want {sorted(want)}")
+            require(all(l == l and abs(l) != float("inf") for l in losses),
+                    f"big {dtype} F{F}: a non-finite loss")
+            out.update(grew)
+            del model, graphs
+    torch.cuda.empty_cache()
+    return dict(out)
+
+
+def phase_large(device, card, rows):
+    """Phase 18: molecules above 128 atoms and the last options. 18a/18b
+    the large kernels against their plain versions (``check_big_kernels``)
+    and the per-molecule barycenter at n=150; 18c the runner at max_atoms
+    192; 18d a shuffled, unbucketed graphed ``fit``; 18e ViSNet's options;
+    18f the large kernels' bf16 and f16 variants on graphed steps."""
+    t0 = time.perf_counter()
+    check_big_kernels(device, rows)
+    out = {"barycenter": check_big_barycenter(device)}
+    out["kernels_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_geom192_") as name:
+        tmp = Path(name)
+        out["atoms"] = make_geom(tmp, GEOM18_SPLITS, GEOM18_NO_STORE, GEOM18_SIZES,
+                                 GEOM18_BUCKETS)
+        common = ["--data_root", str(tmp), "--run_name", "smoke", "--run_id", "0",
+                  "--models_dir", str(tmp / "models"), "--logs_dir", str(tmp / "logs"),
+                  "--metrics_dir", str(tmp / "metrics"), "--device", device]
+        out["runner"], config = check_big_runner(device, card, tmp, common)
+        out["shuffled_fit"] = check_shuffled_fit(device, config, tmp)
+        out["dtypes"] = check_big_dtypes(device, config, tmp)
+    out["visnet_options"] = check_visnet_options(device)
+    totals = collections.Counter(out["runner"]["launches"])
+    totals.update(out["shuffled_fit"]["launches"])
+    totals.update(out["dtypes"])
+    totals.update(out["barycenter"]["launches"])
+    out["launches"] = {k: totals[k] for k in REPLACES}
+    missing = [k for k in LARGE_NAMES if not out["launches"][k]]
+    require(not missing, f"phase 18: large kernels never launched on a path: {missing}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[large] phase 18 took {out['phase_s']:.1f} s (kernel checks {out['kernels_s']:.1f} s);"
+          f" launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4492,6 +4934,7 @@ def main() -> int:
         prepared = (data_root, timed("16a wait", finish_prepare_sol250, Path(data_root), started))
         stage_rows["tools"] = timed("16", phase_tools, device, card, rows, prepared)
     stage_rows["last"] = timed("17", phase_last, device, card, rows)
+    stage_rows["large"] = timed("18", phase_large, device, card, rows)
     stage_rows["phase_s"] = phase_s
     print(f"[phases] seconds by phase {json.dumps(phase_s)}")
 
@@ -4511,13 +4954,20 @@ def main() -> int:
     # data-parallel runner (phase 15) and the tools' K=3 paths' (phase 16)
     # included.
     # All these paths step through CUDA graphs: see the module docstring
+    # The large routes' launches are those of phase 18's paths (the runner at
+    # max_atoms 192, the shuffled fit, the bf16 and f16 steps, the
+    # per-molecule barycenter at n=150), and their row is N=192's (n=150's
+    # for K3 through the per-molecule wrapper)
     class_launches = stage_rows["classification"]["launches"]
     bf16_launches = stage_rows["bf16"]["launches"]
+    large_launches = stage_rows["large"]["launches"]
     kernels = []
     for name in REPLACES:
-        r = rows[name]["N32"]
+        r = rows[name]["N150" if name == "fgw_couplings_mol_large" else
+                       "N192" if name in LARGE_NAMES else "N32"]
         bound_ms, bound_by = r["bound"]
-        main_path = (totals[name] if name in REGRESSION else
+        main_path = (large_launches[name] if name in LARGE_NAMES else
+                     totals[name] if name in REGRESSION else
                      stage_rows["fgw"]["launches"][name] if name == "fgw_couplings_mol" else
                      stage_rows["last"]["launches"][name] if name.endswith("_f16") else
                      stage_rows["bf16"]["class_launches"][name] if name.endswith("_f256_bf16") else
@@ -4525,24 +4975,26 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": main_path,
-            "runner_launches": stage_rows["runner"]["launches"][name],
-            "bf16_runner_launches": bf16_launches[name],
-            "deep_runner_launches": sum(run["launches"][name]
+            "runner_launches": stage_rows["runner"]["launches"].get(name, 0),
+            "bf16_runner_launches": bf16_launches.get(name, 0),
+            "deep_runner_launches": sum(run["launches"].get(name, 0)
                                         for run in stage_rows["fgw"]["runner"].values()),
-            "classification_launches": class_launches[name],
-            "geom_launches": stage_rows["geom"]["launches"][name],
-            "dp_launches": stage_rows["dp"]["launches"][name],
-            "tools_launches": stage_rows["tools"]["launches"][name],
-            "f16_launches": stage_rows["last"]["launches"][name],
-            **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"][name] for bb in BACKBONES},
-            **{f"{cfg}_launches": run["launches"][name]
+            "classification_launches": class_launches.get(name, 0),
+            "geom_launches": stage_rows["geom"]["launches"].get(name, 0),
+            "dp_launches": stage_rows["dp"]["launches"].get(name, 0),
+            "tools_launches": stage_rows["tools"]["launches"].get(name, 0),
+            "f16_launches": stage_rows["last"]["launches"].get(name, 0),
+            "phase18_launches": large_launches[name],
+            **{f"{bb}_launches": stage_rows["backbones"][bb]["launches"].get(name, 0)
+               for bb in BACKBONES},
+            **{f"{cfg}_launches": run["launches"].get(name, 0)
                for cfg, run in stage_rows["esan"]["runner"].items()},
             "max_abs_err": max(rows[name][lab]["max_abs_err"] for lab in rows[name]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, **extra(r),
         })
         for lab, other in rows[name].items():
-            if lab != "N32":
+            if other is not r:
                 kernels[-1][lab.lower()] = dict(
                     ms=other["ms"], plain_ms=other["plain_ms"], bound_ms=other["bound"][0],
                     **extra(other))
@@ -4553,7 +5005,8 @@ def main() -> int:
           f" {json.dumps({k['name']: k['geom_launches'] for k in kernels})}; dp_launches (rank 0)"
           f" {json.dumps({k['name']: k['dp_launches'] for k in kernels})}; tools_launches"
           f" {json.dumps({k['name']: k['tools_launches'] for k in kernels})}; phase 17"
-          f" {stage_rows['last']['phase_s']:.1f} s")
+          f" {stage_rows['last']['phase_s']:.1f} s; phase 18 {stage_rows['large']['phase_s']:.1f} s;"
+          f" phase18_launches {json.dumps({k['name']: k['phase18_launches'] for k in kernels})}")
     print(json.dumps({"kernels": kernels, "launches_counted": LAUNCHES_COUNTED, "train": stage_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

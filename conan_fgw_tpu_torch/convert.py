@@ -6,7 +6,8 @@
 ``(in, out)`` and become torch ``Linear`` weights ``(out, in)``; embedding
 tables, the raw cfconv filter parameters, the GAT attention vectors,
 DimeNet's ``bilinear`` and ``bessel_freq`` and the LayerNorms' scales and
-biases are copied as they are. The backbone's rules follow the tree: ViSNet's
+biases are copied as they are, and so are ViSNet's optional
+``VecLayerNorm`` weights and RBF means and betas. The backbone's rules follow the tree: ViSNet's
 has ``layers_0``, DimeNet's ``bessel_freq``, SchNet's neither. A
 classification tree (its head has ``Dense_1``) maps ``head/Dense_i`` to
 ``head.lins.i`` and ``self_attention/Dense_i`` to ``self_attention.qkv.i``;
@@ -77,6 +78,11 @@ _VISNET = (
     (r"backbone/layers_(\d+)/LayerNorm_0/bias", "backbone.layers.{0}.layernorm.bias", False),
     (r"backbone/layers_(\d+)/(\w+_proj)/kernel", "backbone.layers.{0}.{1}.weight", True),
     (r"backbone/layers_(\d+)/(\w+_proj)/bias", "backbone.layers.{0}.{1}.bias", False),
+    # the options: trainable_vecnorm's weights, trainable_rbf's means and betas
+    (r"backbone/layers_(\d+)/VecLayerNorm_0/weight", "backbone.layers.{0}.vec_layernorm.weight",
+     False),
+    (r"backbone/vec_out_norm/weight", "backbone.vec_out_norm.weight", False),
+    (r"backbone/rbf_(means|betas)", "backbone.rbf.{0}", False),
     (r"backbone/out_norm/scale", "backbone.out_norm.weight", False),
     (r"backbone/out_norm/bias", "backbone.out_norm.bias", False),
     (r"backbone/(output_model(?:_bary)?)/GatedEquivariantBlock_(\d)/(vec[12]_proj)/kernel",

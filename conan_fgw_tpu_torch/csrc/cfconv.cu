@@ -88,8 +88,12 @@
 // (radius_graph_mask's cap_mode "nearest"). The rule is applied once per
 // row when a row's neighbour bits are built, outside the edge tiles.
 //
-// Limits: F = 128 with 2 <= Gs <= 64, or F = 256 with 2 <= Gs <= 16;
-// N <= 128 atoms.
+// Limits: F = 128 with 2 <= Gs <= 64, or F = 256 with 2 <= Gs <= 16.
+// These kernels hold a graph's state in arrays sized for N <= 128 atoms
+// (MAXN); csrc/cfconv_large.cu compiles the same pipeline with that state
+// sized at run time, for any N, and includes this file for its helpers
+// (with CFCONV_HELPERS_ONLY defined, which leaves out the entry points
+// below).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -1155,6 +1159,7 @@ bool valid_modes(int dtype, int cap_mode) {
 
 }  // namespace
 
+#ifndef CFCONV_HELPERS_ONLY
 extern "C" {
 
 const char* cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -1235,3 +1240,4 @@ int cfconv_bwd(const float* pos, const float* mask, const void* x, const float* 
 }
 
 }  // extern "C"
+#endif  // CFCONV_HELPERS_ONLY

@@ -5,8 +5,11 @@ native C++ packer (``data/native.py``) unless a caller passes another
 ``pack`` (the numpy ``packing.pack_batch``, or a packer that writes into
 pinned host memory, ``train/graphs.py::StepGraphs.pack``), and prefetched
 on a background thread so that packing overlaps the device's steps. The
-order is the input's (the reference's loaders do not shuffle): the JAX
-package's unshuffled order.
+order is the input's (the reference's loaders do not shuffle) unless a
+caller asks for ``shuffle``: then ``rng`` permutes the records as the JAX
+loader's does, drawing in the same order (the record indices; with buckets
+the bucket order, then each bucket's records in first-seen order), so the
+same generator gives the same batches molecule by molecule.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import contextlib
 import queue
 import threading
 from typing import Callable, Iterator, Sequence
+
+import numpy as np
 
 from conan_fgw_tpu_torch.data.native import pack_batch_native
 from conan_fgw_tpu_torch.data.packing import (
@@ -44,11 +49,17 @@ def pack(records: Sequence[MoleculeRecord], *, native: bool = True, **kw) -> Pac
 
 
 def batches(records: Sequence[MoleculeRecord], batch_size: int, max_atoms: int, *,
+            shuffle: bool = False, rng: np.random.Generator | None = None,
             pack: Callable = pack) -> Iterator[PackedBatch]:
-    """Batches in input order, every one padded to ``max_atoms`` atoms and
-    ``batch_size`` molecules."""
-    for s in range(0, len(records), batch_size):
-        yield pack(list(records[s : s + batch_size]), max_atoms=max_atoms, batch_size=batch_size)
+    """Batches in input order, or with ``shuffle`` in the order of one
+    ``rng.shuffle`` of the record indices, every one padded to
+    ``max_atoms`` atoms and ``batch_size`` molecules."""
+    idx = np.arange(len(records))
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
+    for s in range(0, len(idx), batch_size):
+        yield pack([records[i] for i in idx[s : s + batch_size]], max_atoms=max_atoms,
+                   batch_size=batch_size)
 
 
 def _groups(records: Sequence[MoleculeRecord], buckets) -> dict[int, list[int]]:
@@ -61,19 +72,31 @@ def _groups(records: Sequence[MoleculeRecord], buckets) -> dict[int, list[int]]:
 
 
 def bucketed_batches(records: Sequence[MoleculeRecord], batch_size: int,
-                     buckets=DEFAULT_BUCKETS, *, pack: Callable = pack) -> Iterator[PackedBatch]:
+                     buckets=DEFAULT_BUCKETS, *, shuffle: bool = False,
+                     rng: np.random.Generator | None = None,
+                     pack: Callable = pack) -> Iterator[PackedBatch]:
     """Atom-count-bucketed batching in input order: group molecules by
     padded size, groups in first-seen order, then emit full-width batches
     (the last of each group padded via ``mol_mask``). A bucket's batches
-    come one after another."""
-    for b, idx in _groups(records, buckets).items():
+    come one after another. With ``shuffle``, ``rng`` shuffles the order of
+    the buckets and then each bucket's records, buckets taken in first-seen
+    order, as the JAX loader does."""
+    groups = _groups(records, buckets)
+    order = list(groups)
+    if shuffle:
+        rng = rng or np.random.default_rng()
+        rng.shuffle(order)
+        for idx in groups.values():
+            rng.shuffle(idx)
+    for b in order:
+        idx = groups[b]
         for s in range(0, len(idx), batch_size):
             yield pack([records[i] for i in idx[s : s + batch_size]], max_atoms=b,
                        batch_size=batch_size)
 
 
 def bucket_order(records: Sequence[MoleculeRecord], buckets=DEFAULT_BUCKETS) -> list[int]:
-    """The record permutation ``bucketed_batches`` emits. Callers that align
+    """The record permutation ``bucketed_batches`` emits unshuffled. Callers that align
     per-record outputs (predictions, embeddings) with their input records
     reindex through this."""
     return [i for idx in _groups(records, buckets).values() for i in idx]
@@ -129,10 +152,12 @@ class Prefetcher:
         self._thread.join()
 
 
-def prefetched_batches(records, batch_size, max_atoms, *, pack: Callable = pack) -> Prefetcher:
-    return Prefetcher(batches(records, batch_size, max_atoms, pack=pack))
+def prefetched_batches(records, batch_size, max_atoms, *, shuffle=False, rng=None,
+                       pack: Callable = pack) -> Prefetcher:
+    return Prefetcher(batches(records, batch_size, max_atoms, shuffle=shuffle, rng=rng, pack=pack))
 
 
-def prefetched_bucketed_batches(records, batch_size, *, buckets=DEFAULT_BUCKETS,
-                                pack: Callable = pack) -> Prefetcher:
-    return Prefetcher(bucketed_batches(records, batch_size, buckets, pack=pack))
+def prefetched_bucketed_batches(records, batch_size, *, buckets=DEFAULT_BUCKETS, shuffle=False,
+                                rng=None, pack: Callable = pack) -> Prefetcher:
+    return Prefetcher(bucketed_batches(records, batch_size, buckets, shuffle=shuffle, rng=rng,
+                                       pack=pack))

@@ -19,6 +19,12 @@ module's, in another order. Each block is recomputed in the backward
 (``torch.utils.checkpoint``), as the JAX module remats it. The lookups are
 one-hot products (``ops/graph.py::embed_onehot``), whose backward sums in a
 fixed order.
+
+The JAX module's options: ``vecnorm_type`` ("max_min" or None, the
+reference default's identity) and ``trainable_vecnorm`` (``VecLayerNorm``'s
+per-channel weight), ``vertex`` (``ViS_MP_Vertex``'s edge update, a second
+rejection product of the target's own vectors gated by half of a widened
+``f_proj``) and ``trainable_rbf`` (the RBF's means and betas as parameters).
 """
 
 from __future__ import annotations
@@ -57,31 +63,79 @@ def _rejection_dot(ab, ad, bd, dd):
 
 
 class ExpNormalSmearing(nn.Module):
-    """ViSNet's exponential-normal RBF, its ``means`` and ``betas`` constant
-    buffers (the reference's ``trainable_rbf=False``)."""
+    """ViSNet's exponential-normal RBF. Its ``means`` and ``betas`` are
+    constant buffers (the reference's ``trainable_rbf=False``), or with
+    ``trainable`` parameters that start at the same values (the JAX
+    module's ``rbf_means``/``rbf_betas``)."""
 
-    def __init__(self, num_rbf: int, cutoff: float):
+    def __init__(self, num_rbf: int, cutoff: float, trainable: bool = False):
         super().__init__()
-        self.cutoff = cutoff
+        self.cutoff, self.num_rbf = cutoff, num_rbf
         means, betas = expnorm_initial_params(num_rbf, cutoff)
-        self.register_buffer("means", means, persistent=False)
-        self.register_buffer("betas", betas, persistent=False)
+        if trainable:
+            self.means, self.betas = nn.Parameter(means), nn.Parameter(betas)
+        else:
+            self.register_buffer("means", means, persistent=False)
+            self.register_buffer("betas", betas, persistent=False)
+
+    def flax_init(self, generator: torch.Generator) -> None:
+        means, betas = expnorm_initial_params(self.num_rbf, self.cutoff)
+        self.means.copy_(means)
+        self.betas.copy_(betas)
 
     def forward(self, dist):
         return expnorm_smearing(dist, self.means, self.betas, self.cutoff)
 
 
+class VecLayerNorm(nn.Module):
+    """The vector features' norm: the identity (``norm_type`` None, the
+    reference default) or the max-min norm over the channels of each atom's
+    vector lengths, then a per-channel ``weight``, a parameter with
+    ``trainable`` (starting at ones) and ones otherwise."""
+
+    def __init__(self, hidden_channels: int, trainable: bool = False,
+                 norm_type: str | None = None):
+        super().__init__()
+        if norm_type not in (None, "max_min"):
+            raise ValueError(f"unknown vecnorm_type {norm_type!r}")
+        self.norm_type = norm_type
+        weight = torch.ones(hidden_channels)
+        if trainable:
+            self.weight = nn.Parameter(weight)
+        else:
+            self.register_buffer("weight", weight, persistent=False)
+
+    def flax_init(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+
+    def forward(self, vec):
+        """``vec (..., 3, H)``."""
+        if self.norm_type == "max_min":
+            dist = torch.sqrt(torch.sum(vec * vec, dim=-2, keepdim=True) + 1e-16)  # (..., 1, H)
+            direct = vec / torch.clamp(dist, min=1e-12)
+            mx, mn = dist.amax(-1, keepdim=True), dist.amin(-1, keepdim=True)
+            delta = torch.where(mx - mn == 0, torch.ones_like(mx), mx - mn)
+            dist = (dist - mn) / delta
+            # jnp.maximum's gradient, split evenly at the tie with 0
+            vec = torch.maximum(dist, torch.zeros_like(dist)) * direct
+        return vec * self.weight
+
+
 class ViSMP(nn.Module):
     """One vector-scalar interactive attention block (dense masked form).
-    The last layer has no edge update. The vector layer norm is the
-    reference default's identity, so the vectors enter unnormalised."""
+    The last layer has no edge update. The vectors enter through
+    ``VecLayerNorm`` (the identity by default). With ``vertex`` the edge
+    update adds ``ViS_MP_Vertex``'s second rejection product."""
 
     def __init__(self, num_heads: int, hidden_channels: int, cutoff: float,
-                 last_layer: bool = False):
+                 last_layer: bool = False, vecnorm_type: str | None = None,
+                 trainable_vecnorm: bool = False, vertex: bool = False):
         super().__init__()
         H = hidden_channels
         self.num_heads, self.cutoff, self.last_layer = num_heads, cutoff, last_layer
+        self.vertex = vertex
         self.layernorm = nn.LayerNorm(H, eps=1e-5)
+        self.vec_layernorm = VecLayerNorm(H, trainable_vecnorm, vecnorm_type)
         self.q_proj = nn.Linear(H, H)
         self.k_proj = nn.Linear(H, H)
         self.v_proj = nn.Linear(H, H)
@@ -93,7 +147,10 @@ class ViSMP(nn.Module):
         if not last_layer:
             self.w_trg_proj = nn.Linear(H, H, bias=False)
             self.w_src_proj = nn.Linear(H, H, bias=False)
-            self.f_proj = nn.Linear(H, H)
+            if vertex:
+                self.t_trg_proj = nn.Linear(H, H, bias=False)
+                self.t_src_proj = nn.Linear(H, H, bias=False)
+            self.f_proj = nn.Linear(H, 2 * H if vertex else H)
 
     def forward(self, x, vec, f, dist, dvec_unit, edge_mask):
         """``x (G, N, H)``; ``vec (G, N, 3, H)``; ``f (G, N, N, H)``;
@@ -107,6 +164,7 @@ class ViSMP(nn.Module):
             return t.reshape(*t.shape[:-1], nh, H // nh)
 
         x_ln = self.layernorm(x)
+        vec = self.vec_layernorm(vec)
         q, k, v = heads(self.q_proj(x_ln)), heads(self.k_proj(x_ln)), heads(self.v_proj(x_ln))
         dk = heads(F.silu(self.dk_proj(f)))
         dv = heads(F.silu(self.dv_proj(f)))
@@ -138,8 +196,17 @@ class ViSMP(nn.Module):
             torch.einsum("gich,gjch->gijh", w_trg, w_src),
             torch.einsum("gich,gijc->gijh", w_trg, dvec_unit),
             torch.einsum("gjch,gijc->gijh", w_src, dvec_unit), dd)
-        df = F.silu(self.f_proj(f)) * w_dot
-        return dx, dvec, df * m[..., None]
+        if not self.vertex:
+            return dx, dvec, F.silu(self.f_proj(f)) * w_dot * m[..., None]
+        # the vertex features: the rejections of the target's own two
+        # projections against d_ij (and -d_ij, the same rejection), dotted
+        t_trg, t_src = self.t_trg_proj(vec), self.t_src_proj(vec)
+        t_dot = _rejection_dot(
+            torch.sum(t_trg * t_src, dim=-2)[:, :, None, :],
+            torch.einsum("gich,gijc->gijh", t_trg, dvec_unit),
+            torch.einsum("gich,gijc->gijh", t_src, dvec_unit), dd)
+        f1, f2 = torch.split(F.silu(self.f_proj(f)), H, dim=-1)
+        return dx, dvec, (f1 * w_dot + f2 * t_dot) * m[..., None]
 
 
 class GatedEquivariantBlock(nn.Module):
@@ -194,13 +261,15 @@ class ViSNet3D(nn.Module):
 
     Reference defaults: lmax 1, 8 heads, 6 layers, 32 RBFs, cutoff 5, at
     most 32 neighbours with self loops counted in the representation graph.
-    The JAX module's ``vertex``, ``vecnorm_type``, ``trainable_vecnorm`` and
-    ``trainable_rbf`` options are not ported: no config sets them, and the
-    port has their defaults built in.
+    ``trainable_rbf``, ``vecnorm_type``, ``trainable_vecnorm`` and
+    ``vertex`` are the JAX module's options (the module docstring); no
+    config sets them.
     """
 
     def __init__(self, hidden_channels: int = 128, num_heads: int = 8, num_layers: int = 6,
-                 num_rbf: int = 32, cutoff: float = 5.0, max_neighbors: int = 32):
+                 num_rbf: int = 32, cutoff: float = 5.0, max_neighbors: int = 32,
+                 trainable_rbf: bool = False, vecnorm_type: str | None = None,
+                 trainable_vecnorm: bool = False, vertex: bool = False):
         super().__init__()
         H = hidden_channels
         self.cutoff, self.max_neighbors = cutoff, max_neighbors
@@ -209,12 +278,14 @@ class ViSNet3D(nn.Module):
         self.neighbor_combine = nn.Linear(2 * H, H)
         self.neighbor_embedding_z = nn.Embedding(100, H)
         self.edge_proj = nn.Linear(num_rbf, H)
-        self.rbf = ExpNormalSmearing(num_rbf, cutoff)
+        self.rbf = ExpNormalSmearing(num_rbf, cutoff, trainable_rbf)
         self.layers = nn.ModuleList(
-            ViSMP(num_heads, H, cutoff, last_layer=(i == num_layers - 1))
+            ViSMP(num_heads, H, cutoff, last_layer=(i == num_layers - 1),
+                  vecnorm_type=vecnorm_type, trainable_vecnorm=trainable_vecnorm, vertex=vertex)
             for i in range(num_layers)
         )
         self.out_norm = nn.LayerNorm(H, eps=1e-5)
+        self.vec_out_norm = VecLayerNorm(H, trainable_vecnorm, vecnorm_type)
         self.output_model = EquivariantScalar(H, H // 2)
         self.prior_model = Atomref()
         self.output_model_bary = EquivariantScalar(H, H // 2)
@@ -260,7 +331,7 @@ class ViSNet3D(nn.Module):
             if df is not None:
                 f = f + df
         x = self.out_norm(x) * fmask
-        vec = vec * fmask[..., None]
+        vec = self.vec_out_norm(vec) * fmask[..., None]
         return x, vec, nbr
 
     def forward(self, z, pos, mask):

@@ -28,7 +28,7 @@ from conan_fgw_tpu_torch.utils.filelock import locked
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cfconv.cu", "fgw.cu")
+SOURCES = ("cfconv.cu", "cfconv_large.cu", "fgw.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,8 +43,13 @@ SIGNATURES = {
     "cfconv_bwd": (_I, [_P] * 16 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "cfconv_partial_floats": (_I, [_I, _I]),
     "cfconv_slabs": (_I, [_I, _I]),
+    "cfconv_fwd_large": (_I, [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+    "cfconv_bwd_large": (_I, [_P] * 17 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+    "cfconv_large_scratch_floats": (_Z, [_I, _I, _I, _I, _I]),
     "fgw_couplings": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
     "fgw_smem": (_Z, [_I, _I]),
+    "fgw_couplings_large": (_I, [_P] * 10 + [_I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
+    "fgw_large_scratch_floats": (_Z, [_I, _I]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -3,7 +3,12 @@
 Replaces ``conan_fgw_tpu/ops/pallas/cfconv.py::fused_cfconv`` (the Pallas
 ``_kernel`` of ``_fused_fwd_impl`` and ``_bwd_kernel`` of
 ``_fused_bwd_impl``). The kernels live in ``csrc/cfconv.cu``; its header
-says what bounds them on this card and how the design answers it.
+says what bounds them on this card and how the design answers it. Graphs
+above ``LARGEST_TEMPLATE`` (128) atoms go to ``csrc/cfconv_large.cu``'s
+kernels, the same pipeline with a graph's state sized at run time (in
+shared memory where it fits, else in a scratch the wrapper allocates), for
+any N; they count under their own launch names (``kernel_name(...,
+large=True)``).
 
 ``cfconv(pos, mask, x, w1, b1, w2, b2, ...)`` computes per conformer graph
 ``m_i = sum_j W(d_ij) gate_ij x_j`` with the filter MLP ``W = ssp(rbf @ w1 +
@@ -59,12 +64,12 @@ import math
 
 import torch
 
-from conan_fgw_tpu_torch.data.packing import DEFAULT_BUCKETS
 from conan_fgw_tpu_torch.ops.cuda import _build, launches
 from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 from conan_fgw_tpu_torch.ops.rbf import gaussian_smearing, shifted_softplus
 
-MAX_ATOMS = DEFAULT_BUCKETS[-1]
+# the largest N of csrc/cfconv.cu's kernels; above it, csrc/cfconv_large.cu's
+LARGEST_TEMPLATE = 128
 # what csrc/cfconv.cu is compiled for: filters F -> the Gaussians it takes
 # (their padded count KG), and the rows of one K1 work item (R1) and
 # sources of one K2 work item (R2)
@@ -77,13 +82,15 @@ CAP_MODES = {"index": 0, "nearest": 1}
 _SUFFIX = {torch.bfloat16: "_bf16", torch.float16: "_f16"}
 
 
-def kernel_name(kernel: str, filters: int, dtype: torch.dtype = torch.float32) -> str:
+def kernel_name(kernel: str, filters: int, dtype: torch.dtype = torch.float32,
+                large: bool = False) -> str:
     """The launch-count name of K1 (``"cfconv_fwd"``) or K2
     (``"cfconv_bwd"``) at a width and node-feature type: F = 128 in f32
-    keeps the plain name, F = 256 adds ``"_f256"``, bf16 ``"_bf16"`` and
-    f16 ``"_f16"`` (``"cfconv_fwd_f256_bf16"``)."""
+    keeps the plain name, F = 256 adds ``"_f256"``, the kernels of graphs
+    above 128 atoms ``"_large"``, bf16 ``"_bf16"`` and f16 ``"_f16"``
+    (``"cfconv_fwd_f256_large_bf16"``)."""
     name = kernel if filters == 128 else f"{kernel}_f{filters}"
-    return name + _SUFFIX.get(dtype, "")
+    return name + ("_large" if large else "") + _SUFFIX.get(dtype, "")
 
 
 def _cfconv_plain(pos, mask, x, w1, b1, w2, b2, cutoff=10.0, num_gaussians=50, max_neighbors=32,
@@ -209,8 +216,6 @@ def _check(pos, mask, x, w1, b1, w2, b2):
     for name, shape in want.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"cfconv kernel: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
-    if N > MAX_ATOMS:
-        raise ValueError(f"cfconv kernel: N={N} exceeds the largest bucket {MAX_ATOMS}")
     if F not in BUILT or not 2 <= Gs <= BUILT[F]:
         built = ", ".join(f"F={f} with 2..{gs} Gaussians" for f, gs in BUILT.items())
         raise ValueError(f"cfconv kernel: built for {built}; got F={F} with {Gs}")
@@ -236,32 +241,50 @@ def _on(device: torch.device):
     return torch.cuda.device(device)
 
 
+def _large_scratch(lib, F, bwd, G, N, blocks, device):
+    """``(tensor, pointer)`` of the large kernels' device scratch, which
+    holds a graph's state where it does not fit in shared memory; ``(None,
+    None)`` where it all fits."""
+    floats = lib.cfconv_large_scratch_floats(F, int(bwd), G, N, blocks)
+    if not floats:
+        return None, None
+    scratch = torch.empty(floats, device=device)
+    return scratch, scratch.data_ptr()
+
+
 def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode="index"):
-    """Launch K1: messages ``(G, N, F)`` of ``x``'s type."""
+    """Launch K1: messages ``(G, N, F)`` of ``x``'s type; above
+    ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_large.cu's K1."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     lib = _build.load_library()
     blocks = _blocks(lib, x, G, N, F, bwd=False)
     narrow = x.dtype != torch.float32
+    large = N > LARGEST_TEMPLATE
     out = torch.empty_like(x)
     out32 = torch.empty(x.shape, device=x.device) if narrow else None  # the f32 sums
     item_tiles = torch.empty(G * -(-N // K1_ROWS), dtype=torch.int32, device=x.device)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.cfconv_fwd(
-            *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out)),
-            out32.data_ptr() if narrow else None, item_tiles.data_ptr(),
-            G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
-            DTYPES[x.dtype], stream,
-        )
-    _build.check(code, "cfconv_fwd")
-    launches[kernel_name("cfconv_fwd", F, x.dtype)] += 1
+        head = (*(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out)),
+                out32.data_ptr() if narrow else None, item_tiles.data_ptr())
+        tail = (G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
+                DTYPES[x.dtype], stream)
+        if large:
+            scratch, pointer = _large_scratch(lib, F, False, G, N, blocks, x.device)
+            code = lib.cfconv_fwd_large(*head, pointer, *tail)
+        else:
+            code = lib.cfconv_fwd(*head, *tail)
+    name = kernel_name("cfconv_fwd", F, x.dtype, large)
+    _build.check(code, name)
+    launches[name] += 1
     return out
 
 
 def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors, cap_mode="index"):
     """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g`` of
     ``x``'s type, ``dx`` of that type, the weight gradients f32 and summed
-    over all graphs."""
+    over all graphs; above ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_large.cu's
+    K2."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
             or not g.is_contiguous() or g.data_ptr() % 16):
@@ -278,16 +301,21 @@ def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors, cap_
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
     partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
     item_tiles = torch.empty(G * -(-N // K2_ROWS), dtype=torch.int32, device=x.device)
+    large = N > LARGEST_TEMPLATE
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.cfconv_bwd(
-            *(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dx_parts, dw1, db1, dw2,
-                                     db2, partial, item_tiles)),
-            G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
-            DTYPES[x.dtype], stream,
-        )
-    _build.check(code, "cfconv_bwd")
-    launches[kernel_name("cfconv_bwd", F, x.dtype)] += 1
+        head = tuple(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dx_parts, dw1,
+                                            db1, dw2, db2, partial, item_tiles))
+        tail = (G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
+                DTYPES[x.dtype], stream)
+        if large:
+            scratch, pointer = _large_scratch(lib, F, True, G, N, blocks, x.device)
+            code = lib.cfconv_bwd_large(*head, pointer, *tail)
+        else:
+            code = lib.cfconv_bwd(*head, *tail)
+    name = kernel_name("cfconv_bwd", F, x.dtype, large)
+    _build.check(code, name)
+    launches[name] += 1
     return dx, dw1, db1, dw2, db2
 
 

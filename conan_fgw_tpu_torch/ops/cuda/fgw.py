@@ -8,6 +8,11 @@ per-molecule wrapper ``pallas_fgw_couplings``. The kernel lives in
 card and how the design answers it. It takes a bucket size N (a multiple of
 32) and each solve's true atom count n <= N, and leaves the padding out of
 the solve; both wrappers pad any other size up to the next multiple of 32.
+Up to ``LARGEST_TEMPLATE`` (128) atoms a solve runs in the kernel's ``<N,
+PAD>`` templates, its matrices in shared memory; above it in the global
+route (``fgw_couplings_large_kernel``), its matrices in device memory
+through L2, with no upper limit on N. A launch of the global route counts
+under its own name, the wrapper's with ``_large``.
 The plain version is ``ops/fgw/coupling.py::fgw_coupling`` on
 the leading n x n block, reached here through ``fgw_couplings_plain``.
 Forward only: the barycenter solves its couplings without gradient.
@@ -21,11 +26,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from conan_fgw_tpu_torch.data.packing import DEFAULT_BUCKETS
 from conan_fgw_tpu_torch.ops.cuda import _build, launches
 from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 
-MAX_ATOMS = DEFAULT_BUCKETS[-1]
+# the largest N of csrc/fgw.cu's <N, PAD> templates; above it, the global route
+LARGEST_TEMPLATE = 128
 _NAMES = ("Ms", "C1s", "C2s", "ps", "qs", "T0s")
 
 
@@ -70,8 +75,10 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
     """Launch K3: ``(T, diverged, sinkhorn_iters_run)``, the last an ``(S,)``
     int32 count of the Sinkhorn iterations each solve ran over all its PGD
     steps (a frozen solve leaves its Sinkhorn loop early). ``N`` must be a
-    bucket size (a multiple of 32 up to ``MAX_ATOMS``); rows and columns
-    ``>= n`` (default N) are padding. Adds one to ``launches[count]``."""
+    multiple of 32; rows and columns ``>= n`` (default N) are padding. Up to
+    ``LARGEST_TEMPLATE`` the templates run and ``launches[count]`` grows by
+    one; above it the global route, with a scratch of 2 N^2 floats a solve,
+    and ``launches[count + "_large"]``."""
     S, N, _ = Ms.shape
     n = N if n is None else int(n)
     dev = Ms.device
@@ -81,25 +88,28 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
         if (idx < 0 or t.get_device() != idx or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.shape != want or t.data_ptr() % 16):
             raise ValueError(f"fgw kernel: {_complaint(name, t, dev, want)}")
-    if N % 32 or N > MAX_ATOMS:
-        raise ValueError(f"fgw kernel: N={N} is not a multiple of 32 up to {MAX_ATOMS}")
+    if N % 32 or N < 32:
+        raise ValueError(f"fgw kernel: N={N} is not a multiple of 32")
     if not 1 <= n <= N:
         raise ValueError(f"fgw kernel: n={n} atoms outside [1, N={N}]")
-    resident = _resident(N)
+    lib = _build.load_library()
     T = torch.empty_like(Ms)
     flags = torch.empty((2, S), dtype=torch.int32, device=dev)
     div, iters = flags[0], flags[1]
+    solver = (float(alpha), float(epsilon), int(pgd_iters), float(pgd_tol), int(sinkhorn_iters),
+              float(sinkhorn_thr))
+    pointers = tuple(t.data_ptr() for t in (Ms, C1s, C2s, ps, qs, T0s, T, div, iters))
     switch = contextlib.nullcontext() if idx == torch.cuda.current_device() else torch.cuda.device(idx)
     with switch:
-        code = _build.load_library().fgw_couplings(
-            Ms.data_ptr(), C1s.data_ptr(), C2s.data_ptr(), ps.data_ptr(), qs.data_ptr(),
-            T0s.data_ptr(), T.data_ptr(), div.data_ptr(), iters.data_ptr(), S, N, n, resident,
-            float(alpha), float(epsilon), int(pgd_iters), float(pgd_tol),
-            int(sinkhorn_iters), float(sinkhorn_thr),
-            # the current stream's raw handle, without building a Stream object
-            torch._C._cuda_getCurrentRawStream(idx),
-        )
-    _build.check(code, "fgw_couplings")
+        # the current stream's raw handle, without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        if N <= LARGEST_TEMPLATE:
+            code = lib.fgw_couplings(*pointers, S, N, n, _resident(N), *solver, stream)
+        else:
+            count += "_large"
+            scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device=dev)
+            code = lib.fgw_couplings_large(*pointers, scratch.data_ptr(), S, N, n, *solver, stream)
+    _build.check(code, count)
     launches[count] += 1
     return T, div, iters
 
@@ -126,9 +136,10 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
     """Solve ``S`` independent FGW couplings.
 
     Args: ``Ms``/``C1s``/``C2s``/``T0s`` ``(S, N, N)``, ``ps``/``qs`` ``(S, N)``
-    for any ``N`` up to ``MAX_ATOMS``, as JAX's flat solver takes any ``n``.
+    for any ``N``, as JAX's flat solver takes any ``n``.
     Returns ``(T (S, N, N) f32, diverged (S,) int32 per-solve flags)``.
-    CUDA tensors go to the kernel (counted as ``fgw_couplings``), CPU
+    CUDA tensors go to the kernel (counted as ``fgw_couplings``, or
+    ``fgw_couplings_large`` above 128 atoms), CPU
     tensors to ``fgw_couplings_plain``; a mix of the two raises. A bucket
     size (a multiple of 32) is launched as it is. Any other ``N`` is padded
     to the next multiple of 32 with zero structure, mass and plan, the
@@ -142,8 +153,6 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
     pad = -N % 32
     if not pad:
         return _solve(args, None, "fgw_couplings", solver)
-    if N > MAX_ATOMS:
-        raise ValueError(f"fgw_couplings_flat: N={N} atoms, more than {MAX_ATOMS}")
     T, div = _solve(tuple(_padded(x, pad) for x in args), N, "fgw_couplings", solver)
     return T[:, :N, :N], div
 
@@ -154,16 +163,15 @@ def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol
 
     Args: ``Ms``/``Cks``/``T0s`` ``(K, n, n)``, ``Cb`` ``(n, n)`` (the
     shared barycenter structure), ``p`` ``(n,)``, ``qs`` ``(K, n)``, for any
-    ``n`` up to ``MAX_ATOMS``. Returns ``(T (K, n, n), count)``, ``count``
+    ``n``. Returns ``(T (K, n, n), count)``, ``count``
     an int32 0-d tensor: how many of the K solves hit a Sinkhorn numerical
     failure and rolled back. The solves are padded to the next multiple of
     32 with zero structure, mass and plan, and K3 (counted as
-    ``fgw_couplings_mol``) leaves the padding out; on the CPU the plain
-    version solves the leading n x n block of the same padded input.
+    ``fgw_couplings_mol``, or ``fgw_couplings_mol_large`` above 128 atoms)
+    leaves the padding out; on the CPU the plain version solves the leading
+    n x n block of the same padded input.
     """
     K, n, _ = Ms.shape
-    if n > MAX_ATOMS:
-        raise ValueError(f"fgw_couplings: n={n} atoms, more than {MAX_ATOMS}")
     pad = -n % 32
     args = tuple(_padded(x, pad) for x in (Ms, Cb.expand(K, n, n), Cks, p.expand(K, n), qs, T0s))
     solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,

@@ -93,6 +93,13 @@ class TrainSettings:
     monitor: str = "val_mse"  # the history key that picks `best` (see MAXIMIZED)
     seed: int = 5
     max_atoms: int | None = None  # the largest bucket; None: the data's
+    # shuffle the training batches every epoch with np.random.default_rng([seed,
+    # epoch]), as the JAX package does (the reference's loaders do not)
+    shuffle: bool = False
+    # atom-count-bucketed batching: each batch padded to its molecules'
+    # bucket of bucket_boundaries(max_atoms); False pads every batch to
+    # max_atoms, one graph shape
+    bucketed: bool = True
     # flag non-finite and outlier predictions in `evaluate` (pred_outliers)
     eval_guard: bool = False
     # mini-steps a gradient update averages over (optax.MultiSteps'
@@ -339,30 +346,42 @@ def batch_iterator(
     batch_size: int,
     max_atoms: int,
     *,
+    shuffle: bool = False,
+    rng: np.random.Generator | None = None,
     prefetch: bool = True,
     bucketed: bool = False,
     pack: Callable = loader_lib.pack,
 ) -> Iterable[PackedBatch]:
-    """The JAX package's ``batch_iterator`` (unshuffled): bucketed or
-    sequential batches, prefetched on a background thread unless
-    ``prefetch=False``. ``pack`` packs each batch (by default natively)."""
+    """The JAX package's ``batch_iterator``: bucketed or sequential
+    batches, shuffled by ``rng`` with ``shuffle``, prefetched on a
+    background thread unless ``prefetch=False``. ``pack`` packs each batch
+    (by default natively)."""
+    order = dict(shuffle=shuffle, rng=rng, pack=pack)
     if bucketed:
         buckets = bucket_boundaries(max_atoms)
         if prefetch:
             return loader_lib.prefetched_bucketed_batches(records, batch_size, buckets=buckets,
-                                                          pack=pack)
-        return loader_lib.bucketed_batches(records, batch_size, buckets, pack=pack)
+                                                          **order)
+        return loader_lib.bucketed_batches(records, batch_size, buckets, **order)
     if prefetch:
-        return loader_lib.prefetched_batches(records, batch_size, max_atoms, pack=pack)
-    return loader_lib.batches(records, batch_size, max_atoms, pack=pack)
+        return loader_lib.prefetched_batches(records, batch_size, max_atoms, **order)
+    return loader_lib.batches(records, batch_size, max_atoms, **order)
+
+
+def epoch_rng(settings: TrainSettings, epoch: int) -> np.random.Generator | None:
+    """The generator that shuffles epoch ``epoch``'s training batches, the
+    JAX loop's ``np.random.default_rng([seed, epoch])`` (a resumed run
+    reproduces any epoch's order); None without ``settings.shuffle``."""
+    return np.random.default_rng([settings.seed, epoch]) if settings.shuffle else None
 
 
 @contextlib.contextmanager
 def step_batches(records, settings: TrainSettings, max_atoms: int, graphs=None, *,
-                 prefetch: bool = True, native: bool = True, mesh=None):
-    """Bucketed ``batch_iterator`` over ``records`` at ``settings``' batch
-    size for one pass of steps, closed on exit (its prefetch thread ends,
-    also when the pass stops early). With ``native`` the native packer
+                 prefetch: bool = True, native: bool = True, mesh=None, rng=None):
+    """``batch_iterator`` over ``records`` at ``settings``' batch size,
+    bucketed as ``settings.bucketed`` says and shuffled by ``rng`` where
+    given (``epoch_rng``), for one pass of steps, closed on exit (its
+    prefetch thread ends, also when the pass stops early). With ``native`` the native packer
     packs, into ``graphs``' pinned slots where it has them
     (``StepGraphs.stage``); otherwise the numpy packer. With a ``mesh``
     the batches are the global ones, and each is packed only in the rank's
@@ -371,11 +390,13 @@ def step_batches(records, settings: TrainSettings, max_atoms: int, graphs=None, 
     rows = settings.batch_size if mesh is None else settings.batch_size // mesh.world
     pack = functools.partial(loader_lib.pack, native=native)
     if native and graphs is not None:
-        pack = graphs.stage(records, rows, bucket_boundaries(max_atoms)) or pack
+        # the batch shapes: every bucket, or max_atoms alone without buckets
+        buckets = bucket_boundaries(max_atoms) if settings.bucketed else (max_atoms,)
+        pack = graphs.stage(records, rows, buckets) or pack
     if mesh is not None:
         pack = mesh_lib.rank_packer(pack, mesh)
-    it = batch_iterator(records, settings.batch_size, max_atoms, prefetch=prefetch,
-                        bucketed=True, pack=pack)
+    it = batch_iterator(records, settings.batch_size, max_atoms, shuffle=rng is not None, rng=rng,
+                        prefetch=prefetch, bucketed=settings.bucketed, pack=pack)
     with contextlib.closing(it):
         yield it
 
@@ -476,14 +497,15 @@ class FitResult:
 
 
 def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, max_atoms: int, dev,
-                 **pipeline):
-    """One epoch of train steps through ``graphs``: ``(losses, n_divs,
+                 epoch: int, **pipeline):
+    """Epoch ``epoch``'s train steps through ``graphs``: ``(losses, n_divs,
     timing)``. A bucket's batches come one after another; ``timing`` holds
     each bucket's steps (``steps_n32``) and host seconds up to a
     synchronise at its end (``train_s_n32``). ``pipeline``:
     ``step_batches``' ``prefetch``, ``native`` and ``mesh``."""
     losses, divs, timing = [], [], {}
-    with step_batches(records, settings, max_atoms, graphs, **pipeline) as batches:
+    with step_batches(records, settings, max_atoms, graphs, rng=epoch_rng(settings, epoch),
+                      **pipeline) as batches:
         for n, group in itertools.groupby(batches, key=lambda pb: pb.max_atoms):
             t0, steps = time.perf_counter(), 0
             for pb in group:
@@ -584,7 +606,7 @@ def fit(settings: TrainSettings,
             epoch_records = train_records(epoch)
         t_train = time.perf_counter()
         losses, divs, timing = _train_epoch(graphs, epoch_records, settings, max_atoms, dev,
-                                            **pipeline)
+                                            epoch, **pipeline)
         train_s = time.perf_counter() - t_train
         train_loss = float(torch.stack(losses).mean())
         epoch_divs = int(torch.stack(divs).sum())

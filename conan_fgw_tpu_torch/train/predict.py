@@ -30,17 +30,25 @@ from conan_fgw_tpu_torch.train.config import load_config
 from conan_fgw_tpu_torch.train.runner import STAGE_BC, build_model, build_settings, load_datasets
 
 
+def iteration_order(records, settings, max_atoms) -> list[int]:
+    """The record order of the evaluation iterator: ``bucket_order``'s
+    where it groups molecules by bucket (``settings.bucketed``), else the
+    input order."""
+    if not settings.bucketed:
+        return list(range(len(records)))
+    return bucket_order(records, buckets=loop_lib.bucket_boundaries(max_atoms))
+
+
 def predict_records(model, records, settings, max_atoms=None, device="cuda", mesh=None):
-    """``(records_in_eval_order, predictions, targets)``: the evaluation
-    iterator groups molecules by bucket, so its order is ``bucket_order``'s.
+    """``(records_in_eval_order, predictions, targets)``, the order
+    ``iteration_order``'s.
     With a ``mesh`` (``parallel/mesh.py``) each rank predicts its row block
     of every batch on the mesh's device and every rank returns the whole
     split (``loop.evaluate``'s gather)."""
     max_atoms = max_atoms or loop_lib.dataset_max_atoms(records)
     dev = resolve_device(device if mesh is None else mesh.device)
     _, pred, y = loop_lib.evaluate(model, records, settings, max_atoms, dev, mesh=mesh)
-    order = bucket_order(records, buckets=loop_lib.bucket_boundaries(max_atoms))
-    return [records[i] for i in order], pred, y
+    return [records[i] for i in iteration_order(records, settings, max_atoms)], pred, y
 
 
 def export_embeddings(model, records, settings, max_atoms, out_path, device="cuda"):
@@ -52,16 +60,16 @@ def export_embeddings(model, records, settings, max_atoms, out_path, device="cud
         raise SystemExit(f"--embeddings needs a model with an embeddings() method (ConanModel);"
                          f" {type(model).__name__} has none")
     dev = resolve_device(device)
-    buckets = loop_lib.bucket_boundaries(max_atoms)
     keys = ("x3d", "x_bary", "x_cov")
     parts = {k: [] for k in keys}
-    batches = loop_lib.batch_iterator(records, settings.batch_size, max_atoms, bucketed=True)
+    batches = loop_lib.batch_iterator(records, settings.batch_size, max_atoms,
+                                      bucketed=settings.bucketed)
     with torch.no_grad(), contextlib.closing(batches):
         for pb in batches:
             out = model.embeddings(pb.to(dev))
             for k in keys:
                 parts[k].append(out[k].cpu().numpy()[pb.mol_mask])
-    ordered = [records[i] for i in bucket_order(records, buckets=buckets)]
+    ordered = [records[i] for i in iteration_order(records, settings, max_atoms)]
     np.savez_compressed(
         out_path,
         **{k: np.concatenate(parts[k]) for k in keys},

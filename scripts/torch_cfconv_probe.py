@@ -123,7 +123,8 @@ def build_variants() -> dict[str, ctypes.CDLL]:
             raise SystemExit(f"variant {name} failed to build:\n{out}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         for fn, (restype, argtypes) in _build.SIGNATURES.items():
-            getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+            if hasattr(lib, fn):  # the large-N route (cfconv_large.cu) is not built here
+                getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
         libs[name] = lib
     libs["phases"].phase_dump.argtypes = [ctypes.c_void_p]
     libs["phases"].phase_dump2.argtypes = [ctypes.c_void_p]

@@ -47,6 +47,7 @@ PHASES = {
     "dp": lambda card: cs.phase_dp("cuda", card, _rows(), _single(card)),
     "tools": lambda card: cs.phase_tools("cuda", card, _rows()),
     "last": lambda card: cs.phase_last("cuda", card, _rows()),
+    "large": lambda card: cs.phase_large("cuda", card, _rows()),
 }
 
 

@@ -78,9 +78,16 @@ def test_bucket_sizes_launch_unpadded(solves_seen):
     assert solves_seen == [((2, 32, 32), None)]
 
 
-def test_flat_solve_refuses_more_than_the_largest_bucket():
-    with pytest.raises(ValueError, match="more than 128"):
-        k3.fgw_couplings_flat(*_t(*_solves(s=1, n=130, seed=2)), **KW)
+def test_flat_solve_refuses_more_than_the_largest_bucket(solves_seen):
+    """Kept under its old name: the refusal is gone. n=130, above the
+    largest bucket, is padded to 160 and solved (on the card by K3's global
+    route); on the CPU the padded solve equals the plain
+    solve of the unpadded input bit for bit."""
+    args = _t(*_solves(s=1, n=130, seed=2))
+    T_t, div_t = k3.fgw_couplings_flat(*args, **KW)
+    assert solves_seen == [((1, 160, 160), 130)]
+    T_u, div_u = k3.fgw_couplings_plain(*args, **KW)
+    assert T_t.shape == (1, 130, 130) and torch.equal(T_t, T_u) and torch.equal(div_t, div_u)
 
 
 def _random_graphs(B=3, K=4, N=22, D=3, seed=0):

@@ -214,9 +214,16 @@ def test_padded_solve_is_the_unpadded_solve(n, alpha, epsilon):
 
 
 def test_couplings_refuse_more_than_the_largest_bucket():
-    args = _t(*_molecule(k=2, n=130, seed=9))
-    with pytest.raises(ValueError, match="more than 128"):
-        fgw_couplings(*args, **KW)
+    """Kept under its old name: the refusal is gone. n=130, above the
+    largest bucket, is padded to 160 and solved; the
+    plan equals the unpadded plain solve's, as at any n."""
+    Ms, Cb, Cs, p, qs, T0 = _t(*_molecule(k=2, n=130, seed=9))
+    T_ref, div_ref = tfgw.fgw_coupling(Ms, Cb.expand(2, 130, 130), Cs, p.expand(2, 130), qs, T0,
+                                       **KW)
+    T, count = fgw_couplings(Ms, Cb, Cs, p, qs, T0, **KW)
+    assert T.shape == (2, 130, 130)
+    np.testing.assert_allclose(T.numpy(), T_ref.numpy(), atol=T_ATOL)
+    assert int(count) == int(div_ref.sum())
 
 
 # ------------------------------------------------------------- barycenters
