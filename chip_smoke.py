@@ -312,22 +312,29 @@ on a ``[phases]`` line:
    Gaussians and F=256 with 10 on G = 90 seeded graphs of 109-251 atoms,
    the cap binding, with phase 2's gates; at N = 192 also the nearest cap
    and the bf16 and f16 variants with phase 12's and 17's gates (rows
-   ``n160`` ... ``n192-nearest``). 18b: K3's global route on the F=256
-   molecules (S = 90) at N = 160, 192 and 256, first and second outer
-   iteration, and at N = 181 through ``fgw_couplings_flat`` (padded to
-   192), within ``FGW_ATOL``, flags equal; K3' at n = 150 and the
-   per-molecule barycenter at n = 150 on the card against the CPU. 18c: a
+   ``n160`` ... ``n192-nearest``). 18b: K3's cluster route
+   (``fgw_couplings_cluster_kernel``, counted under ``_cluster`` names) on
+   the F=256 molecules (S = 90) at N = 160, 192 and 256, first and second
+   outer iteration, and at N = 181 through ``fgw_couplings_flat`` (padded
+   to 192), within ``FGW_ATOL``, flags equal, its cluster size, band rows,
+   shared bytes and clusters the card holds printed, two launches on one
+   input bit for bit equal; the global route at N = 288, above the
+   cluster route's 256; K3' at n = 150 (cluster) and n = 270 (global); the
+   per-molecule barycenter at n = 150 and n = 270 and the batched one at
+   n = 270 on the card against the CPU. 18c: a
    synthetic CoV-2 set of 36/8/8 molecules of 97-128 and 129-181 atoms in
    turn; the runner's ``main`` on ``cov2_5.yaml`` then ``cov2_5_bc.yaml``
    with ``max_atoms: 192`` (2 epochs each) with phase 14's checks, both the
    N = 128 and the N = 192 bucket every epoch, K1/K2/K3 counted over the
    small and large routes, and every train graph's K1/K2/K3 nodes equal to
-   what its capture counted (the N = 192 graph's on the large kernels);
+   what its capture counted (the N = 192 graph's on the large kernels,
+   K3's five on the cluster route and none on the global one);
    predict; one stage-2 step at N = 192 card against CPU. 18d: one graphed
    ``fit`` of the flagship (F=128, stage 2) with ``shuffle=True,
    bucketed=False``: every batch at N = 192 on the large kernels alone, and
    the batches it stepped equal to a CPU replay of ``batch_iterator`` under
-   ``loop.epoch_rng``, molecule by molecule. 18e: one ViSNet stage-2 step
+   ``loop.epoch_rng``, molecule by molecule; the replays' ms a step beside
+   the global route's 23.61 (PR 17). 18e: one ViSNet stage-2 step
    with ``vertex``, ``vecnorm_type="max_min"``, ``trainable_vecnorm`` and
    ``trainable_rbf`` card against CPU (phase 4's gates). 18f: two graphed
    stage-2 steps at N = 192 of the F=128 and the F=256 model in bf16 and
@@ -430,17 +437,20 @@ REPLACES = {
     "cfconv_bwd_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     "cfconv_fwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
-    # graphs above 128 atoms (phase 18): K3's global route, through both
-    # wrappers, and csrc/cfconv_large.cu's K1/K2 at both widths and types
+    # graphs above 128 atoms (phase 18): K3's cluster route (129-256 atoms)
+    # and its global route (above 256), through both wrappers, and
+    # csrc/cfconv_large.cu's K1/K2 at both widths and types
+    "fgw_couplings_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:362",
+    "fgw_couplings_mol_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     "fgw_couplings_large": "conan_fgw_tpu/ops/pallas/fgw.py:362",
     "fgw_couplings_mol_large": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     **{f"cfconv_{kind}{width}_large{dtype}": f"conan_fgw_tpu/ops/pallas/cfconv.py:{line}"
        for kind, line in (("fwd", 223), ("bwd", 146)) for width in ("", "_f256")
        for dtype in ("", "_bf16", "_f16")},
 }
-# the launch names of phase 18's large routes
+# the launch names of phase 18's routes above 128 atoms
 LARGE_NAMES = tuple(name for name in REPLACES if name.endswith(("_large", "_large_bf16",
-                                                                "_large_f16")))
+                                                                "_large_f16", "_cluster")))
 SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
@@ -456,6 +466,8 @@ SOURCES = {
     "cfconv_bwd_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_fwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
+    "fgw_couplings_cluster": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "fgw_couplings_mol_cluster": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
     **{name: "conan_fgw_tpu_torch/csrc/cfconv_large.cu" for name in LARGE_NAMES
@@ -568,6 +580,7 @@ def phase_build():
         print(f"[ptxas] spill bytes (stores + loads) by kernel: {spills}")
         require(any("fgw_couplings_kernel" in e for e in spills), "no ptxas report for K3")
         require(any("fgw_couplings_large_kernel" in e for e in spills)
+                and any("fgw_couplings_cluster_kernel" in e for e in spills)
                 and any("cfconv_bwd_large_kernel" in e for e in spills),
                 "no ptxas report for the large-N kernels")
         require(spills and not any(spills.values()), "a kernel spills registers")
@@ -854,10 +867,10 @@ def check_fgw(label, args, rows, kw=FGW_KW):
     solver budget ``kw``."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.fgw import LARGEST_TEMPLATE, _launch, fgw_couplings_plain
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain, launch_name
 
     S, N, _ = args[0].shape
-    name = "fgw_couplings_large" if N > LARGEST_TEMPLATE else "fgw_couplings"
+    name = launch_name("fgw_couplings", N)
     T_k, div_k, sk_iters = _launch(*args, **kw)
     T_p, div_p = fgw_couplings_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -1632,6 +1645,7 @@ PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_b
             "fgw_couplings_kernel": ("fgw_couplings",),
             "cfconv_fwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_fwd")),
             "cfconv_bwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_bwd")),
+            "fgw_couplings_cluster_kernel": ("fgw_couplings_cluster",),
             "fgw_couplings_large_kernel": ("fgw_couplings_large",)}
 # the kernels of graphs up to 128 atoms, which phase 8's graphs run
 SMALL_PROFILED = ("cfconv_fwd_kernel", "cfconv_bwd_kernel", "fgw_couplings_kernel")
@@ -2844,11 +2858,11 @@ def check_fgw_mol(n, device, rows, kw=FGW_KW):
     import torch.nn.functional as Fn
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
-    from conan_fgw_tpu_torch.ops.cuda.fgw import LARGEST_TEMPLATE, _launch, fgw_couplings
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings, launch_name
     from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
     from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 
-    name = "fgw_couplings_mol" + ("_large" if n + (-n % 32) > LARGEST_TEMPLATE else "")
+    name = launch_name("fgw_couplings_mol", n + (-n % 32))
     Ys, Cs, ps, p = molecule_problem(n, SEED + n, device)
     gen = torch.Generator().manual_seed(SEED + 2 * n)
     Y0 = (torch.rand(n, Ys.shape[-1], generator=gen) + 0.1).to(device)
@@ -4016,7 +4030,7 @@ def check_flat(tag, args, rows, label):
     """``fgw_couplings_flat`` on ``args`` of ``n`` atoms (padded to the next
     multiple of 32, the true n passed to K3) against the plain unpadded
     solve on the card: plans within ``FGW_ATOL``, flags equal, one launch
-    (of K3's global route above 128 atoms); eager and graph-replay ms and
+    (under ``launch_name``'s name for the padded N); eager and graph-replay ms and
     the bound of the n x n work, under ``rows[...][label]``."""
     import torch
     import torch.nn.functional as Fn
@@ -4026,7 +4040,7 @@ def check_flat(tag, args, rows, label):
 
     S, n, _ = args[0].shape
     N = n + (-n % 32)
-    name = "fgw_couplings_large" if N > k3.LARGEST_TEMPLATE else "fgw_couplings"
+    name = k3.launch_name("fgw_couplings", N)
     before = collections.Counter(launches)
     T_k, div_k = k3.fgw_couplings_flat(*args, **FGW_KW)
     grew = {k: v - before[k] for k, v in launches.items() if v != before[k]}
@@ -4525,6 +4539,11 @@ def phase_last(device, card, rows):
 BIG_SHAPES = (("N160", (80, 88), 160), ("N192", (96, 104), 192), ("N256", (136, 148), 256),
               ("N181", (90, 98), 181))
 BIG_MOL = 150  # K3' (the per-molecule wrapper, padded to 160) and its barycenter
+# above the cluster route's 256 atoms: K3's global route at N = 288 (F=256
+# molecules, S = 90), K3' and both barycenters at n = 270 (padded to 288)
+GLOBAL_SHAPE = ("N288", (150, 166), 288)
+GLOBAL_MOL = 270
+GLOBAL_BATCH = 2  # molecules of the batched barycenter at n = GLOBAL_MOL
 BIG_PLAIN_REPS = 3  # timed calls of the plain cfconv at these shapes (0.1-1 s each)
 
 
@@ -4533,12 +4552,27 @@ def check_big_kernels(device, rows):
     F=128 with 50 Gaussians and F=256 with 10, on G=90 graphs (the CoV-2
     batch of 18 molecules x 5 conformers), f32 with the index cap; at N=192
     also the nearest cap and bf16 and f16 node features; phase 2's and
-    12's gates. K3's global route on the F=256 molecules (S=90): the first
+    12's gates. K3's cluster route on the F=256 molecules (S=90): the first
     and second outer iteration at N=160, 192 and 256, and N=181 through
-    ``fgw_couplings_flat`` (padded to 192); K3' at n=150."""
+    ``fgw_couplings_flat`` (padded to 192); two launches bit for bit equal
+    at N=192; the global route at N=288 (first outer iteration); K3' at
+    n=150 (cluster) and n=270 (global). Returns the cluster route's shape
+    by N: CTAs, band rows, shared bytes a CTA, clusters the card holds."""
     import torch
 
+    from conan_fgw_tpu_torch.ops.cuda import _build
+    from conan_fgw_tpu_torch.ops.cuda import fgw as k3
     from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
+
+    lib = _build.load_library()
+    shapes = {}
+    for N in range(k3.LARGEST_TEMPLATE + 32, k3.LARGEST_CLUSTER + 1, 32):
+        way = k3.route(N)
+        shapes[N] = dict(ctas=way.ctas, rows=way.rows, smem=lib.fgw_cluster_smem(N, way.rows),
+                         active=lib.fgw_cluster_active(N, way.rows))
+        print(f"[big K3 N{N}] cluster route: {way.ctas} CTAs of {way.rows} rows a solve,"
+              f" {shapes[N]['smem']} shared bytes a CTA, {shapes[N]['active']} clusters at once")
+        require(shapes[N]["active"] > 0, f"K3's cluster route places no cluster at N={N}")
 
     gen = torch.Generator().manual_seed(SEED + 18)
     for label, heavy, n_atoms in BIG_SHAPES:
@@ -4562,21 +4596,45 @@ def check_big_kernels(device, rows):
         else:
             check_fgw(label, args, rows)
             check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
+        if n_atoms == 192:
+            check_fgw_bits(label, args)
+    label, heavy, n_atoms = GLOBAL_SHAPE
+    pos, mask = packed_geometry(SEED + 6000 + n_atoms, B_CLS, heavy, n_atoms, device)
+    check_fgw(label, fgw_problem(pos, mask, gen)[0], rows)
     check_fgw_mol(BIG_MOL, device, rows)
+    check_fgw_mol(GLOBAL_MOL, device, rows)
+    return shapes
 
 
-def check_big_barycenter(device):
-    """18b: the per-molecule barycenter at n=150 (K3' on its global route,
-    five launches) on the card against the CPU: Y and C within
-    ``BARY_ATOL``, the gradient w.r.t. ``Ys`` within ``BARY_GRAD_RTOL``;
-    its launch counts are zeroed just before and read just after."""
+def check_fgw_bits(label, args):
+    """Two launches of K3 on the same input give the same bits (no atomics;
+    the cluster's reductions run in rank order)."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch
+
+    first = _launch(*args, count="uncounted", **FGW_KW)
+    second = _launch(*args, count="uncounted", **FGW_KW)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[fgw {label}] two launches on one input: T, flags and iterations bit for bit equal {same}")
+    require(same, f"fgw {label}: two launches on one input differ")
+
+
+def check_big_barycenter(device, n):
+    """18b: the per-molecule barycenter at ``n`` atoms (K3' on the route of
+    the padded n, five launches) on the card against the CPU: Y and C
+    within ``BARY_ATOL``, the gradient w.r.t. ``Ys`` within
+    ``BARY_GRAD_RTOL``; its launch counts are zeroed just before and read
+    just after."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.cuda.fgw import launch_name
     from conan_fgw_tpu_torch.ops.fgw import FGWConfig
 
-    Ys, Cs, ps, p = molecule_problem(BIG_MOL, SEED + 1877, device)
-    R = torch.randn(BIG_MOL, MOL_D, generator=torch.Generator().manual_seed(SEED + 1878))
+    Ys, Cs, ps, p = molecule_problem(n, SEED + 1727 + n, device)
+    R = torch.randn(n, MOL_D, generator=torch.Generator().manual_seed(SEED + 1728 + n))
     cfg = FGWConfig()
     reset_launches()
     Y_k, C_k, nd_k, g_k = _barycenter_run(Ys, Cs, ps, p, cfg, None, R.to(device))
@@ -4586,14 +4644,46 @@ def check_big_barycenter(device):
     err_y = float((Y_k.cpu() - Y_c).abs().max())
     err_c = float((C_k.cpu() - C_c).abs().max())
     grad_rel = float((g_k.cpu() - g_c).norm() / g_c.norm())
-    print(f"[big barycenter] n={BIG_MOL}, K={K}: Y max_abs_err {err_y:.3e}, C {err_c:.3e} (tol"
+    print(f"[big barycenter] n={n}, K={K}: Y max_abs_err {err_y:.3e}, C {err_c:.3e} (tol"
           f" {BARY_ATOL}); diverged card {nd_k} CPU {nd_c}; gradient w.r.t. Ys rel"
           f" {grad_rel:.3e} (tol {BARY_GRAD_RTOL}); launches {grew}")
-    want = {"fgw_couplings_mol_large": cfg.outer_iters}
-    require(grew == want, f"big barycenter: launches {grew}, want {want}")
-    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, "big barycenter disagrees")
-    require(nd_k == nd_c and grad_rel <= BARY_GRAD_RTOL, "big barycenter: flags or gradient")
+    want = {launch_name("fgw_couplings_mol", n + (-n % 32)): cfg.outer_iters}
+    require(grew == want, f"big barycenter n={n}: launches {grew}, want {want}")
+    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, f"big barycenter n={n} disagrees")
+    require(nd_k == nd_c and grad_rel <= BARY_GRAD_RTOL, f"big barycenter n={n}: flags or gradient")
     return dict(y_err=err_y, c_err=err_c, grad_rel=grad_rel, launches=grew)
+
+
+def check_global_batch(device):
+    """18b: ``fgw_barycenter_batch`` on ``GLOBAL_BATCH`` molecules of
+    ``GLOBAL_MOL`` atoms (flat K3 on the global route, padded to 288, five
+    launches) on the card against the CPU: Y and C within ``BARY_ATOL``,
+    diverged counts equal; launch counts zeroed just before, read just
+    after."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.fgw import FGWConfig, fgw_barycenter_batch
+
+    mols = [molecule_problem(GLOBAL_MOL, SEED + 1890 + b, "cpu")[:2] for b in range(GLOBAL_BATCH)]
+    Ys = torch.stack([m[0] for m in mols])
+    Cs = torch.stack([m[1] for m in mols])
+    cfg = FGWConfig()
+    reset_launches()
+    Y_k, C_k, nd_k = fgw_barycenter_batch(Ys.to(device), Cs.to(device), config=cfg)
+    torch.cuda.synchronize()
+    grew = {k: v for k, v in launches.items() if v}
+    Y_c, C_c, nd_c = fgw_barycenter_batch(Ys, Cs, config=cfg)
+    err_y = float((Y_k.cpu() - Y_c).abs().max())
+    err_c = float((C_k.cpu() - C_c).abs().max())
+    print(f"[big batch] {GLOBAL_BATCH} molecules of n={GLOBAL_MOL}, K={K}: Y max_abs_err"
+          f" {err_y:.3e}, C {err_c:.3e} (tol {BARY_ATOL}); diverged card {int(nd_k)} CPU"
+          f" {int(nd_c)}; launches {grew}")
+    want = {"fgw_couplings_large": cfg.outer_iters}
+    require(grew == want, f"big batch: launches {grew}, want {want}")
+    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, "big batch disagrees")
+    require(int(nd_k) == int(nd_c), "big batch: diverged counts differ")
+    return dict(y_err=err_y, c_err=err_c, launches=grew)
 
 
 # 18c: the runner at max_atoms 192 on a synthetic CoV-2 set whose molecules
@@ -4669,7 +4759,7 @@ def check_big_runner(device, card, tmp, common):
 
     kernels = (("cfconv_fwd_f256", "cfconv_fwd_f256_large"),
                ("cfconv_bwd_f256", "cfconv_bwd_f256_large"),
-               ("fgw_couplings", "fgw_couplings_large"))
+               ("fgw_couplings", "fgw_couplings_cluster"))
     out, totals = {}, collections.Counter()
     with runner_spies() as (plain_calls, restores, captures, host), kept_graphs():
         ctx = (common, tmp, plain_calls, captures, host, device, card)
@@ -4683,7 +4773,8 @@ def check_big_runner(device, card, tmp, common):
             out[label]["nodes"] = check_train_graph_nodes(label, made)
             big = out[label]["nodes"].get(192, {})
             require(big.get("cfconv_fwd_large_kernel") and big.get("cfconv_bwd_large_kernel")
-                    and bool(big.get("fgw_couplings_large_kernel")) == (stage == "conan_fgw"),
+                    and big.get("fgw_couplings_cluster_kernel", 0) == (5 if stage == "conan_fgw" else 0)
+                    and not big.get("fgw_couplings_large_kernel"),
                     f"{label}: the N=192 train graph's large-kernel nodes {big}")
             del made
             totals.update(out[label]["launches"])
@@ -4758,11 +4849,12 @@ def check_shuffled_fit(device, config, tmp):
     print(f"[shuffled fit] {len(seen)} graphed steps over {RUNNER_EPOCHS} epochs, shuffle=True,"
           f" bucketed=False: batch N {shapes}; order equal to the CPU replay {same}; train loss"
           f" {losses}; launches {grew}; {wall:.1f} s; the last epoch's stage-2 steps at N=192"
-          f" (B={settings.batch_size}, F=128, graph replays) {replay_ms:.2f} ms/step")
+          f" (B={settings.batch_size}, F=128, graph replays) {replay_ms:.2f} ms/step (PR 17's"
+          f" global route: 23.61)")
     require(same, "shuffled fit: the batch order differs from the CPU replay")
     require(shapes == [192], f"shuffled fit: batches at N={shapes}")
     require(all(np.isfinite(losses)), "shuffled fit: a non-finite loss")
-    want = {"cfconv_fwd_large", "cfconv_bwd_large", "fgw_couplings_large"}
+    want = {"cfconv_fwd_large", "cfconv_bwd_large", "fgw_couplings_cluster"}
     require(set(grew) == want, f"shuffled fit: launches {grew}, want {sorted(want)} only")
     return dict(steps=len(seen), losses=losses, launches=grew, wall_s=wall, replay_ms=replay_ms)
 
@@ -4827,7 +4919,7 @@ def check_big_dtypes(device, config, tmp):
             suffix = "_bf16" if dtype == "bfloat16" else "_f16"
             width = "" if F == 128 else "_f256"
             want = {f"cfconv_fwd{width}_large{suffix}", f"cfconv_bwd{width}_large{suffix}",
-                    "fgw_couplings_large"}
+                    "fgw_couplings_cluster"}
             print(f"[big {dtype} F{F}] two graphed stage-2 steps at N=192 (B={BIG_DTYPE_B}):"
                   f" losses {losses}; launches {grew}")
             require(set(grew) == want, f"big {dtype} F{F}: launches {grew}, want {sorted(want)}")
@@ -4846,8 +4938,10 @@ def phase_large(device, card, rows):
     192; 18d a shuffled, unbucketed graphed ``fit``; 18e ViSNet's options;
     18f the large kernels' bf16 and f16 variants on graphed steps."""
     t0 = time.perf_counter()
-    check_big_kernels(device, rows)
-    out = {"barycenter": check_big_barycenter(device)}
+    out = {"cluster_shapes": check_big_kernels(device, rows)}
+    out["barycenter"] = check_big_barycenter(device, BIG_MOL)
+    out["global_barycenter"] = check_big_barycenter(device, GLOBAL_MOL)
+    out["global_batch"] = check_global_batch(device)
     out["kernels_s"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_geom192_") as name:
         tmp = Path(name)
@@ -4863,7 +4957,8 @@ def phase_large(device, card, rows):
     totals = collections.Counter(out["runner"]["launches"])
     totals.update(out["shuffled_fit"]["launches"])
     totals.update(out["dtypes"])
-    totals.update(out["barycenter"]["launches"])
+    for key in ("barycenter", "global_barycenter", "global_batch"):
+        totals.update(out[key]["launches"])
     out["launches"] = {k: totals[k] for k in REPLACES}
     missing = [k for k in LARGE_NAMES if not out["launches"][k]]
     require(not missing, f"phase 18: large kernels never launched on a path: {missing}")
@@ -4956,15 +5051,17 @@ def main() -> int:
     # All these paths step through CUDA graphs: see the module docstring
     # The large routes' launches are those of phase 18's paths (the runner at
     # max_atoms 192, the shuffled fit, the bf16 and f16 steps, the
-    # per-molecule barycenter at n=150), and their row is N=192's (n=150's
-    # for K3 through the per-molecule wrapper)
+    # per-molecule barycenters at n=150 and 270, the batched one at n=270),
+    # and their row is N=192's (K3 through the per-molecule wrapper: n=150's
+    # on the cluster route; the global route: N=288's and n=270's)
     class_launches = stage_rows["classification"]["launches"]
     bf16_launches = stage_rows["bf16"]["launches"]
     large_launches = stage_rows["large"]["launches"]
     kernels = []
     for name in REPLACES:
-        r = rows[name]["N150" if name == "fgw_couplings_mol_large" else
-                       "N192" if name in LARGE_NAMES else "N32"]
+        r = rows[name][{"fgw_couplings_mol_cluster": "N150", "fgw_couplings_large": "N288",
+                        "fgw_couplings_mol_large": f"N{GLOBAL_MOL}"}.get(
+                            name, "N192" if name in LARGE_NAMES else "N32")]
         bound_ms, bound_by = r["bound"]
         main_path = (large_launches[name] if name in LARGE_NAMES else
                      totals[name] if name in REGRESSION else

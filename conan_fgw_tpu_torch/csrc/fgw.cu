@@ -3,6 +3,16 @@
 // Replaces the Pallas TPU kernel of conan_fgw_tpu/ops/pallas/fgw.py
 // (pallas_fgw_couplings_flat -> _super_kernel / _sinkhorn_super).
 //
+// Three routes, chosen by the bucket size N (ops/cuda/fgw.py::route), each
+// with its own comment below on what bounds it and how it answers that:
+// - N = 32 .. 128: fgw_couplings_kernel<N, PAD>, one CTA a solve, the
+//   solve's matrices in that CTA's shared memory (this header);
+// - N = 160 .. 256: fgw_couplings_cluster_kernel<N, R>, one thread-block
+//   cluster of N / R CTAs a solve, each holding a band of R rows of the
+//   solve's matrices in its shared memory;
+// - N above 256: fgw_couplings_large_kernel, one CTA a solve, its matrices
+//   in device memory through L1/L2.
+//
 // S independent solves (square loss, symmetric structure, PGD), each of n
 // atoms padded to a bucket size N: rows and columns >= n are left out of the
 // solve (their entries of mr are -inf, their potentials stay 0, and they take
@@ -64,6 +74,7 @@
 // The TPU's lane packing, block-diagonal operands and selector matmuls are
 // dropped: they served the TPU layout only.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -495,11 +506,15 @@ int launch(const float* Ms, const float* C1s, const float* C2s, const float* ps,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- N > 128
-// The global-memory route, for any N (a runtime multiple of 32) above the
-// templates' 128. At N = 160 the solve's own matrices alone need 324 KB of
-// shared memory (smem_floats), and T alone 154 KB at N = 192, so nothing of
-// N x N stays on chip. One CTA of 256 threads still owns one solve: T lives
+// ---------------------------------------------------------------- N > 256
+// The global-memory route, for any N (a runtime multiple of 32); the
+// wrapper takes it above the cluster route's 256. At N = 160 the solve's
+// own matrices alone need 324 KB of shared memory (smem_floats), and T
+// alone 154 KB at N = 192, so nothing of N x N stays on one SM. What bounds
+// it (clock64 split at N = 192, S = 90, scripts/torch_fgw_probe.py): the
+// products, 62% of a block's cycles, on operand latency from L1/L2 with one
+// CTA an SM, and the candidate plan 18%; the cluster route does this work
+// 2.1x as fast at N = 192. One CTA of 256 threads still owns one solve: T lives
 // in the output Tout itself, C1 T and mr in a per-solve scratch of 2 N^2
 // floats in device memory (the wrapper allocates it), and C1, C2 and M are
 // read in place; all of it is walked through L1 and L2 (S = 90 solves at
@@ -788,6 +803,588 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------------------- N = 160 .. 256
+// The cluster route, for N above the templates' 128 up to LARGEST_CLUSTER_N
+// (256). One solve's T, C1 T and mr do not fit in one SM's shared memory
+// above 128 atoms (N = 192: 453 KB), but they fit in a thread-block
+// cluster's: each solve runs on a cluster of C = N / R CTAs, and CTA r owns
+// row band r, rows rR .. rR + R - 1 (R = 64 at N = 192 and 256, C = 3 and
+// 4; R = 32 at N = 160 and 224, C = 5 and 7; fgw_cluster_rows). Its band
+// of T (stride N + 8) and one buffer that holds C1's band, then its band of
+// C1 T, then of mr (stride N + 4), stay in its shared memory for the whole
+// solve; the PR 4 strides keep the fragment reads conflict-free.
+// - Product 1, A_band = C1_band T, needs all of T: C1's band is staged in
+//   the buffer (cp.async) while the next peer's band of T is copied from
+//   that peer's shared memory (distributed shared memory, 16-byte loads)
+//   into a local slice buffer; the CTA runs its own band's k-slice first,
+//   then each peer's in rank order after its own.
+// - Product 2, mr_band from A_band (2 C2)^T, needs all of C2, which every
+//   CTA of the cluster reads: it streams through a three-stage ring of
+//   k-slices of 16 columns in the slice buffer's room, by cp.async (16-byte
+//   copies, one block barrier a k-slice; no TMA). Both products are 3xTF32
+//   on the tensor cores with the templates' split and fragment code; a warp
+//   owns R/2 x N/4 of the band (2 x 4 warps).
+// - Sinkhorn: a row's log-sum-exp is local to its band (one warp a row). A
+//   column's is combined across the cluster: each CTA writes its band's
+//   (max, sum of exp) for every column, and after a cluster barrier every
+//   CTA combines the C partials in rank order 0 .. C - 1, so all hold the
+//   same column potentials (a non-finite max is replaced by 0, as
+//   jax.nn.logsumexp does, and a band whose sum is 0 adds nothing). The
+//   marginal check, the candidate plan's finiteness and its distance to T
+//   are band partials summed in rank order after a cluster barrier. Every
+//   freeze, rollback and divergence decision is the same in all C CTAs, so
+//   control flow stays uniform across the cluster. No atomics: two
+//   launches on the same input give the same bits.
+// - The candidate plan goes to the slice buffer; when accepted, the slice
+//   buffer and T's band swap roles in every CTA of the cluster at once.
+//   c2q is computed band by band and gathered from the peers.
+// Shared memory a CTA: 2 max(R (N + 8), 3 N (KS + 4)) + R (N + 4) + 9 N +
+// 4 R + 48 floats: 161 KB at N = 192 (R = 64), 212 KB at N = 256, one CTA
+// an SM; 39 clusters of 3 fit the card at once at N = 192, so S = 90 solves
+// take three rounds. What bounds it (clock64 split at N = 192, S = 90,
+// scripts/torch_fgw_probe.py, H100 80GB HBM3 at 700 W): the two products,
+// 64% of a CTA's cycles, with 8 warps an SM: dropping two of the three
+// TF32 mma.sync a product (a timing variant, wrong in its result) took the
+// route from 0.69 to 0.53 ms, dropping the splits to 0.63 ms; a ring of 5
+// k-slices in flight in place of 2 left product 2 within 1%, and reading
+// the peers' T through distributed shared memory in the fragment loads,
+// without the copy, made the route 5-7% slower. The Sinkhorn sweeps and
+// checks take 15%, the candidate plan 7%, waits at the cluster barriers
+// (two a Sinkhorn iteration, two a PGD step) 7%, set-up 6%. wgmma is the
+// next step for the products.
+// The semantics are the templates': padding left out (mr -inf, potentials
+// 0, plan 0), a NaN in T0 poisons all of mr through c1p, freeze, rollback
+// and diverged flags, iters_out.
+
+constexpr int LARGEST_CLUSTER_N = 256;  // C = N / 32 <= 8 CTAs: a portable cluster
+constexpr int RING_KS = 16;             // C2's k-slice in the ring: two m16n8k8 steps
+constexpr int RING_LDS = RING_KS + 4;   // its row stride: conflict-free B fragments
+constexpr int RING_STAGES = 3;          // two k-slices in flight
+
+// Shared-memory layout of the cluster route's CTA, in floats.
+template <int N, int R>
+struct Band {
+  static constexpr int C = N / R;                 // CTAs of a cluster, one band each
+  static constexpr int LDT = N + 8, LDA = N + 4;  // T's stride, C1 T's and mr's
+  static constexpr int MT = R / 32, NT = N / 32;  // a warp's tiles of 16 x 8
+  static constexpr int VEC = 9 * N + 4 * R + 48;
+  // T's band and the slice buffer (a peer's band of T, C2's ring or the
+  // candidate plan) swap on an accepted step, so each takes STAGE floats
+  static constexpr int RING = RING_STAGES * N * RING_LDS;
+  static constexpr int STAGE = R * LDT > RING ? R * LDT : RING;
+  static constexpr size_t FLOATS = 2 * (size_t)STAGE + (size_t)R * LDA + VEC;
+  static_assert(FLOATS * sizeof(float) <= MAX_SMEM_BYTES, "the band does not fit");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// acc += a @ b over KSTEPS k-steps of 8 for one warp's MT x NT tiles of
+// 16 x 8 at rows r0 + 16 mt, columns c0 + 8 nt; 3xTF32 as warp_product
+// (a row-major with stride lda; b(k, j) = b[k * ldb + j] when KMAJOR, else
+// b[j * ldb + k]).
+template <int MT, int NT, int KSTEPS, bool KMAJOR>
+__device__ __forceinline__ void band_mma(const float* a, int lda, const float* b, int ldb, int r0,
+                                         int c0, float (&acc)[MT][NT][4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int k0 = 8 * ks;
+    uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* ra = a + (r0 + 16 * mt + g) * lda + k0 + t;
+      split_tf32(ra[0], ab[mt][0], as[mt][0]);
+      split_tf32(ra[8 * lda], ab[mt][1], as[mt][1]);
+      split_tf32(ra[4], ab[mt][2], as[mt][2]);
+      split_tf32(ra[8 * lda + 4], ab[mt][3], as[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int j = c0 + 8 * nt + g;
+      const float y0 = KMAJOR ? b[(k0 + t) * ldb + j] : b[j * ldb + k0 + t];
+      const float y1 = KMAJOR ? b[(k0 + t + 4) * ldb + j] : b[j * ldb + k0 + t + 4];
+      split_tf32(y0, bb[nt][0], bs[nt][0]);
+      split_tf32(y1, bb[nt][1], bs[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_tf32(acc[mt][nt], as[mt], bb[nt]);
+        mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
+        mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
+      }
+  }
+}
+
+// The cluster's OR of slot[0] and sum of slot[1] in rank order, on every
+// thread: lane r reads CTA r's pair, and the warp walks the ranks in order.
+// Each CTA wrote its pair before a cluster barrier.
+template <int C>
+__device__ __forceinline__ float2 cluster_gather(cooperative_groups::cluster_group& cluster,
+                                                 float* slot) {
+  const int lane = threadIdx.x & 31;
+  float2 mine = make_float2(0.f, 0.f);
+  if (lane < C) mine = *reinterpret_cast<const float2*>(cluster.map_shared_rank(slot, lane));
+  float flag = 0.f, sum = 0.f;
+#pragma unroll
+  for (int r = 0; r < C; ++r) {
+    flag = fmaxf(flag, __shfl_sync(0xffffffffu, mine.x, r));
+    sum += __shfl_sync(0xffffffffu, mine.y, r);
+  }
+  return make_float2(flag, sum);
+}
+
+// un[r] = logp[r] - LSE_j(mr[r, j] + vn[j]) over the band's real rows, one
+// warp a row. Returns 1 where this thread wrote a non-finite value.
+template <int N, int R>
+__device__ __forceinline__ int band_rows_lse(const float* mr, const float* vn, const float* logp,
+                                             float* un, int b0, int n) {
+  constexpr int LDA = N + 4, PER = N / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int bad = 0;
+  for (int r = warp; r < R && b0 + r < n; r += THREADS / 32) {
+    float x[PER];
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < PER; ++c) {
+      x[c] = mr[r * LDA + lane + 32 * c] + vn[lane + 32 * c];  // -inf on the padding columns
+      m = fmaxf(m, x[c]);
+    }
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float mm = isfinite(m) ? m : 0.f;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < PER; ++c) acc += expf(x[c] - mm);
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      const float out = logp[r] - (logf(acc) + mm);
+      un[r] = out;
+      bad |= !isfinite(out);
+    }
+  }
+  return bad;
+}
+
+template <int N, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+    fgw_couplings_cluster_kernel(const float* __restrict__ Ms, const float* __restrict__ C1s,
+                                 const float* __restrict__ C2s, const float* __restrict__ ps,
+                                 const float* __restrict__ qs, const float* __restrict__ T0s,
+                                 float* __restrict__ Tout, int* __restrict__ div_out,
+                                 int* __restrict__ iters_out, int n, float alpha, float epsilon,
+                                 int pgd_iters, float pgd_tol, int sinkhorn_iters,
+                                 float sinkhorn_thr) {
+  using L = Band<N, R>;
+  constexpr int C = L::C, LDT = L::LDT, LDA = L::LDA, MT = L::MT, NT = L::NT;
+  constexpr int V4 = R * N / 4 / THREADS;  // float4s of a band per thread
+  constexpr int PE = R * N / THREADS;      // band elements per thread, row-major order
+  static_assert(N % R == 0 && R % 32 == 0 && N <= THREADS && V4 * 4 * THREADS == R * N, "band shape");
+  extern __shared__ __align__(16) float smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int s = blockIdx.x / C, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (warp >> 2) * (R / 2), c0 = (warp & 3) * (N / 4);  // the warp's block of the band
+  const int b0 = rank * R;                                            // the band's first row
+  const size_t nn = (size_t)N * N;
+  float* Tb = smem;                 // T's band, R x LDT
+  float* stage = Tb + L::STAGE;     // a peer's T band (R x LDT), C2's ring, or the candidate plan
+  float* W = stage + L::STAGE;      // C1's band, then C1 T's, then mr's, R x LDA
+  float2* cpart = reinterpret_cast<float2*>(W + R * LDA);  // per column: the band's (max, sum)
+  float* mpart = reinterpret_cast<float*>(cpart + N);  // per column: the band's marginal
+  float* p = mpart + N;
+  float* q = p + N;
+  float* logq = q + N;
+  float* c2q = logq + N;
+  float* v = c2q + N;   // column potentials: v accepted, vn the sweep's
+  float* vn = v + N;
+  float* logp = vn + N;  // the band's rows from here on
+  float* c1p = logp + R;
+  float* u = c1p + R;   // row potentials: u accepted, un the sweep's
+  float* un = u + R;
+  float* red = un + R;  // 32
+  float* xs = red + 32;  // the Sinkhorn flags a CTA exchanges (and the set-up's NaN flag)
+  float* xc = xs + 4;    // the candidate's flag and distance a CTA exchanges
+  const float* C1 = C1s + s * nn;
+  const float* C2 = C2s + s * nn;
+  const float* M = Ms + s * nn;
+
+  // set-up: T's band = T0's without mass on the padding, the marginals
+  int t0_nan = 0;  // a NaN in T0: every product entry is NaN in f32
+  {
+    const float4* src = reinterpret_cast<const float4*>(T0s + s * nn + (size_t)b0 * N);
+    float4 x[V4];
+#pragma unroll
+    for (int r = 0; r < V4; ++r) x[r] = __ldg(src + tid + r * THREADS);
+#pragma unroll
+    for (int r = 0; r < V4; ++r) {
+      const int idx = tid + r * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+      const bool row = b0 + i < n;
+      if (!row || j + 0 >= n) x[r].x = 0.f;
+      if (!row || j + 1 >= n) x[r].y = 0.f;
+      if (!row || j + 2 >= n) x[r].z = 0.f;
+      if (!row || j + 3 >= n) x[r].w = 0.f;
+      t0_nan |= isnan(x[r].x) | isnan(x[r].y) | isnan(x[r].z) | isnan(x[r].w);
+      *reinterpret_cast<float4*>(Tb + i * LDT + j) = x[r];
+    }
+  }
+  for (int j = tid; j < N; j += THREADS) {
+    const float pv = j < n ? __ldg(ps + (size_t)s * N + j) : 0.f;
+    const float qv = j < n ? __ldg(qs + (size_t)s * N + j) : 0.f;
+    p[j] = pv;
+    q[j] = qv;
+    logq[j] = logf(fmaxf(qv, LOG_EPS));
+    if (j >= b0 && j < b0 + R) logp[j - b0] = logf(fmaxf(pv, LOG_EPS));
+  }
+  t0_nan = __syncthreads_or(t0_nan);
+  if (tid == 0) xs[0] = t0_nan ? 1.f : 0.f, xs[1] = 0.f;
+  // constC[i][j] = c1p[i] + c2q[j]: the band's rows of C1 and of C2, one
+  // warp a row; the other bands' c2q come from their CTAs
+  for (int line = warp; line < 2 * R; line += THREADS / 32) {
+    const bool second = line >= R;
+    const float* row = (second ? C2 + (size_t)(b0 + line - R) * N : C1 + (size_t)(b0 + line) * N);
+    const float* w = second ? q : p;
+    float x[N / 32];
+#pragma unroll
+    for (int c = 0; c < N / 32; ++c) x[c] = __ldg(row + lane + 32 * c);
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < N / 32; ++c) acc = fmaf(x[c] * x[c], w[lane + 32 * c], acc);
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      if (second) c2q[b0 + line - R] = acc;
+      else c1p[line] = acc;
+    }
+  }
+  cluster.sync();  // T's bands, the bands of c2q and the NaN flags, across the cluster
+  for (int j = tid; j < N; j += THREADS)
+    if (j < b0 || j >= b0 + R) c2q[j] = cluster.map_shared_rank(c2q, j / R)[j];
+  if (cluster_gather<C>(cluster, xs).x != 0.f && tid < R) c1p[tid] = __int_as_float(0x7fc00000);
+
+  bool frozen = false, diverged = false;  // uniform across the cluster
+  int sk_run = 0;                         // Sinkhorn iterations run, all PGD steps
+  for (int it = 0; it < pgd_iters; ++it) {
+    if (it > 0) cluster.sync();  // the accepted bands of T, across the cluster
+    // product 1: A_band = C1_band @ T, the own band's k-slice first; C1's
+    // band is staged in W (cp.async) while the next band of T is copied
+    for (int e = tid; e < R * N / 4; e += THREADS) {
+      const int i = e / (N / 4), j = 4 * (e % (N / 4));
+      cp_async16(W + i * LDA + j, C1 + (size_t)(b0 + i) * N + j);
+    }
+    cp_async_commit();
+    // a peer's band of T into the slice buffer, at most 8 float4s a thread
+    // in flight (registers): the first of them before the block barrier
+    auto copy_band = [&](int qb) {
+      constexpr int PART = V4 > 8 ? V4 / 2 : V4;
+      static_assert(V4 % PART == 0, "band copy");
+      const float* peer = cluster.map_shared_rank(Tb, qb);
+#pragma unroll
+      for (int r0 = 0; r0 < V4; r0 += PART) {
+        float4 x[PART];
+#pragma unroll
+        for (int r = 0; r < PART; ++r) {
+          const int idx = tid + (r0 + r) * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+          x[r] = *reinterpret_cast<const float4*>(peer + i * LDT + j);
+        }
+        if (r0 == 0) __syncthreads();  // every warp is done with the slice buffer's last band
+#pragma unroll
+        for (int r = 0; r < PART; ++r) {
+          const int idx = tid + (r0 + r) * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+          *reinterpret_cast<float4*>(stage + i * LDT + j) = x[r];
+        }
+      }
+    };
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+#pragma unroll 1
+    for (int jq = 0; jq < C; ++jq) {
+      const int qb = (rank + jq) % C;
+      if (jq != 1) {
+        copy_band((qb + (jq == 0)) % C);  // at jq = 0 the next band, ahead of the own
+        if (jq == 0) cp_async_wait<0>();
+        __syncthreads();
+      }
+      band_mma<MT, NT, R / 8, true>(W + qb * R, LDA, jq == 0 ? Tb : stage, LDT, r0, c0, acc);
+    }
+    __syncthreads();  // every warp is done reading C1's band
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float* a = W + (r0 + 16 * mt + g) * LDA + c0 + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(a) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(a + 8 * LDA) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+    // the padding's potentials stay 0 in both buffers of each pair
+    for (int j = tid; j < N; j += THREADS) v[j] = 0.f, vn[j] = 0.f;
+    if (tid < R) u[tid] = 0.f, un[tid] = 0.f;
+    __syncthreads();  // A's band complete; the slice buffer free for the ring
+    // product 2: mr_band = -(2 alpha (constC - A_band (2 C2)^T) + (1 - alpha) M) / eps,
+    // C2 through the ring, one k-slice of KS columns a stage, STAGES - 1 in flight
+    {
+      constexpr int KS = RING_KS, LDS = RING_LDS, STAGES = RING_STAGES;
+      float* ring = stage;
+      auto load = [&](int ks) {
+        float* dst = ring + (ks % STAGES) * N * LDS;
+        for (int e = tid; e < N * KS / 4; e += THREADS) {
+          const int j = e / (KS / 4), h = (e % (KS / 4)) * 4;
+          cp_async16(dst + j * LDS + h, C2 + (size_t)j * N + ks * KS + h);
+        }
+        cp_async_commit();
+      };
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+      constexpr int KSLICES = N / KS;
+#pragma unroll
+      for (int ks = 0; ks < STAGES - 1; ++ks) load(ks);
+#pragma unroll 1
+      for (int ks = 0; ks < KSLICES; ++ks) {
+        if (ks + STAGES - 2 < KSLICES) cp_async_wait<STAGES - 2>();
+        else cp_async_wait<0>();
+        __syncthreads();  // slice ks landed; every warp is done with slice ks - 1
+        if (ks + STAGES - 1 < KSLICES) load(ks + STAGES - 1);  // into slice ks - 1's stage
+        band_mma<MT, NT, KS / 8, false>(W + ks * KS, LDA, ring + (ks % STAGES) * N * LDS, LDS, r0,
+                                        c0, acc);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int i = r0 + 16 * mt + g, j = c0 + 8 * nt + 2 * t;
+        const float2 lo = __ldg(reinterpret_cast<const float2*>(M + (size_t)(b0 + i) * N + j));
+        const float2 hi = __ldg(reinterpret_cast<const float2*>(M + (size_t)(b0 + i + 8) * N + j));
+        const float mv[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ie = i + 8 * (e >> 1), je = j + (e & 1);
+          const float h = 2.f * acc[mt][nt][e];
+          const float tens = alpha * (2.f * ((c1p[ie] + c2q[je]) - h)) + (1.f - alpha) * mv[e];
+          acc[mt][nt][e] = b0 + ie >= n || je >= n ? -INFINITY : -tens / epsilon;
+        }
+      }
+    __syncthreads();  // every warp is done reading A's band
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float* a = W + (r0 + 16 * mt + g) * LDA + c0 + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(a) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(a + 8 * LDA) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+    __syncthreads();
+
+    // log-domain Sinkhorn
+    bool sfrozen = false, sdiv = false;
+    for (int si = 0; si < sinkhorn_iters && !sfrozen; ++si) {
+      // Sinkhorn columns: the band's (max, sum of exp) of mr[i, j] + u[i],
+      // one thread a column, then the cluster's in rank order
+      if (tid < n) {
+        float m = -INFINITY;
+#pragma unroll 8
+        for (int r = 0; r < R; ++r) m = fmaxf(m, W[r * LDA + tid] + u[r]);
+        const float mm = isfinite(m) ? m : 0.f;
+        float sum = 0.f;
+#pragma unroll 8
+        for (int r = 0; r < R; ++r) sum += expf(W[r * LDA + tid] + u[r] - mm);
+        cpart[tid] = make_float2(m, sum);
+      }
+      cluster.sync();
+      int bad = 0;
+      if (tid < n) {
+        float2 part[C];
+        float m = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < C; ++r) {
+          part[r] = cluster.map_shared_rank(cpart, r)[tid];
+          m = fmaxf(m, part[r].x);
+        }
+        const float mm = isfinite(m) ? m : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < C; ++r)
+          if (part[r].y != 0.f) sum += part[r].y * expf((isfinite(part[r].x) ? part[r].x : 0.f) - mm);
+        const float out = logq[tid] - (logf(sum) + mm);
+        vn[tid] = out;
+        bad = !isfinite(out);
+      }
+      __syncthreads();
+      // Sinkhorn rows: local to the band
+      bad |= band_rows_lse<N, R>(W, vn, logp, un, b0, n);
+      // marginal check and flags: the band's column marginals of the
+      // would-be plan, then the cluster's flags and marginals
+      const bool check = si % 10 == 0;
+      if (check) {
+        __syncthreads();
+        if (tid < n) {
+          const float vj = vn[tid];
+          float col = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) col += expf(W[r * LDA + tid] + un[r] + vj);
+          mpart[tid] = col;
+        }
+      }
+      bad = __syncthreads_or(bad);
+      if (tid == 0) xs[0] = bad ? 1.f : 0.f, xs[1] = 0.f;
+      cluster.sync();
+      const bool newly_div = cluster_gather<C>(cluster, xs).x != 0.f;  // sfrozen is false here
+      bool newly_frozen = newly_div;
+      if (check) {
+        float e2 = 0.f;
+        if (tid < n) {
+          float col = 0.f;
+#pragma unroll
+          for (int r = 0; r < C; ++r) col += cluster.map_shared_rank(mpart, r)[tid];
+          const float dlt = col - q[tid];
+          e2 = dlt * dlt;
+        }
+        e2 = block_sum(e2, red);
+        newly_frozen = newly_frozen || sqrtf(e2) < sinkhorn_thr;
+      }
+      if (!newly_div) {
+        float* x = u;
+        u = un, un = x;
+        x = v;
+        v = vn, vn = x;
+      }
+      sfrozen = newly_frozen;
+      sdiv = sdiv || newly_div;
+      ++sk_run;
+    }
+
+    // candidate plan, into the slice buffer: its finiteness and distance to
+    // T, band partials summed across the cluster in rank order
+    int nonfinite = 0;
+    float e2 = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < PE; ++r) {
+      const int idx = tid + r * THREADS, i = idx / N, j = idx % N;
+      const float cand = expf(W[i * LDA + j] + u[i] + v[j]);
+      nonfinite |= !isfinite(cand);
+      const float dlt = cand - Tb[i * LDT + j];
+      e2 += dlt * dlt;
+      stage[i * LDT + j] = cand;
+    }
+    nonfinite = __syncthreads_or(nonfinite);
+    const bool check = it % 10 == 0;
+    if (check) e2 = block_sum(e2, red);
+    if (tid == 0) xc[0] = nonfinite ? 1.f : 0.f, xc[1] = check ? e2 : 0.f;
+    cluster.sync();
+    const float2 got = cluster_gather<C>(cluster, xc);
+    const bool bad = sdiv || got.x != 0.f;
+    bool newly_frozen = bad;
+    if (check) newly_frozen = newly_frozen || sqrtf(got.y) <= pgd_tol;
+    if (!(frozen || bad)) {  // the candidate becomes T's band, in every CTA of the cluster
+      float* x = Tb;
+      Tb = stage, stage = x;
+    }
+    frozen = frozen || newly_frozen;
+    diverged = diverged || bad;
+  }
+  // store: T's band to Tout
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < V4; ++r) {
+    const int idx = tid + r * THREADS, i = idx / (N / 4), j = 4 * (idx % (N / 4));
+    *reinterpret_cast<float4*>(Tout + s * nn + (size_t)(b0 + i) * N + j) =
+        *reinterpret_cast<const float4*>(Tb + i * LDT + j);
+  }
+  if (rank == 0 && tid == 0) {
+    div_out[s] = diverged ? 1 : 0;
+    iters_out[s] = sk_run;
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its shared memory
+}
+
+// The cluster route's instantiations (N, R); fgw_cluster_rows picks R by N.
+#define FGW_CLUSTER_SHAPES(X) X(160, 32) X(192, 64) X(224, 32) X(256, 64)
+
+// The launch configuration of <N, R> for S solves, the kernel's shared
+// memory limit raised once per device.
+template <int N, int R>
+cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int S,
+                           cudaStream_t stream) {
+  static bool set[MAX_DEVICES];
+  const size_t smem = Band<N, R>::FLOATS * sizeof(float);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !set[dev]) {
+    err = cudaFuncSetAttribute(fgw_couplings_cluster_kernel<N, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) set[dev] = true;
+  }
+  attr = cudaLaunchAttribute{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = Band<N, R>::C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(S * Band<N, R>::C));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Clusters of <N, R> the device can hold at once (0: none can be placed),
+// or minus a CUDA error.
+template <int N, int R>
+int cluster_active() {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<N, R>(cfg, attr, 1, 0);
+  int count = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&count, fgw_couplings_cluster_kernel<N, R>, &cfg);
+  return err == cudaSuccess ? count : -(int)err;
+}
+
+template <int N, int R>
+int launch_cluster(const float* Ms, const float* C1s, const float* C2s, const float* ps,
+                   const float* qs, const float* T0s, float* Tout, int* div_out, int* iters_out,
+                   int S, int n, float alpha, float epsilon, int pgd_iters, float pgd_tol,
+                   int sinkhorn_iters, float sinkhorn_thr, cudaStream_t stream) {
+  static int placed[MAX_DEVICES];  // clusters the device holds at once, checked before the first launch
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || placed[dev] <= 0) {
+    const int active = cluster_active<N, R>();
+    if (active < 0) return -active;
+    if (active == 0) return (int)cudaErrorInvalidConfiguration;  // no cluster of C fits
+    if (dev < MAX_DEVICES) placed[dev] = active;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = cluster_config<N, R>(cfg, attr, S, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, fgw_couplings_cluster_kernel<N, R>, Ms, C1s, C2s, ps, qs, T0s,
+                           Tout, div_out, iters_out, n, alpha, epsilon, pgd_iters, pgd_tol,
+                           sinkhorn_iters, sinkhorn_thr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -831,7 +1428,7 @@ size_t fgw_large_scratch_floats(int S, int N) {
 }
 
 // K3's global-memory route, for any N that is a multiple of 32 (the
-// wrapper takes it above 128): arguments as fgw_couplings, plus a scratch
+// wrapper takes it above 256): arguments as fgw_couplings, plus a scratch
 // of fgw_large_scratch_floats(S, N) floats; Tout must not alias an input.
 int fgw_couplings_large(const float* Ms, const float* C1s, const float* C2s, const float* ps,
                         const float* qs, const float* T0s, float* Tout, int* div_out,
@@ -857,6 +1454,66 @@ int fgw_couplings_large(const float* Ms, const float* C1s, const float* C2s, con
       Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, scratch, vec_scratch, N, n, alpha,
       epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr);
   return (int)cudaGetLastError();
+}
+
+// The largest N of the cluster route; above it, the global route.
+int fgw_cluster_limit() { return LARGEST_CLUSTER_N; }
+
+// The band rows R the cluster route takes at N (a cluster of N / R CTAs),
+// or 0 where N is not on the cluster route.
+int fgw_cluster_rows(int N) {
+  switch (N) {
+    case 160:
+    case 224:
+      return 32;
+    case 192:
+    case 256:
+      return 64;
+    default:
+      return 0;
+  }
+}
+
+// Dynamic shared-memory bytes of one CTA of the cluster route at (N, R),
+// or 0 where (N, R) is not compiled.
+size_t fgw_cluster_smem(int N, int R) {
+#define FGW_CLUSTER_SMEM(NB, RB) \
+  if (N == NB && R == RB) return Band<NB, RB>::FLOATS * sizeof(float);
+  FGW_CLUSTER_SHAPES(FGW_CLUSTER_SMEM)
+#undef FGW_CLUSTER_SMEM
+  return 0;
+}
+
+// Clusters of the cluster route at (N, R) that the current device holds at
+// once (cudaOccupancyMaxActiveClusters; 0: none fits), or minus a CUDA
+// error; cudaErrorInvalidValue where (N, R) is not compiled.
+int fgw_cluster_active(int N, int R) {
+#define FGW_CLUSTER_ACTIVE(NB, RB) \
+  if (N == NB && R == RB) return cluster_active<NB, RB>();
+  FGW_CLUSTER_SHAPES(FGW_CLUSTER_ACTIVE)
+#undef FGW_CLUSTER_ACTIVE
+  return -(int)cudaErrorInvalidValue;
+}
+
+// K3's cluster route: arguments as fgw_couplings, plus the band rows R (a
+// cluster of N / R CTAs a solve); (N, R) must be one of
+// FGW_CLUSTER_SHAPES, else cudaErrorInvalidValue. Before its first launch
+// on a device it checks that a cluster can be placed there, and returns
+// cudaErrorInvalidConfiguration if none can.
+int fgw_couplings_cluster(const float* Ms, const float* C1s, const float* C2s, const float* ps,
+                          const float* qs, const float* T0s, float* Tout, int* div_out,
+                          int* iters_out, int S, int N, int n, int R, float alpha, float epsilon,
+                          int pgd_iters, float pgd_tol, int sinkhorn_iters, float sinkhorn_thr,
+                          void* stream) {
+  if (n < 1 || n > N) return (int)cudaErrorInvalidValue;
+#define FGW_CLUSTER_CASE(NB, RB)                                                                  \
+  if (N == NB && R == RB)                                                                         \
+    return launch_cluster<NB, RB>(Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, S, n,      \
+                                  alpha, epsilon, pgd_iters, pgd_tol, sinkhorn_iters,             \
+                                  sinkhorn_thr, (cudaStream_t)stream);
+  FGW_CLUSTER_SHAPES(FGW_CLUSTER_CASE)
+#undef FGW_CLUSTER_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -50,6 +50,11 @@ SIGNATURES = {
     "fgw_smem": (_Z, [_I, _I]),
     "fgw_couplings_large": (_I, [_P] * 10 + [_I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
     "fgw_large_scratch_floats": (_Z, [_I, _I]),
+    "fgw_couplings_cluster": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
+    "fgw_cluster_limit": (_I, []),
+    "fgw_cluster_rows": (_I, [_I]),
+    "fgw_cluster_smem": (_Z, [_I, _I]),
+    "fgw_cluster_active": (_I, [_I, _I]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

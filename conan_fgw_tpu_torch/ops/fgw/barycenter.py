@@ -197,8 +197,8 @@ def fgw_barycenter(
     Returns ``(Y (N, D), C (N, N))``, and with ``return_diverged`` also the
     number (an int64 0-d tensor) of coupling solves that hit a Sinkhorn
     numerical failure and rolled back. Any ``N`` on the card's K3 route
-    (``fgw_couplings`` pads it to a multiple of 32; above 128 atoms K3's
-    global route solves it).
+    (``fgw_couplings`` pads it to a multiple of 32; from 129 to 256 atoms
+    K3's cluster route solves it, above 256 its global route).
     """
     K, N, D = Ys.shape
     C = Cs[0] if init_C is None else init_C
@@ -229,9 +229,9 @@ def fgw_barycenter_batch(
     Marginals default to uniform over the padded node axis, weights to
     ``1/K``; each molecule starts from its first conformer's structure and
     zero features. On the K3 route (``config.uses_kernel()``) any ``N``
-    (``fgw_couplings_flat`` pads it to a multiple of 32; above 128 atoms
-    K3's global route solves it). Returns ``(Y (B, N, D),
-    C (B, N, N), n_div)``: ``n_div`` is the batch-total count (an int64
+    (``fgw_couplings_flat`` pads it to a multiple of 32; from 129 to 256
+    atoms K3's cluster route solves it, above 256 its global route).
+    Returns ``(Y (B, N, D), C (B, N, N), n_div)``: ``n_div`` is the batch-total count (an int64
     tensor) of coupling solves that rolled back a Sinkhorn numerical
     failure while their molecule was not yet frozen.
     """

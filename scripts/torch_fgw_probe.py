@@ -2,14 +2,18 @@
 """Where the FGW coupling kernel K3 (``conan_fgw_tpu_torch/csrc/fgw.cu``)
 spends its time on one NVIDIA card, at ``chip_smoke.py``'s K3 inputs
 (S = 120 solves at N = 32, 64, 96 and 128, and the barycenter's second outer
-iteration at N = 32 and 64).
+iteration at N = 32 and 64) and, above 128 atoms, on phase 18's kind of
+input at N = 192 and 256 (S = 90 solves of the F=256 molecules, first and
+second outer iteration): there the global route and the cluster route with
+each compiled band height R, side by side.
 
-    python3 scripts/torch_fgw_probe.py [--pkg DIR]
+    python3 scripts/torch_fgw_probe.py [--pkg DIR] [--big]
 
 ``--pkg`` takes the port's package (kernel source and wrapper) from another
 checkout, by default this one, so that two versions of K3 can be measured
 in one run on one card. The inputs always come from this checkout's
-``chip_smoke.py``. Prints, per input set:
+``chip_smoke.py``. ``--big`` measures the N = 192 and 256 sets alone. Prints, per
+input set:
 
 1. K3's device time per launch (``torch.profiler``), the CUDA-event time
    per call of back-to-back wrapper calls, their difference (the host time
@@ -17,13 +21,20 @@ in one run on one card. The inputs always come from this checkout's
    (host clock over 20 calls issued behind a spin kernel, so that every
    call only enqueues whatever the kernel's own length: the median and the
    least of 20 such runs, the least being the cost without interference
-   from other work on a shared host);
+   from other work on a shared host); above 128 atoms instead each route's
+   CUDA-event time over eager calls and over CUDA-graph replays, and its
+   largest distance from the plain version;
 2. K3's cycles by phase. A copy of the source gets ``clock64`` reads at each
    phase boundary; thread 0 of every block sums them, so a phase includes
-   its barrier's wait for the slowest warp: set-up (loads, marginals,
-   c1p/c2q); the two products and the gradient assembly; the Sinkhorn
-   log-sum-exp updates; the column-marginal checks; the candidate plan and
-   its acceptance; the final store.
+   its barrier's wait for the slowest warp. The templates: set-up (loads,
+   marginals, c1p/c2q); the two products and the gradient assembly; the
+   Sinkhorn log-sum-exp updates; the column-marginal checks; the candidate
+   plan and its acceptance; the final store. The global and the cluster
+   route: set-up; product 1; product 2 with the gradient; the Sinkhorn
+   column sweep (on the cluster route its band partials and their
+   combination); the row sweep; the marginal check with the flags; the
+   candidate plan; the store; and, on the cluster route, the waits at the
+   cluster barriers, apart.
 
 Needs the CUDA toolkit and a card. Builds go to ``<DIR>/conan_fgw_tpu_torch/_build/probe``.
 """
@@ -42,7 +53,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ["set-up", "products+gradient", "Sinkhorn LSE", "marginal check", "candidate plan", "store"]
+BIG_PHASES = ["set-up", "product 1", "product 2+gradient", "Sinkhorn columns", "Sinkhorn rows",
+              "marginal check+flags", "candidate plan", "store", "cluster barriers"]
 MAX_BLOCKS = 4096
+NPH = 9  # phase counters a block
+# phase 18's F=256 molecules at N = 192 and 256: (N, heavy atoms a molecule)
+BIG_SHAPES, BIG_SEED = ((192, (96, 104)), (256, (136, 148))), 6000
 SPIN_CYCLES = 10_000_000  # ~5 ms on the card, longer than issuing 20 calls
 
 
@@ -55,7 +71,7 @@ def _tick(k: int) -> str:
 # each edit goes to the anchor's first copy, the <N, PAD> templates' (the
 # global route for N > 128 comes after them and repeats some anchors)
 EDITS = [
-    ("namespace {\n", f"namespace {{\n__device__ long long g_phase[{MAX_BLOCKS}][8];\n"),
+    ("namespace {\n", f"namespace {{\n__device__ long long g_phase[{MAX_BLOCKS}][{NPH}];\n"),
     ("  const int s = blockIdx.x, tid = threadIdx.x;\n",
      "  const int s = blockIdx.x, tid = threadIdx.x;\n  long long ph_[8] = {}; long long tc_ = clock64();\n"),
     ("  bool frozen = false, diverged = false;", _tick(0) + "  bool frozen = false, diverged = false;"),
@@ -73,11 +89,66 @@ EDITS = [
 ]
 
 
-def instrumented(src: str) -> str:
-    for old, new in EDITS:
+def _ph(k) -> str:
+    """From here on the block's cycles go to phase ``k`` (an int or a name)."""
+    return f"{{ long long n_ = clock64(); ph_[cur_] += n_ - tc_; tc_ = n_; cur_ = {k}; }}\n"
+
+
+_INIT = "  long long ph_[9] = {}; long long tc_ = clock64(); int cur_ = 0;\n"
+_DUMP = "  if (tid == 0) for (int k_ = 0; k_ < 9; ++k_) g_phase[blockIdx.x][k_] = ph_[k_];\n"
+# The large routes, each (first line of its region, line after it, edits):
+# every edit goes to its anchor's first copy inside the region.
+BIG_EDITS = {
+    "global": ("    fgw_couplings_large_kernel(const float* __restrict__ Ms,", "// -------", [
+        ("  const int s = blockIdx.x, tid = threadIdx.x;\n",
+         "  const int s = blockIdx.x, tid = threadIdx.x;\n" + _INIT),
+        ("    // A = C1 @ T\n", "    " + _ph(1) + "    // A = C1 @ T\n"),
+        ("    // mr = -(2 alpha", "    " + _ph(2) + "    // mr = -(2 alpha"),
+        ("      int bad = lse_cols(", "      " + _ph(3) + "      int bad = lse_cols("),
+        ("      bad |= lse_rows(", "      " + _ph(4) + "      bad |= lse_rows("),
+        ("      const bool newly_div = __syncthreads_or(bad) != 0;",
+         "      " + _ph(5) + "      const bool newly_div = __syncthreads_or(bad) != 0;"),
+        ("    // the candidate plan's finiteness and distance to T\n",
+         "    " + _ph(6) + "    // the candidate plan's finiteness and distance to T\n"),
+        ("  if (tid == 0) {\n    div_out[s]", "  " + _ph(7) + _DUMP + "  if (tid == 0) {\n    div_out[s]"),
+    ]),
+    "cluster": ("    fgw_couplings_cluster_kernel(const float* __restrict__ Ms,", "// The cluster route's instantiations", [
+        ("  const int s = blockIdx.x / C, tid = threadIdx.x;\n",
+         "  const int s = blockIdx.x / C, tid = threadIdx.x;\n" + _INIT),
+        ("    // product 1:", "    " + _ph(1) + "    // product 1:"),
+        ("    // product 2:", "    " + _ph(2) + "    // product 2:"),
+        ("      // Sinkhorn columns", "      " + _ph(3) + "      // Sinkhorn columns"),
+        ("      // Sinkhorn rows", "      " + _ph(4) + "      // Sinkhorn rows"),
+        ("      // marginal check and flags", "      " + _ph(5) + "      // marginal check and flags"),
+        ("    // candidate plan", "    " + _ph(6) + "    // candidate plan"),
+        ("  // store", "  " + _ph(7) + "  // store"),
+        ("  cluster.sync();  // no CTA leaves", "  " + _ph(7) + _DUMP + "  cluster.sync();  // no CTA leaves"),
+    ]),
+}
+# every cluster barrier of the cluster route, apart (phase 8)
+BARRIER = ("cluster.sync();", "{ const int sv_ = cur_; " + _ph(8).strip() + " cluster.sync(); "
+           + _ph("sv_").strip() + " }")
+
+
+def _edit(src: str, edits) -> str:
+    for old, new in edits:
         if old not in src:
             raise SystemExit(f"the source holds no copy of {old[:50]!r}")
         src = src.replace(old, new, 1)
+    return src
+
+
+def instrumented(src: str) -> str:
+    src = _edit(src, EDITS)
+    for kind, (begin, end, edits) in BIG_EDITS.items():
+        if begin not in src:
+            raise SystemExit(f"the source holds no {kind} route ({begin.strip()[:50]!r})")
+        a = src.index(begin)
+        b = src.index(end, a)
+        region = _edit(src[a:b], edits)
+        if kind == "cluster":
+            region = region.replace(*BARRIER)
+        src = src[:a] + region + src[b:]
     return src
 
 
@@ -91,16 +162,113 @@ def build_phases(build, csrc: Path) -> ctypes.CDLL:
     if res.returncode != 0:
         raise SystemExit(f"the instrumented K3 failed to build:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
-    for fn in ("fgw_couplings", "fgw_smem"):
-        getattr(lib, fn).restype, getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+    for fn in ("fgw_couplings", "fgw_smem", "fgw_couplings_large", "fgw_large_scratch_floats",
+               "fgw_couplings_cluster", "fgw_cluster_smem", "fgw_cluster_active"):
+        if fn in build.SIGNATURES:
+            getattr(lib, fn).restype, getattr(lib, fn).argtypes = build.SIGNATURES[fn]
     lib.phase_dump.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def big_launch(lib, kind, R, args, kw):
+    """One launch of a large route of ``lib`` on ``args`` (all N atoms
+    real): ``(T, diverged, iterations)``, after a synchronise."""
+    import torch
+
+    S, N, _ = args[0].shape
+    T = torch.empty_like(args[0])
+    flags = torch.empty((2, S), dtype=torch.int32, device="cuda")
+    solver = (kw["alpha"], kw["epsilon"], kw["pgd_iters"], kw["pgd_tol"], kw["sinkhorn_iters"],
+              kw["sinkhorn_thr"])
+    ptrs = (*(a.data_ptr() for a in args), T.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "global":
+        scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device="cuda")
+        code = lib.fgw_couplings_large(*ptrs, scratch.data_ptr(), S, N, N, *solver, stream)
+    else:
+        code = lib.fgw_couplings_cluster(*ptrs, S, N, N, R, *solver, stream)
+    if code != 0:
+        raise SystemExit(f"the {kind} route (R={R}) failed with CUDA error {code}")
+    torch.cuda.synchronize()
+    return T, flags[0], flags[1]
+
+
+def probe_big(smoke, lib, plib, torch):
+    """N = 192 and 256 (S = 90): the global route and the cluster route at
+    each compiled R, timed on the package's library ``lib`` and split by
+    phase on the instrumented copy ``plib``."""
+    from conan_fgw_tpu_torch.ops.cuda.fgw import fgw_couplings_plain
+
+    kw = smoke.FGW_KW
+    gen = torch.Generator().manual_seed(smoke.SEED + 18)
+    sets = []
+    for N, heavy in BIG_SHAPES:
+        pos, mask = smoke.packed_geometry(smoke.SEED + BIG_SEED + N, smoke.B_CLS, heavy, N, "cuda")
+        args, Ys, Cs = smoke.fgw_problem(pos, mask, gen)
+        sets += [(f"N{N}", args), (f"N{N}-outer2", smoke.second_outer_inputs(args, Ys, Cs))]
+    for label, args in sets:
+        S, N, _ = args[0].shape
+        routes = [("global", 0)] + [("cluster", R) for R in (32, 64) if lib.fgw_cluster_smem(N, R)]
+        T_p, div_p = fgw_couplings_plain(*args, **kw)
+        for kind, R in routes:
+            name = kind if kind == "global" else f"cluster R={R}"
+            T, div, iters = big_launch(lib, kind, R, args, kw)
+            err = float((T - T_p).abs().max())
+            same = bool(torch.equal(div, div_p))
+            again = big_launch(lib, kind, R, args, kw)[0]
+            ms = smoke.cuda_ms(lambda: big_launch(lib, kind, R, args, kw), reps=10, warmup=2)
+            replay = smoke.graph_ms(lambda: big_launch_async(lib, kind, R, args, kw))
+            extra = ""
+            if kind == "cluster":
+                extra = (f"; {N // R} CTAs of {lib.fgw_cluster_smem(N, R)} bytes a cluster,"
+                         f" {lib.fgw_cluster_active(N, R)} clusters at once")
+            print(f"[{label} {name}] S={S}: {ms:.4f} ms (eager, synchronised), graph replays"
+                  f" {replay:.4f} ms; max_abs_err {err:.3e} from the plain version, flags equal"
+                  f" {same}, bits equal on a second launch {bool(torch.equal(T, again))};"
+                  f" {int(iters.sum())} Sinkhorn iterations{extra}")
+            big_launch(plib, kind, R, args, kw)
+            buf = np.zeros((MAX_BLOCKS, NPH), np.int64)
+            if plib.phase_dump(buf.ctypes.data) != 0:
+                raise SystemExit("the instrumented K3 failed")
+            blocks = S * (1 if kind == "global" else N // R)
+            b = buf[:blocks]
+            tot = b.sum(1)
+            print(f"[{label} {name}]   cycles per block: mean {tot.mean():.0f}, max {tot.max()};"
+                  f" {blocks} blocks")
+            for k, phase in enumerate(BIG_PHASES):
+                if kind == "global" and k == 8:
+                    continue
+                print(f"[{label} {name}]   {phase:22s} {100 * b[:, k].sum() / tot.sum():5.1f}%,"
+                      f" {b[:, k].mean():9.0f} cycles per block")
+
+
+def big_launch_async(lib, kind, R, args, kw):
+    """``big_launch`` without the synchronise (for capture into a graph)."""
+    import torch
+
+    S, N, _ = args[0].shape
+    T = torch.empty_like(args[0])
+    flags = torch.empty((2, S), dtype=torch.int32, device="cuda")
+    solver = (kw["alpha"], kw["epsilon"], kw["pgd_iters"], kw["pgd_tol"], kw["sinkhorn_iters"],
+              kw["sinkhorn_thr"])
+    ptrs = (*(a.data_ptr() for a in args), T.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "global":
+        scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device="cuda")
+        code = lib.fgw_couplings_large(*ptrs, scratch.data_ptr(), S, N, N, *solver, stream)
+    else:
+        code = lib.fgw_couplings_cluster(*ptrs, S, N, N, R, *solver, stream)
+    if code != 0:
+        raise SystemExit(f"the {kind} route (R={R}) failed with CUDA error {code}")
+    return T
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pkg", default=str(ROOT), help="checkout whose conan_fgw_tpu_torch is measured")
-    pkg = Path(ap.parse_args().pkg).resolve()
+    ap.add_argument("--big", action="store_true", help="measure the N = 192 and 256 sets alone")
+    opts = ap.parse_args()
+    pkg = Path(opts.pkg).resolve()
     sys.path.insert(0, str(pkg))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -119,8 +287,12 @@ def main() -> int:
     pin_full_f32()
     print(smoke.card_line())
     print(f"package {Path(conan_fgw_tpu_torch.__file__).parent}")
-    _build.load_library()
+    package = _build.load_library()
     lib = build_phases(_build, _build.CSRC_DIR)
+    if hasattr(package, "fgw_couplings_cluster"):
+        probe_big(smoke, package, lib, torch)
+    if opts.big:
+        return 0
     kw = smoke.FGW_KW
     gen = torch.Generator().manual_seed(smoke.SEED)
     sets = []
