@@ -318,10 +318,18 @@ on a ``[phases]`` line:
    outer iteration, and at N = 181 through ``fgw_couplings_flat`` (padded
    to 192), within ``FGW_ATOL``, flags equal, its cluster size, band rows,
    shared bytes and clusters the card holds printed, two launches on one
-   input bit for bit equal; the global route at N = 288, above the
-   cluster route's 256; K3' at n = 150 (cluster) and n = 270 (global); the
-   per-molecule barycenter at n = 150 and n = 270 and the batched one at
-   n = 270 on the card against the CPU. 18c: a
+   input bit for bit equal; K3's stream route
+   (``fgw_couplings_stream_kernel``, counted under ``_stream`` names) at
+   N = 288 (the F=256 molecules, first and second outer iteration, two
+   launches bit for bit equal, the global route's time on the same input
+   beside it), at N = 320, 384 and 448 (seeded point clouds, first outer
+   iteration) and at n = 270 through ``fgw_couplings_flat`` (padded to
+   288), its plan, shared bytes, clusters at once and rounds at S = 90
+   printed for every N it takes; the global route at N = 544 (S = 15),
+   above the stream route's 512; K3' at n = 150 (cluster), 270 (stream)
+   and 520 (global); the per-molecule barycenter at n = 150, 270 and 520
+   and the batched one at n = 270 and 520 on the card against the CPU,
+   each counting its route's launches alone. 18c: a
    synthetic CoV-2 set of 36/8/8 molecules of 97-128 and 129-181 atoms in
    turn; the runner's ``main`` on ``cov2_5.yaml`` then ``cov2_5_bc.yaml``
    with ``max_atoms: 192`` (2 epochs each) with phase 14's checks, both the
@@ -359,7 +367,9 @@ phase 14's runners, ``dp_launches`` rank 0's in phase 15's,
 ``tools_launches`` phase 16's runner, synthetic_e2e and eval_geom_scale's,
 also on the ``[done]`` line, ``f16_launches`` phase 17's and
 ``phase18_launches`` phase 18's; the large routes' ``launches`` are phase
-18's and their row N = 192's, n = 150's for K3'), the card
+18's and their row N = 192's, n = 150's for K3' on the cluster route,
+N = 288's and n = 270's on the stream route, N = 544's and n = 520's on the
+global route), the card
 line and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -437,11 +447,13 @@ REPLACES = {
     "cfconv_bwd_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     "cfconv_fwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:223",
     "cfconv_bwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
-    # graphs above 128 atoms (phase 18): K3's cluster route (129-256 atoms)
-    # and its global route (above 256), through both wrappers, and
-    # csrc/cfconv_large.cu's K1/K2 at both widths and types
+    # graphs above 128 atoms (phase 18): K3's cluster route (129-256 atoms),
+    # its stream route (257-512) and its global route (above 512), through
+    # both wrappers, and csrc/cfconv_large.cu's K1/K2 at both widths and types
     "fgw_couplings_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:362",
     "fgw_couplings_mol_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:394",
+    "fgw_couplings_stream": "conan_fgw_tpu/ops/pallas/fgw.py:362",
+    "fgw_couplings_mol_stream": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     "fgw_couplings_large": "conan_fgw_tpu/ops/pallas/fgw.py:362",
     "fgw_couplings_mol_large": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     **{f"cfconv_{kind}{width}_large{dtype}": f"conan_fgw_tpu/ops/pallas/cfconv.py:{line}"
@@ -450,7 +462,8 @@ REPLACES = {
 }
 # the launch names of phase 18's routes above 128 atoms
 LARGE_NAMES = tuple(name for name in REPLACES if name.endswith(("_large", "_large_bf16",
-                                                                "_large_f16", "_cluster")))
+                                                                "_large_f16", "_cluster",
+                                                                "_stream")))
 SOURCES = {
     "cfconv_fwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "cfconv_bwd": "conan_fgw_tpu_torch/csrc/cfconv.cu",
@@ -468,6 +481,8 @@ SOURCES = {
     "cfconv_bwd_f256_f16": "conan_fgw_tpu_torch/csrc/cfconv.cu",
     "fgw_couplings_cluster": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_mol_cluster": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "fgw_couplings_stream": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "fgw_couplings_mol_stream": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
     **{name: "conan_fgw_tpu_torch/csrc/cfconv_large.cu" for name in LARGE_NAMES
@@ -581,6 +596,7 @@ def phase_build():
         require(any("fgw_couplings_kernel" in e for e in spills), "no ptxas report for K3")
         require(any("fgw_couplings_large_kernel" in e for e in spills)
                 and any("fgw_couplings_cluster_kernel" in e for e in spills)
+                and any("fgw_couplings_stream_kernel" in e for e in spills)
                 and any("cfconv_bwd_large_kernel" in e for e in spills),
                 "no ptxas report for the large-N kernels")
         require(spills and not any(spills.values()), "a kernel spills registers")
@@ -1646,6 +1662,7 @@ PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_b
             "cfconv_fwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_fwd")),
             "cfconv_bwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_bwd")),
             "fgw_couplings_cluster_kernel": ("fgw_couplings_cluster",),
+            "fgw_couplings_stream_kernel": ("fgw_couplings_stream",),
             "fgw_couplings_large_kernel": ("fgw_couplings_large",)}
 # the kernels of graphs up to 128 atoms, which phase 8's graphs run
 SMALL_PROFILED = ("cfconv_fwd_kernel", "cfconv_bwd_kernel", "fgw_couplings_kernel")
@@ -4539,12 +4556,41 @@ def phase_last(device, card, rows):
 BIG_SHAPES = (("N160", (80, 88), 160), ("N192", (96, 104), 192), ("N256", (136, 148), 256),
               ("N181", (90, 98), 181))
 BIG_MOL = 150  # K3' (the per-molecule wrapper, padded to 160) and its barycenter
-# above the cluster route's 256 atoms: K3's global route at N = 288 (F=256
-# molecules, S = 90), K3' and both barycenters at n = 270 (padded to 288)
-GLOBAL_SHAPE = ("N288", (150, 166), 288)
-GLOBAL_MOL = 270
-GLOBAL_BATCH = 2  # molecules of the batched barycenter at n = GLOBAL_MOL
+# above the cluster route's 256 atoms, K3's stream route: N = 288 (F=256
+# molecules, S = 90), first and second outer iteration; N = 320, 384 and
+# 448 (S = 90 seeded point clouds that fill each N, first outer
+# iteration); n = 270 through the flat path (padded to 288); K3' and both
+# barycenters at n = 270
+STREAM_SHAPE = ("N288", (150, 166), 288)
+STREAM_CLOUDS = ((320, (292, 320)), (384, (356, 384)), (448, (420, 448)))
+STREAM_MOL = 270
+STREAM_BATCH = 2  # molecules of the batched barycenter at n = STREAM_MOL
+# above the stream route's 512 atoms, K3's global route: S = 15 point
+# clouds at N = 544; K3' and both barycenters at n = 520 (padded to 544)
+GLOBAL_N, GLOBAL_S = 544, 15
+GLOBAL_MOL = 520
+GLOBAL_BATCH = 1
 BIG_PLAIN_REPS = 3  # timed calls of the plain cfconv at these shapes (0.1-1 s each)
+
+
+def cloud_geometry(seed, n_mols, atoms, N, device, k=K):
+    """Seeded stand-ins for molecules of ``atoms = (lo, hi)`` atoms, ``k``
+    conformers each, packed to ``N``: a Gaussian cloud of 0.9 n^(1/3) A per
+    molecule (about a molecule's density; the neighbour cap binds) and
+    0.3 A of noise per conformer. ``(pos (B*k, N, 3), mask (B*k, N))``, as
+    ``packed_geometry`` without its molecule builder, whose cost grows with
+    the atoms."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sizes = torch.randint(atoms[0], atoms[1] + 1, (n_mols,), generator=gen).tolist()
+    pos = torch.zeros(n_mols, k, N, 3)
+    mask = torch.zeros(n_mols, k, N, dtype=torch.bool)
+    for b, n in enumerate(sizes):
+        base = torch.randn(n, 3, generator=gen) * (0.9 * n ** (1 / 3))
+        pos[b, :, :n] = base + 0.3 * torch.randn(k, n, 3, generator=gen)
+        mask[b, :, :n] = True
+    return pos.reshape(-1, N, 3).to(device), mask.reshape(-1, N).to(device)
 
 
 def check_big_kernels(device, rows):
@@ -4555,9 +4601,14 @@ def check_big_kernels(device, rows):
     12's gates. K3's cluster route on the F=256 molecules (S=90): the first
     and second outer iteration at N=160, 192 and 256, and N=181 through
     ``fgw_couplings_flat`` (padded to 192); two launches bit for bit equal
-    at N=192; the global route at N=288 (first outer iteration); K3' at
-    n=150 (cluster) and n=270 (global). Returns the cluster route's shape
-    by N: CTAs, band rows, shared bytes a CTA, clusters the card holds."""
+    at N=192. K3's stream route: the first and second outer iteration at
+    N=288 (F=256 molecules, S=90), two launches bit for bit equal there and
+    the global route's time on the same input; the first at N=320, 384 and
+    448 (point clouds, S=90); n=270 through ``fgw_couplings_flat``. The
+    global route at N=544 (S=15). K3' at n=150 (cluster), 270 (stream) and
+    520 (global). Returns each route's shape by N (CTAs, band rows, shared
+    bytes a CTA, clusters the card holds; the stream route's plan and
+    rounds at S=90) and the global route's time at N=288."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import _build
@@ -4565,14 +4616,26 @@ def check_big_kernels(device, rows):
     from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 
     lib = _build.load_library()
-    shapes = {}
+    shapes = {"cluster": {}, "stream": {}}
     for N in range(k3.LARGEST_TEMPLATE + 32, k3.LARGEST_CLUSTER + 1, 32):
         way = k3.route(N)
-        shapes[N] = dict(ctas=way.ctas, rows=way.rows, smem=lib.fgw_cluster_smem(N, way.rows),
-                         active=lib.fgw_cluster_active(N, way.rows))
+        shape = shapes["cluster"][N] = dict(ctas=way.ctas, rows=way.rows,
+                                            smem=lib.fgw_cluster_smem(N, way.rows),
+                                            active=lib.fgw_cluster_active(N, way.rows))
         print(f"[big K3 N{N}] cluster route: {way.ctas} CTAs of {way.rows} rows a solve,"
-              f" {shapes[N]['smem']} shared bytes a CTA, {shapes[N]['active']} clusters at once")
-        require(shapes[N]["active"] > 0, f"K3's cluster route places no cluster at N={N}")
+              f" {shape['smem']} shared bytes a CTA, {shape['active']} clusters at once")
+        require(shape["active"] > 0, f"K3's cluster route places no cluster at N={N}")
+    for N, R in k3.STREAM_ROWS.items():
+        plan, active = lib.fgw_stream_plan(N, R), lib.fgw_stream_active(N, R)
+        shape = shapes["stream"][N] = dict(
+            ctas=N // R, rows=R, sub=plan // 10000, ks=plan // 100 % 100, stages=plan % 100,
+            smem=lib.fgw_stream_smem(N, R), active=active,
+            rounds_s90=-(-90 // active) if active > 0 else None)
+        print(f"[big K3 N{N}] stream route: {N // R} CTAs of {R} rows a solve, sub-bands of"
+              f" {shape['sub']} rows, k-slices of {shape['ks']} in {shape['stages']} stages,"
+              f" {shape['smem']} shared bytes a CTA, {active} clusters at once,"
+              f" {shape['rounds_s90']} rounds at S=90")
+        require(active > 0, f"K3's stream route places no cluster at N={N}")
 
     gen = torch.Generator().manual_seed(SEED + 18)
     for label, heavy, n_atoms in BIG_SHAPES:
@@ -4598,12 +4661,64 @@ def check_big_kernels(device, rows):
             check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
         if n_atoms == 192:
             check_fgw_bits(label, args)
-    label, heavy, n_atoms = GLOBAL_SHAPE
+    label, heavy, n_atoms = STREAM_SHAPE
     pos, mask = packed_geometry(SEED + 6000 + n_atoms, B_CLS, heavy, n_atoms, device)
-    check_fgw(label, fgw_problem(pos, mask, gen)[0], rows)
-    check_fgw_mol(BIG_MOL, device, rows)
-    check_fgw_mol(GLOBAL_MOL, device, rows)
+    args, Ys, Cs = fgw_problem(pos, mask, gen)
+    check_fgw(label, args, rows)
+    check_fgw(f"{label}-outer2", second_outer_inputs(args, Ys, Cs), rows)
+    check_fgw_bits(label, args)
+    shapes["global_N288"] = check_global_beside(label, args, rows)
+    n = STREAM_MOL
+    cut = tuple((x[:, :n, :n] if x.dim() == 3 else x[:, :n]).contiguous() for x in args)
+    check_flat(f"big N{n}", cut, rows, f"N{n}")
+    for N, atoms in STREAM_CLOUDS:
+        pos, mask = cloud_geometry(SEED + 6100 + N, B_CLS, atoms, N, device)
+        check_fgw(f"N{N}", fgw_problem(pos, mask, gen)[0], rows)
+    pos, mask = cloud_geometry(SEED + 6100 + GLOBAL_N, GLOBAL_S // K, (GLOBAL_N - 31, GLOBAL_N),
+                               GLOBAL_N, device)
+    check_fgw(f"N{GLOBAL_N}", fgw_problem(pos, mask, gen)[0], rows)
+    for n in (BIG_MOL, STREAM_MOL, GLOBAL_MOL):
+        check_fgw_mol(n, device, rows)
     return shapes
+
+
+def check_global_beside(label, args, rows):
+    """The global route on the stream route's input (its library entry
+    called directly, uncounted): plans within ``FGW_ATOL`` of the plain
+    version, flags equal, and its ms beside the stream route's, from the
+    same run."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import _build
+    from conan_fgw_tpu_torch.ops.cuda import fgw as k3
+
+    lib = _build.load_library()
+    S, N, _ = args[0].shape
+    solver = tuple(FGW_KW[k] for k in ("alpha", "epsilon", "pgd_iters", "pgd_tol", "sinkhorn_iters",
+                                       "sinkhorn_thr"))
+
+    def launch():
+        T = torch.empty_like(args[0])
+        flags = torch.empty((2, S), dtype=torch.int32, device=T.device)
+        scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device=T.device)
+        code = lib.fgw_couplings_large(*(a.data_ptr() for a in args), T.data_ptr(),
+                                       flags[0].data_ptr(), flags[1].data_ptr(), scratch.data_ptr(),
+                                       S, N, N, *solver, torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "fgw_couplings_large")
+        return T, flags[0]
+
+    T_g, div_g = launch()
+    T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
+    torch.cuda.synchronize()
+    err = float((T_g - T_p).abs().max())
+    ms, replay_ms = cuda_ms(launch), graph_ms(launch)
+    mine = rows[k3.launch_name("fgw_couplings", N)][label]
+    print(f"[fgw {label}] the global route on the same input: {ms:.4f} ms (eager calls; graph"
+          f" replays {replay_ms:.4f} ms) against the stream route's {mine['ms']:.4f}"
+          f" ({mine['graph_ms']:.4f}): {ms / mine['ms']:.2f}x; its T max_abs_err {err:.3e}")
+    require(err <= FGW_ATOL and bool(torch.equal(div_g, div_p)),
+            f"fgw {label}: the global route disagrees with the plain version")
+    return dict(ms=ms, graph_ms=replay_ms, max_abs_err=err)
 
 
 def check_fgw_bits(label, args):
@@ -4654,18 +4769,18 @@ def check_big_barycenter(device, n):
     return dict(y_err=err_y, c_err=err_c, grad_rel=grad_rel, launches=grew)
 
 
-def check_global_batch(device):
-    """18b: ``fgw_barycenter_batch`` on ``GLOBAL_BATCH`` molecules of
-    ``GLOBAL_MOL`` atoms (flat K3 on the global route, padded to 288, five
-    launches) on the card against the CPU: Y and C within ``BARY_ATOL``,
-    diverged counts equal; launch counts zeroed just before, read just
-    after."""
+def check_big_batch(device, n, batch):
+    """18b: ``fgw_barycenter_batch`` on ``batch`` molecules of ``n`` atoms
+    (flat K3 on the route of the padded n, five launches) on the card
+    against the CPU: Y and C within ``BARY_ATOL``, diverged counts equal;
+    launch counts zeroed just before, read just after."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
+    from conan_fgw_tpu_torch.ops.cuda.fgw import launch_name
     from conan_fgw_tpu_torch.ops.fgw import FGWConfig, fgw_barycenter_batch
 
-    mols = [molecule_problem(GLOBAL_MOL, SEED + 1890 + b, "cpu")[:2] for b in range(GLOBAL_BATCH)]
+    mols = [molecule_problem(n, SEED + 1890 + b, "cpu")[:2] for b in range(batch)]
     Ys = torch.stack([m[0] for m in mols])
     Cs = torch.stack([m[1] for m in mols])
     cfg = FGWConfig()
@@ -4676,13 +4791,13 @@ def check_global_batch(device):
     Y_c, C_c, nd_c = fgw_barycenter_batch(Ys, Cs, config=cfg)
     err_y = float((Y_k.cpu() - Y_c).abs().max())
     err_c = float((C_k.cpu() - C_c).abs().max())
-    print(f"[big batch] {GLOBAL_BATCH} molecules of n={GLOBAL_MOL}, K={K}: Y max_abs_err"
+    print(f"[big batch] {batch} molecules of n={n}, K={K}: Y max_abs_err"
           f" {err_y:.3e}, C {err_c:.3e} (tol {BARY_ATOL}); diverged card {int(nd_k)} CPU"
           f" {int(nd_c)}; launches {grew}")
-    want = {"fgw_couplings_large": cfg.outer_iters}
-    require(grew == want, f"big batch: launches {grew}, want {want}")
-    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, "big batch disagrees")
-    require(int(nd_k) == int(nd_c), "big batch: diverged counts differ")
+    want = {launch_name("fgw_couplings", n + (-n % 32)): cfg.outer_iters}
+    require(grew == want, f"big batch n={n}: launches {grew}, want {want}")
+    require(err_y <= BARY_ATOL and err_c <= BARY_ATOL, f"big batch n={n} disagrees")
+    require(int(nd_k) == int(nd_c), f"big batch n={n}: diverged counts differ")
     return dict(y_err=err_y, c_err=err_c, launches=grew)
 
 
@@ -4774,7 +4889,8 @@ def check_big_runner(device, card, tmp, common):
             big = out[label]["nodes"].get(192, {})
             require(big.get("cfconv_fwd_large_kernel") and big.get("cfconv_bwd_large_kernel")
                     and big.get("fgw_couplings_cluster_kernel", 0) == (5 if stage == "conan_fgw" else 0)
-                    and not big.get("fgw_couplings_large_kernel"),
+                    and not big.get("fgw_couplings_large_kernel")
+                    and not big.get("fgw_couplings_stream_kernel"),
                     f"{label}: the N=192 train graph's large-kernel nodes {big}")
             del made
             totals.update(out[label]["launches"])
@@ -4938,10 +5054,12 @@ def phase_large(device, card, rows):
     192; 18d a shuffled, unbucketed graphed ``fit``; 18e ViSNet's options;
     18f the large kernels' bf16 and f16 variants on graphed steps."""
     t0 = time.perf_counter()
-    out = {"cluster_shapes": check_big_kernels(device, rows)}
+    out = {"k3_shapes": check_big_kernels(device, rows)}
     out["barycenter"] = check_big_barycenter(device, BIG_MOL)
+    out["stream_barycenter"] = check_big_barycenter(device, STREAM_MOL)
+    out["stream_batch"] = check_big_batch(device, STREAM_MOL, STREAM_BATCH)
     out["global_barycenter"] = check_big_barycenter(device, GLOBAL_MOL)
-    out["global_batch"] = check_global_batch(device)
+    out["global_batch"] = check_big_batch(device, GLOBAL_MOL, GLOBAL_BATCH)
     out["kernels_s"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_geom192_") as name:
         tmp = Path(name)
@@ -4957,7 +5075,8 @@ def phase_large(device, card, rows):
     totals = collections.Counter(out["runner"]["launches"])
     totals.update(out["shuffled_fit"]["launches"])
     totals.update(out["dtypes"])
-    for key in ("barycenter", "global_barycenter", "global_batch"):
+    for key in ("barycenter", "stream_barycenter", "stream_batch", "global_barycenter",
+                "global_batch"):
         totals.update(out[key]["launches"])
     out["launches"] = {k: totals[k] for k in REPLACES}
     missing = [k for k in LARGE_NAMES if not out["launches"][k]]
@@ -5051,15 +5170,19 @@ def main() -> int:
     # All these paths step through CUDA graphs: see the module docstring
     # The large routes' launches are those of phase 18's paths (the runner at
     # max_atoms 192, the shuffled fit, the bf16 and f16 steps, the
-    # per-molecule barycenters at n=150 and 270, the batched one at n=270),
-    # and their row is N=192's (K3 through the per-molecule wrapper: n=150's
-    # on the cluster route; the global route: N=288's and n=270's)
+    # per-molecule barycenters at n=150, 270 and 520, the batched ones at
+    # n=270 and 520), and their row is N=192's (K3 through the per-molecule
+    # wrapper: n=150's on the cluster route; the stream route: N=288's and
+    # n=270's; the global route: N=544's and n=520's)
     class_launches = stage_rows["classification"]["launches"]
     bf16_launches = stage_rows["bf16"]["launches"]
     large_launches = stage_rows["large"]["launches"]
     kernels = []
     for name in REPLACES:
-        r = rows[name][{"fgw_couplings_mol_cluster": "N150", "fgw_couplings_large": "N288",
+        r = rows[name][{"fgw_couplings_mol_cluster": f"N{BIG_MOL}",
+                        "fgw_couplings_stream": STREAM_SHAPE[0],
+                        "fgw_couplings_mol_stream": f"N{STREAM_MOL}",
+                        "fgw_couplings_large": f"N{GLOBAL_N}",
                         "fgw_couplings_mol_large": f"N{GLOBAL_MOL}"}.get(
                             name, "N192" if name in LARGE_NAMES else "N32")]
         bound_ms, bound_by = r["bound"]

@@ -3,14 +3,17 @@
 // Replaces the Pallas TPU kernel of conan_fgw_tpu/ops/pallas/fgw.py
 // (pallas_fgw_couplings_flat -> _super_kernel / _sinkhorn_super).
 //
-// Three routes, chosen by the bucket size N (ops/cuda/fgw.py::route), each
+// Four routes, chosen by the bucket size N (ops/cuda/fgw.py::route), each
 // with its own comment below on what bounds it and how it answers that:
 // - N = 32 .. 128: fgw_couplings_kernel<N, PAD>, one CTA a solve, the
 //   solve's matrices in that CTA's shared memory (this header);
 // - N = 160 .. 256: fgw_couplings_cluster_kernel<N, R>, one thread-block
 //   cluster of N / R CTAs a solve, each holding a band of R rows of the
 //   solve's matrices in its shared memory;
-// - N above 256: fgw_couplings_large_kernel, one CTA a solve, its matrices
+// - N = 288 .. 512: fgw_couplings_stream_kernel<SUB>, one cluster of N / R
+//   CTAs a solve, each holding a band of mr in its shared memory while T
+//   and C2 stream through a ring of k-slices;
+// - N above 512: fgw_couplings_large_kernel, one CTA a solve, its matrices
 //   in device memory through L1/L2.
 //
 // S independent solves (square loss, symmetric structure, PGD), each of n
@@ -506,9 +509,9 @@ int launch(const float* Ms, const float* C1s, const float* C2s, const float* ps,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- N > 256
+// ---------------------------------------------------------------- N > 512
 // The global-memory route, for any N (a runtime multiple of 32); the
-// wrapper takes it above the cluster route's 256. At N = 160 the solve's
+// wrapper takes it above the stream route's 512. At N = 160 the solve's
 // own matrices alone need 324 KB of shared memory (smem_floats), and T
 // alone 154 KB at N = 192, so nothing of N x N stays on one SM. What bounds
 // it (clock64 split at N = 192, S = 90, scripts/torch_fgw_probe.py): the
@@ -1385,6 +1388,565 @@ int launch_cluster(const float* Ms, const float* C1s, const float* C2s, const fl
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- N = 288 .. 512
+// The streamed cluster route, for N above the cluster route's 256 up to
+// LARGEST_STREAM_N. The cluster route's band of T and band of mr no longer
+// fit a CTA together there (N = 288: a band of 96 rows needs 343 KB, one
+// of 32 rows a cluster of 9 CTAs), and the global route, one CTA a solve
+// with its fragments loaded from L1/L2, ran the products at 2.3% of the
+// bound. Here each solve runs on a thread-block cluster of C = N / R <= 8
+// CTAs (a portable cluster), CTA r owning rows rR .. rR + R - 1, and only
+// mr's band (stride N + 4) stays in shared memory for the whole solve:
+// - T lives in the output Tout, as on the global route: set-up copies each
+//   band of T0 there, an accepted step writes the band back, and a fence
+//   and a cluster barrier make it visible before the peers' next product.
+// - The products run one sub-band of SUB rows (32, 48 or 64) at a time:
+//   A_sub = C1_sub T into the sub-band's own rows of mr's band, then
+//   mr_sub from A_sub (2 C2)^T in registers, written over A_sub once every
+//   warp is done reading it. T's and C2's k-slices of KS (32, or 16 where
+//   shared memory is short) stream through a ring of 2 or 3 stages by
+//   cp.async (16-byte copies, one block barrier a slice; every CTA reads
+//   the same T and C2 through L2, no TMA multicast), C1's k-slice of the
+//   sub-band riding with T's. 3xTF32 on the tensor cores with the
+//   templates' split: a warp owns all SUB rows (MT = SUB / 16 tiles, so
+//   each B fragment serves MT mma.sync) and every 8th column tile, and
+//   issues a k-step's mma.sync in three passes over its tiles, so that
+//   consecutive ones write different accumulators.
+// - Sinkhorn and the checks as the cluster route: a row's log-sum-exp is
+//   local to the band; a column's combines the bands' (max, sum of exp) in
+//   rank order after a cluster barrier; the marginal check, the candidate's
+//   finiteness and its distance to T are band partials summed in rank
+//   order. No atomics: two launches on one input give the same bits.
+// - The candidate plan is not kept (no room): a first pass takes its
+//   finiteness and distance to T's band in Tout, an accepted step computes
+//   it again into Tout (the same expf on the same operands, the same bits).
+// N is a runtime argument and the kernel a template on SUB alone;
+// stream_plan picks SUB, KS and the ring's stages for (N, R): the tallest
+// sub-band, then the widest slice, that fit shared memory and registers.
+// N = 352, 416 and 480 take no band that divides them and the wrapper pads
+// them to the next N it takes. What bounds it (clock64 split at N = 288,
+// S = 90, R = 96, SUB = 48, KS = 32; scripts/torch_fgw_probe.py, H100 80GB
+// HBM3 at 700 W): the two products, 74% of a CTA's cycles (7.1 cycles an
+// SM a TF32 mma.sync), then the candidate plan 8%, the Sinkhorn sweeps
+// and checks 10%, set-up 5%, the cluster barriers 3%; 39 clusters of 3 fit
+// the card at once, so S = 90 solves take three rounds. Bands of 48 rows
+// (clusters of 6) run the same S = 90 within 2% and K3's five solves
+// 1.9x as fast, so the wrapper takes R = 48 at N = 288 (and at 384, 10%
+// faster at S = 90 and 2.2x at S = 5 than R = 96). The first version
+// (warps of 16 rows, so each B fragment fed one mma.sync, chained three
+// deep on one accumulator, and a separate buffer for A_sub) took 5.62 ms
+// at N = 288 against this one's 3.45 and the global route's 4.54: B
+// fragments shared by MT tiles, independent accumulators in flight and
+// wider slices are what made it faster. The semantics
+// are the templates': padding left out (mr -inf, potentials 0, plan 0), a
+// NaN in T0 poisons all of mr through c1p, freeze, rollback and diverged
+// flags, iters_out.
+
+constexpr int LARGEST_STREAM_N = 512;
+
+// The warps of a sub-band of SUB rows: each of the 8 owns all SUB rows
+// (MT tiles of 16) and every 8th tile of 8 columns (columns 8 (warp + 8 nt)
+// ..), at most NTMAX of them (N <= NMAX): each B fragment serves MT tiles.
+template <int SUB>
+struct SubBand {
+  static constexpr int MT = SUB / 16;
+  static constexpr int NMAX = SUB == 64 ? 320 : SUB == 48 ? 384 : LARGEST_STREAM_N;
+  static constexpr int NTMAX = (NMAX / 8 + THREADS / 32 - 1) / (THREADS / 32);
+};
+
+// the sub-band heights compiled, each with the largest N its registers take
+#define FGW_STREAM_SUBS(X) X(32) X(48) X(64)
+
+// sub-band rows, k-slice width and ring stages of the stream route at one
+// (N, R); sub = 0 where none fits
+struct StreamPlan {
+  int sub, ks, stages;
+};
+
+// floats of one ring stage: product 1's slice (KS rows of T at stride
+// N + 8, then the sub-band's KS columns of C1 at stride KS + 4) or product
+// 2's (C2's N rows of KS columns at stride KS + 4)
+__host__ __device__ constexpr int stream_stage_floats(int N, int sub, int ks) {
+  return ks * (N + 8) + sub * (ks + 4) > N * (ks + 4) ? ks * (N + 8) + sub * (ks + 4) : N * (ks + 4);
+}
+
+// shared floats of one CTA: mr's band, the ring, and the vectors (per
+// column: the band's (max, sum) and marginal, q, log q, c2q, v, vn; per band
+// row: log p, c1p, u, un; 40 for reductions and flags)
+__host__ __device__ constexpr size_t stream_floats(int N, int R, int sub, int ks, int stages) {
+  return (size_t)R * (N + 4) + (size_t)stages * stream_stage_floats(N, sub, ks) + 8 * (size_t)N +
+         4 * (size_t)R + 40;
+}
+
+StreamPlan stream_plan(int N, int R) {
+  if (N <= LARGEST_CLUSTER_N || N > LARGEST_STREAM_N || N % 32 || R <= 0 || N % R || N / R > 8)
+    return {0, 0, 0};
+  const StreamPlan tries[] = {{64, 32, 2}, {64, 16, 3}, {64, 16, 2}, {48, 32, 2}, {48, 16, 3},
+                              {48, 16, 2}, {32, 32, 2}, {32, 16, 3}, {32, 16, 2}};
+  for (const StreamPlan& p : tries) {
+    int nmax = 0;
+#define FGW_STREAM_NMAX(SB) \
+  if (p.sub == SB) nmax = SubBand<SB>::NMAX;
+    FGW_STREAM_SUBS(FGW_STREAM_NMAX)
+#undef FGW_STREAM_NMAX
+    if (R % p.sub || N > nmax) continue;
+    if (stream_floats(N, R, p.sub, p.ks, p.stages) * sizeof(float) <= MAX_SMEM_BYTES) return p;
+  }
+  return {0, 0, 0};
+}
+
+// acc[mt][nt] += a @ b over ksteps k-steps of 8 for one warp's tiles of
+// SubBand: rows 16 mt .., its first nts tiles of 8 columns, 8 (warp + 8 nt)
+// ..; 3xTF32 as warp_product (b(k, j) = b[k * ldb + j] when KMAJOR, else
+// b[j * ldb + k]). A k-step loads and splits every fragment first, then
+// issues its mma.sync in three passes over the tiles, so that consecutive
+// ones write different accumulators; each accumulator still adds a_small
+// b_big, a_big b_small, then a_big b_big.
+template <int MT, int NTMAX, bool KMAJOR>
+__device__ __forceinline__ void sub_mma_step(const float* a, int lda, const float* b, int ldb, int k0,
+                                             int nts, float (&acc)[MT][NTMAX][4]) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  uint32_t ab[MT][4], as[MT][4], bb[NTMAX][2], bs[NTMAX][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float* ra = a + (16 * mt + g) * lda + k0 + t;
+    split_tf32(ra[0], ab[mt][0], as[mt][0]);
+    split_tf32(ra[8 * lda], ab[mt][1], as[mt][1]);
+    split_tf32(ra[4], ab[mt][2], as[mt][2]);
+    split_tf32(ra[8 * lda + 4], ab[mt][3], as[mt][3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NTMAX; ++nt) {
+    if (nt < nts) {
+      const int j = 8 * (warp + 8 * nt) + g;
+      const float y0 = KMAJOR ? b[(k0 + t) * ldb + j] : b[j * ldb + k0 + t];
+      const float y1 = KMAJOR ? b[(k0 + t + 4) * ldb + j] : b[j * ldb + k0 + t + 4];
+      split_tf32(y0, bb[nt][0], bs[nt][0]);
+      split_tf32(y1, bb[nt][1], bs[nt][1]);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTMAX; ++nt)
+      if (nt < nts) mma_tf32(acc[mt][nt], as[mt], bb[nt]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTMAX; ++nt)
+      if (nt < nts) mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTMAX; ++nt)
+      if (nt < nts) mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
+}
+
+// acc[mt][nt] += a @ b over ksteps k-steps of 8 for one warp's tiles of
+// SubBand: rows 16 mt .., its first nts tiles of 8 columns, 8 (warp + 8 nt)
+// ..; 3xTF32 as warp_product (b(k, j) = b[k * ldb + j] when KMAJOR, else
+// b[j * ldb + k]). A k-step loads and splits every fragment first, then
+// issues its mma.sync in three passes over the tiles, so that consecutive
+// ones write different accumulators; each accumulator still adds a_small
+// b_big, a_big b_small, then a_big b_big. Two k-steps are unrolled where
+// the registers allow (MT <= 3).
+template <int MT, int NTMAX, bool KMAJOR>
+__device__ __forceinline__ void sub_mma(const float* a, int lda, const float* b, int ldb, int ksteps,
+                                        int nts, float (&acc)[MT][NTMAX][4]) {
+  if constexpr (MT >= 4) {
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) sub_mma_step<MT, NTMAX, KMAJOR>(a, lda, b, ldb, 8 * ks, nts, acc);
+  } else {
+#pragma unroll 2
+    for (int ks = 0; ks < ksteps; ++ks) sub_mma_step<MT, NTMAX, KMAJOR>(a, lda, b, ldb, 8 * ks, nts, acc);
+  }
+}
+
+// cluster_gather for a cluster of C CTAs known at run time
+__device__ __forceinline__ float2 cluster_gather_n(cooperative_groups::cluster_group& cluster,
+                                                   float* slot, int C) {
+  const int lane = threadIdx.x & 31;
+  float2 mine = make_float2(0.f, 0.f);
+  if (lane < C) mine = *reinterpret_cast<const float2*>(cluster.map_shared_rank(slot, lane));
+  float flag = 0.f, sum = 0.f;
+  for (int r = 0; r < C; ++r) {
+    flag = fmaxf(flag, __shfl_sync(0xffffffffu, mine.x, r));
+    sum += __shfl_sync(0xffffffffu, mine.y, r);
+  }
+  return make_float2(flag, sum);
+}
+
+template <int SUB>
+__global__ void __launch_bounds__(THREADS, 1)
+    fgw_couplings_stream_kernel(const float* __restrict__ Ms, const float* __restrict__ C1s,
+                                const float* __restrict__ C2s, const float* __restrict__ ps,
+                                const float* __restrict__ qs, const float* __restrict__ T0s,
+                                float* Tout, int* __restrict__ div_out, int* __restrict__ iters_out,
+                                int N, int n, int R, int KS, int STAGES, float alpha, float epsilon,
+                                int pgd_iters, float pgd_tol, int sinkhorn_iters,
+                                float sinkhorn_thr) {
+  constexpr int MT = SubBand<SUB>::MT, NTMAX = SubBand<SUB>::NTMAX;
+  extern __shared__ __align__(16) float smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int C = N / R;
+  const int rank = (int)cluster.block_rank();
+  const int s = blockIdx.x / C, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int LDA = N + 4, LDT = N + 8, LDS = KS + 4;
+  const int NT = (N / 8 - warp + THREADS / 32 - 1) / (THREADS / 32);  // the warp's column tiles
+  const int b0 = rank * R;                                           // the band's first row
+  const int STAGE = stream_stage_floats(N, SUB, KS);
+  const size_t nn = (size_t)N * N;
+  float* mr = smem;              // mr's band, R x LDA: a sub-band of C1 T, then of mr (p during set-up)
+  float* ring = mr + R * LDA;    // STAGES slices
+  float2* cpart = reinterpret_cast<float2*>(ring + STAGES * STAGE);  // per column: the band's (max, sum)
+  float* mpart = reinterpret_cast<float*>(cpart + N);  // per column: the band's marginal
+  float* q = mpart + N;
+  float* logq = q + N;
+  float* c2q = logq + N;
+  float* v = c2q + N;    // column potentials: v accepted, vn the sweep's
+  float* vn = v + N;
+  float* logp = vn + N;  // the band's rows from here on
+  float* c1p = logp + R;
+  float* u = c1p + R;    // row potentials: u accepted, un the sweep's
+  float* un = u + R;
+  float* red = un + R;   // 32
+  float* xs = red + 32;  // the Sinkhorn flags a CTA exchanges (and the set-up's NaN flag)
+  float* xc = xs + 4;    // the candidate's flag and distance a CTA exchanges
+  float* p = mr;         // the row marginal, needed by set-up alone
+  float* T = Tout + s * nn;  // the plan, in place in the output
+  const float* C1 = C1s + s * nn;
+  const float* C2 = C2s + s * nn;
+  const float* M = Ms + s * nn;
+
+  // set-up: T's band = T0's without mass on the padding, the marginals
+  int t0_nan = 0;  // a NaN in T0: every product entry is NaN in f32
+  for (int i = warp; i < R; i += THREADS / 32) {
+    const bool row = b0 + i < n;
+    const float* src = T0s + s * nn + (size_t)(b0 + i) * N;
+    float* dst = T + (size_t)(b0 + i) * N;
+    for (int j = lane; j < N; j += 32) {
+      const float x = row && j < n ? __ldg(src + j) : 0.f;
+      t0_nan |= isnan(x);
+      dst[j] = x;
+    }
+  }
+  for (int j = tid; j < N; j += THREADS) {
+    const float pv = j < n ? __ldg(ps + (size_t)s * N + j) : 0.f;
+    const float qv = j < n ? __ldg(qs + (size_t)s * N + j) : 0.f;
+    p[j] = pv;
+    q[j] = qv;
+    logq[j] = logf(fmaxf(qv, LOG_EPS));
+    if (j >= b0 && j < b0 + R) logp[j - b0] = logf(fmaxf(pv, LOG_EPS));
+  }
+  t0_nan = __syncthreads_or(t0_nan);
+  if (tid == 0) xs[0] = t0_nan ? 1.f : 0.f, xs[1] = 0.f;
+  // constC[i][j] = c1p[i] + c2q[j]: the band's rows of C1 and of C2, one
+  // warp a row; the other bands' c2q come from their CTAs
+  for (int line = warp; line < 2 * R; line += THREADS / 32) {
+    const bool second = line >= R;
+    const float* row = second ? C2 + (size_t)(b0 + line - R) * N : C1 + (size_t)(b0 + line) * N;
+    const float* w = second ? q : p;
+    float acc = 0.f;
+    for (int k = lane; k < N; k += 32) {
+      const float x = __ldg(row + k);
+      acc = fmaf(x * x, w[k], acc);
+    }
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) {
+      if (second) c2q[b0 + line - R] = acc;
+      else c1p[line] = acc;
+    }
+  }
+  __threadfence();  // T's band in Tout, before the peers read it
+  cluster.sync();   // T's bands, the bands of c2q and the NaN flags, across the cluster
+  for (int j = tid; j < N; j += THREADS)
+    if (j < b0 || j >= b0 + R) c2q[j] = cluster.map_shared_rank(c2q, j / R)[j];
+  if (cluster_gather_n(cluster, xs, C).x != 0.f)
+    for (int i = tid; i < R; i += THREADS) c1p[i] = __int_as_float(0x7fc00000);  // all of mr NaN
+
+  // The ring's slices of one PGD step: slice x is k-slice x % KN of
+  // product (x / KN) % 2 for sub-band x / (2 KN).
+  const int KN = N / KS, Q = (R / SUB) * 2 * KN;
+  const int KSH = KS == 32 ? 3 : 2, KS4 = KS / 4;  // float4s a row of a k-slice: 1 << KSH
+  auto load = [&](int x) {
+    if (x < Q) {
+      float* dst = ring + (x % STAGES) * STAGE;
+      const int k0 = (x % KN) * KS;
+      if ((x / KN) % 2 == 0) {
+        // product 1: T's rows k0 .., then the sub-band's columns k0 .. of C1
+        for (int i = warp; i < KS; i += THREADS / 32)
+          for (int j = 4 * lane; j < N; j += 128)
+            cp_async16(dst + i * LDT + j, T + (size_t)(k0 + i) * N + j);
+        float* dc = dst + KS * LDT;
+        const float* c1 = C1 + (size_t)(b0 + (x / (2 * KN)) * SUB) * N + k0;
+        for (int e = tid; e < SUB * KS4; e += THREADS)
+          cp_async16(dc + (e >> KSH) * LDS + 4 * (e & (KS4 - 1)), c1 + (size_t)(e >> KSH) * N + 4 * (e & (KS4 - 1)));
+      } else {
+        // product 2: C2's columns k0 .. of every row
+        for (int e = tid; e < N * KS4; e += THREADS)
+          cp_async16(dst + (e >> KSH) * LDS + 4 * (e & (KS4 - 1)),
+                     C2 + (size_t)(e >> KSH) * N + k0 + 4 * (e & (KS4 - 1)));
+      }
+    }
+    cp_async_commit();  // empty past the last slice: every slice is one group
+  };
+
+  bool frozen = false, diverged = false;  // uniform across the cluster
+  int sk_run = 0;                         // Sinkhorn iterations run, all PGD steps
+  for (int it = 0; it < pgd_iters; ++it) {
+    if (it > 0) cluster.sync();  // the accepted bands of T, across the cluster
+    // product 1: A_sub = C1_sub @ T into the sub-band's rows of mr's band;
+    // product 2: mr_sub = -(2 alpha (constC - A_sub (2 C2)^T) + (1 - alpha)
+    // M_sub) / eps over them, sub-band after sub-band
+    float acc[MT][NTMAX][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTMAX; ++nt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+    for (int x = 0; x < STAGES - 1; ++x) load(x);
+#pragma unroll 1
+    for (int x = 0; x < Q; ++x) {
+      if (STAGES == 3) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();  // slice x landed; every warp is done with slice x - 1
+      load(x + STAGES - 1);  // into slice x - 1's stage
+      const float* st = ring + (x % STAGES) * STAGE;
+      const int kq = x % KN, sb = x / (2 * KN);
+      if ((x / KN) % 2 == 0) {
+        sub_mma<MT, NTMAX, true>(st + KS * LDT, LDS, st, LDT, KS / 8, NT, acc);
+        if (kq == KN - 1) {  // A's sub-band complete, into rows no warp reads now
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NTMAX; ++nt) {
+              if (nt < NT) {
+                float* a = mr + (sb * SUB + 16 * mt + g) * LDA + 8 * (warp + 8 * nt) + 2 * t;
+                *reinterpret_cast<float2*>(a) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+                *reinterpret_cast<float2*>(a + 8 * LDA) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+              }
+              acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+            }
+        }
+      } else {
+        sub_mma<MT, NTMAX, false>(mr + sb * SUB * LDA + kq * KS, LDA, st, LDS, KS / 8, NT, acc);
+        if (kq == KN - 1) {  // mr's sub-band, over A's once every warp is done reading it
+          __syncthreads();
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int i = sb * SUB + 16 * mt + g;  // a band row
+#pragma unroll
+            for (int nt = 0; nt < NTMAX; ++nt) {
+              if (nt < NT) {
+                const int j = 8 * (warp + 8 * nt) + 2 * t;
+                const float2 lo = __ldg(reinterpret_cast<const float2*>(M + (size_t)(b0 + i) * N + j));
+                const float2 hi = __ldg(reinterpret_cast<const float2*>(M + (size_t)(b0 + i + 8) * N + j));
+                const float mv[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int ie = i + 8 * (e >> 1), je = j + (e & 1);
+                  const float h = 2.f * acc[mt][nt][e];
+                  const float tens = alpha * (2.f * ((c1p[ie] + c2q[je]) - h)) + (1.f - alpha) * mv[e];
+                  mr[ie * LDA + je] = b0 + ie >= n || je >= n ? -INFINITY : -tens / epsilon;
+                }
+              }
+              acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+            }
+          }
+        }
+      }
+    }
+    // the padding's potentials stay 0 in both buffers of each pair
+    for (int j = tid; j < N; j += THREADS) v[j] = 0.f, vn[j] = 0.f;
+    for (int i = tid; i < R; i += THREADS) u[i] = 0.f, un[i] = 0.f;
+    __syncthreads();
+
+    // log-domain Sinkhorn
+    bool sfrozen = false, sdiv = false;
+    for (int si = 0; si < sinkhorn_iters && !sfrozen; ++si) {
+      // Sinkhorn columns: the band's (max, sum of exp) of mr[i, j] + u[i],
+      // one thread a column, then the cluster's in rank order
+      for (int j = tid; j < n; j += THREADS) {
+        float m = -INFINITY;
+        for (int r = 0; r < R; ++r) m = fmaxf(m, mr[r * LDA + j] + u[r]);
+        const float mm = isfinite(m) ? m : 0.f;
+        float sum = 0.f;
+        for (int r = 0; r < R; ++r) sum += expf(mr[r * LDA + j] + u[r] - mm);
+        cpart[j] = make_float2(m, sum);
+      }
+      cluster.sync();
+      int bad = 0;
+      for (int j = tid; j < n; j += THREADS) {
+        float2 part[8];
+        float m = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (r < C) {
+            part[r] = cluster.map_shared_rank(cpart, r)[j];
+            m = fmaxf(m, part[r].x);
+          }
+        }
+        const float mm = isfinite(m) ? m : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (r < C && part[r].y != 0.f)
+            sum += part[r].y * expf((isfinite(part[r].x) ? part[r].x : 0.f) - mm);
+        const float out = logq[j] - (logf(sum) + mm);
+        vn[j] = out;
+        bad |= !isfinite(out);
+      }
+      __syncthreads();
+      // Sinkhorn rows: local to the band, one warp a row
+      for (int r = warp; r < R && b0 + r < n; r += THREADS / 32) {
+        const float* row = mr + r * LDA;
+        float m = -INFINITY;
+        for (int j = lane; j < N; j += 32) m = fmaxf(m, row[j] + vn[j]);  // -inf on the padding
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const float mm = isfinite(m) ? m : 0.f;
+        float sum = 0.f;
+        for (int j = lane; j < N; j += 32) sum += expf(row[j] + vn[j] - mm);
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) {
+          const float out = logp[r] - (logf(sum) + mm);
+          un[r] = out;
+          bad |= !isfinite(out);
+        }
+      }
+      // marginal check and flags: the band's column marginals of the
+      // would-be plan, then the cluster's flags and marginals
+      const bool check = si % 10 == 0;
+      if (check) {
+        __syncthreads();
+        for (int j = tid; j < n; j += THREADS) {
+          const float vj = vn[j];
+          float col = 0.f;
+          for (int r = 0; r < R; ++r) col += expf(mr[r * LDA + j] + un[r] + vj);
+          mpart[j] = col;
+        }
+      }
+      bad = __syncthreads_or(bad);
+      if (tid == 0) xs[0] = bad ? 1.f : 0.f, xs[1] = 0.f;
+      cluster.sync();
+      const bool newly_div = cluster_gather_n(cluster, xs, C).x != 0.f;  // sfrozen is false here
+      bool newly_frozen = newly_div;
+      if (check) {
+        float e2 = 0.f;
+        for (int j = tid; j < n; j += THREADS) {
+          float col = 0.f;
+          for (int r = 0; r < C; ++r) col += cluster.map_shared_rank(mpart, r)[j];
+          const float dlt = col - q[j];
+          e2 += dlt * dlt;
+        }
+        e2 = block_sum(e2, red);
+        newly_frozen = newly_frozen || sqrtf(e2) < sinkhorn_thr;
+      }
+      if (!newly_div) {
+        float* x = u;
+        u = un, un = x;
+        x = v;
+        v = vn, vn = x;
+      }
+      sfrozen = newly_frozen;
+      sdiv = sdiv || newly_div;
+      ++sk_run;
+    }
+
+    // candidate plan: its finiteness and distance to T's band, band
+    // partials summed across the cluster in rank order
+    int nonfinite = 0;
+    float e2 = 0.f;
+    for (int i = warp; i < R; i += THREADS / 32) {
+      const float* Ti = T + (size_t)(b0 + i) * N;
+      const float ui = u[i];
+      for (int j = lane; j < N; j += 32) {
+        const float cand = expf(mr[i * LDA + j] + ui + v[j]);
+        nonfinite |= !isfinite(cand);
+        const float dlt = cand - Ti[j];
+        e2 += dlt * dlt;
+      }
+    }
+    nonfinite = __syncthreads_or(nonfinite);
+    const bool check = it % 10 == 0;
+    if (check) e2 = block_sum(e2, red);
+    if (tid == 0) xc[0] = nonfinite ? 1.f : 0.f, xc[1] = check ? e2 : 0.f;
+    cluster.sync();  // also: every peer is done reading T for this step's products
+    const float2 got = cluster_gather_n(cluster, xc, C);
+    const bool bad = sdiv || got.x != 0.f;
+    bool newly_frozen = bad;
+    if (check) newly_frozen = newly_frozen || sqrtf(got.y) <= pgd_tol;
+    if (!(frozen || bad)) {  // the candidate becomes T's band, in every CTA of the cluster
+      for (int i = warp; i < R; i += THREADS / 32) {
+        float* Ti = T + (size_t)(b0 + i) * N;
+        const float ui = u[i];
+        for (int j = lane; j < N; j += 32) Ti[j] = expf(mr[i * LDA + j] + ui + v[j]);
+      }
+      __threadfence();  // before the next step's barrier: the peers stream this band
+    }
+    frozen = frozen || newly_frozen;
+    diverged = diverged || bad;
+  }
+  if (rank == 0 && tid == 0) {
+    div_out[s] = diverged ? 1 : 0;
+    iters_out[s] = sk_run;
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its shared memory
+}
+
+// The launch configuration of the stream route for S solves at (N, R)
+// with SUB-row sub-bands and smem bytes a CTA; the kernel's shared memory
+// limit raised once per device.
+template <int SUB>
+cudaError_t stream_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int S, int N, int R,
+                          size_t smem, cudaStream_t stream) {
+  static bool set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !set[dev]) {
+    err = cudaFuncSetAttribute(fgw_couplings_stream_kernel<SUB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) set[dev] = true;
+  }
+  attr = cudaLaunchAttribute{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = N / R;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(S * (N / R)));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Clusters of the stream route at (N, R) the device holds at once (0: none
+// can be placed), or minus a CUDA error; cudaErrorInvalidValue where no
+// plan fits (N, R).
+int stream_active(int N, int R) {
+  const StreamPlan plan = stream_plan(N, R);
+  if (!plan.sub) return -(int)cudaErrorInvalidValue;
+  const size_t smem = stream_floats(N, R, plan.sub, plan.ks, plan.stages) * sizeof(float);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int count = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+#define FGW_STREAM_ACTIVE(SB)                                                                  \
+  if (plan.sub == SB) {                                                                        \
+    err = stream_config<SB>(cfg, attr, 1, N, R, smem, 0);                                      \
+    if (err == cudaSuccess)                                                                    \
+      err = cudaOccupancyMaxActiveClusters(&count, fgw_couplings_stream_kernel<SB>, &cfg);     \
+  }
+  FGW_STREAM_SUBS(FGW_STREAM_ACTIVE)
+#undef FGW_STREAM_ACTIVE
+  return err == cudaSuccess ? count : -(int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1428,7 +1990,7 @@ size_t fgw_large_scratch_floats(int S, int N) {
 }
 
 // K3's global-memory route, for any N that is a multiple of 32 (the
-// wrapper takes it above 256): arguments as fgw_couplings, plus a scratch
+// wrapper takes it above 512): arguments as fgw_couplings, plus a scratch
 // of fgw_large_scratch_floats(S, N) floats; Tout must not alias an input.
 int fgw_couplings_large(const float* Ms, const float* C1s, const float* C2s, const float* ps,
                         const float* qs, const float* T0s, float* Tout, int* div_out,
@@ -1456,7 +2018,7 @@ int fgw_couplings_large(const float* Ms, const float* C1s, const float* C2s, con
   return (int)cudaGetLastError();
 }
 
-// The largest N of the cluster route; above it, the global route.
+// The largest N of the cluster route; above it, the stream route.
 int fgw_cluster_limit() { return LARGEST_CLUSTER_N; }
 
 // The band rows R the cluster route takes at N (a cluster of N / R CTAs),
@@ -1514,6 +2076,86 @@ int fgw_couplings_cluster(const float* Ms, const float* C1s, const float* C2s, c
   FGW_CLUSTER_SHAPES(FGW_CLUSTER_CASE)
 #undef FGW_CLUSTER_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The largest N of the stream route; above it, the global route.
+int fgw_stream_limit() { return LARGEST_STREAM_N; }
+
+// The band rows R the stream route takes at N (a cluster of N / R CTAs), as
+// measured on the card (scripts/torch_fgw_probe.py --big), or 0 where N is
+// not one of its sizes.
+int fgw_stream_rows(int N) {
+  switch (N) {
+    case 288:
+    case 384:
+      return 48;
+    case 320:
+    case 448:
+    case 512:
+      return 64;
+    default:
+      return 0;
+  }
+}
+
+// Dynamic shared-memory bytes of one CTA of the stream route at (N, R), or
+// 0 where no plan fits.
+size_t fgw_stream_smem(int N, int R) {
+  const StreamPlan plan = stream_plan(N, R);
+  return plan.sub ? stream_floats(N, R, plan.sub, plan.ks, plan.stages) * sizeof(float) : 0;
+}
+
+// The stream route's plan at (N, R) as 10000 SUB + 100 KS + STAGES, or 0.
+int fgw_stream_plan(int N, int R) {
+  const StreamPlan plan = stream_plan(N, R);
+  return 10000 * plan.sub + 100 * plan.ks + plan.stages;
+}
+
+// Clusters of the stream route at (N, R) that the current device holds at
+// once (cudaOccupancyMaxActiveClusters; 0: none fits), or minus a CUDA
+// error; cudaErrorInvalidValue where no plan fits (N, R).
+int fgw_stream_active(int N, int R) { return stream_active(N, R); }
+
+// K3's stream route: arguments as fgw_couplings, plus the band rows R (a
+// cluster of N / R CTAs a solve); N above 256 up to fgw_stream_limit and R
+// with a plan (fgw_stream_smem > 0), else cudaErrorInvalidValue. Tout must
+// not alias an input. Before its first launch at (N, R) on a device it
+// checks that a cluster can be placed there, and returns
+// cudaErrorInvalidConfiguration if none can.
+int fgw_couplings_stream(const float* Ms, const float* C1s, const float* C2s, const float* ps,
+                         const float* qs, const float* T0s, float* Tout, int* div_out,
+                         int* iters_out, int S, int N, int n, int R, float alpha, float epsilon,
+                         int pgd_iters, float pgd_tol, int sinkhorn_iters, float sinkhorn_thr,
+                         void* stream) {
+  const StreamPlan plan = stream_plan(N, R);
+  if (!plan.sub || n < 1 || n > N) return (int)cudaErrorInvalidValue;
+  // clusters placed, checked before the first launch at (N, C) on a device
+  static bool placed[MAX_DEVICES][LARGEST_STREAM_N / 32 + 1][9];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !placed[dev][N / 32][N / R]) {
+    const int active = stream_active(N, R);
+    if (active < 0) return -active;
+    if (active == 0) return (int)cudaErrorInvalidConfiguration;  // no cluster of C fits
+    if (dev < MAX_DEVICES) placed[dev][N / 32][N / R] = true;
+  }
+  const size_t smem = stream_floats(N, R, plan.sub, plan.ks, plan.stages) * sizeof(float);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = cudaErrorInvalidValue;
+#define FGW_STREAM_LAUNCH(SB)                                                                       \
+  if (plan.sub == SB) {                                                                             \
+    err = stream_config<SB>(cfg, attr, S, N, R, smem, (cudaStream_t)stream);                        \
+    if (err == cudaSuccess)                                                                         \
+      err = cudaLaunchKernelEx(&cfg, fgw_couplings_stream_kernel<SB>, Ms, C1s, C2s, ps, qs, T0s,    \
+                               Tout, div_out, iters_out, N, n, R, plan.ks, plan.stages, alpha,      \
+                               epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr);          \
+  }
+  FGW_STREAM_SUBS(FGW_STREAM_LAUNCH)
+#undef FGW_STREAM_LAUNCH
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -55,6 +55,12 @@ SIGNATURES = {
     "fgw_cluster_rows": (_I, [_I]),
     "fgw_cluster_smem": (_Z, [_I, _I]),
     "fgw_cluster_active": (_I, [_I, _I]),
+    "fgw_couplings_stream": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
+    "fgw_stream_limit": (_I, []),
+    "fgw_stream_rows": (_I, [_I]),
+    "fgw_stream_smem": (_Z, [_I, _I]),
+    "fgw_stream_plan": (_I, [_I, _I]),
+    "fgw_stream_active": (_I, [_I, _I]),
     "cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

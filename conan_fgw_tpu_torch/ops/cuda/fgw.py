@@ -8,7 +8,7 @@ per-molecule wrapper ``pallas_fgw_couplings``. The kernel lives in
 how its design answers it. It takes a bucket size N (a multiple of 32) and
 each solve's true atom count n <= N, and leaves the padding out of the
 solve; both wrappers pad any other size up to the next multiple of 32.
-``route(N)`` picks one of three routes by N, with no fallback among them:
+``route(N)`` picks one of four routes by N, with no fallback among them:
 
 - N <= ``LARGEST_TEMPLATE`` (128): the ``<N, PAD>`` templates, one CTA a
   solve, its matrices in shared memory (C1 and C2 through L2 at N = 128);
@@ -17,15 +17,21 @@ solve; both wrappers pad any other size up to the next multiple of 32.
   CTAs a solve, each CTA holding a band of R rows of T, C1 T and mr in its
   shared memory, the column reductions combined across the cluster in rank
   order; its launches count under the wrapper's name with ``_cluster``;
+- N = 288 .. ``LARGEST_STREAM`` (512): the stream route
+  (``fgw_couplings_stream_kernel``), one cluster of N / R CTAs a solve,
+  each CTA holding a band of R rows of mr in its shared memory while T and
+  C2 stream through a ring of k-slices; a size it takes no band of (352,
+  416, 480) is padded to the next one it does (``Route.size``); its
+  launches count with ``_stream``;
 - N above it: the global route (``fgw_couplings_large_kernel``), one CTA a
   solve, its matrices in device memory through L2, with no upper limit on
   N; its launches count with ``_large``.
 
 The plain version is ``ops/fgw/coupling.py::fgw_coupling`` on the leading
 n x n block, reached here through ``fgw_couplings_plain``;
-``fgw_couplings_banded`` is the cluster route's decomposition in plain
-PyTorch, for the CPU tests only. Forward only: the barycenter solves its
-couplings without gradient.
+``fgw_couplings_banded`` is the cluster and stream routes' decomposition
+in plain PyTorch, for the CPU tests only. Forward only: the barycenter
+solves its couplings without gradient.
 """
 
 from __future__ import annotations
@@ -50,17 +56,27 @@ LARGEST_CLUSTER = 256
 # 0.89x and 0.49x the time of 32 rows at N = 192 and 256 on the card,
 # scripts/torch_fgw_probe.py), else 32
 CLUSTER_ROWS = {160: 32, 192: 64, 224: 32, 256: 64}
+# the largest N of the stream route (N / R <= 8 CTAs); above it, the global
+# route
+LARGEST_STREAM = 512
+# the stream route's band rows R by the N it runs at, as
+# csrc/fgw.cu::fgw_stream_rows gives them: the fastest measured on the card
+# (PERF.md §6, PR 19); the sizes between them are padded up to the next
+STREAM_ROWS = {288: 48, 320: 64, 384: 48, 448: 64, 512: 64}
 _NAMES = ("Ms", "C1s", "C2s", "ps", "qs", "T0s")
-_SUFFIX = {"template": "", "cluster": "_cluster", "global": "_large"}
+_SUFFIX = {"template": "", "cluster": "_cluster", "stream": "_stream", "global": "_large"}
 
 
 class Route(NamedTuple):
-    """K3's route at a bucket size: ``kind`` (``"template"``, ``"cluster"``
-    or ``"global"``), the CTAs a solve and the rows each CTA owns."""
+    """K3's route at a bucket size: ``kind`` (``"template"``, ``"cluster"``,
+    ``"stream"`` or ``"global"``), the CTAs a solve, the rows each CTA owns
+    and the size the kernel runs at (N, or on the stream route the next
+    size it takes a band of)."""
 
     kind: str
     ctas: int
     rows: int
+    size: int
 
 
 def route(N: int) -> Route:
@@ -68,16 +84,21 @@ def route(N: int) -> Route:
     if N % 32 or N < 32:
         raise ValueError(f"fgw kernel: N={N} is not a multiple of 32")
     if N <= LARGEST_TEMPLATE:
-        return Route("template", 1, N)
+        return Route("template", 1, N, N)
     if N <= LARGEST_CLUSTER:
         R = CLUSTER_ROWS[N]
-        return Route("cluster", N // R, R)
-    return Route("global", 1, N)
+        return Route("cluster", N // R, R, N)
+    if N <= LARGEST_STREAM:
+        size = min(k for k in STREAM_ROWS if k >= N)
+        R = STREAM_ROWS[size]
+        return Route("stream", size // R, R, size)
+    return Route("global", 1, N, N)
 
 
 def launch_name(count: str, N: int) -> str:
     """The name a launch of K3 at bucket size ``N`` counts under: ``count``,
-    with ``_cluster`` on the cluster route and ``_large`` on the global."""
+    with ``_cluster`` on the cluster route, ``_stream`` on the stream route
+    and ``_large`` on the global."""
     return count + _SUFFIX[route(N).kind]
 
 
@@ -94,13 +115,15 @@ def fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, n=None, **solver):
     return F.pad(T, (0, N - n, 0, N - n)), div.to(torch.int32)
 
 
-def fgw_couplings_banded(Ms, C1s, C2s, ps, qs, T0s, *, rows, n=None, alpha, epsilon, pgd_iters,
-                         pgd_tol, sinkhorn_iters, sinkhorn_thr):
+def fgw_couplings_banded(Ms, C1s, C2s, ps, qs, T0s, *, rows, n=None, streamed=False, alpha,
+                         epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr):
     """The cluster route's decomposition in plain PyTorch (for the CPU
     tests; nothing on the main path calls it): ``(T (S, N, N), diverged
     (S,) int32)`` as ``fgw_couplings_plain``. The N rows fall into bands of
     ``rows`` rows, one a CTA of the cluster, in rank order. Product 1 sums
-    the bands' k-slices from the own band on, as the kernel does; a row's
+    the bands' k-slices from the own band on, as the cluster kernel does,
+    or with ``streamed`` (the stream route) in rank order, as its ring
+    streams T's k-slices from the first; a row's
     log-sum-exp is its band's; a column's combines the bands' (max, sum of
     exp) in rank order, a non-finite max replaced by 0 and a band whose sum
     is 0 adding nothing; the marginal check and the candidate's distance
@@ -133,7 +156,7 @@ def fgw_couplings_banded(Ms, C1s, C2s, ps, qs, T0s, *, rows, n=None, alpha, epsi
         A = torch.zeros_like(T)
         for r, band in enumerate(bands):
             for j in range(C):
-                k = bands[(r + j) % C]
+                k = bands[j if streamed else (r + j) % C]
                 A[:, band] = A[:, band] + C1[:, band, k] @ T[:, k, :]
         mr = -(alpha * (2.0 * (constC - A @ (2.0 * C2).transpose(-1, -2))) + (1.0 - alpha) * Mb) / epsilon
         u = torch.zeros_like(p)
@@ -208,6 +231,24 @@ def _cluster_ready(N: int, R: int) -> int:
     return active
 
 
+@functools.cache
+def _stream_ready(N: int, R: int) -> int:
+    """Raise unless the library's stream route takes ``R`` rows at ``N``, as
+    ``route`` does, and the card can place one of its clusters; returns the
+    clusters the card holds at once."""
+    lib = _build.load_library()
+    if lib.fgw_stream_limit() != LARGEST_STREAM or lib.fgw_stream_rows(N) != R:
+        raise RuntimeError(f"fgw kernel: the library's stream route takes R="
+                           f"{lib.fgw_stream_rows(N)} up to N={lib.fgw_stream_limit()}, the"
+                           f" wrapper R={R} up to N={LARGEST_STREAM}")
+    active = lib.fgw_stream_active(N, R)
+    if active <= 0:
+        raise RuntimeError(f"fgw kernel: the card can place no cluster of {N // R} CTAs of"
+                           f" {lib.fgw_stream_smem(N, R)} bytes at N={N}"
+                           f" ({'no room' if active == 0 else f'CUDA error {-active}'})")
+    return active
+
+
 def _complaint(name, t, dev, want):
     if not t.is_cuda or t.device != dev:
         return f"{name} must lie on {dev}"
@@ -228,7 +269,9 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
     multiple of 32; rows and columns ``>= n`` (default N) are padding. The
     route is ``route(N)``'s, and ``launches[launch_name(count, N)]`` grows
     by one: up to ``LARGEST_TEMPLATE`` the templates, up to
-    ``LARGEST_CLUSTER`` the cluster route (``count + "_cluster"``), above it
+    ``LARGEST_CLUSTER`` the cluster route (``count + "_cluster"``), up to
+    ``LARGEST_STREAM`` the stream route (``count + "_stream"``; a size it
+    takes no band of is padded to ``route(N).size`` and cut back), above it
     the global route with a scratch of 2 N^2 floats a solve (``count +
     "_large"``). A launch that is refused raises; none reruns on another
     route."""
@@ -244,6 +287,12 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
     way = route(N)
     if not 1 <= n <= N:
         raise ValueError(f"fgw kernel: n={n} atoms outside [1, N={N}]")
+    if way.size != N:  # the padding is left out of the solve, as n's
+        args = tuple(_padded(x, way.size - N) for x in (Ms, C1s, C2s, ps, qs, T0s))
+        T, div, iters = _launch(*args, alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters,
+                                pgd_tol=pgd_tol, sinkhorn_iters=sinkhorn_iters,
+                                sinkhorn_thr=sinkhorn_thr, n=n, count=count)
+        return T[:, :N, :N], div, iters
     lib = _build.load_library()
     T = torch.empty_like(Ms)
     flags = torch.empty((2, S), dtype=torch.int32, device=dev)
@@ -260,6 +309,9 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
         elif way.kind == "cluster":
             _cluster_ready(N, way.rows)
             code = lib.fgw_couplings_cluster(*pointers, S, N, n, way.rows, *solver, stream)
+        elif way.kind == "stream":
+            _stream_ready(N, way.rows)
+            code = lib.fgw_couplings_stream(*pointers, S, N, n, way.rows, *solver, stream)
         else:
             scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device=dev)
             code = lib.fgw_couplings_large(*pointers, scratch.data_ptr(), S, N, n, *solver, stream)
@@ -294,8 +346,8 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
     for any ``N``, as JAX's flat solver takes any ``n``.
     Returns ``(T (S, N, N) f32, diverged (S,) int32 per-solve flags)``.
     CUDA tensors go to the kernel (counted as ``fgw_couplings`` up to 128
-    atoms, ``fgw_couplings_cluster`` from 129 to 256, ``fgw_couplings_large``
-    above: ``launch_name``), CPU
+    atoms, ``fgw_couplings_cluster`` from 129 to 256, ``fgw_couplings_stream``
+    from 257 to 512, ``fgw_couplings_large`` above: ``launch_name``), CPU
     tensors to ``fgw_couplings_plain``; a mix of the two raises. A bucket
     size (a multiple of 32) is launched as it is. Any other ``N`` is padded
     to the next multiple of 32 with zero structure, mass and plan, the
@@ -324,7 +376,8 @@ def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol
     failure and rolled back. The solves are padded to the next multiple of
     32 with zero structure, mass and plan, and K3 (counted as
     ``fgw_couplings_mol``, ``fgw_couplings_mol_cluster`` from 129 to 256
-    atoms, ``fgw_couplings_mol_large`` above) leaves the padding out; on the
+    atoms, ``fgw_couplings_mol_stream`` from 257 to 512,
+    ``fgw_couplings_mol_large`` above) leaves the padding out; on the
     CPU the plain version solves the leading
     n x n block of the same padded input.
     """

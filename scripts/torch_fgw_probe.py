@@ -3,17 +3,21 @@
 spends its time on one NVIDIA card, at ``chip_smoke.py``'s K3 inputs
 (S = 120 solves at N = 32, 64, 96 and 128, and the barycenter's second outer
 iteration at N = 32 and 64) and, above 128 atoms, on phase 18's kind of
-input at N = 192 and 256 (S = 90 solves of the F=256 molecules, first and
-second outer iteration): there the global route and the cluster route with
-each compiled band height R, side by side.
+input (S = 90 solves: the F=256 molecules at N = 192, 256 and 288, first
+and second outer iteration; ``chip_smoke.py``'s point clouds at other N,
+first outer iteration): there the global route beside the cluster route
+with each compiled band height R, or the stream route with each R it has a
+plan for.
 
-    python3 scripts/torch_fgw_probe.py [--pkg DIR] [--big]
+    python3 scripts/torch_fgw_probe.py [--pkg DIR] [--big [N ...]]
 
 ``--pkg`` takes the port's package (kernel source and wrapper) from another
 checkout, by default this one, so that two versions of K3 can be measured
 in one run on one card. The inputs always come from this checkout's
-``chip_smoke.py``. ``--big`` measures the N = 192 and 256 sets alone. Prints, per
-input set:
+``chip_smoke.py``. ``--big`` measures the sets above 128 atoms instead of
+those up to 128, at the N it names (by default 288 and 384), after a table
+of the stream route's plan and the clusters the card holds at once for
+each N and R. Prints, per input set:
 
 1. K3's device time per launch (``torch.profiler``), the CUDA-event time
    per call of back-to-back wrapper calls, their difference (the host time
@@ -31,10 +35,12 @@ input set:
    Sinkhorn log-sum-exp updates; the column-marginal checks; the candidate
    plan and its acceptance; the final store. The global and the cluster
    route: set-up; product 1; product 2 with the gradient; the Sinkhorn
-   column sweep (on the cluster route its band partials and their
+   column sweep (on the cluster routes its band partials and their
    combination); the row sweep; the marginal check with the flags; the
-   candidate plan; the store; and, on the cluster route, the waits at the
-   cluster barriers, apart.
+   candidate plan; the store; and, on the cluster and stream routes, the
+   waits at the cluster barriers, apart. On the stream route a product's
+   phase holds its ring's waits and copies, and the first slice's
+   prologue falls in the phase before it.
 
 Needs the CUDA toolkit and a card. Builds go to ``<DIR>/conan_fgw_tpu_torch/_build/probe``.
 """
@@ -57,8 +63,7 @@ BIG_PHASES = ["set-up", "product 1", "product 2+gradient", "Sinkhorn columns", "
               "marginal check+flags", "candidate plan", "store", "cluster barriers"]
 MAX_BLOCKS = 4096
 NPH = 9  # phase counters a block
-# phase 18's F=256 molecules at N = 192 and 256: (N, heavy atoms a molecule)
-BIG_SHAPES, BIG_SEED = ((192, (96, 104)), (256, (136, 148))), 6000
+BIG_SEED = 6000  # chip_smoke.py's seed offset of phase 18's F=256 molecules
 SPIN_CYCLES = 10_000_000  # ~5 ms on the card, longer than issuing 20 calls
 
 
@@ -124,6 +129,17 @@ BIG_EDITS = {
         ("  // store", "  " + _ph(7) + "  // store"),
         ("  cluster.sync();  // no CTA leaves", "  " + _ph(7) + _DUMP + "  cluster.sync();  // no CTA leaves"),
     ]),
+    "stream": ("    fgw_couplings_stream_kernel(const float* __restrict__ Ms,", "// The launch configuration of the stream", [
+        ("  const int s = blockIdx.x / C, tid = threadIdx.x;\n",
+         "  const int s = blockIdx.x / C, tid = threadIdx.x;\n" + _INIT),
+        ("      if (STAGES == 3) cp_async_wait<1>();",
+         "      " + _ph("(x / KN) % 2 == 0 ? 1 : 2") + "      if (STAGES == 3) cp_async_wait<1>();"),
+        ("      // Sinkhorn columns", "      " + _ph(3) + "      // Sinkhorn columns"),
+        ("      // Sinkhorn rows", "      " + _ph(4) + "      // Sinkhorn rows"),
+        ("      // marginal check and flags", "      " + _ph(5) + "      // marginal check and flags"),
+        ("    // candidate plan", "    " + _ph(6) + "    // candidate plan"),
+        ("  cluster.sync();  // no CTA leaves", "  " + _ph(7) + _DUMP + "  cluster.sync();  // no CTA leaves"),
+    ]),
 }
 # every cluster barrier of the cluster route, apart (phase 8)
 BARRIER = ("cluster.sync();", "{ const int sv_ = cur_; " + _ph(8).strip() + " cluster.sync(); "
@@ -146,7 +162,7 @@ def instrumented(src: str) -> str:
         a = src.index(begin)
         b = src.index(end, a)
         region = _edit(src[a:b], edits)
-        if kind == "cluster":
+        if kind != "global":
             region = region.replace(*BARRIER)
         src = src[:a] + region + src[b:]
     return src
@@ -163,16 +179,18 @@ def build_phases(build, csrc: Path) -> ctypes.CDLL:
         raise SystemExit(f"the instrumented K3 failed to build:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
     for fn in ("fgw_couplings", "fgw_smem", "fgw_couplings_large", "fgw_large_scratch_floats",
-               "fgw_couplings_cluster", "fgw_cluster_smem", "fgw_cluster_active"):
+               "fgw_couplings_cluster", "fgw_cluster_smem", "fgw_cluster_active",
+               "fgw_couplings_stream", "fgw_stream_smem", "fgw_stream_plan", "fgw_stream_active"):
         if fn in build.SIGNATURES:
             getattr(lib, fn).restype, getattr(lib, fn).argtypes = build.SIGNATURES[fn]
     lib.phase_dump.argtypes = [ctypes.c_void_p]
     return lib
 
 
-def big_launch(lib, kind, R, args, kw):
+def big_launch(lib, kind, R, args, kw, sync=True):
     """One launch of a large route of ``lib`` on ``args`` (all N atoms
-    real): ``(T, diverged, iterations)``, after a synchronise."""
+    real): ``(T, diverged, iterations)``, after a synchronise unless
+    ``sync`` is false (for capture into a graph)."""
     import torch
 
     S, N, _ = args[0].shape
@@ -185,43 +203,87 @@ def big_launch(lib, kind, R, args, kw):
     if kind == "global":
         scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device="cuda")
         code = lib.fgw_couplings_large(*ptrs, scratch.data_ptr(), S, N, N, *solver, stream)
-    else:
+    elif kind == "cluster":
         code = lib.fgw_couplings_cluster(*ptrs, S, N, N, R, *solver, stream)
+    else:
+        code = lib.fgw_couplings_stream(*ptrs, S, N, N, R, *solver, stream)
     if code != 0:
         raise SystemExit(f"the {kind} route (R={R}) failed with CUDA error {code}")
-    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.synchronize()
     return T, flags[0], flags[1]
 
 
-def probe_big(smoke, lib, plib, torch):
-    """N = 192 and 256 (S = 90): the global route and the cluster route at
-    each compiled R, timed on the package's library ``lib`` and split by
-    phase on the instrumented copy ``plib``."""
+def stream_table(lib):
+    """The stream route's plan, shared bytes and clusters at once for each
+    N and R it has a plan for."""
+    for N in range(288, 513, 32):
+        for R in (48, 64, 96):
+            smem = lib.fgw_stream_smem(N, R)
+            if not smem:
+                continue
+            plan, active = lib.fgw_stream_plan(N, R), lib.fgw_stream_active(N, R)
+            rounds = -(-90 // active) if active > 0 else None
+            print(f"[stream table] N={N} R={R}: {N // R} CTAs, SUB={plan // 10000}"
+                  f" KS={plan // 100 % 100} stages={plan % 100}, {smem} shared bytes a CTA,"
+                  f" {active} clusters at once, {rounds} rounds at S=90")
+
+
+def big_sets(smoke, sizes, torch):
+    """``(label, args)`` of each N in ``sizes``: the F=256 molecules of
+    ``chip_smoke.py``'s phase 18 at N <= 288 (first and second outer
+    iteration), its point clouds elsewhere (first)."""
+    gen = torch.Generator().manual_seed(smoke.SEED + 18)
+    heavy = {N: h for _, h, N in smoke.BIG_SHAPES}
+    heavy[smoke.STREAM_SHAPE[2]] = smoke.STREAM_SHAPE[1]
+    clouds = dict(smoke.STREAM_CLOUDS)
+    sets = []
+    for N in sizes:
+        if N in heavy:
+            pos, mask = smoke.packed_geometry(smoke.SEED + BIG_SEED + N, smoke.B_CLS, heavy[N], N,
+                                              "cuda")
+            args, Ys, Cs = smoke.fgw_problem(pos, mask, gen)
+            sets += [(f"N{N}", args), (f"N{N}-outer2", smoke.second_outer_inputs(args, Ys, Cs))]
+        else:
+            atoms = clouds.get(N, (N - 31, N))
+            pos, mask = smoke.cloud_geometry(smoke.SEED + 6100 + N, smoke.B_CLS, atoms, N, "cuda")
+            sets.append((f"N{N}", smoke.fgw_problem(pos, mask, gen)[0]))
+    return sets
+
+
+def probe_big(smoke, lib, plib, torch, sizes):
+    """The sets of ``big_sets``: the global route and the cluster route at
+    each compiled R, or the stream route at each R with a plan, timed on
+    the package's library ``lib`` and split by phase on the instrumented
+    copy ``plib``."""
     from conan_fgw_tpu_torch.ops.cuda.fgw import fgw_couplings_plain
 
     kw = smoke.FGW_KW
-    gen = torch.Generator().manual_seed(smoke.SEED + 18)
-    sets = []
-    for N, heavy in BIG_SHAPES:
-        pos, mask = smoke.packed_geometry(smoke.SEED + BIG_SEED + N, smoke.B_CLS, heavy, N, "cuda")
-        args, Ys, Cs = smoke.fgw_problem(pos, mask, gen)
-        sets += [(f"N{N}", args), (f"N{N}-outer2", smoke.second_outer_inputs(args, Ys, Cs))]
-    for label, args in sets:
+    if hasattr(lib, "fgw_couplings_stream"):
+        stream_table(lib)
+    for label, args in big_sets(smoke, sizes, torch):
         S, N, _ = args[0].shape
         routes = [("global", 0)] + [("cluster", R) for R in (32, 64) if lib.fgw_cluster_smem(N, R)]
+        if hasattr(lib, "fgw_couplings_stream"):
+            routes += [("stream", R) for R in (48, 64, 96) if lib.fgw_stream_smem(N, R)]
         T_p, div_p = fgw_couplings_plain(*args, **kw)
         for kind, R in routes:
-            name = kind if kind == "global" else f"cluster R={R}"
+            name = kind if kind == "global" else f"{kind} R={R}"
             T, div, iters = big_launch(lib, kind, R, args, kw)
             err = float((T - T_p).abs().max())
             same = bool(torch.equal(div, div_p))
             again = big_launch(lib, kind, R, args, kw)[0]
             ms = smoke.cuda_ms(lambda: big_launch(lib, kind, R, args, kw), reps=10, warmup=2)
-            replay = smoke.graph_ms(lambda: big_launch_async(lib, kind, R, args, kw))
+            replay = smoke.graph_ms(lambda: big_launch(lib, kind, R, args, kw, sync=False))
             extra = ""
             if kind == "cluster":
                 extra = (f"; {N // R} CTAs of {lib.fgw_cluster_smem(N, R)} bytes a cluster,"
                          f" {lib.fgw_cluster_active(N, R)} clusters at once")
+            elif kind == "stream":
+                plan = lib.fgw_stream_plan(N, R)
+                extra = (f"; {N // R} CTAs of {lib.fgw_stream_smem(N, R)} bytes a cluster"
+                         f" (SUB={plan // 10000} KS={plan // 100 % 100} stages={plan % 100}),"
+                         f" {lib.fgw_stream_active(N, R)} clusters at once")
             print(f"[{label} {name}] S={S}: {ms:.4f} ms (eager, synchronised), graph replays"
                   f" {replay:.4f} ms; max_abs_err {err:.3e} from the plain version, flags equal"
                   f" {same}, bits equal on a second launch {bool(torch.equal(T, again))};"
@@ -242,31 +304,11 @@ def probe_big(smoke, lib, plib, torch):
                       f" {b[:, k].mean():9.0f} cycles per block")
 
 
-def big_launch_async(lib, kind, R, args, kw):
-    """``big_launch`` without the synchronise (for capture into a graph)."""
-    import torch
-
-    S, N, _ = args[0].shape
-    T = torch.empty_like(args[0])
-    flags = torch.empty((2, S), dtype=torch.int32, device="cuda")
-    solver = (kw["alpha"], kw["epsilon"], kw["pgd_iters"], kw["pgd_tol"], kw["sinkhorn_iters"],
-              kw["sinkhorn_thr"])
-    ptrs = (*(a.data_ptr() for a in args), T.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr())
-    stream = torch.cuda.current_stream().cuda_stream
-    if kind == "global":
-        scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device="cuda")
-        code = lib.fgw_couplings_large(*ptrs, scratch.data_ptr(), S, N, N, *solver, stream)
-    else:
-        code = lib.fgw_couplings_cluster(*ptrs, S, N, N, R, *solver, stream)
-    if code != 0:
-        raise SystemExit(f"the {kind} route (R={R}) failed with CUDA error {code}")
-    return T
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pkg", default=str(ROOT), help="checkout whose conan_fgw_tpu_torch is measured")
-    ap.add_argument("--big", action="store_true", help="measure the N = 192 and 256 sets alone")
+    ap.add_argument("--big", nargs="*", type=int, metavar="N",
+                    help="measure the sets above 128 atoms alone, at these N (default 288 384)")
     opts = ap.parse_args()
     pkg = Path(opts.pkg).resolve()
     sys.path.insert(0, str(pkg))
@@ -289,9 +331,8 @@ def main() -> int:
     print(f"package {Path(conan_fgw_tpu_torch.__file__).parent}")
     package = _build.load_library()
     lib = build_phases(_build, _build.CSRC_DIR)
-    if hasattr(package, "fgw_couplings_cluster"):
-        probe_big(smoke, package, lib, torch)
-    if opts.big:
+    if opts.big is not None:
+        probe_big(smoke, package, lib, torch, opts.big or (288, 384))
         return 0
     kw = smoke.FGW_KW
     gen = torch.Generator().manual_seed(smoke.SEED)

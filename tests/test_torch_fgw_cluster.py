@@ -14,9 +14,11 @@ decomposition in plain PyTorch. Here it is held
   one T0 (that solve diverges and keeps its T0) and with solves that
   freeze early (in Sinkhorn, or at the first PGD check);
 
-and ``route(N)`` is held to the three routes: the templates up to 128, the
+and ``route(N)`` is held to the four routes: the templates up to 128, the
 cluster route at every multiple of 32 up to ``LARGEST_CLUSTER`` (R a
-multiple of 32, at most 16 CTAs, C R = N), the global route above it.
+multiple of 32, at most 16 CTAs, C R = N), the stream route up to
+``LARGEST_STREAM`` (at the next size of its table), the global route above
+it.
 """
 
 import jax.numpy as jnp
@@ -98,16 +100,19 @@ def test_banded_early_freeze_matches_plain(kw):
     np.testing.assert_array_equal(div_b.numpy(), div_p.numpy())
 
 
-@pytest.mark.parametrize("N", range(32, 2 * k3.LARGEST_CLUSTER + 32, 32))
+@pytest.mark.parametrize("N", range(64, k3.LARGEST_STREAM + 64, 32))
 def test_route_by_bucket_size(N):
     way = k3.route(N)
     if N <= k3.LARGEST_TEMPLATE:
-        assert way == k3.Route("template", 1, N)
+        assert way == k3.Route("template", 1, N, N)
     elif N <= k3.LARGEST_CLUSTER:
-        assert way.kind == "cluster"
+        assert way.kind == "cluster" and way.size == N
         assert way.rows % 32 == 0 and way.ctas <= 16 and way.ctas * way.rows == N
+    elif N <= k3.LARGEST_STREAM:
+        assert way.kind == "stream" and way.size in k3.STREAM_ROWS and 0 <= way.size - N < 64
+        assert way.rows % 16 == 0 and way.ctas <= 8 and way.ctas * way.rows == way.size
     else:
-        assert way == k3.Route("global", 1, N)
+        assert way == k3.Route("global", 1, N, N)
 
 
 @pytest.mark.parametrize("N", [0, 16, 100, 181])
@@ -120,4 +125,5 @@ def test_launch_names_follow_the_route():
     assert k3.launch_name("fgw_couplings", 128) == "fgw_couplings"
     assert k3.launch_name("fgw_couplings", 160) == "fgw_couplings_cluster"
     assert k3.launch_name("fgw_couplings_mol", k3.LARGEST_CLUSTER) == "fgw_couplings_mol_cluster"
-    assert k3.launch_name("fgw_couplings", k3.LARGEST_CLUSTER + 32) == "fgw_couplings_large"
+    assert k3.launch_name("fgw_couplings", k3.LARGEST_CLUSTER + 32) == "fgw_couplings_stream"
+    assert k3.launch_name("fgw_couplings", k3.LARGEST_STREAM + 32) == "fgw_couplings_large"
