@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line), in the
-order 1-6, 8-15, 7 (beside 16a), 16, 17, 18; the seconds of each are printed
+order 1-6, 8-14, 15 and 7 (beside 16a), 16, 17, 18; the seconds of each are printed
 on a ``[phases]`` line:
 
 1. Build the CUDA kernels from ``conan_fgw_tpu_torch/csrc`` and print the
@@ -137,7 +137,8 @@ on a ``[phases]`` line:
    the eight families (the three ESAN variants, ``scalars``,
    ``embeddings``, ``covalent``, ``attention``, ``gat_only``) at N = 32 and
    N = 64 on sol250's molecules at batch 32, stage 1: one step on the card
-   against the CPU (phase 4's gates); 20 steps eager against graphed (the
+   against the CPU (phase 4's gates) on 16 of the batch's molecules (the
+   attention head: all 32); 12 steps eager against graphed (the
    host pipeline) through an lr change, to phase 8's gates, with equal
    launch counts (K1 and K2 as many a step as the family's SchNets have
    radius-graph interactions: 12 for the first two ESAN variants, 6 for
@@ -237,14 +238,15 @@ on a ``[phases]`` line:
    launches per rank K1 3 a forward, K2 3 a train step, K3 5 a stage-2
    forward, phase 5's host-pipeline checks, both buckets every epoch, and
    ``test_rmse`` within 2e-3 of phase 5's one-process run. 15d: 15b's
-   graphed steps again in fresh processes, bit for bit. Two processes
+   graphed steps again in fresh processes (launched beside 15c), bit for
+   bit. Two processes
    time-sharing one card show no data-parallel speed; the times printed
    are each rank's share.
 16. The tools (``conan_fgw_tpu_torch/tools``) and the K=3 runner path.
    16a: ``python -m conan_fgw_tpu_torch.tools.prepare_data --builtin sol250
-   --store_conformers 10`` into a temporary ``--data_root`` on the host's
-   CPUs, started before phase 7 and run beside it (it is waited for
-   before 16b): its train/valid/test CSVs and every ``.npz`` store
+   --store_conformers 10`` into a temporary ``--data_root`` on half the
+   host's CPUs, started before phase 15 and run beside phases 15 and 7 (it
+   is waited for before 16b): its train/valid/test CSVs and every ``.npz`` store
    must be the repo's ``data/sol250`` byte for byte, its manifest 322
    molecules split 257/33/32; prints the seconds from its start to its
    end. 16b: K1/K2 at ``eval_geom_scale``'s shape (G = 480: 96 molecules x
@@ -307,7 +309,8 @@ on a ``[phases]`` line:
    epoch resumed in the middle of the accumulation bit for bit the
    straight two-epoch run; ms per mini-step.
 18. Molecules above 128 atoms and the last options. 18a: K1/K2 on their
-   large route (``csrc/cfconv_large.cu``, counted under ``_large`` names)
+   large routes (``csrc/cfconv_wgmma.cu``, K2 at F=128
+   ``csrc/cfconv_large.cu``, counted under ``_large`` names)
    at N = 160, 192, 256 and 181 (no multiple of 32), F=128 with 50
    Gaussians and F=256 with 10 on G = 90 seeded graphs of 109-251 atoms,
    the cap binding, with phase 2's gates; at N = 192 also the nearest cap
@@ -342,11 +345,12 @@ on a ``[phases]`` line:
    bucketed=False``: every batch at N = 192 on the large kernels alone, and
    the batches it stepped equal to a CPU replay of ``batch_iterator`` under
    ``loop.epoch_rng``, molecule by molecule; the replays' ms a step beside
-   the global route's 23.61 (PR 17). 18e: one ViSNet stage-2 step
+   the 19.26 of the kernels before the wgmma route. 18e: one ViSNet stage-2 step
    with ``vertex``, ``vecnorm_type="max_min"``, ``trainable_vecnorm`` and
    ``trainable_rbf`` card against CPU (phase 4's gates). 18f: two graphed
    stage-2 steps at N = 192 of the F=128 and the F=256 model in bf16 and
-   in f16, each launching its own large variants.
+   in f16, each launching its own large variants, then the ms a step of
+   ``BIG_TIMED`` replays of each graph.
 7. Reproducibility: two fresh processes run the same seeded stage-1 and
    stage-2 steps on ``data/sol250``, stage-2 steps of the seeded ViSNet
    and DimeNet models, stage-1 steps of the geometry ESAN and the
@@ -356,7 +360,8 @@ on a ``[phases]`` line:
    gradients and weights; a
    third runs the eager steps under
    ``torch.use_deterministic_algorithms(True)`` (with
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish.
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and must finish. The three
+   processes run at once.
 
 Then it prints the per-kernel JSON line (every kernel, each width, type
 and shape held, with its launches on each runner path; the bf16 variants'
@@ -449,7 +454,8 @@ REPLACES = {
     "cfconv_bwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     # graphs above 128 atoms (phase 18): K3's cluster route (129-256 atoms),
     # its stream route (257-512) and its global route (above 512), through
-    # both wrappers, and csrc/cfconv_large.cu's K1/K2 at both widths and types
+    # both wrappers, and K1/K2 at both widths and types: csrc/cfconv_wgmma.cu's,
+    # but K2 at F=128 csrc/cfconv_large.cu's
     "fgw_couplings_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:362",
     "fgw_couplings_mol_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     "fgw_couplings_stream": "conan_fgw_tpu/ops/pallas/fgw.py:362",
@@ -460,6 +466,10 @@ REPLACES = {
        for kind, line in (("fwd", 223), ("bwd", 146)) for width in ("", "_f256")
        for dtype in ("", "_bf16", "_f16")},
 }
+# csrc/cfconv_wgmma.cu's kernels of K1 and K2 above 128 atoms (graph nodes, ptxas)
+WGMMA_KERNELS = ("cfconv_msg_wgmma_kernel", "cfconv_dw_wgmma_kernel")
+# csrc/cfconv_large.cu's kernel of K2 at F=128 above 128 atoms
+LARGE_BWD_KERNEL = "cfconv_bwd_large_kernel"
 # the launch names of phase 18's routes above 128 atoms
 LARGE_NAMES = tuple(name for name in REPLACES if name.endswith(("_large", "_large_bf16",
                                                                 "_large_f16", "_cluster",
@@ -485,8 +495,9 @@ SOURCES = {
     "fgw_couplings_mol_stream": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
-    **{name: "conan_fgw_tpu_torch/csrc/cfconv_large.cu" for name in LARGE_NAMES
-       if name.startswith("cfconv")},
+    **{name: "conan_fgw_tpu_torch/csrc/" + ("cfconv_large.cu" if name.startswith("cfconv_bwd_large")
+                                            else "cfconv_wgmma.cu")
+       for name in LARGE_NAMES if name.startswith("cfconv")},
 }
 # seconds between the edges of the profiler's window and the steps it profiles
 PROFILE_MARGIN_S = 0.05
@@ -597,7 +608,7 @@ def phase_build():
         require(any("fgw_couplings_large_kernel" in e for e in spills)
                 and any("fgw_couplings_cluster_kernel" in e for e in spills)
                 and any("fgw_couplings_stream_kernel" in e for e in spills)
-                and any("cfconv_bwd_large_kernel" in e for e in spills),
+                and all(any(k in e for e in spills) for k in (*WGMMA_KERNELS, LARGE_BWD_KERNEL)),
                 "no ptxas report for the large-N kernels")
         require(spills and not any(spills.values()), "a kernel spills registers")
 
@@ -673,8 +684,11 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     MLP in f16, as JAX's XLA cfconv) must lie within ``F16_ROUTE_RTOL``.
     ``cap_mode`` "nearest" (phase 17) runs the kernels and the plain version
     with the nearest-neighbour cap; its rows go under ``label``. Above 128
-    atoms the kernels are csrc/cfconv_large.cu's, under their ``_large``
-    names; ``plain_reps`` cuts the plain version's timed calls there."""
+    atoms the kernels are those of ``ops/cuda/cfconv.py::route``
+    (csrc/cfconv_wgmma.cu's, and csrc/cfconv_large.cu's K2 at F=128), under
+    their ``_large`` names; ``plain_reps`` cuts the plain version's timed
+    (and warm-up) calls there. Two launches of K2 (and above 128 atoms of
+    K1) on the same inputs must agree bit for bit."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.cfconv import (
@@ -695,13 +709,16 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     x, w1, b1, w2, b2, cot = cfconv_params(G, N, gen, pos.device, F, GAUSS)
     x, cot = x.to(dtype), cot.to(dtype)
     out_k = cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP, cap_mode)
+    out_again = (cfconv_forward(pos, maskf, x, w1, b1, w2, b2, CUTOFF, CAP, cap_mode)
+                 if N > LARGEST_TEMPLATE else out_k)
     grads_k = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP, cap_mode)
     grads_again = cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP, cap_mode)
     torch.cuda.synchronize()
-    same = [n for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads_k, grads_again)
-            if torch.equal(a, b)]
-    print(f"[cfconv {tag}] bwd twice on the same inputs: bit-identical {same}")
-    require(len(same) == 5, f"cfconv {tag} backward is not deterministic")
+    same = [n for n, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), (out_k, *grads_k),
+                                 (out_again, *grads_again)) if torch.equal(a, b)]
+    print(f"[cfconv {tag}] {'fwd and ' if N > LARGEST_TEMPLATE else ''}bwd twice on the same"
+          f" inputs: bit-identical {same}")
+    require(len(same) == 6, f"cfconv {tag} is not deterministic")
     require(out_k.dtype == grads_k[0].dtype == dtype
             and all(t.dtype == torch.float32 for t in grads_k[1:]),
             f"cfconv {tag}: out {out_k.dtype}, grads {[t.dtype for t in grads_k]}")
@@ -772,13 +789,14 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     bwd_ms = cuda_ms(lambda: cfconv_backward(pos, maskf, x, w1, b1, w2, b2, cot, CUTOFF, CAP,
                                              cap_mode))
     plain_fwd_ms = cuda_ms(lambda: _cfconv_plain(pos, maskf, x, w1, b1, w2, b2, CUTOFF, GAUSS, CAP,
-                                                 cap_mode), reps=plain_reps)
+                                                 cap_mode), reps=plain_reps,
+                           warmup=min(2, plain_reps))
 
     def plain_bwd():
         o = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP, cap_mode)
         torch.autograd.grad(o, leaves, cot)
 
-    plain_bwd_ms = cuda_ms(plain_bwd, reps=plain_reps)
+    plain_bwd_ms = cuda_ms(plain_bwd, reps=plain_reps, warmup=min(2, plain_reps))
     w_bytes = 4 * (GAUSS * F + F * F + 2 * F)
     feat = x.element_size()  # x, out, the cotangent and dx
     io_fwd = 4 * (G * N * 3 + G * N) + feat * 2 * G * N * F + w_bytes
@@ -1641,7 +1659,7 @@ LAUNCHES_COUNTED = ("wrapper counts over CUDA-graphed steps: each graph's captur
                     " profiler's kernel executions in phase 8")
 GRAPH_STEPS = 20     # batches of the eager-against-graphed run
 GRAPH_LR_AT = 10     # set_learning_rate after this many steps, in both runs
-GRAPH_TIMED = 25     # warmed steps in each timing turn (50 before PR 16)
+GRAPH_TIMED = 12     # warmed steps in each timing turn (50 before PR 16, 25 before PR 20)
 GRAPH_RTOL = 1e-5    # per-step losses and final weights, relative
 GRAPH_EVAL_RTOL = 1e-6
 # label, classification?, stage 2?, bucket N, heavy atoms per molecule, batch.
@@ -1659,8 +1677,13 @@ PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_b
             "cfconv_bwd_kernel": ("cfconv_bwd", "cfconv_bwd_f256", "cfconv_bwd_bf16",
                                   "cfconv_bwd_f256_bf16", "cfconv_bwd_f16", "cfconv_bwd_f256_f16"),
             "fgw_couplings_kernel": ("fgw_couplings",),
-            "cfconv_fwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_fwd")),
-            "cfconv_bwd_large_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_bwd")),
+            # above 128 atoms: the message kernel, one a K1 and one a K2 call at
+            # F=256 (its dx), K2's weight-gradient kernel at F=256, and K2 at F=128
+            "cfconv_msg_wgmma_kernel": tuple(n for n in LARGE_NAMES if n.startswith("cfconv_")
+                                             and not n.startswith("cfconv_bwd_large")),
+            "cfconv_dw_wgmma_kernel": tuple(n for n in LARGE_NAMES
+                                            if n.startswith("cfconv_bwd_f256_large")),
+            LARGE_BWD_KERNEL: tuple(n for n in LARGE_NAMES if n.startswith("cfconv_bwd_large")),
             "fgw_couplings_cluster_kernel": ("fgw_couplings_cluster",),
             "fgw_couplings_stream_kernel": ("fgw_couplings_stream",),
             "fgw_couplings_large_kernel": ("fgw_couplings_large",)}
@@ -2037,7 +2060,8 @@ BACKBONE_KERNELS = (None, None, "fgw_couplings")
 # DimeNet's barycenter budget: alpha 0.5 with the structure held fixed
 FGW_FIXED_KW = dict(FGW_KW, alpha=0.5)
 MEMORY_STEPS = 3  # eager steps a stage and bucket; the last two are timed
-BACKBONE_TIMED = 10  # warmed steps a timing turn of phase 8's case (steps of 50-110 ms)
+# warmed steps a timing turn of phase 8's case (steps of 50-110 ms; 10 before PR 20)
+BACKBONE_TIMED = 5
 
 
 def check_fgw_fixed(device, rows):
@@ -2184,7 +2208,13 @@ FAMILIES = {"esan:avg_conf_esan": 12, "esan:geometry_induced_esan": 12,
             "esan:geometry_2d_induced_esan": 6, "scalars": 6, "covalent": 6, "embeddings": 3,
             "attention": 3, "gat_only": 0}
 FAMILY_BATCH = 32  # the ESAN configs' batch
-FAMILY_TIMED = 10  # warmed steps a timing turn
+FAMILY_TIMED = 5  # warmed steps a timing turn (10 before PR 20)
+FAMILY_STEPS = 12  # batches of the eager-against-graphed run (phase 8's 20 before PR 20)
+FAMILY_LR_AT = 6  # set_learning_rate after this many steps, in both runs
+# molecules of the card-against-CPU step (the CPU side's cost; 32 before
+# PR 20), but the attention head's full batch: its N=64 step's gradient
+# norm lay 9.4e-4 from the CPU's, near the 1e-3 gate
+FAMILY_PARITY_B = 16
 
 
 def sol250_batch(records, n_atoms, batch, start=0):
@@ -2226,8 +2256,9 @@ def check_averaged(records, device, rows):
 
 def family_case(spec, n_atoms, records, device, card):
     """One head family at one bucket, stage 1, at batch 32 on sol250's
-    molecules: one step on the card against the CPU (phase 4's gates);
-    ``GRAPH_STEPS`` steps eager (pre-packed batches) against graphed (the
+    molecules: one step of ``FAMILY_PARITY_B`` of them (the attention
+    head: 32) on the card against the CPU (phase 4's gates);
+    ``FAMILY_STEPS`` steps eager (pre-packed batches) against graphed (the
     host pipeline), from identical weights through an lr change (phase 8's
     gates; the barycenter heads, which get no gradient, must stay
     bit-unchanged); the eval graph against eager eval; ms per step eager
@@ -2242,13 +2273,15 @@ def family_case(spec, n_atoms, records, device, card):
     from conan_fgw_tpu_torch.train.runner import build_aux_model
 
     label = f"{spec} N{n_atoms}"
-    recs = [r for i in range(GRAPH_STEPS)
+    recs = [r for i in range(FAMILY_STEPS)
             for r in sol250_batch(records, n_atoms, FAMILY_BATCH, i * FAMILY_BATCH)[0]]
     batches = list(host_batches(recs, FAMILY_BATCH, n_atoms, pack=pack_batch))
-    require(len(batches) == GRAPH_STEPS and all(pb.mol_mask.all() for pb in batches),
-            f"{label}: the batches are not {GRAPH_STEPS} full ones")
+    require(len(batches) == FAMILY_STEPS and all(pb.mol_mask.all() for pb in batches),
+            f"{label}: the batches are not {FAMILY_STEPS} full ones")
     base = build_aux_model(spec, 128, seed=SEED, device=device)
-    row = {"parity": step_parity(base, batches[0], device, f"{label} parity", bary=False)}
+    parity_b = FAMILY_BATCH if spec == "attention" else FAMILY_PARITY_B
+    part = pack_batch(recs[:parity_b], max_atoms=n_atoms, batch_size=parity_b)
+    row = {"parity": step_parity(base, part, device, f"{label} parity B{parity_b}", bary=False)}
     settings = loop.TrainSettings(batch_size=FAMILY_BATCH, learning_rate=1e-3)  # the ESAN configs'
     runs = {}
     for mode in ("eager", "graphed"):
@@ -2262,13 +2295,13 @@ def family_case(spec, n_atoms, records, device, card):
         before, losses = collections.Counter(launches), []
         if mode == "eager":
             for i, pb in enumerate(batches):
-                if i == GRAPH_LR_AT:
+                if i == FAMILY_LR_AT:
                     loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
                 losses.append(loop.train_step(model, opt, pb.to(device), settings)[0])
         else:
             with kept_graphs(), loop.step_batches(recs, settings, n_atoms, graphs) as staged:
                 for i, pb in enumerate(staged):
-                    if i == GRAPH_LR_AT:
+                    if i == FAMILY_LR_AT:
                         loop.set_learning_rate(opt, 0.5 * settings.learning_rate)
                     losses.append(graphs.train(pb)[0])
         torch.cuda.synchronize()
@@ -2277,7 +2310,7 @@ def family_case(spec, n_atoms, records, device, card):
         runs[mode] = (model, opt, graphs, torch.stack(losses), grew)
     (m_e, opt_e, _, loss_e, grew_e), (m_g, _, graphs, loss_g, grew_g) = runs["eager"], runs["graphed"]
     k1 = FAMILIES[spec]
-    want = {"cfconv_fwd": k1 * GRAPH_STEPS, "cfconv_bwd": k1 * GRAPH_STEPS} if k1 else {}
+    want = {"cfconv_fwd": k1 * FAMILY_STEPS, "cfconv_bwd": k1 * FAMILY_STEPS} if k1 else {}
     require(loss_e.isfinite().all(), f"{label}: a non-finite eager loss")
     loss_rel = _max_rel(loss_g, loss_e)
     w_rel = max(_max_rel(q.detach(), p.detach()) for p, q in zip(m_e.parameters(), m_g.parameters()))
@@ -2287,8 +2320,8 @@ def family_case(spec, n_atoms, records, device, card):
     kept = all(torch.equal(dict(m.named_parameters())[k], dict(base.named_parameters())[k])
                for m in (m_e, m_g) for k in unused)
     captured = sorted(k[0] for k, st in graphs.steps.items() if st.graph is not None)
-    print(f"[{label}] {GRAPH_STEPS} steps eager vs graphed (host pipeline), lr halved after"
-          f" {GRAPH_LR_AT}: losses rel {loss_rel:.3e}, weights rel {w_rel:.3e} (tol {GRAPH_RTOL});"
+    print(f"[{label}] {FAMILY_STEPS} steps eager vs graphed (host pipeline), lr halved after"
+          f" {FAMILY_LR_AT}: losses rel {loss_rel:.3e}, weights rel {w_rel:.3e} (tol {GRAPH_RTOL});"
           f" bit-identical {bits}; {len(unused)} barycenter-head tensors unchanged {kept};"
           f" launches eager {grew_e} graphed {grew_g}; peak eager {row['eager_peak_gib']:.2f}"
           f" GiB, graphed {row['graphed_peak_gib']:.2f} GiB allocated on {card}")
@@ -2309,7 +2342,7 @@ def family_case(spec, n_atoms, records, device, card):
     require(grew_eval == ({"cfconv_fwd": len(evals) * k1} if k1 else {}),
             f"{label}: eval launches {grew_eval}")
 
-    order = [batches[i % GRAPH_STEPS] for i in range(FAMILY_TIMED)]
+    order = [batches[i % FAMILY_STEPS] for i in range(FAMILY_TIMED)]
     turn_fns = {"eager": lambda: [loop.train_step(m_e, opt_e, pb.to(device), settings)
                                   for pb in order],
                 "graphed": lambda: [graphs.train(pb) for pb in order]}
@@ -2758,13 +2791,29 @@ def determinism_worker(out_path: str, deterministic: bool) -> int:
     return 0
 
 
-def _run_worker(path: Path, deterministic: bool) -> dict:
-    proc = subprocess.run([sys.executable, __file__, "--determinism-worker", str(path),
-                           "1" if deterministic else "0"], capture_output=True, text=True,
-                          timeout=600)
-    require(proc.returncode == 0, f"determinism worker (deterministic={deterministic}) failed:\n"
-            + (proc.stdout + proc.stderr)[-3000:])
-    return json.loads(path.read_text())
+def _start_worker(path: Path, deterministic: bool, logs: Path) -> subprocess.Popen:
+    """A determinism worker writing ``path``, its output to a file in ``logs``."""
+    log = open(logs / f"{path.stem}.log", "w")
+    with log:
+        return subprocess.Popen([sys.executable, __file__, "--determinism-worker", str(path),
+                                 "1" if deterministic else "0"], stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_workers(procs: dict, logs: Path) -> dict:
+    """Waits for every worker (all are stopped if one fails) and returns
+    each one's JSON by its file's stem."""
+    try:
+        for path, proc in procs.items():
+            code = proc.wait(timeout=600)
+            require(code == 0, f"determinism worker {path.stem} failed:\n"
+                    + (logs / f"{path.stem}.log").read_text()[-3000:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {path.stem: json.loads(path.read_text()) for path in procs}
 
 
 def _first_difference(a: dict, b: dict):
@@ -2784,12 +2833,15 @@ def phase_determinism():
     gradients and weights must agree bit for bit; a third runs it under
     ``torch.use_deterministic_algorithms(True)`` and must finish (torch
     raises on an operation of the path that has no deterministic
-    implementation). Prints the first difference, if any, and the step
-    times of both modes."""
+    implementation). The three run at once, sharing the card (their step
+    times are each one's share of it). Prints the first difference, if
+    any, and the step times of both modes."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as name:
         tmp = Path(name)
-        a, b = (_run_worker(tmp / f"run{i}.json", False) for i in range(2))
-        strict = _run_worker(tmp / "strict.json", True)
+        runs = {tmp / "run0.json": False, tmp / "run1.json": False, tmp / "strict.json": True}
+        procs = {path: _start_worker(path, strict, tmp) for path, strict in runs.items()}
+        done = _finish_workers(procs, tmp)
+    a, b, strict = done["run0"], done["run1"], done["strict"]
     first = _first_difference(a, b)
     ms = [1e3 * min(x, y) for x, y in zip(a["step_s"], b["step_s"])]
     print(f"[determinism] step ms (the faster process): " + ", ".join(f"{v:.2f}" for v in ms)
@@ -3666,7 +3718,10 @@ def phase_dp(device, card, rows, single):
     + 5), K1/K2/K3 at the rank's shape, the split graphs' nodes against the
     capture's counts. 15c: the runner's two stages on ``data/sol250`` on
     the two-rank mesh. 15d: 15b's graphed steps again in fresh processes,
-    bit for bit. ``single`` holds phase 5's test RMSE by stage."""
+    bit for bit, launched beside 15c (from a thread: its ranks share the
+    card with 15c's). ``single`` holds phase 5's test RMSE by stage."""
+    import concurrent.futures
+
     import torch
 
     from conan_fgw_tpu_torch.parallel.mesh import launch
@@ -3701,6 +3756,9 @@ def phase_dp(device, card, rows, single):
     print(f"[dp graphs] {DP_NOTE}")
     out["graphed_ms"] = [r["ms"] for r in first]
 
+    # 15d's fresh processes, beside 15c
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    again_run = pool.submit(launch, dp_ranks, DP_WORLD, False, backend="gloo", device=dev)
     # 15c
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as name:
         tmp = Path(name)
@@ -3721,7 +3779,8 @@ def phase_dp(device, card, rows, single):
     print(f"[dp runner] {DP_NOTE}; the warm start bit-exact on both ranks")
 
     # 15d: the same steps in fresh processes
-    again = launch(dp_ranks, DP_WORLD, False, backend="gloo", device=dev)
+    again = again_run.result()
+    pool.shutdown()
     runs = [r["steps"] for r in (*first, *again)]
     same = all(s == runs[0] for s in runs)
     print(f"[dp determinism] {DP_STEPS} graphed two-rank steps in two launches of fresh processes:"
@@ -3774,12 +3833,14 @@ def check_k3_kernels(device, rows):
 
 def start_prepare_sol250(root: Path):
     """16a's ``tools.prepare_data --builtin sol250`` into ``root``, started
-    in a process of its own on the host's CPUs; ``finish_prepare_sol250``
-    waits for it. ``main`` starts it before phase 7, which it runs beside:
-    phase 7 is held to bits, not to times."""
+    in a process of its own on half the host's CPUs (each molecule's store
+    is seeded: the worker count does not change a byte);
+    ``finish_prepare_sol250`` waits for it. ``main`` starts it before phase
+    15, and it runs beside phases 15 and 7: their checks are bits and
+    tolerances, not times."""
     import os
 
-    workers = os.cpu_count() or 1
+    workers = max(1, (os.cpu_count() or 2) // 2)
     proc = subprocess.Popen(
         [sys.executable, "-m", "conan_fgw_tpu_torch.tools.prepare_data", "--builtin", "sol250",
          "--store_conformers", "10", "--data_root", str(root), "--workers", str(workers)],
@@ -3959,7 +4020,7 @@ def phase_tools(device, card, rows, prepared=None):
     """Phase 16: the tools (``conan_fgw_tpu_torch/tools``) and the K=3
     runner path. 16a ``prepare_data --builtin sol250`` byte for byte (or
     ``prepared``, ``(its data root, its seconds)`` where ``main`` ran it
-    beside phase 7); 16b K1/K2/K3 at the K=3 shapes; 16c ``sol250_3.yaml``
+    beside phases 15 and 7); 16b K1/K2/K3 at the K=3 shapes; 16c ``sol250_3.yaml``
     then ``sol250_3_bc.yaml`` through the runner on 16a's data with phase
     5's checks and ``--out_json``; 16d ``summarize_protocol`` over them; 16e
     ``synthetic_e2e``; 16f ``eval_geom_scale`` against the CPU."""
@@ -4570,7 +4631,10 @@ STREAM_BATCH = 2  # molecules of the batched barycenter at n = STREAM_MOL
 GLOBAL_N, GLOBAL_S = 544, 15
 GLOBAL_MOL = 520
 GLOBAL_BATCH = 1
-BIG_PLAIN_REPS = 3  # timed calls of the plain cfconv at these shapes (0.1-1 s each)
+# timed calls of the plain cfconv at these shapes (0.1-1 s each), after
+# as many warm-up calls (3 after 2 before PR 20)
+BIG_PLAIN_REPS = 1
+BIG_TIMED = 5  # timed replays of each of 18f's graphed steps
 
 
 def cloud_geometry(seed, n_mols, atoms, N, device, k=K):
@@ -4594,7 +4658,7 @@ def cloud_geometry(seed, n_mols, atoms, N, device, k=K):
 
 
 def check_big_kernels(device, rows):
-    """18a/18b: K1 and K2 at N=160, 192, 256 and 181 (csrc/cfconv_large.cu),
+    """18a/18b: K1 and K2 at N=160, 192, 256 and 181 (csrc/cfconv_wgmma.cu),
     F=128 with 50 Gaussians and F=256 with 10, on G=90 graphs (the CoV-2
     batch of 18 molecules x 5 conformers), f32 with the index cap; at N=192
     also the nearest cap and bf16 and f16 node features; phase 2's and
@@ -4887,7 +4951,7 @@ def check_big_runner(device, card, tmp, common):
                                                           "auroc", GEOM18_BUCKETS)
             out[label]["nodes"] = check_train_graph_nodes(label, made)
             big = out[label]["nodes"].get(192, {})
-            require(big.get("cfconv_fwd_large_kernel") and big.get("cfconv_bwd_large_kernel")
+            require(all(big.get(k) for k in WGMMA_KERNELS)
                     and big.get("fgw_couplings_cluster_kernel", 0) == (5 if stage == "conan_fgw" else 0)
                     and not big.get("fgw_couplings_large_kernel")
                     and not big.get("fgw_couplings_stream_kernel"),
@@ -4965,8 +5029,8 @@ def check_shuffled_fit(device, config, tmp):
     print(f"[shuffled fit] {len(seen)} graphed steps over {RUNNER_EPOCHS} epochs, shuffle=True,"
           f" bucketed=False: batch N {shapes}; order equal to the CPU replay {same}; train loss"
           f" {losses}; launches {grew}; {wall:.1f} s; the last epoch's stage-2 steps at N=192"
-          f" (B={settings.batch_size}, F=128, graph replays) {replay_ms:.2f} ms/step (PR 17's"
-          f" global route: 23.61)")
+          f" (B={settings.batch_size}, F=128, graph replays) {replay_ms:.2f} ms/step (the kernels"
+          f" before the wgmma route: 19.26)")
     require(same, "shuffled fit: the batch order differs from the CPU replay")
     require(shapes == [192], f"shuffled fit: batches at N={shapes}")
     require(all(np.isfinite(losses)), "shuffled fit: a non-finite loss")
@@ -5003,7 +5067,9 @@ def check_big_dtypes(device, config, tmp):
     its replay) at N=192 of the regression model (F=128) and of the
     classification model (F=256) in each type, launch counts zeroed just
     before and read just after; each must launch its own variants and no
-    other cfconv kernel, and its losses must be finite."""
+    other cfconv kernel, and its losses must be finite. Then ``BIG_TIMED``
+    replays of each graph, timed. Returns the launches and the ms a step
+    by type and width."""
     import dataclasses
 
     import torch
@@ -5018,7 +5084,7 @@ def check_big_dtypes(device, config, tmp):
                if r.num_atoms > 128][:BIG_DTYPE_B]
     pb = pack_batch(records, max_atoms=192, batch_size=BIG_DTYPE_B)
     regression = load_config(RUNNER_STAGES[1][1])
-    out = collections.Counter()
+    out, ms = collections.Counter(), {}
     for cfg in (regression, config):
         for dtype in ("bfloat16", "float16"):
             model = build_model(dataclasses.replace(cfg, compute_dtype=dtype), seed=SEED,
@@ -5036,15 +5102,21 @@ def check_big_dtypes(device, config, tmp):
             width = "" if F == 128 else "_f256"
             want = {f"cfconv_fwd{width}_large{suffix}", f"cfconv_bwd{width}_large{suffix}",
                     "fgw_couplings_cluster"}
+            t0 = time.perf_counter()
+            for _ in range(BIG_TIMED):
+                graphs.train(pb)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / BIG_TIMED
+            ms[f"{dtype}_f{F}"] = step_ms
             print(f"[big {dtype} F{F}] two graphed stage-2 steps at N=192 (B={BIG_DTYPE_B}):"
-                  f" losses {losses}; launches {grew}")
+                  f" losses {losses}; launches {grew}; {BIG_TIMED} replays {step_ms:.2f} ms a step")
             require(set(grew) == want, f"big {dtype} F{F}: launches {grew}, want {sorted(want)}")
             require(all(l == l and abs(l) != float("inf") for l in losses),
                     f"big {dtype} F{F}: a non-finite loss")
             out.update(grew)
             del model, graphs
     torch.cuda.empty_cache()
-    return dict(out)
+    return dict(out), ms
 
 
 def phase_large(device, card, rows):
@@ -5070,7 +5142,7 @@ def phase_large(device, card, rows):
                   "--metrics_dir", str(tmp / "metrics"), "--device", device]
         out["runner"], config = check_big_runner(device, card, tmp, common)
         out["shuffled_fit"] = check_shuffled_fit(device, config, tmp)
-        out["dtypes"] = check_big_dtypes(device, config, tmp)
+        out["dtypes"], out["dtype_step_ms"] = check_big_dtypes(device, config, tmp)
     out["visnet_options"] = check_visnet_options(device)
     totals = collections.Counter(out["runner"]["launches"])
     totals.update(out["shuffled_fit"]["launches"])
@@ -5133,13 +5205,14 @@ def main() -> int:
         "backbones": stage_rows["backbones"]})
     stage_rows["fgw"] = timed("13", phase_fgw, device, card, rows)
     stage_rows["geom"] = timed("14", phase_geom, device, card, rows)
-    stage_rows["dp"] = timed("15", phase_dp, device, card, rows, {
-        label: stage_rows["runner"][label]["test_rmse"] for label in ("stage 1", "stage 2")})
-    # 16a's data is made on the host's CPUs while phase 7's fresh processes
-    # run, which time nothing they are held to
+    # 16a's data is made on half the host's CPUs while phase 15's ranks and
+    # phase 7's fresh processes run, which time nothing they are held to
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prepare_") as data_root:
         started = start_prepare_sol250(Path(data_root))
         try:
+            single = {label: stage_rows["runner"][label]["test_rmse"]
+                      for label in ("stage 1", "stage 2")}
+            stage_rows["dp"] = timed("15", phase_dp, device, card, rows, single)
             stage_rows["determinism"] = timed("7", phase_determinism)
         except BaseException:
             started[0].kill()

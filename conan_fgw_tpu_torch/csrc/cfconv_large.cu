@@ -1,31 +1,37 @@
-// The cfconv kernels K1 and K2 for graphs of any atom count (sm_90a).
+// The cfconv kernel K2 at F = 128 for graphs above 128 atoms (sm_90a).
 //
-// Replaces the same Pallas TPU kernels as csrc/cfconv.cu
-// (conan_fgw_tpu/ops/pallas/cfconv.py: _fused_fwd_impl / _kernel and
-// _fused_bwd_impl / _bwd_kernel) above the 128 atoms that file's kernels
-// hold. Its pipeline, arithmetic and edge order are cfconv.cu's, whose
-// helpers this file includes: the same work items, tiles of ET edges, the
-// 3xTF32 filter MLP on the tensor cores, the row sums on the tensor cores,
-// the persistent grid cut by plan_tiles and K2's partials summed in a fixed
-// order. So a graph above 128 atoms gets the result the small kernels would
-// give it, and is bound by the same filter MLP (operation-bound).
+// Replaces the Pallas TPU kernel conan_fgw_tpu/ops/pallas/cfconv.py:136
+// _fused_bwd_impl (its _bwd_kernel) above the 128 atoms that csrc/cfconv.cu's
+// kernels hold, at the regression model's width (F = 128, up to 64
+// Gaussians). K1 at both widths and K2 at F = 256 take csrc/cfconv_wgmma.cu's
+// route there; this kernel stays the route of K2 at F = 128 because the
+// wgmma route's K2 was slower at that width (1.45-1.51x at N = 160-256 on
+// G = 90 graphs: its dx and weight-gradient kernels each recompute layer 1
+// and the softplus of every edge, and its F = 128 gradient kernel holds one
+// warpgroup an SM). The wrapper picks the route by N and F before the
+// launch (ops/cuda/cfconv.py::route).
+//
+// Its pipeline, arithmetic and edge order are cfconv.cu's, whose helpers
+// this file includes: the same work items, tiles of ET edges, the 3xTF32
+// filter MLP on the tensor cores (mma.sync), the row sums on the tensor
+// cores, the persistent grid cut by plan_tiles and the partials summed in a
+// fixed order. So a graph above 128 atoms gets the result the small kernel
+// would give it, and is bound by the same filter MLP (operation-bound).
 //
 // What differs is the state of a graph, which cfconv.cu sizes for MAXN:
 // the positions, squared norms and mask (5 N floats), the item's edge list
-// (4 R N: a K2 source may be the neighbour of every target) and the
-// neighbour bits (N x ceil(N/32) words), 46 KB at N = 256 for K2. Here it
-// has a run-time size. It sits in the block's dynamic shared memory beside
-// the weights and tiles where it fits (to N = 352 or more at every width
-// but K1's F = 256, to N = 224 there), else in a device scratch that the
-// wrapper allocates, one slice a block, read through L1. The edge tiles'
-// four arrays are staged into shared memory a tile at a time, so the
-// products and gathers of a tile read shared memory as in cfconv.cu. K1
-// runs one team of 8 warps a block at both widths (cfconv.cu's F = 128 K1
-// runs two, whose state would not fit twice). The nearest-neighbour rank
-// loops over the row's words at run time, recomputing a word's distances
-// where cfconv.cu keeps them in registers, so that no per-lane array grows
-// with N. cfconv_count_large_kernel keeps its state in dynamic shared
-// memory, or in the scratch above about 1,270 atoms.
+// (4 R N: a source may be the neighbour of every target) and the neighbour
+// bits (N x ceil(N/32) words), 46 KB at N = 256. Here it has a run-time
+// size. It sits in the block's dynamic shared memory beside the weights and
+// tiles where it fits (to N = 352 or more), else in a device scratch that
+// the wrapper allocates, one slice a block, read through L1. The edge
+// tiles' four arrays are staged into shared memory a tile at a time, so the
+// products and gathers of a tile read shared memory as in cfconv.cu. The
+// nearest-neighbour rank loops over the row's words at run time,
+// recomputing a word's distances where cfconv.cu keeps them in registers,
+// so that no per-lane array grows with N. cfconv_count_large_kernel keeps
+// its state in dynamic shared memory, or in the scratch above about 1,270
+// atoms.
 
 #define CFCONV_HELPERS_ONLY
 #include "cfconv.cu"
@@ -33,13 +39,6 @@
 namespace {
 
 __host__ __device__ constexpr int words_of(int n) { return (n + 31) / 32; }
-
-// cfconv_slabs of cfconv.cu's entry points (left out of this file).
-int slabs_of(int F, int bwd) {
-  if (F == 128) return 1;
-  if (F == 256) return bwd ? Cfg<256, 16, true>::NS : Cfg<256, 16, false>::NS;
-  return 0;
-}
 
 // A graph's state: pos (3 N), sq, mask, the item's edge list (ed, eg, ei,
 // ej of nr N each) and the neighbour bits (N words of a row each).
@@ -54,27 +53,27 @@ __host__ __device__ constexpr size_t count_floats(int n) {
 
 // Shared floats a block holds whatever N: the weights, the tiles, the
 // staged edge tile and the 16 ints of cnt.
-template <class C, bool BWD>
+template <class C>
 __host__ __device__ constexpr size_t fixed_floats() {
-  return (size_t)C::WEIGHT_FLOATS + ET * C::SR + ET * C::SH + (BWD ? ET * C::SD : 0) +
+  return (size_t)C::WEIGHT_FLOATS + ET * C::SR + ET * C::SH + ET * C::SD +
          ET * C::SX + 4 * ET + 16;
 }
 
-template <class C, bool BWD, int NR>
+template <class C, int NR>
 bool state_in_smem(int n) {
-  return (fixed_floats<C, BWD>() + state_floats(n, NR)) * sizeof(float) <= MAX_SMEM;
+  return (fixed_floats<C>() + state_floats(n, NR)) * sizeof(float) <= MAX_SMEM;
 }
 
 // The block's views: s with the graph's state (shared memory, or this
 // block's slice of gstate), and v, the same with the edge arrays pointing
 // at the staged tile.
-template <class C, bool BWD, int NR>
+template <class C, int NR>
 __device__ void carve_large(float* p, float* gstate, int n, Smem& s, Smem& v) {
   s.w1 = reinterpret_cast<float2*>(p); p += C::KG * C::SW1;
   s.w2 = reinterpret_cast<float2*>(p); p += C::W2_ROWS * C::SW2;
   s.rbf = p; p += ET * C::SR;
   s.h = p; p += ET * C::SH;
-  s.dwf = p; if (BWD) p += ET * C::SD;
+  s.dwf = p; p += ET * C::SD;
   s.xs = p; p += ET * C::SX;
   v = s;
   v.ed = p; p += ET;
@@ -247,79 +246,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ------------------------------------------------------------ K1
-// cfconv_fwd_kernel with the run-time state and the staged tiles; one team.
-template <int F, int KG, class T>
-__global__ void __launch_bounds__(THREADS, 1)
-    cfconv_fwd_large_kernel(const float* __restrict__ pos, const float* __restrict__ mask,
-                            const T* __restrict__ x, const float* __restrict__ w1,
-                            const float* __restrict__ b1, const float* __restrict__ w2,
-                            const float* __restrict__ b2, const int* __restrict__ item_tiles,
-                            float* __restrict__ out, float* gstate, int G, int n, int gs,
-                            float cutoff, int cap, int cap_mode) {
-  using C = Cfg<F, KG, false>;
-  constexpr int FO = C::FO;
-  extern __shared__ __align__(16) float smem[];
-  Smem s, v;
-  carve_large<C, false, R1>(smem, gstate, n, s, v);
-  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
-  const int slab = blockIdx.x % C::NS, member = blockIdx.x / C::NS, members = gridDim.x / C::NS;
-  const int o0 = slab * FO;  // this block's output filters
-  const float step = cutoff / (gs - 1);
-  const float coeff = -0.5f / (step * step);
-  const int per_graph = (n + R1 - 1) / R1;
-  stage_weights<C::SC, C::SW1>(s.w1, w1, F, KG, gs, 0, 0);
-  stage_weights<FO, C::SW2>(s.w2, w2, F, F, F, 0, o0);
-  __syncthreads();
-  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, members, member);
-
-  for (int item = run.k_lo, off = run.off_lo; item < run.k_hi; ++item) {
-    const int g = item / per_graph, i0 = (item % per_graph) * R1;
-    const int tiles = item_tiles[item];
-    const int first = max(run.t_lo - off, 0), last = min(run.t_hi - off, tiles);  // its part
-    off += tiles;
-    if (first >= last) continue;  // a row block without edges: its rows stay zero
-    team_sync();  // the previous item is done with the lists
-    load_graph(s, pos, mask, g, n);
-    row_bits_large(s, n, cutoff, cap, cap_mode, i0, min(i0 + R1, n));
-    team_sync();
-    const int E = build_edges_large<false, R1>(s, n, cutoff, i0);
-    const T* xg = x + (size_t)g * n * F + o0;
-    float rows[FO / 64][4] = {};
-    for (int e0 = first * ET; e0 < min(E, last * ET); e0 += ET) {
-      const int ne = min(ET, E - e0);
-      stage_tile(s, v, e0, ne);
-      float2 xv[FO / 32][2];  // x_j
-      gather_rows<FO, F>(xg, v.ej, 0, ne, xv);
-      rbf_tile<C>(v, 0, ne, gs, cutoff, step, coeff);
-      team_sync();
-      {
-        float acc[1][C::SC / 32][4];
-        layer1<C>(v, b1, acc);
-        store_h<C>(v, acc);
-      }
-      team_sync();
-      float acc[1][FO / 32][4];
-      layer2<C>(v, b2 + o0, acc);
-      // message W_e gate_e x_j into the message tile; padding edges give 0
-      const int r0 = ew_row0(), c0 = ew_col0<FO>();
-#pragma unroll
-      for (int nt = 0; nt < FO / 32; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = r0 + g8 + 8 * half, c = c0 + nt * 8 + 2 * t;
-          const float gate = e < ne ? v.eg[e] : 0.f;
-          *reinterpret_cast<float2*>(v.xs + e * C::SX + c) =
-              make_float2(acc[0][nt][2 * half] * gate * xv[nt][half].x,
-                          acc[0][nt][2 * half + 1] * gate * xv[nt][half].y);
-        }
-      team_sync();
-      scatter_rows<FO, C::SX>(v.xs, v.ei, i0, 0, ne, rows);
-    }
-    store_rows<FO, F>(rows, out + (size_t)g * n * F + o0, i0, R1, n, first > 0 || last < tiles);
-  }
-}
-
 // ------------------------------------------------------------ K2
 // cfconv_bwd_kernel with the run-time state and the staged tiles.
 template <int F, int KG, class T>
@@ -335,7 +261,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int SC = C::SC;
   extern __shared__ __align__(16) float smem[];
   Smem s, v;
-  carve_large<C, true, R2>(smem, gstate, n, s, v);
+  carve_large<C, R2>(smem, gstate, n, s, v);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
   const int slab = blockIdx.x % C::NS, member = blockIdx.x / C::NS, members = gridDim.x / C::NS;
   const int c0s = slab * SC;  // this block's channels of h
@@ -466,10 +392,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 // slices).
 bool count_in_smem(int n) { return count_floats(n) * sizeof(float) <= MAX_SMEM; }
 
-template <class C, bool BWD, int NR>
+template <class C, int NR>
 size_t scratch_floats(int G, int n, int blocks) {
   return (count_in_smem(n) ? 0 : (size_t)G * count_floats(n)) +
-         (state_in_smem<C, BWD, NR>(n) ? 0 : (size_t)blocks * state_floats(n, NR));
+         (state_in_smem<C, NR>(n) ? 0 : (size_t)blocks * state_floats(n, NR));
 }
 
 template <bool SOURCE_MAJOR>
@@ -482,30 +408,6 @@ int count_large(const float* pos, const float* mask, int G, int N, float cutoff,
   cfconv_count_large_kernel<SOURCE_MAJOR><<<G, THREADS, bytes, st>>>(
       pos, mask, N, cutoff, cap, cap_mode, smem ? nullptr : scratch, item_tiles);
   return (int)cudaGetLastError();
-}
-
-template <int F, int KG, class T>
-int fwd_large(const float* pos, const float* mask, const T* x, const float* w1, const float* b1,
-              const float* w2, const float* b2, T* out, float* out32, int* item_tiles,
-              float* scratch, int G, int N, int Gs, float cutoff, int cap, int cap_mode,
-              int blocks, cudaStream_t st) {
-  using C = Cfg<F, KG, false>;
-  constexpr bool direct = std::is_same<T, float>::value;  // f32 sums straight into out
-  float* acc = direct ? reinterpret_cast<float*>(out) : out32;
-  const size_t count = (size_t)G * N * F;
-  cudaError_t err;
-  if ((err = cudaMemsetAsync(acc, 0, count * sizeof(float), st)) != cudaSuccess) return (int)err;
-  int code = count_large<false>(pos, mask, G, N, cutoff, cap, cap_mode, scratch, item_tiles, st);
-  if (code != 0) return code;
-  const bool smem = state_in_smem<C, false, R1>(N);
-  float* gstate = smem ? nullptr : scratch + (count_in_smem(N) ? 0 : (size_t)G * count_floats(N));
-  const size_t bytes = (fixed_floats<C, false>() + (smem ? state_floats(N, R1) : 0)) * sizeof(float);
-  if ((code = set_smem(cfconv_fwd_large_kernel<F, KG, T>, MAX_SMEM)) != 0) return code;
-  cfconv_fwd_large_kernel<F, KG, T><<<blocks, THREADS, bytes, st>>>(
-      pos, mask, x, w1, b1, w2, b2, item_tiles, acc, gstate, G, N, Gs, cutoff, cap, cap_mode);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if constexpr (!direct) return sum_parts<1, T>(acc, count, out, st);
-  return 0;
 }
 
 template <int F, int KG, class T>
@@ -523,9 +425,9 @@ int bwd_large(const float* pos, const float* mask, const T* x, const float* w1, 
     return (int)err;
   int code = count_large<true>(pos, mask, G, N, cutoff, cap, cap_mode, scratch, item_tiles, st);
   if (code != 0) return code;
-  const bool smem = state_in_smem<C, true, R2>(N);
+  const bool smem = state_in_smem<C, R2>(N);
   float* gstate = smem ? nullptr : scratch + (count_in_smem(N) ? 0 : (size_t)G * count_floats(N));
-  const size_t bytes = (fixed_floats<C, true>() + (smem ? state_floats(N, R2) : 0)) * sizeof(float);
+  const size_t bytes = (fixed_floats<C>() + (smem ? state_floats(N, R2) : 0)) * sizeof(float);
   if ((code = set_smem(cfconv_bwd_large_kernel<F, KG, T>, MAX_SMEM)) != 0) return code;
   cfconv_bwd_large_kernel<F, KG, T><<<blocks, THREADS, bytes, st>>>(
       pos, mask, x, w1, b1, w2, b2, gout, item_tiles, parts, partial, gstate, G, N, Gs, cutoff,
@@ -543,66 +445,28 @@ int bwd_large(const float* pos, const float* mask, const T* x, const float* w1, 
 
 extern "C" {
 
-// Floats of the device scratch that cfconv_fwd_large (bwd 0) or
-// cfconv_bwd_large (bwd 1) needs at F filters for G graphs of N atoms on a
-// grid of `blocks`: 0 where every state fits in shared memory.
-size_t cfconv_large_scratch_floats(int F, int bwd, int G, int N, int blocks) {
-  if (F == 128)
-    return bwd ? scratch_floats<Cfg<128, 64, true>, true, R2>(G, N, blocks)
-               : scratch_floats<Cfg<128, 64, false>, false, R1>(G, N, blocks);
-  if (F == 256)
-    return bwd ? scratch_floats<Cfg<256, 16, true>, true, R2>(G, N, blocks)
-               : scratch_floats<Cfg<256, 16, false>, false, R1>(G, N, blocks);
-  return 0;
+// Floats of the device scratch that cfconv_bwd_large needs for G graphs of
+// N atoms on a grid of `blocks`: 0 where every state fits in shared memory.
+size_t cfconv_large_scratch_floats(int G, int N, int blocks) {
+  return scratch_floats<Cfg<128, 64, true>, R2>(G, N, blocks);
 }
 
-// K1 for any N: cfconv_fwd's arguments and a scratch of
-// cfconv_large_scratch_floats(F, 0, G, N, blocks) floats (may be null when
-// that is 0).
-int cfconv_fwd_large(const float* pos, const float* mask, const void* x, const float* w1,
-                     const float* b1, const float* w2, const float* b2, void* out, float* out32,
-                     int* item_tiles, float* scratch, int G, int N, int F, int Gs, float cutoff,
-                     int cap, int cap_mode, int blocks, int dtype, void* stream) {
-  if (!compiled(F, Gs) || blocks % slabs_of(F, 0) || !valid_modes(dtype, cap_mode) || N < 1)
-    return (int)cudaErrorInvalidValue;
-  const auto run = [&](auto tag) {
-    using T = decltype(tag);
-    const auto xt = static_cast<const T*>(x);
-    const auto ot = static_cast<T*>(out);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (F == 128)
-      return fwd_large<128, 64, T>(pos, mask, xt, w1, b1, w2, b2, ot, out32, item_tiles, scratch, G,
-                                   N, Gs, cutoff, cap, cap_mode, blocks, st);
-    return fwd_large<256, 16, T>(pos, mask, xt, w1, b1, w2, b2, ot, out32, item_tiles, scratch, G,
-                                 N, Gs, cutoff, cap, cap_mode, blocks, st);
-  };
-  if (dtype == 1) return run(__nv_bfloat16{});
-  if (dtype == 2) return run(__half{});
-  return run(0.f);
-}
-
-// K2 for any N: cfconv_bwd's arguments and a scratch of
-// cfconv_large_scratch_floats(F, 1, G, N, blocks) floats.
+// K2 at F = 128 for any N: cfconv_bwd's arguments and a scratch of
+// cfconv_large_scratch_floats(G, N, blocks) floats (may be null when that
+// is 0).
 int cfconv_bwd_large(const float* pos, const float* mask, const void* x, const float* w1,
                      const float* b1, const float* w2, const float* b2, const void* gout, void* dx,
                      float* dx_parts, float* dw1, float* db1, float* dw2, float* db2,
                      float* partial, int* item_tiles, float* scratch, int G, int N, int F, int Gs,
                      float cutoff, int cap, int cap_mode, int blocks, int dtype, void* stream) {
-  if (!compiled(F, Gs) || blocks % slabs_of(F, 1) || !valid_modes(dtype, cap_mode) || N < 1)
+  if (F != 128 || !compiled(F, Gs) || blocks < 1 || !valid_modes(dtype, cap_mode) || N < 1)
     return (int)cudaErrorInvalidValue;
   const auto run = [&](auto tag) {
     using T = decltype(tag);
-    const auto xt = static_cast<const T*>(x);
-    const auto gt = static_cast<const T*>(gout);
-    const auto dt = static_cast<T*>(dx);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (F == 128)
-      return bwd_large<128, 64, T>(pos, mask, xt, w1, b1, w2, b2, gt, dt, dx_parts, dw1, db1, dw2,
-                                   db2, partial, item_tiles, scratch, G, N, Gs, cutoff, cap,
-                                   cap_mode, blocks, st);
-    return bwd_large<256, 16, T>(pos, mask, xt, w1, b1, w2, b2, gt, dt, dx_parts, dw1, db1, dw2,
-                                 db2, partial, item_tiles, scratch, G, N, Gs, cutoff, cap, cap_mode,
-                                 blocks, st);
+    return bwd_large<128, 64, T>(pos, mask, static_cast<const T*>(x), w1, b1, w2, b2,
+                                 static_cast<const T*>(gout), static_cast<T*>(dx), dx_parts, dw1,
+                                 db1, dw2, db2, partial, item_tiles, scratch, G, N, Gs, cutoff, cap,
+                                 cap_mode, blocks, (cudaStream_t)stream);
   };
   if (dtype == 1) return run(__nv_bfloat16{});
   if (dtype == 2) return run(__half{});

@@ -4,11 +4,17 @@ Replaces ``conan_fgw_tpu/ops/pallas/cfconv.py::fused_cfconv`` (the Pallas
 ``_kernel`` of ``_fused_fwd_impl`` and ``_bwd_kernel`` of
 ``_fused_bwd_impl``). The kernels live in ``csrc/cfconv.cu``; its header
 says what bounds them on this card and how the design answers it. Graphs
-above ``LARGEST_TEMPLATE`` (128) atoms go to ``csrc/cfconv_large.cu``'s
-kernels, the same pipeline with a graph's state sized at run time (in
-shared memory where it fits, else in a scratch the wrapper allocates), for
-any N; they count under their own launch names (``kernel_name(...,
-large=True)``).
+above ``LARGEST_TEMPLATE`` (128) atoms take one of two routes, for any N
+(``route``): K1 at both widths and K2 at F = 256 take
+``csrc/cfconv_wgmma.cu``'s (edge lists built once a call in whole tiles of
+64 edges, the filter MLP's products on warpgroup ``wgmma`` in 3xTF32 with
+the weights split once as they are staged, K2 as a dx kernel, K1's body
+over the source-major list, and a weight-gradient kernel; its header has
+the design; ``wgmma_plan`` asks the library for a call's grids and
+buffers), K2 at F = 128 ``csrc/cfconv_large.cu``'s (``cfconv.cu``'s
+pipeline with the graph's state sized at run time), which the wgmma
+route's K2 did not beat at that width. Their launches count under their
+own names (``kernel_name(..., large=True)``).
 
 ``cfconv(pos, mask, x, w1, b1, w2, b2, ...)`` computes per conformer graph
 ``m_i = sum_j W(d_ij) gate_ij x_j`` with the filter MLP ``W = ssp(rbf @ w1 +
@@ -59,6 +65,8 @@ neighbours by index (the Pallas kernels' rule), ``"nearest"`` the nearest
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import dataclasses
 import functools
 import math
 
@@ -68,8 +76,11 @@ from conan_fgw_tpu_torch.ops.cuda import _build, launches
 from conan_fgw_tpu_torch.ops.graph import pairwise_distances, radius_graph_mask
 from conan_fgw_tpu_torch.ops.rbf import gaussian_smearing, shifted_softplus
 
-# the largest N of csrc/cfconv.cu's kernels; above it, csrc/cfconv_large.cu's
+# the largest N of csrc/cfconv.cu's kernels; above it, route()'s
 LARGEST_TEMPLATE = 128
+# csrc/cfconv_wgmma.cu's edge tiles: edges a tile (one wgmma M) and keys
+# (K1's target rows, K2's sources) a work item
+WG_EDGES, WG_KEYS = 64, 4
 # what csrc/cfconv.cu is compiled for: filters F -> the Gaussians it takes
 # (their padded count KG), and the rows of one K1 work item (R1) and
 # sources of one K2 work item (R2)
@@ -197,6 +208,141 @@ def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=
     return out, (dx, mm(rbf.t(), dpre), dpre.sum(0), mm(h.t(), dw), dw.sum(0))
 
 
+WG_PAD_KEY = 2**31 - 1  # the key of a padding record
+
+
+def wgmma_edge_tiles(pos, mask, cutoff, max_neighbors, source_major=False, cap_mode="index"):
+    """csrc/cfconv_wgmma.cu's edge tiles, as its edge kernels write them:
+    ``(key, other, dist, gate, tile_item, item_start, item_tiles)``, the
+    first four ``(T, WG_EDGES)``. The work items are runs of ``WG_KEYS``
+    keys of a graph in graph-major order (keys are K1's targets i, or for
+    ``source_major`` K2's sources j), each item's edges in ``edge_list``'s
+    order in whole tiles, its last tile padded with records of key
+    ``WG_PAD_KEY``, other 0 and gate 0."""
+    G, N, _ = pos.shape
+    g, i, j = edge_list(pos, mask, cutoff, max_neighbors, source_major, cap_mode)
+    key, other = (j, i) if source_major else (i, j)
+    d = pairwise_distances(pos)[g, i, j]
+    gate = 0.5 * (torch.cos(d * math.pi / cutoff) + 1.0)
+    per_graph = -(-N // WG_KEYS)
+    item = g * per_graph + torch.div(key, WG_KEYS, rounding_mode="floor")
+    counts = torch.bincount(item, minlength=G * per_graph)
+    item_tiles = -(-counts // WG_EDGES)
+    item_start = torch.cumsum(item_tiles, 0) - item_tiles
+    T = int(item_tiles.sum())
+    first = torch.cumsum(counts, 0) - counts  # each item's first edge in the list
+    slot = item_start[item] * WG_EDGES + torch.arange(len(item)) - first[item]
+    keys = torch.full((T * WG_EDGES,), WG_PAD_KEY, dtype=torch.int64)
+    others = torch.zeros(T * WG_EDGES, dtype=torch.int64)
+    dist, gates = torch.zeros(T * WG_EDGES), torch.zeros(T * WG_EDGES)
+    keys[slot], others[slot], dist[slot], gates[slot] = key, other, d, gate
+    tile_item = torch.repeat_interleave(torch.arange(G * per_graph), item_tiles)
+    return (*(t.view(T, WG_EDGES) for t in (keys, others, dist, gates)), tile_item, item_start,
+            item_tiles)
+
+
+def _tile_teams(T, teams):
+    """The tiles of each of ``teams`` blocks that split ``T`` evenly."""
+    return [range(p * T // teams, (p + 1) * T // teams) for p in range(teams)]
+
+
+# the f32 constants of csrc/cfconv.cu / cfconv_wgmma.cu's softplus
+LOG2E_F = torch.tensor(1.44269504088896340736, dtype=torch.float32)
+LOG2_F = torch.tensor(0.69314718055994530942, dtype=torch.float32)
+
+
+def ssp_approx(pre: torch.Tensor) -> torch.Tensor:
+    """csrc/cfconv_wgmma.cu's softplus(x) - log 2 in f32: ``max(x, 0) +
+    (log2(1 + t) - 1) ln 2`` with ``t = 2^(-|x| log2 e)``, each step rounded
+    to f32 (the kernel's ex2.approx and lg2.approx add at most 2^-22 of
+    their result and 2^-22 absolute to these)."""
+    t = torch.exp2(-pre.abs() * LOG2E_F)
+    return pre.clamp(min=0) + (torch.log2(1 + t) - 1) * LOG2_F
+
+
+# csrc/cfconv_wgmma.cu's split of the work: K1's output slabs by width,
+# and the weight-gradient kernel's (K2 at F = 256) block types and blocks
+# an SM
+WG_SLABS = {128: 1, 256: 4}
+WG_TYPES, WG_DW_PER_SM = 16, 2
+
+
+def cfconv_wgmma_emulated(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=32,
+                          cap_mode="index", sms=132, mm=split_mm):
+    """K1's forward and K2's backward as the route above 128 atoms computes
+    them, on the CPU. K1 at both widths and K2 at F = 256 as
+    csrc/cfconv_wgmma.cu does: its edge tiles (``wgmma_edge_tiles``), the
+    filter MLP's products by ``mm`` (``split_mm`` for the tensor cores'
+    3xTF32), its softplus (``ssp_approx``), layer 1 in passes of 64
+    channels and layer 2 of each output slab summed over them, the row sums
+    in edge order, and K2's weight gradients by blocks of 64 channels of h
+    by 64 filters, each block's share of the tiles summed tile by tile, the
+    partials in the reduce kernel's order. K2 at F = 128 as
+    csrc/cfconv_large.cu does (``cfconv_edges``). Returns ``out`` and
+    ``(dx, dw1, db1, dw2, db2)``; the sigmoid is PyTorch's."""
+    G, N, F = x.shape
+    Gs = w1.shape[0]
+    x, gout = x.float(), gout.float()
+
+    def layer1(d, c0, c1):
+        return mm(gaussian_smearing(d, Gs, 0.0, cutoff), w1[:, c0:c1]) + b1[c0:c1]
+
+    def messages(source_major, src):
+        key, other, d, gate, tile_item, _, _ = wgmma_edge_tiles(
+            pos, mask, cutoff, max_neighbors, source_major, cap_mode)
+        graph = torch.div(tile_item, -(-N // WG_KEYS), rounding_mode="floor")[:, None]
+        h = [ssp_approx(layer1(d, c, c + 64)) for c in range(0, F, 64)]
+        fo = F // WG_SLABS[F]
+        slabs = []
+        for o in range(0, F, fo):
+            w = sum(mm(hq, w2[64 * q:64 * (q + 1), o:o + fo]) for q, hq in enumerate(h))
+            slabs.append(w + b2[o:o + fo])
+        msg = torch.cat(slabs, -1) * gate[..., None] * src[graph.expand_as(other), other]
+        real = key != WG_PAD_KEY
+        rows = (graph.expand_as(key) * N + key)[real]
+        return src.new_zeros(G * N, F).index_add_(0, rows, msg[real]).view(G, N, F)
+
+    out = messages(False, x)
+    if F == 128:
+        return out, cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff, max_neighbors, mm=mm,
+                                 cap_mode=cap_mode)[1]
+    dx = messages(True, gout)
+    # the weight-gradient kernel over the source-major tiles
+    key, other, d, gate, tile_item, _, _ = wgmma_edge_tiles(
+        pos, mask, cutoff, max_neighbors, True, cap_mode)
+    graph = torch.div(tile_item, -(-N // WG_KEYS), rounding_mode="floor")[:, None].expand_as(key)
+    jrow = torch.clamp(key, max=N - 1)
+    T, nb = key.shape[0], F // 64
+    teams = _tile_teams(T, max(1, sms * WG_DW_PER_SM // WG_TYPES))  # the blocks of a type
+    rbf = gaussian_smearing(d, Gs, 0.0, cutoff)
+    dw1, db1 = torch.zeros(Gs, F), torch.zeros(F)
+    dw2, db2 = torch.zeros(F, F), torch.zeros(F)
+    for cb in range(nb):
+        c0 = 64 * cb
+        pre = layer1(d, c0, c0 + 64)
+        h, sig = ssp_approx(pre), torch.sigmoid(pre)
+        for cq in range(nb):
+            q0 = 64 * cq
+            dwf = (gate[..., None] * gout[graph, other, q0:q0 + 64]) * x[graph, jrow, q0:q0 + 64]
+            dpre = mm(dwf, w2[c0:c0 + 64, q0:q0 + 64].t()) * sig
+            p4 = mm(h.transpose(1, 2), dwf)      # per tile: (64 channels, 64 filters)
+            p5 = mm(rbf.transpose(1, 2), dpre)   # per tile: (Gs, 64 channels)
+            for run in teams:
+                part2, part1 = torch.zeros(64, 64), torch.zeros(Gs, 64)
+                partb1, partb2 = torch.zeros(64), torch.zeros(64)
+                for t in run:
+                    part2 += p4[t]
+                    part1 += p5[t]
+                    partb1 += dpre[t].sum(0)
+                    partb2 += dwf[t].sum(0)
+                dw2[c0:c0 + 64, q0:q0 + 64] += part2
+                dw1[:, c0:c0 + 64] += part1
+                db1[c0:c0 + 64] += partb1
+                if cb == 0:
+                    db2[q0:q0 + 64] += partb2
+    return out, (dx, dw1, db1, dw2, db2)
+
+
 def _check(pos, mask, x, w1, b1, w2, b2):
     tensors = dict(pos=pos, mask=mask, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
     for name, t in tensors.items():
@@ -241,39 +387,88 @@ def _on(device: torch.device):
     return torch.cuda.device(device)
 
 
-def _large_scratch(lib, F, bwd, G, N, blocks, device):
-    """``(tensor, pointer)`` of the large kernels' device scratch, which
-    holds a graph's state where it does not fit in shared memory; ``(None,
-    None)`` where it all fits."""
-    floats = lib.cfconv_large_scratch_floats(F, int(bwd), G, N, blocks)
-    if not floats:
-        return None, None
-    scratch = torch.empty(floats, device=device)
-    return scratch, scratch.data_ptr()
+def route(N: int, F: int = 128, bwd: bool = False) -> str:
+    """The kernels of graphs of ``N`` atoms at width ``F``, K2's if ``bwd``:
+    ``"small"`` (csrc/cfconv.cu) up to ``LARGEST_TEMPLATE``; above it
+    ``"large"`` (csrc/cfconv_large.cu) for K2 at F = 128 and ``"wgmma"``
+    (csrc/cfconv_wgmma.cu) for K1 and for K2 at F = 256."""
+    if N <= LARGEST_TEMPLATE:
+        return "small"
+    return "large" if bwd and F == 128 else "wgmma"
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """Grids and buffers of one call of csrc/cfconv_wgmma.cu's route, as
+    its ``cfconv_wgmma_plan`` gives them (its ``Plan``)."""
+
+    items: int           # work items: G ceil(N / WG_KEYS)
+    tiles: int           # a bound on the edge tiles (items are padded to whole tiles)
+    scratch_ints: int    # neighbour bits, counts by key, tiles and first tile by item, item by tile
+    edge_ints: int       # 4 ints an edge record, WG_EDGES a tile
+    state_floats: int    # a graph's state where it leaves shared memory, else 0
+    msg_blocks: int      # K1's and the dx kernel's grid
+    dw_blocks: int       # the weight-gradient kernel's grid (K2), else 0
+    partial_floats: int  # the weight-gradient partials (K2), else 0
+
+
+def wgmma_plan(lib, G: int, N: int, F: int, Gs: int, cap: int, cap_mode: str, sms: int,
+               bwd: bool) -> WgmmaPlan:
+    """``WgmmaPlan`` of K1 (or K2, ``bwd``) on ``G`` graphs of ``N`` atoms at
+    width ``F`` with ``Gs`` Gaussians and a neighbour cap ``cap`` on a card
+    of ``sms`` SMs, from the library ``lib`` (``cfconv_wgmma_plan``)."""
+    out = (ctypes.c_longlong * 8)()
+    code = lib.cfconv_wgmma_plan(G, N, F, Gs, cap, CAP_MODES[cap_mode], sms, int(bwd),
+                                 ctypes.addressof(out))
+    _build.check(code, "cfconv_wgmma_plan")
+    return WgmmaPlan(*out)
+
+
+def _wgmma_scratch(plan: WgmmaPlan, device):
+    """The index scratch, the edge records and the graph state (or None)."""
+    scratch = torch.empty(plan.scratch_ints, dtype=torch.int32, device=device)
+    edges = torch.empty(plan.edge_ints, dtype=torch.int32, device=device)
+    state = torch.empty(plan.state_floats, device=device) if plan.state_floats else None
+    return scratch, edges, state
+
+
+def _large_scratch(lib, G, N, blocks, device):
+    """csrc/cfconv_large.cu's device scratch, which holds a graph's state
+    where it does not fit in shared memory; None where it all fits."""
+    floats = lib.cfconv_large_scratch_floats(G, N, blocks)
+    return torch.empty(floats, device=device) if floats else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode="index"):
     """Launch K1: messages ``(G, N, F)`` of ``x``'s type; above
-    ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_large.cu's K1."""
+    ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_wgmma.cu's K1."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     lib = _build.load_library()
-    blocks = _blocks(lib, x, G, N, F, bwd=False)
     narrow = x.dtype != torch.float32
-    large = N > LARGEST_TEMPLATE
+    large = route(N, F) == "wgmma"
     out = torch.empty_like(x)
     out32 = torch.empty(x.shape, device=x.device) if narrow else None  # the f32 sums
-    item_tiles = torch.empty(G * -(-N // K1_ROWS), dtype=torch.int32, device=x.device)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        head = (*(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out)),
-                out32.data_ptr() if narrow else None, item_tiles.data_ptr())
-        tail = (G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
-                DTYPES[x.dtype], stream)
+        head = (*(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, out)), _ptr(out32))
         if large:
-            scratch, pointer = _large_scratch(lib, F, False, G, N, blocks, x.device)
-            code = lib.cfconv_fwd_large(*head, pointer, *tail)
+            sms = _sm_count(x.device)
+            plan = wgmma_plan(lib, G, N, F, Gs, int(max_neighbors), cap_mode, sms, bwd=False)
+            scratch, edges, state = _wgmma_scratch(plan, x.device)
+            code = lib.cfconv_fwd_wgmma(
+                *head, scratch.data_ptr(), edges.data_ptr(), _ptr(state), G, N, F, Gs,
+                float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], sms, DTYPES[x.dtype],
+                stream)
         else:
-            code = lib.cfconv_fwd(*head, *tail)
+            blocks = _blocks(lib, x, G, N, F, bwd=False)
+            item_tiles = torch.empty(G * -(-N // K1_ROWS), dtype=torch.int32, device=x.device)
+            code = lib.cfconv_fwd(*head, item_tiles.data_ptr(), G, N, F, Gs, float(cutoff),
+                                  int(max_neighbors), CAP_MODES[cap_mode], blocks,
+                                  DTYPES[x.dtype], stream)
     name = kernel_name("cfconv_fwd", F, x.dtype, large)
     _build.check(code, name)
     launches[name] += 1
@@ -283,37 +478,51 @@ def cfconv_forward(pos, mask, x, w1, b1, w2, b2, cutoff, max_neighbors, cap_mode
 def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors, cap_mode="index"):
     """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g`` of
     ``x``'s type, ``dx`` of that type, the weight gradients f32 and summed
-    over all graphs; above ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_large.cu's
-    K2."""
+    over all graphs; above ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_wgmma.cu's
+    dx and weight-gradient kernels at F = 256 and csrc/cfconv_large.cu's
+    K2 at F = 128 (``route``)."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
             or not g.is_contiguous() or g.data_ptr() % 16):
         raise ValueError(f"cfconv backward: the cotangent must be a contiguous, 16-byte aligned"
                          f" {x.dtype} (G, N, F) tensor on {x.device}")
     lib = _build.load_library()
-    blocks = _blocks(lib, x, G, N, F, bwd=True)
-    slabs = lib.cfconv_slabs(F, 1)
     narrow = x.dtype != torch.float32
+    way = route(N, F, bwd=True)
     dx = torch.empty_like(x)
-    # the f32 parts of dx the slabs sum into (one, rounded to bf16 or f16, at F=128)
-    dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 or narrow else dx
     dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
-    partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
-    item_tiles = torch.empty(G * -(-N // K2_ROWS), dtype=torch.int32, device=x.device)
-    large = N > LARGEST_TEMPLATE
+    grads = (dx, dw1, db1, dw2, db2)
     with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        head = tuple(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx, dx_parts, dw1,
-                                            db1, dw2, db2, partial, item_tiles))
-        tail = (G, N, F, Gs, float(cutoff), int(max_neighbors), CAP_MODES[cap_mode], blocks,
+        head = tuple(t.data_ptr() for t in (pos, mask, x, w1, b1, w2, b2, g, dx))
+        tail = (float(cutoff), int(max_neighbors), CAP_MODES[cap_mode])
+        if way == "wgmma":
+            sms = _sm_count(x.device)
+            plan = wgmma_plan(lib, G, N, F, Gs, int(max_neighbors), cap_mode, sms, bwd=True)
+            scratch, edges, state = _wgmma_scratch(plan, x.device)
+            dx32 = torch.empty(x.shape, device=x.device) if narrow else None  # the f32 sums
+            partial = torch.empty(plan.partial_floats, device=x.device)
+            code = lib.cfconv_bwd_wgmma(
+                *head, _ptr(dx32), *(t.data_ptr() for t in grads[1:]), partial.data_ptr(),
+                scratch.data_ptr(), edges.data_ptr(), _ptr(state), G, N, F, Gs, *tail, sms,
                 DTYPES[x.dtype], stream)
-        if large:
-            scratch, pointer = _large_scratch(lib, F, True, G, N, blocks, x.device)
-            code = lib.cfconv_bwd_large(*head, pointer, *tail)
         else:
-            code = lib.cfconv_bwd(*head, *tail)
-    name = kernel_name("cfconv_bwd", F, x.dtype, large)
+            blocks = _blocks(lib, x, G, N, F, bwd=True)
+            slabs = lib.cfconv_slabs(F, 1)
+            # the f32 parts of dx the slabs sum into (one, rounded to bf16 or f16, at F=128)
+            dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 or narrow else dx
+            partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
+            item_tiles = torch.empty(G * -(-N // K2_ROWS), dtype=torch.int32, device=x.device)
+            args = (*head, dx_parts.data_ptr(), *(t.data_ptr() for t in grads[1:]),
+                    partial.data_ptr(), item_tiles.data_ptr())
+            if way == "large":
+                scratch = _large_scratch(lib, G, N, blocks, x.device)
+                code = lib.cfconv_bwd_large(*args, _ptr(scratch), G, N, F, Gs, *tail, blocks,
+                                            DTYPES[x.dtype], stream)
+            else:
+                code = lib.cfconv_bwd(*args, G, N, F, Gs, *tail, blocks, DTYPES[x.dtype], stream)
+    name = kernel_name("cfconv_bwd", F, x.dtype, way != "small")
     _build.check(code, name)
     launches[name] += 1
     return dx, dw1, db1, dw2, db2

@@ -1,5 +1,5 @@
 """Port parity above 128 atoms, on the CPU: what the card runs through K3's
-global route and ``csrc/cfconv_large.cu``, held against the JAX package.
+global route and ``csrc/cfconv_wgmma.cu``, held against the JAX package.
 
 - ``fgw_couplings_flat`` at n=130 and n=160 (S=2; padded to 160) against
   the JAX flat solver (``pallas_fgw_couplings_flat`` in interpret mode,
