@@ -328,9 +328,21 @@ on a ``[phases]`` line:
    beside it), at N = 320, 384 and 448 (seeded point clouds, first outer
    iteration) and at n = 270 through ``fgw_couplings_flat`` (padded to
    288), its plan, shared bytes, clusters at once and rounds at S = 90
-   printed for every N it takes; the global route at N = 544 (S = 15),
-   above the stream route's 512; K3' at n = 150 (cluster), 270 (stream)
-   and 520 (global); the per-molecule barycenter at n = 150, 270 and 520
+   printed for every N it takes, and at N = 512 (point clouds, S = 90,
+   first outer iteration, then a later one, ``later_inputs``, whose M
+   differs from row to row, with the global route's time on that input
+   beside it); the global route (``csrc/fgw_team.cu``'s
+   ``fgw_couplings_team_kernel``) at N = 544 and N = 800 (no
+   multiple of 64; S = 15, point clouds), above the stream route's 512,
+   on the first outer iteration's input and on a later one's, the later
+   plans also within ``FGW_REL`` of the plain plan's move from T0 (the
+   first iteration's plans stay within about 1% of T0), at N = 544 with
+   two launches on the later input bit for bit equal and a NaN planted in
+   one of its T0 (rolled back, flagged, NaN positions equal), its plan
+   (band rows, CTAs a team, teams at once, shared bytes, rounds) printed
+   for every N and S it runs; K3' at n =
+   150 (cluster), 270 (stream) and 520 (global); the per-molecule
+   barycenter at n = 150, 270 and 520
    and the batched one at n = 270 and 520 on the card against the CPU,
    each counting its route's launches alone. 18c: a
    synthetic CoV-2 set of 36/8/8 molecules of 97-128 and 129-181 atoms in
@@ -339,7 +351,7 @@ on a ``[phases]`` line:
    N = 128 and the N = 192 bucket every epoch, K1/K2/K3 counted over the
    small and large routes, and every train graph's K1/K2/K3 nodes equal to
    what its capture counted (the N = 192 graph's on the large kernels,
-   K3's five on the cluster route and none on the global one);
+   K3's five on the cluster route and none on the team kernel);
    predict; one stage-2 step at N = 192 card against CPU. 18d: one graphed
    ``fit`` of the flagship (F=128, stage 2) with ``shuffle=True,
    bucketed=False``: every batch at N = 192 on the large kernels alone, and
@@ -425,6 +437,10 @@ PEAK_BYTES = 3.35e12
 # tolerances of the kernel checks
 CFCONV_RTOL = 5e-4  # max |kernel - plain| / max |plain|, the TPU kernel's contract
 FGW_ATOL = 2.5e-6   # plans, absolute; diverged flags exactly
+# plans of a later outer iteration (``later_inputs``) also within this share
+# of the plain plan's largest move from T0: a plan left at T0, or a band of
+# it left unwritten, misses it by a factor of 1,000
+FGW_REL = 1e-3
 # step parity (kernels on the card vs plain on the CPU): the loss and the
 # global gradient norm to 1e-3 (the barycenter's bound); each parameter's
 # gradient norm to 1e-2, with an absolute floor of 1e-6 of the global norm
@@ -470,6 +486,8 @@ REPLACES = {
 WGMMA_KERNELS = ("cfconv_msg_wgmma_kernel", "cfconv_dw_wgmma_kernel")
 # csrc/cfconv_large.cu's kernel of K2 at F=128 above 128 atoms
 LARGE_BWD_KERNEL = "cfconv_bwd_large_kernel"
+# csrc/fgw_team.cu's kernel of K3 above 512 atoms (the global route)
+TEAM_KERNEL = "fgw_couplings_team_kernel"
 # the launch names of phase 18's routes above 128 atoms
 LARGE_NAMES = tuple(name for name in REPLACES if name.endswith(("_large", "_large_bf16",
                                                                 "_large_f16", "_cluster",
@@ -493,8 +511,8 @@ SOURCES = {
     "fgw_couplings_mol_cluster": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_stream": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_mol_stream": "conan_fgw_tpu_torch/csrc/fgw.cu",
-    "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
-    "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw.cu",
+    "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw_team.cu",
+    "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw_team.cu",
     **{name: "conan_fgw_tpu_torch/csrc/" + ("cfconv_large.cu" if name.startswith("cfconv_bwd_large")
                                             else "cfconv_wgmma.cu")
        for name in LARGE_NAMES if name.startswith("cfconv")},
@@ -597,7 +615,8 @@ def phase_build():
     if report.exists():
         entry, spills = "", {}
         for line in report.read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            shown = "Compiling entry" in line or "registers" in line or "spill" in line
+            if shown and "C7519" not in line:  # not ptxas's notes of warpgroup arrives
                 print("[ptxas]", line.strip())
             if "Compiling entry" in line:
                 entry = line.split("'")[1]
@@ -605,7 +624,7 @@ def phase_build():
                 spills[entry] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
         print(f"[ptxas] spill bytes (stores + loads) by kernel: {spills}")
         require(any("fgw_couplings_kernel" in e for e in spills), "no ptxas report for K3")
-        require(any("fgw_couplings_large_kernel" in e for e in spills)
+        require(any(TEAM_KERNEL in e for e in spills)
                 and any("fgw_couplings_cluster_kernel" in e for e in spills)
                 and any("fgw_couplings_stream_kernel" in e for e in spills)
                 and all(any(k in e for e in spills) for k in (*WGMMA_KERNELS, LARGE_BWD_KERNEL)),
@@ -881,6 +900,30 @@ def second_outer_inputs(args, Ys, Cs, kw=FGW_KW, fixed_structure=False):
     return Ms, C1, C2, ps, qs, T.reshape(-1, N, N).contiguous()
 
 
+def later_inputs(args, Ys, gen):
+    """K3's inputs of a later outer iteration: ``args`` with M from random
+    barycenter features in [0.1, 1.1) (as ``mol_args`` draws them), which
+    differ from row to row. At the first outer iteration (``fgw_problem``)
+    the barycenter's features are 0, so M is the same down every column,
+    the potentials absorb it and the plan stays within about 1% of T0;
+    here the plan moves far from T0 (at N = 544 to entries near 1/N)."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
+
+    Bm, _, N, D = Ys.shape
+    Y0 = (torch.rand(Bm, 1, N, D, generator=gen) + 0.1).to(Ys.device)
+    return (sqdist(Y0, Ys).reshape(-1, N, N).contiguous(), *args[1:])
+
+
+def fgw_limit(T_p, T0, rel):
+    """The plans' gate and the plain plan's largest move from ``T0`` (NaN
+    left out): ``FGW_ATOL``, and with ``rel`` no more than ``FGW_REL`` of
+    that move."""
+    moved = float((T_p - T0).nan_to_num(0.0).abs().max())
+    return (min(FGW_ATOL, FGW_REL * moved) if rel else FGW_ATOL), moved
+
+
 def fgw_bound(S, N, sk_run, kw=FGW_KW):
     """Least ms for ``S`` solves at ``N`` that ran ``sk_run`` Sinkhorn
     iterations in all, with the two products on the tensor cores (as the
@@ -896,9 +939,10 @@ def fgw_bound(S, N, sk_run, kw=FGW_KW):
     return bound(nbytes, flops, products), bound(nbytes, flops)
 
 
-def check_fgw(label, args, rows, kw=FGW_KW):
+def check_fgw(label, args, rows, kw=FGW_KW, rel=False):
     """K3 against its plain version on one set of coupling inputs, with the
-    solver budget ``kw``."""
+    solver budget ``kw``; with ``rel`` also within ``FGW_REL`` of the plain
+    plan's move from T0 (``fgw_limit``)."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain, launch_name
@@ -909,12 +953,14 @@ def check_fgw(label, args, rows, kw=FGW_KW):
     T_p, div_p = fgw_couplings_plain(*args, **kw)
     torch.cuda.synchronize()
     err = float((T_k - T_p).abs().max())
+    limit, moved = fgw_limit(T_p, args[5], rel)
     flags_equal = bool(torch.equal(div_k, div_p))
     sk_run = int(sk_iters.sum())
-    print(f"[fgw {label}] T max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel "
-          f"{int(div_k.sum())} plain {int(div_p.sum())}; {sk_run} Sinkhorn iterations run of "
-          f"{S * kw['pgd_iters'] * kw['sinkhorn_iters']} budgeted")
-    require(err <= FGW_ATOL, f"fgw {label} plans disagree: {err}")
+    print(f"[fgw {label}] T max_abs_err {err:.3e} (tol {limit:.3e}; the plain plan moved"
+          f" {moved:.3e} from T0); diverged kernel {int(div_k.sum())} plain {int(div_p.sum())};"
+          f" {sk_run} Sinkhorn iterations run of {S * kw['pgd_iters'] * kw['sinkhorn_iters']}"
+          f" budgeted")
+    require(err <= limit, f"fgw {label} plans disagree: {err}")
     require(flags_equal, f"fgw {label} diverged flags disagree")
     # eager calls leave the card waiting for the host between launches once
     # the kernel is shorter than the wrapper's host time: graph replays give
@@ -928,13 +974,15 @@ def check_fgw(label, args, rows, kw=FGW_KW):
           f" cores ({tc[1]}, {100 * tc[0] / ms:.1f}% reached, {100 * tc[0] / replay_ms:.1f}% of"
           f" the replays), {f32[0]:.5f} ms in f32 on the CUDA cores")
     rows[name][label] = dict(max_abs_err=err, ms=ms, graph_ms=replay_ms, plain_ms=plain_ms,
-                             bound=tc, bound_f32=f32, sinkhorn_iters=sk_run)
+                             bound=tc, bound_f32=f32, sinkhorn_iters=sk_run, tol=limit,
+                             moved=moved)
 
 
-def check_fgw_nan(args):
+def check_fgw_nan(args, label="N32-nan", rel=False):
     """K3 against its plain version with a NaN (the bits 0x7fffffff, the
     card's own NaN) planted in solve 0's T0: the products must carry it, so
-    that the solve rolls back and is flagged as diverged."""
+    that the solve rolls back and is flagged as diverged; the other solves
+    within ``fgw_limit``'s gate."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
@@ -947,12 +995,14 @@ def check_fgw_nan(args):
     torch.cuda.synchronize()
     same_nan = bool(torch.equal(T_k.isnan(), T_p.isnan()))
     err = float((T_k - T_p).nan_to_num(0.0).abs().max())
-    print(f"[fgw N32-nan] NaN in solve 0's T0: diverged kernel {div_k.tolist()[:3]}"
+    limit, moved = fgw_limit(T_p, T0, rel)
+    print(f"[fgw {label}] NaN in solve 0's T0: diverged kernel {div_k.tolist()[:3]}"
           f" plain {div_p.tolist()[:3]} (first three); NaN positions equal {same_nan};"
-          f" T max_abs_err elsewhere {err:.3e} (tol {FGW_ATOL})")
+          f" T max_abs_err elsewhere {err:.3e} (tol {limit:.3e}; the plain plan moved"
+          f" {moved:.3e} from T0)")
     require(int(div_p[0]) == 1, "the plain version does not flag the NaN solve")
-    require(bool(torch.equal(div_k, div_p)), "fgw N32-nan diverged flags disagree")
-    require(same_nan and err <= FGW_ATOL, "fgw N32-nan plans disagree")
+    require(bool(torch.equal(div_k, div_p)), f"fgw {label} diverged flags disagree")
+    require(same_nan and err <= limit, f"fgw {label} plans disagree")
 
 
 # K3's checks: (label, heavy atoms per molecule, bucket). N=96 and N=128
@@ -1686,7 +1736,7 @@ PROFILED = {"cfconv_fwd_kernel": ("cfconv_fwd", "cfconv_fwd_f256", "cfconv_fwd_b
             LARGE_BWD_KERNEL: tuple(n for n in LARGE_NAMES if n.startswith("cfconv_bwd_large")),
             "fgw_couplings_cluster_kernel": ("fgw_couplings_cluster",),
             "fgw_couplings_stream_kernel": ("fgw_couplings_stream",),
-            "fgw_couplings_large_kernel": ("fgw_couplings_large",)}
+            TEAM_KERNEL: ("fgw_couplings_large",)}
 # the kernels of graphs up to 128 atoms, which phase 8's graphs run
 SMALL_PROFILED = ("cfconv_fwd_kernel", "cfconv_bwd_kernel", "fgw_couplings_kernel")
 
@@ -2918,31 +2968,44 @@ def molecule_problem(n, seed, device, D=MOL_D):
     return [t.to(device) for t in (Ys, Cs, p.expand(K, n).contiguous(), p)]
 
 
+def mol_args(n, device):
+    """K3' inputs of one molecule of ``n`` atoms (``molecule_problem``, a
+    later outer iteration's features): ``fgw_couplings``' arguments ``(Ms,
+    Cb, Cks, p, qs, T0s)`` and K3's, as that wrapper pads them to the next
+    multiple of 32 (its flat solves, the barycenter structure repeated)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
+
+    Ys, Cs, ps, p = molecule_problem(n, SEED + n, device)
+    gen = torch.Generator().manual_seed(SEED + 2 * n)
+    Y0 = (torch.rand(n, Ys.shape[-1], generator=gen) + 0.1).to(device)
+    Ms = sqdist(Y0[None], Ys).contiguous()  # a later outer iteration's features
+    T0 = (p[None, :, None] * ps[:, None, :]).contiguous()
+    N = n + (-n % 32)
+    pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
+    padded = (pad(Ms), pad(Cs[0].expand(K, n, n)), pad(Cs), pad(p.expand(K, n)), pad(ps), pad(T0))
+    return (Ms, Cs[0], Cs, p, ps, T0), padded
+
+
 def check_fgw_mol(n, device, rows, kw=FGW_KW):
     """K3's per-molecule wrapper (``fgw_couplings``, n padded to a multiple of
     32 and left out of the solve) on the card against the unpadded plain
     solve on the CPU, K = 5: the plans within ``FGW_ATOL``, equal counts of
     diverged solves, exactly one K3 launch a call; its time and bound."""
     import torch
-    import torch.nn.functional as Fn
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
     from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings, launch_name
-    from conan_fgw_tpu_torch.ops.fgw.barycenter import sqdist
     from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 
     name = launch_name("fgw_couplings_mol", n + (-n % 32))
-    Ys, Cs, ps, p = molecule_problem(n, SEED + n, device)
-    gen = torch.Generator().manual_seed(SEED + 2 * n)
-    Y0 = (torch.rand(n, Ys.shape[-1], generator=gen) + 0.1).to(device)
-    Ms = sqdist(Y0[None], Ys).contiguous()  # a later outer iteration's features
-    T0 = (p[None, :, None] * ps[:, None, :]).contiguous()
-    args = (Ms, Cs[0], Cs, p, ps, T0)
-    # the Sinkhorn iterations K3 runs on the wrapper's padded input, for the bound
+    args, padded = mol_args(n, device)
+    Ms, _, Cs, p, ps, T0 = args
     N = n + (-n % 32)
-    pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
-    _, _, iters = _launch(pad(Ms), pad(Cs[0].expand(K, n, n)), pad(Cs), pad(p.expand(K, n)),
-                          pad(ps), pad(T0), n=n, count="uncounted", **kw)
+    # the Sinkhorn iterations K3 runs on the wrapper's padded input, for the bound
+    _, _, iters = _launch(*padded, n=n, count="uncounted", **kw)
     sk_run = int(iters.sum())
     reset_launches()
     T_k, count_k = fgw_couplings(*args, **kw)
@@ -4623,12 +4686,14 @@ BIG_MOL = 150  # K3' (the per-molecule wrapper, padded to 160) and its barycente
 # iteration); n = 270 through the flat path (padded to 288); K3' and both
 # barycenters at n = 270
 STREAM_SHAPE = ("N288", (150, 166), 288)
-STREAM_CLOUDS = ((320, (292, 320)), (384, (356, 384)), (448, (420, 448)))
+STREAM_CLOUDS = ((320, (292, 320)), (384, (356, 384)), (448, (420, 448)), (512, (481, 512)))
 STREAM_MOL = 270
 STREAM_BATCH = 2  # molecules of the batched barycenter at n = STREAM_MOL
 # above the stream route's 512 atoms, K3's global route: S = 15 point
-# clouds at N = 544; K3' and both barycenters at n = 520 (padded to 544)
+# clouds at N = 544 and at N = 800 (no multiple of 64); K3' and both
+# barycenters at n = 520 (padded to 544)
 GLOBAL_N, GLOBAL_S = 544, 15
+GLOBAL_BIG = 800
 GLOBAL_MOL = 520
 GLOBAL_BATCH = 1
 # timed calls of the plain cfconv at these shapes (0.1-1 s each), after
@@ -4668,11 +4733,17 @@ def check_big_kernels(device, rows):
     at N=192. K3's stream route: the first and second outer iteration at
     N=288 (F=256 molecules, S=90), two launches bit for bit equal there and
     the global route's time on the same input; the first at N=320, 384 and
-    448 (point clouds, S=90); n=270 through ``fgw_couplings_flat``. The
-    global route at N=544 (S=15). K3' at n=150 (cluster), 270 (stream) and
-    520 (global). Returns each route's shape by N (CTAs, band rows, shared
-    bytes a CTA, clusters the card holds; the stream route's plan and
-    rounds at S=90) and the global route's time at N=288."""
+    448 and 512 (point clouds, S=90), at 512 also a later outer
+    iteration's input (``later_inputs``, the ``FGW_REL`` gate too) with the
+    global route's time on it beside; n=270 through
+    ``fgw_couplings_flat``. The global route at N=544 and N=800 (S=15),
+    first and later outer iteration (the later with the ``FGW_REL`` gate;
+    at N=544 two launches bit for bit and a NaN planted in one T0), its
+    plan for every N and S it runs. K3' at n=150
+    (cluster), 270 (stream) and 520 (global). Returns each route's shape by
+    N (CTAs, band rows, shared bytes a CTA, clusters the card holds; the
+    stream route's plan and rounds at S=90; the global route's plans) and
+    the global route's time at N=288 and 512."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import _build
@@ -4737,20 +4808,53 @@ def check_big_kernels(device, rows):
     check_flat(f"big N{n}", cut, rows, f"N{n}")
     for N, atoms in STREAM_CLOUDS:
         pos, mask = cloud_geometry(SEED + 6100 + N, B_CLS, atoms, N, device)
-        check_fgw(f"N{N}", fgw_problem(pos, mask, gen)[0], rows)
-    pos, mask = cloud_geometry(SEED + 6100 + GLOBAL_N, GLOBAL_S // K, (GLOBAL_N - 31, GLOBAL_N),
-                               GLOBAL_N, device)
-    check_fgw(f"N{GLOBAL_N}", fgw_problem(pos, mask, gen)[0], rows)
+        args, Ys, _ = fgw_problem(pos, mask, gen)
+        check_fgw(f"N{N}", args, rows)
+        if N == k3.LARGEST_STREAM:  # the global route beside the stream route's largest N
+            later = later_inputs(args, Ys, gen)
+            check_fgw(f"N{N}-later", later, rows, rel=True)
+            shapes["global_N512"] = check_global_beside(f"N{N}-later", later, rows, rel=True)
+    shapes["global"] = {f"N{N}-S{S}": team_plan_row(S, N) for N, S in (
+        (STREAM_SHAPE[2], B_CLS * K), (k3.LARGEST_STREAM, B_CLS * K), (GLOBAL_N, GLOBAL_S),
+        (GLOBAL_N, K), (GLOBAL_BIG, GLOBAL_S))}
+    for N in (GLOBAL_N, GLOBAL_BIG):
+        pos, mask = cloud_geometry(SEED + 6100 + N, GLOBAL_S // K, (N - 31, N), N, device)
+        args, Ys, _ = fgw_problem(pos, mask, gen)
+        check_fgw(f"N{N}", args, rows)
+        later = later_inputs(args, Ys, gen)
+        check_fgw(f"N{N}-later", later, rows, rel=True)
+        if N == GLOBAL_N:
+            check_fgw_bits(f"N{N}-later", later)
+            check_fgw_nan(later, f"N{N}-later-nan", rel=True)
     for n in (BIG_MOL, STREAM_MOL, GLOBAL_MOL):
         check_fgw_mol(n, device, rows)
     return shapes
 
 
-def check_global_beside(label, args, rows):
+def team_plan_row(S, N):
+    """The global route's plan of ``S`` solves at ``N`` on this card, as the
+    library has it (``fgw_team_plan``; the wrapper holds it to
+    ``ops/cuda/fgw.py::team_plan``), printed."""
+    import torch
+
+    from conan_fgw_tpu_torch.ops.cuda import fgw as k3
+
+    plan = k3._team_ready(N, S, torch.cuda.current_device())
+    row = dict(rows=plan.rows, ctas=plan.ctas, teams=plan.teams, rounds=plan.rounds,
+               passes=plan.passes, per_pass=plan.per_pass, smem=plan.smem,
+               scratch_mb=4 * plan.scratch_floats / 2**20)
+    print(f"[big K3 N{N} S{S}] global route: bands of {plan.rows} rows, {plan.ctas} CTAs a team,"
+          f" {plan.teams} teams at once, {plan.rounds} rounds, {plan.passes} passes of"
+          f" {plan.per_pass} column tiles, {plan.smem} shared bytes a CTA, scratch"
+          f" {row['scratch_mb']:.1f} MB")
+    return row
+
+
+def check_global_beside(label, args, rows, rel=False):
     """The global route on the stream route's input (its library entry
-    called directly, uncounted): plans within ``FGW_ATOL`` of the plain
-    version, flags equal, and its ms beside the stream route's, from the
-    same run."""
+    called directly, uncounted, with the scratch of the wrapper's plan):
+    plans within ``fgw_limit``'s gate of the plain version, flags equal,
+    and its ms beside the stream route's, from the same run."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import _build
@@ -4760,11 +4864,12 @@ def check_global_beside(label, args, rows):
     S, N, _ = args[0].shape
     solver = tuple(FGW_KW[k] for k in ("alpha", "epsilon", "pgd_iters", "pgd_tol", "sinkhorn_iters",
                                        "sinkhorn_thr"))
+    floats = k3._team_ready(N, S, torch.cuda.current_device()).scratch_floats
 
     def launch():
         T = torch.empty_like(args[0])
         flags = torch.empty((2, S), dtype=torch.int32, device=T.device)
-        scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device=T.device)
+        scratch = torch.empty(floats, device=T.device)
         code = lib.fgw_couplings_large(*(a.data_ptr() for a in args), T.data_ptr(),
                                        flags[0].data_ptr(), flags[1].data_ptr(), scratch.data_ptr(),
                                        S, N, N, *solver, torch.cuda.current_stream().cuda_stream)
@@ -4775,12 +4880,14 @@ def check_global_beside(label, args, rows):
     T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
     torch.cuda.synchronize()
     err = float((T_g - T_p).abs().max())
+    limit, _ = fgw_limit(T_p, args[5], rel)
     ms, replay_ms = cuda_ms(launch), graph_ms(launch)
     mine = rows[k3.launch_name("fgw_couplings", N)][label]
     print(f"[fgw {label}] the global route on the same input: {ms:.4f} ms (eager calls; graph"
           f" replays {replay_ms:.4f} ms) against the stream route's {mine['ms']:.4f}"
-          f" ({mine['graph_ms']:.4f}): {ms / mine['ms']:.2f}x; its T max_abs_err {err:.3e}")
-    require(err <= FGW_ATOL and bool(torch.equal(div_g, div_p)),
+          f" ({mine['graph_ms']:.4f}): {ms / mine['ms']:.2f}x; its T max_abs_err {err:.3e}"
+          f" (tol {limit:.3e})")
+    require(err <= limit and bool(torch.equal(div_g, div_p)),
             f"fgw {label}: the global route disagrees with the plain version")
     return dict(ms=ms, graph_ms=replay_ms, max_abs_err=err)
 
@@ -4953,7 +5060,7 @@ def check_big_runner(device, card, tmp, common):
             big = out[label]["nodes"].get(192, {})
             require(all(big.get(k) for k in WGMMA_KERNELS)
                     and big.get("fgw_couplings_cluster_kernel", 0) == (5 if stage == "conan_fgw" else 0)
-                    and not big.get("fgw_couplings_large_kernel")
+                    and not big.get(TEAM_KERNEL)
                     and not big.get("fgw_couplings_stream_kernel"),
                     f"{label}: the N=192 train graph's large-kernel nodes {big}")
             del made

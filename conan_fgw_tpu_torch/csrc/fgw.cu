@@ -4,7 +4,7 @@
 // (pallas_fgw_couplings_flat -> _super_kernel / _sinkhorn_super).
 //
 // Four routes, chosen by the bucket size N (ops/cuda/fgw.py::route), each
-// with its own comment below on what bounds it and how it answers that:
+// with its own comment on what bounds it and how it answers that:
 // - N = 32 .. 128: fgw_couplings_kernel<N, PAD>, one CTA a solve, the
 //   solve's matrices in that CTA's shared memory (this header);
 // - N = 160 .. 256: fgw_couplings_cluster_kernel<N, R>, one thread-block
@@ -13,8 +13,9 @@
 // - N = 288 .. 512: fgw_couplings_stream_kernel<SUB>, one cluster of N / R
 //   CTAs a solve, each holding a band of mr in its shared memory while T
 //   and C2 stream through a ring of k-slices;
-// - N above 512: fgw_couplings_large_kernel, one CTA a solve, its matrices
-//   in device memory through L1/L2.
+// - N above 512: csrc/fgw_team.cu's fgw_couplings_team_kernel, each solve
+//   on a team of CTAs across the card that cooperate through device memory,
+//   the products on wgmma.
 //
 // S independent solves (square loss, symmetric structure, PGD), each of n
 // atoms padded to a bucket size N: rows and columns >= n are left out of the
@@ -507,303 +508,6 @@ int launch(const float* Ms, const float* C1s, const float* C2s, const float* ps,
       Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, resident, n, alpha, epsilon, pgd_iters,
       pgd_tol, sinkhorn_iters, sinkhorn_thr);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- N > 512
-// The global-memory route, for any N (a runtime multiple of 32); the
-// wrapper takes it above the stream route's 512. At N = 160 the solve's
-// own matrices alone need 324 KB of shared memory (smem_floats), and T
-// alone 154 KB at N = 192, so nothing of N x N stays on one SM. What bounds
-// it (clock64 split at N = 192, S = 90, scripts/torch_fgw_probe.py): the
-// products, 62% of a block's cycles, on operand latency from L1/L2 with one
-// CTA an SM, and the candidate plan 18%; the cluster route does this work
-// 2.1x as fast at N = 192. One CTA of 256 threads still owns one solve: T lives
-// in the output Tout itself, C1 T and mr in a per-solve scratch of 2 N^2
-// floats in device memory (the wrapper allocates it), and C1, C2 and M are
-// read in place; all of it is walked through L1 and L2 (S = 90 solves at
-// N = 192 hold about 27 MB, within the 50 MB L2). Shared memory keeps the
-// vectors (p, q and their logs, c1p, c2q, the two pairs of potentials),
-// 10 N + 32 floats, or they join the scratch above 5,800 atoms.
-// - The two products run on the tensor cores in 3xTF32 as above, each warp
-//   taking 32 x 32 output tiles in turn over the (N/32)^2 of the output, its
-//   fragments loaded from L1/L2 by the same split and mma code.
-// - The Sinkhorn sweeps: a column's log-sum-exp on one thread (coalesced
-//   across the warp's 32 columns), a row's on one warp; each reads its line
-//   twice, for the max and then the sum of exponentials.
-// - The candidate plan is not kept: a first pass over it takes its
-//   finiteness and distance to T, and an accepted step computes it again
-//   into T (the same expf on the same operands, so the same values).
-// The semantics are the templates': padding left out (mr -inf, potentials
-// 0, plan 0), freeze, rollback and diverged flags, iters_out.
-
-constexpr int LT = 32;  // a warp's output tile of the large route: LT x LT
-
-// One warp's 32 x 32 tile (rows r0 .., columns c0 ..) of a @ b over k < K,
-// 3xTF32 as warp_product; acc[mt][nt] is the 16 x 8 tile at rows r0 + 16 mt,
-// columns c0 + 8 nt.
-template <bool KMAJOR>
-__device__ __forceinline__ void warp_tile(const float* a, int lda, const float* b, int ldb, int K,
-                                          int r0, int c0, float (&acc)[2][4][4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float* ra = a + (size_t)(r0 + 16 * mt + g) * lda + k0 + t;
-      split_tf32(ra[0], ab[mt][0], as[mt][0]);
-      split_tf32(ra[8 * lda], ab[mt][1], as[mt][1]);
-      split_tf32(ra[4], ab[mt][2], as[mt][2]);
-      split_tf32(ra[8 * lda + 4], ab[mt][3], as[mt][3]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int j = c0 + 8 * nt + g;
-      const float y0 = KMAJOR ? b[(size_t)(k0 + t) * ldb + j] : b[(size_t)j * ldb + k0 + t];
-      const float y1 = KMAJOR ? b[(size_t)(k0 + t + 4) * ldb + j] : b[(size_t)j * ldb + k0 + t + 4];
-      split_tf32(y0, bb[nt][0], bs[nt][0]);
-      split_tf32(y1, bb[nt][1], bs[nt][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        mma_tf32(acc[mt][nt], as[mt], bb[nt]);
-        mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
-        mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
-      }
-  }
-}
-
-// out[j] = base[j] - LSE_i(mr[i, j] + vec[i]) for the columns j < n, one
-// thread a column (the padding's terms are exp(-inf) = 0 and are skipped).
-// As jax.nn.logsumexp, a non-finite max is replaced by 0 before the shift.
-// Returns 1 where this thread wrote a non-finite value.
-__device__ int lse_cols(const float* mr, const float* vec, const float* base, float* out, int N,
-                        int n) {
-  int bad = 0;
-  for (int j = threadIdx.x; j < n; j += THREADS) {
-    float m = -INFINITY;
-    for (int i = 0; i < n; ++i) m = fmaxf(m, mr[(size_t)i * N + j] + vec[i]);
-    const float mm = isfinite(m) ? m : 0.f;
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc += expf(mr[(size_t)i * N + j] + vec[i] - mm);
-    const float r = base[j] - (logf(acc) + mm);
-    out[j] = r;
-    bad |= !isfinite(r);
-  }
-  return bad;
-}
-
-// out[i] = base[i] - LSE_j(mr[i, j] + vec[j]) for the rows i < n, one warp a row.
-__device__ int lse_rows(const float* mr, const float* vec, const float* base, float* out, int N,
-                        int n) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int bad = 0;
-  for (int i = warp; i < n; i += THREADS / 32) {
-    const float* row = mr + (size_t)i * N;
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j] + vec[j]);
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float mm = isfinite(m) ? m : 0.f;
-    float acc = 0.f;
-    for (int j = lane; j < n; j += 32) acc += expf(row[j] + vec[j] - mm);
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) {
-      const float r = base[i] - (logf(acc) + mm);
-      out[i] = r;
-      bad |= !isfinite(r);
-    }
-  }
-  return bad;
-}
-
-// this thread's part of sum_j (sum_i exp(mr[i, j] + un[i] + vn[j]) - q[j])^2
-__device__ float col_marginal_err2_large(const float* mr, const float* un, const float* vn,
-                                         const float* q, int N, int n) {
-  float e2 = 0.f;
-  for (int j = threadIdx.x; j < n; j += THREADS) {
-    const float vj = vn[j];
-    float col = 0.f;
-    for (int i = 0; i < n; ++i) col += expf(mr[(size_t)i * N + j] + un[i] + vj);
-    const float dlt = col - q[j];
-    e2 += dlt * dlt;
-  }
-  return e2;
-}
-
-// The vectors of one solve: p, logp, q, logq, c1p, c2q, u, un, v, vn, red.
-__host__ __device__ constexpr size_t large_vec_floats(int n) { return 10 * (size_t)n + 32; }
-
-__global__ void __launch_bounds__(THREADS, 1)
-    fgw_couplings_large_kernel(const float* __restrict__ Ms, const float* __restrict__ C1s,
-                               const float* __restrict__ C2s, const float* __restrict__ ps,
-                               const float* __restrict__ qs, const float* __restrict__ T0s,
-                               float* Tout, int* __restrict__ div_out, int* __restrict__ iters_out,
-                               float* scratch, float* vec_scratch, int N, int n, float alpha,
-                               float epsilon, int pgd_iters, float pgd_tol, int sinkhorn_iters,
-                               float sinkhorn_thr) {
-  extern __shared__ __align__(16) float smem[];
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const size_t nn = (size_t)N * N;
-  float* p = vec_scratch ? vec_scratch + s * large_vec_floats(N) : smem;
-  float* logp = p + N;
-  float* q = logp + N;
-  float* logq = q + N;
-  float* c1p = logq + N;
-  float* c2q = c1p + N;
-  float* u = c2q + N;
-  float* un = u + N;
-  float* v = un + N;
-  float* vn = v + N;
-  float* red = vn + N;
-  float* T = Tout + s * nn;       // the plan, in place in the output
-  float* A = scratch + 2 * s * nn;  // C1 @ T
-  float* mr = A + nn;             // -G / eps
-  const float* C1 = C1s + s * nn;
-  const float* C2 = C2s + s * nn;
-  const float* M = Ms + s * nn;
-  const float* T0 = T0s + s * nn;
-  const int TN = N / LT, tiles = TN * TN;
-
-  // set-up: T = T0 without mass on the padding, the marginals and their logs
-  int t0_nan = 0;  // a NaN in T0: every product entry is NaN in f32
-  for (int i = warp; i < N; i += THREADS / 32)
-    for (int j = lane; j < N; j += 32) {
-      const float x = i < n && j < n ? __ldg(T0 + (size_t)i * N + j) : 0.f;
-      t0_nan |= isnan(x);
-      T[(size_t)i * N + j] = x;
-    }
-  for (int i = tid; i < N; i += THREADS) {
-    const float pv = i < n ? __ldg(ps + (size_t)s * N + i) : 0.f;
-    const float qv = i < n ? __ldg(qs + (size_t)s * N + i) : 0.f;
-    p[i] = pv;
-    logp[i] = logf(fmaxf(pv, LOG_EPS));
-    q[i] = qv;
-    logq[i] = logf(fmaxf(qv, LOG_EPS));
-  }
-  t0_nan = __syncthreads_or(t0_nan);
-  // constC[i][j] = c1p[i] + c2q[j], one warp a row of C1 (c1p) or C2 (c2q)
-  for (int line = warp; line < 2 * N; line += THREADS / 32) {
-    const bool second = line >= N;
-    const float* row = second ? C2 + (size_t)(line - N) * N : C1 + (size_t)line * N;
-    const float* w = second ? q : p;
-    float acc = 0.f;
-    for (int k = lane; k < N; k += 32) {
-      const float x = __ldg(row + k);
-      acc = fmaf(x * x, w[k], acc);
-    }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) {
-      if (second) c2q[line - N] = acc;
-      else c1p[line] = t0_nan ? __int_as_float(0x7fc00000) : acc;  // all of mr NaN
-    }
-  }
-  __syncthreads();
-
-  bool frozen = false, diverged = false;  // uniform across the block
-  int sk_run = 0;                         // Sinkhorn iterations run, all PGD steps
-  for (int it = 0; it < pgd_iters; ++it) {
-    float acc[2][4][4];
-    // A = C1 @ T
-    for (int tile = warp; tile < tiles; tile += THREADS / 32) {
-      const int r0 = LT * (tile / TN), c0 = LT * (tile % TN);
-      warp_tile<true>(C1, N, T, N, N, r0, c0, acc);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          float* a = A + (size_t)(r0 + 16 * mt + g) * N + c0 + 8 * nt + 2 * t;
-          *reinterpret_cast<float2*>(a) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-          *reinterpret_cast<float2*>(a + 8 * (size_t)N) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-        }
-    }
-    // the padding's potentials stay 0 in both buffers of each pair
-    for (int i = tid; i < N; i += THREADS) u[i] = 0.f, v[i] = 0.f, un[i] = 0.f, vn[i] = 0.f;
-    __syncthreads();
-    // mr = -(2 alpha (constC - A (2 C2)^T) + (1 - alpha) M) / eps
-    for (int tile = warp; tile < tiles; tile += THREADS / 32) {
-      const int r0 = LT * (tile / TN), c0 = LT * (tile % TN);
-      warp_tile<false>(A, N, C2, N, N, r0, c0, acc);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int i = r0 + 16 * mt + g, j = c0 + 8 * nt + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ie = i + 8 * (e >> 1), je = j + (e & 1);
-            const size_t at = (size_t)ie * N + je;
-            const float h = 2.f * acc[mt][nt][e];
-            const float tens =
-                alpha * (2.f * ((c1p[ie] + c2q[je]) - h)) + (1.f - alpha) * __ldg(M + at);
-            mr[at] = ie >= n || je >= n ? -INFINITY : -tens / epsilon;
-          }
-        }
-    }
-    __syncthreads();
-
-    // log-domain Sinkhorn
-    bool sfrozen = false, sdiv = false;
-    for (int si = 0; si < sinkhorn_iters && !sfrozen; ++si) {
-      int bad = lse_cols(mr, u, logq, vn, N, n);  // columns
-      __syncthreads();
-      bad |= lse_rows(mr, vn, logp, un, N, n);    // rows
-      const bool newly_div = __syncthreads_or(bad) != 0;  // sfrozen is false here
-      bool newly_frozen = newly_div;
-      if (si % 10 == 0) {
-        // column marginal of the would-be plan against q
-        const float e2 = block_sum(col_marginal_err2_large(mr, un, vn, q, N, n), red);
-        newly_frozen = newly_frozen || sqrtf(e2) < sinkhorn_thr;
-      }
-      if (!newly_div) {
-        float* x = u;
-        u = un, un = x;
-        x = v;
-        v = vn, vn = x;
-      }
-      sfrozen = newly_frozen;
-      sdiv = sdiv || newly_div;
-      ++sk_run;
-    }
-
-    // the candidate plan's finiteness and distance to T
-    int nonfinite = 0;
-    float e2 = 0.f;
-    for (int i = warp; i < N; i += THREADS / 32)
-      for (int j = lane; j < N; j += 32) {
-        const size_t at = (size_t)i * N + j;
-        const float cand = expf(mr[at] + u[i] + v[j]);
-        nonfinite |= !isfinite(cand);
-        const float dlt = cand - T[at];
-        e2 += dlt * dlt;
-      }
-    const bool bad = sdiv || (__syncthreads_or(nonfinite) != 0);
-    bool newly_frozen = bad;
-    if (it % 10 == 0) {
-      e2 = block_sum(e2, red);
-      newly_frozen = newly_frozen || sqrtf(e2) <= pgd_tol;
-    }
-    if (!(frozen || bad)) {
-      for (int i = warp; i < N; i += THREADS / 32)
-        for (int j = lane; j < N; j += 32) {
-          const size_t at = (size_t)i * N + j;
-          T[at] = expf(mr[at] + u[i] + v[j]);
-        }
-    }
-    __syncthreads();
-    frozen = frozen || newly_frozen;
-    diverged = diverged || bad;
-  }
-  if (tid == 0) {
-    div_out[s] = diverged ? 1 : 0;
-    iters_out[s] = sk_run;
-  }
 }
 
 // ------------------------------------------------------- N = 160 .. 256
@@ -1392,12 +1096,12 @@ int launch_cluster(const float* Ms, const float* C1s, const float* C2s, const fl
 // The streamed cluster route, for N above the cluster route's 256 up to
 // LARGEST_STREAM_N. The cluster route's band of T and band of mr no longer
 // fit a CTA together there (N = 288: a band of 96 rows needs 343 KB, one
-// of 32 rows a cluster of 9 CTAs), and the global route, one CTA a solve
-// with its fragments loaded from L1/L2, ran the products at 2.3% of the
-// bound. Here each solve runs on a thread-block cluster of C = N / R <= 8
+// of 32 rows a cluster of 9 CTAs), and the earlier global route (one CTA a
+// solve, its fragments loaded from L1/L2; csrc/fgw_team.cu replaced it)
+// ran the products at 2.3% of the bound. Here each solve runs on a thread-block cluster of C = N / R <= 8
 // CTAs (a portable cluster), CTA r owning rows rR .. rR + R - 1, and only
 // mr's band (stride N + 4) stays in shared memory for the whole solve:
-// - T lives in the output Tout, as on the global route: set-up copies each
+// - T lives in the output Tout: set-up copies each
 //   band of T0 there, an accepted step writes the band back, and a fence
 //   and a cluster barrier make it visible before the peers' next product.
 // - The products run one sub-band of SUB rows (32, 48 or 64) at a time:
@@ -1435,7 +1139,7 @@ int launch_cluster(const float* Ms, const float* C1s, const float* C2s, const fl
 // faster at S = 90 and 2.2x at S = 5 than R = 96). The first version
 // (warps of 16 rows, so each B fragment fed one mma.sync, chained three
 // deep on one accumulator, and a separate buffer for A_sub) took 5.62 ms
-// at N = 288 against this one's 3.45 and the global route's 4.54: B
+// at N = 288 against this one's 3.45 and the one-CTA global route's 4.54: B
 // fragments shared by MT tiles, independent accumulators in flight and
 // wider slices are what made it faster. The semantics
 // are the templates': padding left out (mr -inf, potentials 0, plan 0), a
@@ -1980,42 +1684,6 @@ int fgw_couplings(const float* Ms, const float* C1s, const float* C2s, const flo
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// Floats of the large route's device scratch for S solves of N atoms: C1 T
-// and mr for each, and the vectors where they do not fit in shared memory.
-size_t fgw_large_scratch_floats(int S, int N) {
-  const bool vec_smem = large_vec_floats(N) * sizeof(float) <= MAX_SMEM_BYTES;
-  return (size_t)S * (2 * (size_t)N * N + (vec_smem ? 0 : large_vec_floats(N)));
-}
-
-// K3's global-memory route, for any N that is a multiple of 32 (the
-// wrapper takes it above 512): arguments as fgw_couplings, plus a scratch
-// of fgw_large_scratch_floats(S, N) floats; Tout must not alias an input.
-int fgw_couplings_large(const float* Ms, const float* C1s, const float* C2s, const float* ps,
-                        const float* qs, const float* T0s, float* Tout, int* div_out,
-                        int* iters_out, float* scratch, int S, int N, int n, float alpha,
-                        float epsilon, int pgd_iters, float pgd_tol, int sinkhorn_iters,
-                        float sinkhorn_thr, void* stream) {
-  if (N < 32 || N % 32 || n < 1 || n > N) return (int)cudaErrorInvalidValue;
-  const size_t vec_bytes = large_vec_floats(N) * sizeof(float);
-  const bool vec_smem = vec_bytes <= MAX_SMEM_BYTES;
-  const size_t smem = vec_smem ? vec_bytes : 0;
-  float* vec_scratch = vec_smem ? nullptr : scratch + 2 * (size_t)S * N * N;
-  static size_t raised[MAX_DEVICES];  // the limit raised so far, per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024 && (dev >= MAX_DEVICES || raised[dev] < smem)) {
-    err = cudaFuncSetAttribute(fgw_couplings_large_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < MAX_DEVICES) raised[dev] = smem;
-  }
-  fgw_couplings_large_kernel<<<S, THREADS, smem, (cudaStream_t)stream>>>(
-      Ms, C1s, C2s, ps, qs, T0s, Tout, div_out, iters_out, scratch, vec_scratch, N, n, alpha,
-      epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr);
-  return (int)cudaGetLastError();
 }
 
 // The largest N of the cluster route; above it, the stream route.

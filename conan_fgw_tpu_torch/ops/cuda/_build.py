@@ -3,8 +3,8 @@
 Each source is compiled by its own ``nvcc`` process, all started together,
 into an object file; the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The library's name carries a hash
-of the sources and flags, so an edited source is rebuilt on first use and an
-unchanged one is loaded as built. Output goes to ``conan_fgw_tpu_torch/_build``.
+of the sources, the headers they include and the flags, so an edited source
+is rebuilt on first use and an unchanged one is loaded as built. Output goes to ``conan_fgw_tpu_torch/_build``.
 A build holds the directory's lock (``utils/filelock.py``): processes that
 start at once (the ranks of a data-parallel run) build once, and none links
 an object file another is still writing.
@@ -28,7 +28,9 @@ from conan_fgw_tpu_torch.utils.filelock import locked
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cfconv.cu", "cfconv_wgmma.cu", "cfconv_large.cu", "fgw.cu")
+SOURCES = ("cfconv.cu", "cfconv_wgmma.cu", "cfconv_large.cu", "fgw.cu", "fgw_team.cu")
+# headers the sources include: their bytes go into the library's hash too
+HEADERS = ("wgmma_tf32.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,7 +53,7 @@ SIGNATURES = {
     "fgw_couplings": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
     "fgw_smem": (_Z, [_I, _I]),
     "fgw_couplings_large": (_I, [_P] * 10 + [_I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
-    "fgw_large_scratch_floats": (_Z, [_I, _I]),
+    "fgw_team_plan": (_I, [_I, _I, _I, _P]),
     "fgw_couplings_cluster": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
     "fgw_cluster_limit": (_I, []),
     "fgw_cluster_rows": (_I, [_I]),
@@ -79,7 +81,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

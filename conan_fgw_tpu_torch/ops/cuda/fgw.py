@@ -8,7 +8,7 @@ per-molecule wrapper ``pallas_fgw_couplings``. The kernel lives in
 how its design answers it. It takes a bucket size N (a multiple of 32) and
 each solve's true atom count n <= N, and leaves the padding out of the
 solve; both wrappers pad any other size up to the next multiple of 32.
-``route(N)`` picks one of four routes by N, with no fallback among them:
+``route(N, S)`` picks one of four routes by N, with no fallback among them:
 
 - N <= ``LARGEST_TEMPLATE`` (128): the ``<N, PAD>`` templates, one CTA a
   solve, its matrices in shared memory (C1 and C2 through L2 at N = 128);
@@ -23,20 +23,23 @@ solve; both wrappers pad any other size up to the next multiple of 32.
   C2 stream through a ring of k-slices; a size it takes no band of (352,
   416, 480) is padded to the next one it does (``Route.size``); its
   launches count with ``_stream``;
-- N above it: the global route (``fgw_couplings_large_kernel``), one CTA a
-  solve, its matrices in device memory through L2, with no upper limit on
-  N; its launches count with ``_large``.
+- N above it: the global route (``csrc/fgw_team.cu``'s
+  ``fgw_couplings_team_kernel``), each solve on a team of C CTAs across the
+  card, each owning a band of R rows, cooperating through device memory
+  (``team_plan`` picks R and C from N and the S solves of the launch), with
+  no upper limit on N; its launches count with ``_large``.
 
 The plain version is ``ops/fgw/coupling.py::fgw_coupling`` on the leading
 n x n block, reached here through ``fgw_couplings_plain``;
-``fgw_couplings_banded`` is the cluster and stream routes' decomposition
-in plain PyTorch, for the CPU tests only. Forward only: the barycenter
-solves its couplings without gradient.
+``fgw_couplings_banded`` is the cluster, stream and global routes'
+decomposition in plain PyTorch, for the CPU tests only. Forward only: the
+barycenter solves its couplings without gradient.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -59,6 +62,15 @@ CLUSTER_ROWS = {160: 32, 192: 64, 224: 32, 256: 64}
 # the largest N of the stream route (N / R <= 8 CTAs); above it, the global
 # route
 LARGEST_STREAM = 512
+# the global route's shape (csrc/fgw_team.cu): row bands of RT wgmma tiles
+# of 64 rows (RT = 1 .. 4), passes of at most 4 output tiles of 64 x 64 with
+# RT + P <= 4 (a pass's P column tiles and the band's row tiles in each of
+# the ring's 3 stages, split k-slices of 32), 256 threads and one CTA an
+# SM, a team's barrier counter 32 words from the next
+TEAM_TILE, TEAM_KS, TEAM_MAX_RT, TEAM_PASS_TILES, TEAM_RING_TILES = 64, 32, 4, 4, 4
+TEAM_STAGES = 3
+TEAM_COUNTER_WORDS = 32
+SMS = 132  # an H100 SXM's SMs: the plan's card unless another is named
 # the stream route's band rows R by the N it runs at, as
 # csrc/fgw.cu::fgw_stream_rows gives them: the fastest measured on the card
 # (PERF.md §6, PR 19); the sizes between them are padded up to the next
@@ -70,8 +82,9 @@ _SUFFIX = {"template": "", "cluster": "_cluster", "stream": "_stream", "global":
 class Route(NamedTuple):
     """K3's route at a bucket size: ``kind`` (``"template"``, ``"cluster"``,
     ``"stream"`` or ``"global"``), the CTAs a solve, the rows each CTA owns
-    and the size the kernel runs at (N, or on the stream route the next
-    size it takes a band of)."""
+    (the last band of the global route may be short) and the size the
+    kernel runs at (N, or on the stream route the next size it takes a band
+    of)."""
 
     kind: str
     ctas: int
@@ -79,8 +92,85 @@ class Route(NamedTuple):
     size: int
 
 
-def route(N: int) -> Route:
-    """The route K3 takes at bucket size ``N`` (a multiple of 32)."""
+class TeamPlan(NamedTuple):
+    """The global route's plan of S solves at N (``csrc/fgw_team.cu``'s
+    ``team_plan``): band rows R, CTAs a team C, teams at once, rounds,
+    passes over the column tiles a product and tiles a pass, whether the
+    vectors sit in shared memory, shared bytes a CTA and scratch floats."""
+
+    rows: int
+    ctas: int
+    teams: int
+    rounds: int
+    passes: int
+    per_pass: int
+    vec_smem: bool
+    smem: int
+    scratch_floats: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def team_candidates(N: int, S: int, sms: int = SMS) -> list[tuple[TeamPlan, int]]:
+    """Every band height the global route weighs at ``(N, S)`` on ``sms``
+    SMs, as ``(plan, cost)``: RT = 1 .. 4 row tiles of 64 (a team of C =
+    ceil(N / 64 RT) CTAs, no more than the SMs), as many whole teams at once
+    as the card holds at one CTA an SM, passes of P >= 1 column tiles (RT P
+    <= 4, RT + P <= 4); the cost is the rounds times a warpgroup's tile
+    passes (ceil(RT P / 2) a pass)."""
+    out = []
+    NT = _cdiv(N, TEAM_TILE)
+    for rt in range(1, TEAM_MAX_RT + 1):
+        R = TEAM_TILE * rt
+        C = _cdiv(N, R)
+        if C > sms:
+            continue
+        teams = min(S, sms // C)
+        rounds = _cdiv(S, teams)
+        pmax = min(TEAM_PASS_TILES // rt, TEAM_RING_TILES - rt)
+        if pmax < 1:
+            continue
+        passes = _cdiv(NT, pmax)
+        P = _cdiv(NT, passes)
+        ring = TEAM_STAGES * (rt + P) * 2 * TEAM_TILE * TEAM_KS * 4 + 64  # and the stages' barriers
+        vec = 4 * (5 * N + 4 * R + 64)
+        vec_smem = ring + vec <= _build.MAX_SMEM_BYTES
+        split = C * rt * (N // TEAM_KS) * 2 * TEAM_TILE * TEAM_KS  # a split matrix's words
+        team = 5 * split + 2 * N * N + N + 2 * C * 2 * N + 2 * C * N + 2 * C * 4
+        if not vec_smem:
+            team += C * (5 * N + 4 * R + 64)
+        team = _cdiv(team, 32) * 32
+        plan = TeamPlan(R, C, teams, rounds, passes, P, vec_smem, ring + (vec if vec_smem else 0),
+                        teams * TEAM_COUNTER_WORDS + teams * team)
+        out.append((plan, rounds * passes * _cdiv(rt * P, 2)))
+    return out
+
+
+def team_plan(N: int, S: int, sms: int = SMS) -> TeamPlan:
+    """The global route's plan, as ``csrc/fgw_team.cu::team_plan`` picks
+    it from ``team_candidates``: the least cost, ties to fewer rounds, then
+    to the smaller R; a plan whose last round holds one team is dropped
+    where another has fewer rounds."""
+    if N % 32 or N < 32 or S < 1:
+        raise ValueError(f"fgw kernel: no team plan for S={S} solves of N={N}")
+    cands = team_candidates(N, S, sms)
+    fewest = min(plan.rounds for plan, _ in cands)
+    best = None
+    for plan, cost in cands:
+        lonely = plan.rounds > 1 and S - (plan.rounds - 1) * plan.teams == 1
+        if lonely and fewest < plan.rounds:
+            continue
+        if best is None or (cost, plan.rounds) < (best[1], best[0].rounds):
+            best = (plan, cost)
+    return best[0]
+
+
+def route(N: int, S: int = 1, sms: int = SMS) -> Route:
+    """The route K3 takes at bucket size ``N`` (a multiple of 32); on the
+    global route its team's CTAs and band rows for ``S`` solves on ``sms``
+    SMs."""
     if N % 32 or N < 32:
         raise ValueError(f"fgw kernel: N={N} is not a multiple of 32")
     if N <= LARGEST_TEMPLATE:
@@ -92,7 +182,8 @@ def route(N: int) -> Route:
         size = min(k for k in STREAM_ROWS if k >= N)
         R = STREAM_ROWS[size]
         return Route("stream", size // R, R, size)
-    return Route("global", 1, N, N)
+    plan = team_plan(N, S, sms)
+    return Route("global", plan.ctas, plan.rows, N)
 
 
 def launch_name(count: str, N: int) -> str:
@@ -120,10 +211,11 @@ def fgw_couplings_banded(Ms, C1s, C2s, ps, qs, T0s, *, rows, n=None, streamed=Fa
     """The cluster route's decomposition in plain PyTorch (for the CPU
     tests; nothing on the main path calls it): ``(T (S, N, N), diverged
     (S,) int32)`` as ``fgw_couplings_plain``. The N rows fall into bands of
-    ``rows`` rows, one a CTA of the cluster, in rank order. Product 1 sums
-    the bands' k-slices from the own band on, as the cluster kernel does,
-    or with ``streamed`` (the stream route) in rank order, as its ring
-    streams T's k-slices from the first; a row's
+    ``rows`` rows (the last one short where ``rows`` does not divide N, as
+    on the global route), one a CTA of the cluster or team, in rank order.
+    Product 1 sums the bands' k-slices from the own band on, as the cluster
+    kernel does, or with ``streamed`` (the stream and global routes) in
+    rank order, as their rings stream T's k-slices from the first; a row's
     log-sum-exp is its band's; a column's combines the bands' (max, sum of
     exp) in rank order, a non-finite max replaced by 0 and a band whose sum
     is 0 adding nothing; the marginal check and the candidate's distance
@@ -131,8 +223,6 @@ def fgw_couplings_banded(Ms, C1s, C2s, ps, qs, T0s, *, rows, n=None, streamed=Fa
     (default N) are padding."""
     S, N, _ = Ms.shape
     n = N if n is None else int(n)
-    if N % rows:
-        raise ValueError(f"fgw banded: N={N} is not a multiple of rows={rows}")
     bands = [slice(min(b, n), min(b + rows, n)) for b in range(0, N, rows)]
     C = len(bands)
     Mb, C1, C2, p, q, T = (x[:, :n, :n] if x.dim() == 3 else x[:, :n]
@@ -249,6 +339,30 @@ def _stream_ready(N: int, R: int) -> int:
     return active
 
 
+@functools.cache
+def _sms(idx: int) -> int:
+    """Card ``idx``'s SM count."""
+    return torch.cuda.get_device_properties(idx).multi_processor_count
+
+
+@functools.cache
+def _team_ready(N: int, S: int, idx: int) -> TeamPlan:
+    """The global route's plan of ``S`` solves at ``N`` on card ``idx``:
+    raise unless the library's plan (``fgw_team_plan``, its scratch count
+    included) is ``team_plan``'s for the card's SM count."""
+    lib = _build.load_library()
+    sms = _sms(idx)
+    plan = team_plan(N, S, sms)
+    out = (ctypes.c_int * 9)()
+    code = lib.fgw_team_plan(S, N, sms, out)
+    want = (plan.rows, plan.ctas, plan.teams, plan.rounds, plan.passes, plan.per_pass,
+            int(plan.vec_smem), plan.smem, plan.scratch_floats // 32)
+    if code != 0 or tuple(out) != want:
+        raise RuntimeError(f"fgw kernel: the library's global-route plan at S={S}, N={N} on"
+                           f" {sms} SMs is {tuple(out)} (code {code}), the wrapper's {want}")
+    return plan
+
+
 def _complaint(name, t, dev, want):
     if not t.is_cuda or t.device != dev:
         return f"{name} must lie on {dev}"
@@ -267,14 +381,16 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
     int32 count of the Sinkhorn iterations each solve ran over all its PGD
     steps (a frozen solve leaves its Sinkhorn loop early). ``N`` must be a
     multiple of 32; rows and columns ``>= n`` (default N) are padding. The
-    route is ``route(N)``'s, and ``launches[launch_name(count, N)]`` grows
+    route is ``route(N, S)``'s on the card's SMs, and ``launches[launch_name(count, N)]`` grows
     by one: up to ``LARGEST_TEMPLATE`` the templates, up to
     ``LARGEST_CLUSTER`` the cluster route (``count + "_cluster"``), up to
     ``LARGEST_STREAM`` the stream route (``count + "_stream"``; a size it
     takes no band of is padded to ``route(N).size`` and cut back), above it
-    the global route with a scratch of 2 N^2 floats a solve (``count +
-    "_large"``). A launch that is refused raises; none reruns on another
-    route."""
+    the global route with the scratch of ``team_plan(N, S)`` for each team
+    resident at once: its split operands, C1 T, mr, a second plan and the
+    partials (``count + "_large"``; the library zeroes the teams' barrier
+    counters on the stream). A launch that is refused raises; none reruns
+    on another route."""
     S, N, _ = Ms.shape
     n = N if n is None else int(n)
     dev = Ms.device
@@ -284,7 +400,7 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
         if (idx < 0 or t.get_device() != idx or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.shape != want or t.data_ptr() % 16):
             raise ValueError(f"fgw kernel: {_complaint(name, t, dev, want)}")
-    way = route(N)
+    way = route(N, S, _sms(idx))
     if not 1 <= n <= N:
         raise ValueError(f"fgw kernel: n={n} atoms outside [1, N={N}]")
     if way.size != N:  # the padding is left out of the solve, as n's
@@ -313,7 +429,8 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
             _stream_ready(N, way.rows)
             code = lib.fgw_couplings_stream(*pointers, S, N, n, way.rows, *solver, stream)
         else:
-            scratch = torch.empty(lib.fgw_large_scratch_floats(S, N), device=dev)
+            plan = _team_ready(N, S, idx)
+            scratch = torch.empty(plan.scratch_floats, device=dev)
             code = lib.fgw_couplings_large(*pointers, scratch.data_ptr(), S, N, n, *solver, stream)
     count = launch_name(count, N)
     _build.check(code, count)

@@ -80,7 +80,7 @@ def test_bucket_sizes_launch_unpadded(solves_seen):
 
 def test_flat_solve_refuses_more_than_the_largest_bucket(solves_seen):
     """Kept under its old name: the refusal is gone. n=130, above the
-    largest bucket, is padded to 160 and solved (on the card by K3's global
+    largest bucket, is padded to 160 and solved (on the card by K3's cluster
     route); on the CPU the padded solve equals the plain
     solve of the unpadded input bit for bit."""
     args = _t(*_solves(s=1, n=130, seed=2))

@@ -1,5 +1,5 @@
 """Port parity above 128 atoms, on the CPU: what the card runs through K3's
-global route and ``csrc/cfconv_wgmma.cu``, held against the JAX package.
+cluster route and ``csrc/cfconv_wgmma.cu``, held against the JAX package.
 
 - ``fgw_couplings_flat`` at n=130 and n=160 (S=2; padded to 160) against
   the JAX flat solver (``pallas_fgw_couplings_flat`` in interpret mode,
@@ -79,7 +79,7 @@ def test_flat_solve_above_the_largest_bucket_matches_jax(n):
 
 def test_barycenter_batch_above_the_largest_bucket_matches_jax():
     """One molecule of 130 atoms in two conformers: five padded flat solves
-    of 160 rows (K3's global route on the card)."""
+    of 160 rows (K3's cluster route on the card)."""
     rng = np.random.default_rng(130)
     Ys = (rng.standard_normal((1, 2, 130, 3)) * 0.5 + 1).astype(np.float32)
     a = (rng.random((1, 2, 130, 130)) < 0.1).astype(np.float32)
