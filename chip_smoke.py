@@ -309,13 +309,15 @@ on a ``[phases]`` line:
    epoch resumed in the middle of the accumulation bit for bit the
    straight two-epoch run; ms per mini-step.
 18. Molecules above 128 atoms and the last options. 18a: K1/K2 on their
-   large routes (``csrc/cfconv_wgmma.cu``, K2 at F=128
-   ``csrc/cfconv_large.cu``, counted under ``_large`` names)
+   large route (``csrc/cfconv_wgmma.cu``, counted under ``_large`` names)
    at N = 160, 192, 256 and 181 (no multiple of 32), F=128 with 50
    Gaussians and F=256 with 10 on G = 90 seeded graphs of 109-251 atoms,
    the cap binding, with phase 2's gates; at N = 192 also the nearest cap
    and the bf16 and f16 variants with phase 12's and 17's gates (rows
-   ``n160`` ... ``n192-nearest``). 18b: K3's cluster route
+   ``n160`` ... ``n192-nearest``); at N = 320 and 544 on G = 10 seeded
+   point clouds that fill each N (the plain version's (G, N, N, F) filter
+   is 1.5-3 GB there), both widths, phase 2's gates, the plain version's
+   peak memory printed. 18b: K3's cluster route
    (``fgw_couplings_cluster_kernel``, counted under ``_cluster`` names) on
    the F=256 molecules (S = 90) at N = 160, 192 and 256, first and second
    outer iteration, and at N = 181 through ``fgw_couplings_flat`` (padded
@@ -357,7 +359,7 @@ on a ``[phases]`` line:
    bucketed=False``: every batch at N = 192 on the large kernels alone, and
    the batches it stepped equal to a CPU replay of ``batch_iterator`` under
    ``loop.epoch_rng``, molecule by molecule; the replays' ms a step beside
-   the 19.26 of the kernels before the wgmma route. 18e: one ViSNet stage-2 step
+   the 18.32-19.01 of the kernels before K2 at F=128's wgmma kernel. 18e: one ViSNet stage-2 step
    with ``vertex``, ``vecnorm_type="max_min"``, ``trainable_vecnorm`` and
    ``trainable_rbf`` card against CPU (phase 4's gates). 18f: two graphed
    stage-2 steps at N = 192 of the F=128 and the F=256 model in bf16 and
@@ -470,8 +472,7 @@ REPLACES = {
     "cfconv_bwd_f256_f16": "conan_fgw_tpu/ops/pallas/cfconv.py:146",
     # graphs above 128 atoms (phase 18): K3's cluster route (129-256 atoms),
     # its stream route (257-512) and its global route (above 512), through
-    # both wrappers, and K1/K2 at both widths and types: csrc/cfconv_wgmma.cu's,
-    # but K2 at F=128 csrc/cfconv_large.cu's
+    # both wrappers, and K1/K2 at both widths and types: csrc/cfconv_wgmma.cu's
     "fgw_couplings_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:362",
     "fgw_couplings_mol_cluster": "conan_fgw_tpu/ops/pallas/fgw.py:394",
     "fgw_couplings_stream": "conan_fgw_tpu/ops/pallas/fgw.py:362",
@@ -482,10 +483,11 @@ REPLACES = {
        for kind, line in (("fwd", 223), ("bwd", 146)) for width in ("", "_f256")
        for dtype in ("", "_bf16", "_f16")},
 }
-# csrc/cfconv_wgmma.cu's kernels of K1 and K2 above 128 atoms (graph nodes, ptxas)
+# csrc/cfconv_wgmma.cu's kernels of K1, and of K2 at F=256, above 128 atoms
+# (graph nodes, ptxas)
 WGMMA_KERNELS = ("cfconv_msg_wgmma_kernel", "cfconv_dw_wgmma_kernel")
-# csrc/cfconv_large.cu's kernel of K2 at F=128 above 128 atoms
-LARGE_BWD_KERNEL = "cfconv_bwd_large_kernel"
+# csrc/cfconv_wgmma.cu's kernel of K2 at F=128 above 128 atoms
+LARGE_BWD_KERNEL = "cfconv_bwd_wgmma_kernel"
 # csrc/fgw_team.cu's kernel of K3 above 512 atoms (the global route)
 TEAM_KERNEL = "fgw_couplings_team_kernel"
 # the launch names of phase 18's routes above 128 atoms
@@ -513,9 +515,8 @@ SOURCES = {
     "fgw_couplings_mol_stream": "conan_fgw_tpu_torch/csrc/fgw.cu",
     "fgw_couplings_large": "conan_fgw_tpu_torch/csrc/fgw_team.cu",
     "fgw_couplings_mol_large": "conan_fgw_tpu_torch/csrc/fgw_team.cu",
-    **{name: "conan_fgw_tpu_torch/csrc/" + ("cfconv_large.cu" if name.startswith("cfconv_bwd_large")
-                                            else "cfconv_wgmma.cu")
-       for name in LARGE_NAMES if name.startswith("cfconv")},
+    **{name: "conan_fgw_tpu_torch/csrc/cfconv_wgmma.cu" for name in LARGE_NAMES
+       if name.startswith("cfconv")},
 }
 # seconds between the edges of the profiler's window and the steps it profiles
 PROFILE_MARGIN_S = 0.05
@@ -704,10 +705,11 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     ``cap_mode`` "nearest" (phase 17) runs the kernels and the plain version
     with the nearest-neighbour cap; its rows go under ``label``. Above 128
     atoms the kernels are those of ``ops/cuda/cfconv.py::route``
-    (csrc/cfconv_wgmma.cu's, and csrc/cfconv_large.cu's K2 at F=128), under
-    their ``_large`` names; ``plain_reps`` cuts the plain version's timed
-    (and warm-up) calls there. Two launches of K2 (and above 128 atoms of
-    K1) on the same inputs must agree bit for bit."""
+    (csrc/cfconv_wgmma.cu's), under their ``_large`` names; ``plain_reps``
+    cuts the plain version's timed (and warm-up) calls there. Two launches
+    of K2 (and above 128 atoms of K1) on the same inputs must agree bit for
+    bit. Prints the plain version's peak memory beyond what was held
+    before its forward and backward."""
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda.cfconv import (
@@ -815,7 +817,11 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
         o = _cfconv_plain(pos, maskf, *leaves, CUTOFF, GAUSS, CAP, cap_mode)
         torch.autograd.grad(o, leaves, cot)
 
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     plain_bwd_ms = cuda_ms(plain_bwd, reps=plain_reps, warmup=min(2, plain_reps))
+    plain_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     w_bytes = 4 * (GAUSS * F + F * F + 2 * F)
     feat = x.element_size()  # x, out, the cotangent and dx
     io_fwd = 4 * (G * N * 3 + G * N) + feat * 2 * G * N * F + w_bytes
@@ -824,7 +830,8 @@ def check_cfconv(label, pos, mask, gen, rows, F=F, GAUSS=GAUSS, dtype=None, cap_
     mlp_fwd, mlp_bwd = edges * 2 * (GAUSS * F + F * F), edges * (4 * GAUSS * F + 6 * F * F)
     flops_fwd, flops_bwd = mlp_fwd + edges * 2 * F, mlp_bwd + edges * 4 * F
     print(f"[cfconv {tag}] G={G} N={N} F={F} Gs={GAUSS} edges={edges}: fwd {fwd_ms:.4f} ms"
-          f" (plain {plain_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f})")
+          f" (plain {plain_fwd_ms:.4f}), bwd {bwd_ms:.4f} ms (plain fwd+bwd {plain_bwd_ms:.4f},"
+          f" peak {plain_peak:.2f} GiB)")
     for name, ms, plain_ms, err, io, flops, mlp in (
         (kernel_name("cfconv_fwd", F, dtype, N > LARGEST_TEMPLATE), fwd_ms, plain_fwd_ms, err_fwd,
          io_fwd, flops_fwd, mlp_fwd),
@@ -4696,6 +4703,11 @@ GLOBAL_N, GLOBAL_S = 544, 15
 GLOBAL_BIG = 800
 GLOBAL_MOL = 520
 GLOBAL_BATCH = 1
+# K1/K2 above 256 atoms: G = 10 point clouds (2 molecules x 5 conformers;
+# at G = 90 the plain version's (G, N, N, F) filter alone would be 13.6 GB
+# at N = 544, F = 128) that fill each N
+CFCONV_CLOUDS = (320, 544)
+CFCONV_CLOUD_MOLS = 2
 # timed calls of the plain cfconv at these shapes (0.1-1 s each), after
 # as many warm-up calls (3 after 2 before PR 20)
 BIG_PLAIN_REPS = 1
@@ -4727,7 +4739,8 @@ def check_big_kernels(device, rows):
     F=128 with 50 Gaussians and F=256 with 10, on G=90 graphs (the CoV-2
     batch of 18 molecules x 5 conformers), f32 with the index cap; at N=192
     also the nearest cap and bf16 and f16 node features; phase 2's and
-    12's gates. K3's cluster route on the F=256 molecules (S=90): the first
+    12's gates; last, at N=320 and 544 on G=10 point clouds
+    (``CFCONV_CLOUDS``). K3's cluster route on the F=256 molecules (S=90): the first
     and second outer iteration at N=160, 192 and 256, and N=181 through
     ``fgw_couplings_flat`` (padded to 192); two launches bit for bit equal
     at N=192. K3's stream route: the first and second outer iteration at
@@ -4828,6 +4841,14 @@ def check_big_kernels(device, rows):
             check_fgw_nan(later, f"N{N}-later-nan", rel=True)
     for n in (BIG_MOL, STREAM_MOL, GLOBAL_MOL):
         check_fgw_mol(n, device, rows)
+    for N in CFCONV_CLOUDS:
+        pos, mask = cloud_geometry(SEED + 6200 + N, CFCONV_CLOUD_MOLS, (N - 31, N), N, device)
+        within = radius_graph_mask(pairwise_distances(pos), mask, CUTOFF, None).sum(-1)
+        print(f"[big N{N}] G={pos.shape[0]} point clouds: up to {int(within.max())} neighbours"
+              f" within the cutoff (cap {CAP})")
+        require(bool((within > CAP).any()), f"N{N} inputs never engage the neighbour cap")
+        for width in ((F, GAUSS), (F_CLS, GAUSS_CLS)):
+            check_cfconv(f"N{N}", pos, mask, gen, rows, *width, plain_reps=BIG_PLAIN_REPS)
     return shapes
 
 
@@ -5137,7 +5158,7 @@ def check_shuffled_fit(device, config, tmp):
           f" bucketed=False: batch N {shapes}; order equal to the CPU replay {same}; train loss"
           f" {losses}; launches {grew}; {wall:.1f} s; the last epoch's stage-2 steps at N=192"
           f" (B={settings.batch_size}, F=128, graph replays) {replay_ms:.2f} ms/step (the kernels"
-          f" before the wgmma route: 19.26)")
+          f" before K2 at F=128's wgmma kernel: 18.32-19.01)")
     require(same, "shuffled fit: the batch order differs from the CPU replay")
     require(shapes == [192], f"shuffled fit: batches at N={shapes}")
     require(all(np.isfinite(losses)), "shuffled fit: a non-finite loss")

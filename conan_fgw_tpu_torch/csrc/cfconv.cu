@@ -90,10 +90,9 @@
 //
 // Limits: F = 128 with 2 <= Gs <= 64, or F = 256 with 2 <= Gs <= 16.
 // These kernels hold a graph's state in arrays sized for N <= 128 atoms
-// (MAXN); csrc/cfconv_large.cu compiles the same pipeline with that state
-// sized at run time, for any N, and includes this file for its helpers
-// (with CFCONV_HELPERS_ONLY defined, which leaves out the entry points
-// below).
+// (MAXN); csrc/cfconv_wgmma.cu runs every N above that, and includes this
+// file for its helpers (with CFCONV_HELPERS_ONLY defined, which leaves out
+// the entry points below).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

@@ -17,9 +17,8 @@
 // bytes are a few MB, so they are operation-bound, by the tensor cores; the
 // elementwise work of an edge (F softplus forward, F softplus and sigmoid
 // backward) runs beside the products and, with few warps an SM, takes as
-// long as they do. The kernels they replace (cfconv_large.cu: cfconv.cu's
-// pipeline with the graph's state sized at run time) reached 4.4-7.1% of
-// the bound:
+// long as they do. The kernels they replace (cfconv.cu's pipeline with the
+// graph's state sized at run time) reached 4.4-7.1% of the bound:
 // one team of 8 warps a block ran 3xTF32 mma.sync, latency-bound, every
 // fragment split as it was loaded, weights included; no stage of a tile
 // overlapped another; every item rebuilt its graph's neighbour bits; at
@@ -84,12 +83,17 @@
 //   in a fixed order (dpre is linear in dh, so each filter block's part of
 //   dW1 and db1 is summed there too). Two blocks share an SM and the
 //   threads gather their rows.
-// - K2 at F = 128 is not on this route: csrc/cfconv_large.cu's mma.sync
-//   kernel (one pass of layer 1 a tile for dx and the weight gradients
-//   together) took 1.38-2.32 ms at N = 160-256 on G = 90 graphs where this
-//   route's two kernels took 2.08-3.36 (each recomputes layer 1 and the
-//   softplus of every edge, and the F = 128 gradient kernel, with KG = 64,
-//   held one warpgroup an SM). The wrapper picks that kernel by F.
+// - K2 at F = 128 (cfconv_bwd_wgmma_kernel): one pass of layer 1 a tile for
+//   dx and the weight gradients, all channels in one block, the products
+//   turned around so that the weights are the register A operand (split as
+//   loaded from one raw copy) and the tile's activations the B operand;
+//   the design is at the kernel. The dx and weight-gradient kernels above,
+//   run at F = 128, were 1.45-1.51x slower than the mma.sync kernel it
+//   replaces: each recomputed layer 1 and the softplus of every edge, and
+//   the gradient kernel, with KG = 64, held one warpgroup an SM. A block a
+//   quarter of the channels of h, holding W1 and W2 pre-split (W2 in both
+//   orientations: 80 KB), computed each message and dW four times and was
+//   1.24-1.32x slower.
 // - Why no thread-block cluster at F = 256: each slab recomputes layer 1
 //   and the softplus of all 256 channels of h (the softplus is 41% of the
 //   message kernel there). A cluster of the four slabs, CTA r computing
@@ -107,8 +111,8 @@
 //   f32 kernels' result on the widened inputs, rounded. The neighbour cap
 //   (index or nearest) is a run-time argument of the edge kernels.
 //
-// Limits: K1 at F = 128 with 2 <= Gs <= 64 and at F = 256 with 2 <= Gs <=
-// 16, K2 at F = 256; any N. cfconv_wgmma_plan sizes a call's buffers. The
+// Limits: F = 128 with 2 <= Gs <= 64 and F = 256 with 2 <= Gs <= 16; any
+// N. cfconv_wgmma_plan sizes a call's buffers. The
 // wgmma fences, descriptors and 3xTF32 issue helpers live in
 // csrc/wgmma_tf32.cuh, shared with csrc/fgw_team.cu.
 
@@ -162,8 +166,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // route. This departs from the accurate route that csrc/cfconv.cu keeps
 // (and the kernels above 128 atoms kept before): the attention head's
 // N = 64 step lost its gate with fast intrinsics there, which took the
-// RBF's exponent too. The RBF keeps the accurate expf: its exponent
-// reaches 50 and more, where ex2.approx's argument rounding shows.
+// RBF's exponent too. K1 and the F = 256 kernels keep the accurate expf for
+// the RBF; K2 at F = 128 takes it on ex2.approx (rbf_fast, below), where
+// the argument's rounding at exponents of 50 and more shows only in values
+// below 1e-20.
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -187,6 +193,10 @@ __device__ __forceinline__ float ssp_t(float x, float t) {
 }
 __device__ __forceinline__ float exp_neg_abs(float x) { return ex2_approx(-fabsf(x) * LOG2E_F); }
 __device__ __forceinline__ float ssp_fast(float x) { return ssp_t(x, exp_neg_abs(x)); }
+
+// afrags' order: accumulator element i of a k-step goes to A fragment slot
+// afrag_slot(i % 4) (0, 2, 1, 3)
+__host__ __device__ constexpr int afrag_slot(int i) { return (i & 1) << 1 | (i >> 1 & 1); }
 
 // fn(std::integral_constant<int, I>) for I = B .. E - 1: a loop whose index
 // is a constant expression in its body.
@@ -376,8 +386,8 @@ __device__ __forceinline__ uint32_t key_bits(const Smem& s, int n, int a, int w)
 }
 
 // Per graph (one block of THREADS): the neighbour bits, each key's edge
-// count and each item's tiles.
-template <bool SOURCE_MAJOR>
+// count and each item's tiles of ET edges.
+template <bool SOURCE_MAJOR, int ET>
 __global__ void __launch_bounds__(THREADS)
     cfconv_edge_count_kernel(const float* __restrict__ pos, const float* __restrict__ mask, int n,
                              float cutoff, int cap, int cap_mode, float* gstate, int* scratch,
@@ -402,15 +412,15 @@ __global__ void __launch_bounds__(THREADS)
   for (int b = tid(); b < l.per_graph; b += THREADS) {
     int e = 0;
     for (int a = b * KEYS; a < min(b * KEYS + KEYS, n); ++a) e += cnt[a];
-    l.item_tiles[g * l.per_graph + b] = (e + WET - 1) / WET;
+    l.item_tiles[g * l.per_graph + b] = (e + ET - 1) / ET;
   }
 }
 
 // Per graph: each item's first tile (the tiles of all items before it, in
 // graph-major order), the item of each of its tiles, and its edge records,
 // each key's edges compacted by a warp in the list's order, the item's last
-// tile padded.
-template <bool SOURCE_MAJOR>
+// tile padded (tiles of ET records).
+template <bool SOURCE_MAJOR, int ET>
 __global__ void __launch_bounds__(THREADS)
     cfconv_edge_write_kernel(const float* __restrict__ pos, const float* __restrict__ mask, int n,
                              float cutoff, float* gstate, int* scratch, int G,
@@ -442,14 +452,14 @@ __global__ void __launch_bounds__(THREADS)
     int e = 0;
     for (int a = b * KEYS; a < min(b * KEYS + KEYS, n); ++a) e += cnt[a];
     for (int t = 0; t < tiles; ++t) l.tile_item[start + t] = k0 + b;
-    for (size_t slot = (size_t)start * WET + e; slot < (size_t)(start + tiles) * WET; ++slot)
+    for (size_t slot = (size_t)start * ET + e; slot < (size_t)(start + tiles) * ET; ++slot)
       edges[slot] = make_int4(PAD_KEY, 0, 0, 0);
   }
   const uint32_t lt = (1u << lane) - 1u;
   const int words = words_of(n);
   for (int a = warp; a < n; a += THREADS / 32) {
     const int b = a / KEYS;
-    size_t slot = (size_t)l.item_start[k0 + b] * WET;
+    size_t slot = (size_t)l.item_start[k0 + b] * ET;
     for (int a2 = b * KEYS; a2 < a; ++a2) slot += cnt[a2];
     for (int w = 0; w < words; ++w) {
       const uint32_t bits = key_bits<SOURCE_MAJOR>(s, n, a, w);
@@ -695,8 +705,8 @@ __global__ void __launch_bounds__(TEAMS2 * WG, 1)
 // A block (one warpgroup) takes CB channels c0 .. of h and CB filters q0 ..
 // of W (its type, one of NT); the blocks of a type split the tiles of the
 // source-major list evenly. Compiled at F = 256 only: K2 at F = 128 takes
-// csrc/cfconv_large.cu's kernel (ops/cuda/cfconv.py::route). Two blocks an
-// SM, the records and rows loaded by the threads.
+// cfconv_bwd_wgmma_kernel below. Two blocks an SM, the records and rows
+// loaded by the threads.
 template <int F_, int KG_>
 struct GradCfg {
   static constexpr int F = F_, KG = KG_;
@@ -943,22 +953,488 @@ __global__ void cfconv_dw_reduce_kernel(const float* __restrict__ partial, int m
   *dst = acc;
 }
 
+// ------------------------------------------------------------ K2 at F = 128
+// dx and the weight gradients from one pass of layer 1, all F channels of
+// h in one block. The products are turned around: a weight is the A
+// operand, loaded from one raw f32 copy in shared memory and split as it
+// is loaded (as cfconv.cu's mma.sync kernels do), and a tile's
+// activations are the B operand, split and K-major in shared memory. So
+// the block holds W1 and W2 once, raw (100 KB), where wgmma's B operand
+// would want W2 split and in both orientations (P2 contracts it over
+// channels, P3 over filters), and no channel of h, no message and no dW is
+// computed twice. Tiles are ET = 32 edges (every product's N, or K), so
+// that a tile's activations fit beside the weights. Two warpgroups, each
+// taking 64 rows (channels or filters: one wgmma M) of every product:
+// - P1^T  pre^T (c x e) = W1^T rbf^T: A = W1^T, B = the RBF (k = g);
+// - h = ssp(pre), split to P2's B (k = c) and P4's (k = e); pre is not
+//   kept: P3 takes sigmoid(pre) = 1 - exp(-h) / 2 from h;
+// - P2^T  W^T (o x e) = W2^T h^T, B = h; the message (W + b2) gate g_i at
+//   the accumulator's positions (g gathered there, o by e), split, is the
+//   A operand of P0 (dx rows of the item's keys, o x key) = message S with
+//   S the tile's one-hot selector of each edge's key (exact: two passes),
+//   summed over the item's tiles in the accumulator;
+// - dW^T = gate g_i x_j at the same positions: split, P4's A operand and,
+//   k = o, P3's B; P4^T dW2^T (o x c) += dW^T h over 32 channels at a time;
+// - P3^T  dh^T (c x e) = W2 dW^T; dpre^T = dh^T sigmoid(pre)^T, split, P5's
+//   A operand; P5^T dW1^T (c x g) += dpre^T rbf with the RBF again, k = e;
+// - db1 and db2 from the same values. P4 accumulates into the block's dW2
+//   partial (registers) on the tensor cores, so that it stays in flight
+//   while P3's weights load; each tile's P5 goes to an accumulator of its
+//   own, added to the block's dW1 partial (shared memory) on the CUDA cores;
+//   cfconv_bwd128_reduce_kernel sums the blocks' partials in block order.
+// Blocks take even runs of tiles: an item whose edges are many (with the
+// index cap a low-index atom is in nearly every list: up to 22 tiles at
+// N = 192) would leave runs cut at items 15% apart. A block writes the dx
+// rows of the items wholly in its run; of an item its run shares, its part
+// to one of two slots (0: an item begun before the run, 1: one that goes
+// on past it), and cfconv_bwd128_split_kernel sums an item's parts in
+// block order.
+template <int F_, int KG_>
+struct Bwd128Cfg {
+  static constexpr int F = F_, KG = KG_;
+  static constexpr int ET = 32;      // edges a tile
+  static constexpr int HALF = 64;    // rows a warpgroup takes (one wgmma M)
+  static constexpr int WS1 = F + 8;  // row stride of the raw W1: conflict-free A loads
+  static constexpr int WS2 = F + 4;  // and of the raw W2 (2-way for P2's A, none for P3's)
+  static constexpr int NK = 8;       // S's columns: the item's KEYS, padded to a wgmma N
+  static constexpr int XS = F + 8;   // row stride of the item's x rows
+  static constexpr int W1_WORDS = KG * WS1, W2_WORDS = F * WS2;
+  static constexpr int RBF_WORDS = 2 * KG * ET;  // the RBF, split: P1's B (k = g), P5's (k = e)
+  static constexpr int HE_WORDS = 2 * F * ET;    // h (P2's B, k = c), then dW (P3's B, k = o)
+  static constexpr int HC_WORDS = 2 * ET * F;    // h (P4's B, k = e)
+  static constexpr int S_WORDS = ET * NK;
+  static constexpr int RING = 2 * ET * 4;
+  static constexpr int P1_WORDS = F * KG;        // the dW1^T partial (c rows, g columns)
+  static constexpr int WORDS = W1_WORDS + W2_WORDS + RBF_WORDS + HE_WORDS + HC_WORDS + S_WORDS +
+                               RING + KEYS * XS + P1_WORDS;
+  static constexpr size_t SMEM = (size_t)WORDS * sizeof(float);
+  static constexpr int PARTIAL = F * F + KG * F + 2 * F;  // a block's dW2, dW1, db1, db2
+  static constexpr int SPLIT = 2 * KEYS * F;              // a block's two slots of shared items' dx
+  static_assert(SMEM <= MAX_SMEM, "shared memory of one block");
+  static_assert(F == TEAMS2 * HALF && KG == HALF && KEYS <= NK && ET == 32,
+                "two warpgroups of 64 rows; P5's N; the thread maps below");
+};
+
+// The inverse of kperm within a k-step.
+__host__ __device__ constexpr int kinv(int p) {
+  return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1);
+}
+
+// rbf_value on the special-function unit: exp(coeff diff^2) as
+// ex2.approx(coeff log2(e) diff^2), branch-free; within 3e-7 of the
+// accurate value where it matters (ex2.approx errs by 2^-22 of its result;
+// its argument's rounding shows only below 1e-20); ops/cuda/cfconv.py::
+// rbf_approx restates it.
+__device__ __forceinline__ float rbf_fast(int k, float d, int gs, float cutoff, float step,
+                                          float coeff) {
+  const float mu = k < gs / 2 ? step * k : cutoff - step * (gs - 1 - k);
+  const float diff = d - mu;
+  const float v = ex2_approx((coeff * LOG2E_F) * (diff * diff));
+  return k < gs ? v : 0.f;
+}
+
+// A node feature of type dtype (0 f32, 1 bf16, 2 f16), widened.
+__device__ __forceinline__ float load_feat1(const void* p, size_t i, int dtype) {
+  if (dtype == 1)
+    return __bfloat162float(__ushort_as_bfloat16(__ldg(static_cast<const unsigned short*>(p) + i)));
+  if (dtype == 2) return __half2float(__ushort_as_half(__ldg(static_cast<const unsigned short*>(p) + i)));
+  return __ldg(static_cast<const float*>(p) + i);
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// v, which the compiler may no longer see through: what is derived from a
+// loop-invariant value (a chain's per-k-step descriptors) is then made where
+// it is used, not hoisted out of the loop into registers, where it spilled.
+__device__ __forceinline__ uint64_t opaque(uint64_t v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+__device__ __forceinline__ const float* opaque(const float* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// acc (64 x 32) = A B in 3xTF32 over ks <= KS k-steps: A(m, k) = a[m sm + k
+// sk] (raw f32, split as loaded), m = row and row + 8 (row = this thread's
+// 16 w + g of the warpgroup's 64), B (split, K-major) at descriptors bb, bs
+// (+ 16 a k-step). Groups of GK k-steps, the next group's fragments loaded
+// while one runs; tail() runs once the last group is under way, before the
+// wait (a wgmma waits, as it starts, for every load in flight into
+// registers, so loads meant to hide behind a chain go there).
+template <int KS, int GK = 2, class Tail>
+__device__ __forceinline__ void weight_chain(float (&acc)[16], const float* a, int sm, int sk,
+                                             int row, uint64_t bb0, uint64_t bs0, int ks, int t4,
+                                             Tail&& tail) {
+  constexpr int NG = KS / GK;
+  uint32_t fb[2][GK][4], fs[2][GK][4];
+  const uint64_t bb = opaque(bb0), bs = opaque(bs0);
+  auto load = [&](int buf, int g) {
+#pragma unroll
+    for (int j = 0; j < GK; ++j) {
+      const int k = 8 * (GK * g + j) + t4;
+      const float* p = a + row * sm + k * sk;
+      split_tf32(p[0], fb[buf][j][0], fs[buf][j][0]);
+      split_tf32(p[8 * sm], fb[buf][j][1], fs[buf][j][1]);
+      split_tf32(p[4 * sk], fb[buf][j][2], fs[buf][j][2]);
+      split_tf32(p[8 * sm + 4 * sk], fb[buf][j][3], fs[buf][j][3]);
+    }
+  };
+  auto start = [&](int buf, int g) {
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < GK; ++j) {
+      const int s = GK * g + j;
+      if (s == 0) mma3<true>(acc, fb[buf][0], fs[buf][0], bb, bs);
+      else if (s < ks) mma3<false>(acc, fb[buf][j], fs[buf][j], bb + 16 * s, bs + 16 * s);
+    }
+    wg_commit();
+  };
+  load(0, 0);
+  start(0, 0);
+  if (NG > 1 && GK < ks) {
+    load(1, 1);
+    start(1, 1);
+  }
+#pragma unroll
+  for (int g = 2; g < NG; ++g) {
+    if (GK * g < ks) {
+      wg_wait<1>();  // group g - 2 is done with its buffer
+      load(g & 1, g);
+      start(g & 1, g);
+    }
+  }
+  tail();
+  wg_wait<0>();
+  fence_regs(acc);
+}
+
+template <int F, int KG>
+__global__ void __launch_bounds__(TEAMS2 * WG, 1)
+    cfconv_bwd_wgmma_kernel(const int4* __restrict__ edges, int* scratch, int G,
+                            const void* __restrict__ x, const void* __restrict__ gout, int dtype,
+                            const float* __restrict__ w1, const float* __restrict__ b1,
+                            const float* __restrict__ w2, const float* __restrict__ b2,
+                            float* __restrict__ dx, float* __restrict__ partial, int n, int gs,
+                            float cutoff) {
+  using C = Bwd128Cfg<F, KG>;
+  constexpr int ET = C::ET, WS1 = C::WS1, WS2 = C::WS2, XS = C::XS;
+  extern __shared__ __align__(128) float smem[];
+  float* w1r = smem;                 // W1[g][c], row stride WS1 (0 for g >= gs)
+  float* w2r = w1r + C::W1_WORDS;    // W2[c][o], row stride WS2
+  uint32_t* rbb = reinterpret_cast<uint32_t*>(w2r + C::W2_WORDS);  // the RBF
+  uint32_t* rbs = rbb + KG * ET;
+  uint32_t* heb = rbs + KG * ET;     // h (k = c), then dW (k = o)
+  uint32_t* hes = heb + F * ET;
+  uint32_t* hcb = hes + F * ET;      // h (k = e)
+  uint32_t* hcs = hcb + ET * F;
+  uint32_t* sel = hcs + ET * F;      // S: B(e, key), exact
+  int4* ring = reinterpret_cast<int4*>(sel + C::S_WORDS);
+  float* xs = reinterpret_cast<float*>(ring + 2 * ET);  // x_j of the item's keys, widened
+  float* p1s = xs + KEYS * XS;       // the dW1^T partial: [c][g]
+  const Lists l = lists_of(scratch, G, n);
+  for (int i = threadIdx.x; i < KG * F; i += blockDim.x) {
+    const int k = i / F, c = i % F;
+    w1r[k * WS1 + c] = k < gs ? __ldg(w1 + i) : 0.f;
+    p1s[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < F * F; i += blockDim.x) w2r[(i / F) * WS2 + i % F] = __ldg(w2 + i);
+
+  const int T = threadIdx.x, v = wg(), wt = T & (WG - 1), w = wt >> 5, lane = T & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = C::HALF * v + 16 * w + g8;  // this thread's rows (and + 8) of the 64-row products
+  const float step = cutoff / (gs - 1);
+  const float coeff = -0.5f / (step * step);
+  const uint64_t d_rb = bdesc(rbb, KG), d_rs = bdesc(rbs, KG);   // P1's B
+  const uint64_t d_pb = bdesc(rbb, ET), d_ps = bdesc(rbs, ET);   // P5's B
+  const uint64_t d_eb = bdesc(heb, F), d_es = bdesc(hes, F);     // P2's, P3's B
+  const uint64_t d_cb = bdesc(hcb, ET), d_cs = bdesc(hcs, ET);   // P4's B
+  const uint64_t d_sel = bdesc(sel, ET);
+  float dw2p[F / 32][16];  // the block's dW2^T partial: o rows, 32 channels a chunk
+#pragma unroll
+  for (int j = 0; j < F / 32; ++j) zero_acc(dw2p[j]);
+  float dxacc[4];          // dx rows of the item: o rows, key columns 2 t (+ 1)
+  zero_acc(dxacc);
+  float db1[2] = {0.f, 0.f}, db2[2] = {0.f, 0.f};  // rows r0 and r0 + 8, this thread's columns
+  const int T_ = total_tiles(l);
+  const Run run = {(int)((long long)blockIdx.x * T_ / gridDim.x),
+                   (int)((long long)(blockIdx.x + 1) * T_ / gridDim.x)};
+  float* split = partial + (size_t)gridDim.x * C::PARTIAL + (size_t)blockIdx.x * C::SPLIT;
+  int cur = -1, gidx = 0, key0 = 0;
+  auto put_dx = [&]() {  // the item's rows, or this run's part of them to a slot
+    const int start = l.item_start[cur], end = start + l.item_tiles[cur];
+    const bool whole = start >= run.lo && end <= run.hi;
+    float* slot = split + (start < run.lo ? 0 : KEYS * F);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int key = 2 * t4 + (q & 1), o = r0 + 8 * (q >> 1);
+      if (key >= KEYS) continue;
+      if (!whole) slot[key * F + o] = dxacc[q];
+      else if (key0 + key < n) dx[((size_t)gidx * n + key0 + key) * F + o] = dxacc[q];
+    }
+  };
+  auto fetch = [&](int stage, int t) {
+    if (T < ET) cp_async16(ring + stage * ET + T, edges + (size_t)t * ET + T);
+    cp_async_commit();
+  };
+  if (run.lo < run.hi) fetch(0, run.lo);
+  int next = run.lo < run.hi ? l.tile_item[run.lo] : -1;
+  for (int t = run.lo; t < run.hi; ++t) {
+    const int4* E = ring + ((t - run.lo) & 1) * ET;
+    cp_async_wait_all();
+    __syncthreads();  // tile t's records are in; every thread is done with tile t - 1
+    if (t + 1 < run.hi) fetch(((t - run.lo) & 1) ^ 1, t + 1);
+    const int item = next;
+    if (t + 1 < run.hi) next = l.tile_item[t + 1];
+    const bool fresh = item != cur;
+    float2 xv = make_float2(0.f, 0.f);  // a new item's x rows, stored after P1
+    if (fresh) {
+      if (cur >= 0) put_dx();
+      zero_acc(dxacc);
+      cur = item, gidx = item / l.per_graph, key0 = (item % l.per_graph) * KEYS;
+      const int key = T >> 6, col = 2 * (T & 63);
+      if (key0 + key < n) xv = load_feat2(x, ((size_t)gidx * n + key0 + key) * F + col, dtype);
+    }
+    // -- the RBF (P1's B: B(g, e) at bofs(e, g, KG)) and S (B(e, key), k permuted)
+    {
+      const int wq = T >> 5, e = 8 * (wq >> 1) + g8;  // a warp writes whole core matrices
+      const float d = __int_as_float(E[e].z);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int g = 4 * (8 * (wq & 1) + j) + t4;
+        uint32_t big, small;
+        split_tf32(rbf_fast(g, d, gs, cutoff, step, coeff), big, small);
+        rbb[bofs(e, g, KG)] = big;
+        rbs[bofs(e, g, KG)] = small;
+      }
+      const int key = T >> 5, es = T & 31;
+      sel[bofs(key, kperm(es), ET)] = __float_as_uint(E[es].x - key0 == key ? 1.f : 0.f);
+    }
+    fence_async_smem();
+    __syncthreads();
+    // -- P1^T: pre^T = W1^T rbf^T + b1 (this warpgroup's 64 channels); h
+    {
+      float acc[16];
+      weight_chain<KG / 8>(acc, w1r, 1, WS1, r0, d_rb, d_rs, (gs + 7) / 8, t4, [] {});
+      const float* b1r = opaque(b1) + r0;  // loaded here, not held across the loop
+      const float b1a = __ldg(b1r), b1b = __ldg(b1r + 8);
+      if (fresh) *reinterpret_cast<float2*>(xs + (T >> 6) * XS + 2 * (T & 63)) = xv;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = r0 + 8 * ((i >> 1) & 1), e = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        uint32_t big, small;
+        split_tf32(ssp_fast(acc[i] + (((i >> 1) & 1) ? b1b : b1a)), big, small);
+        heb[bofs(e, c, F)] = big;
+        hes[bofs(e, c, F)] = small;
+        hcb[bofs(c, kperm(e), ET)] = big;
+        hcs[bofs(c, kperm(e), ET)] = small;
+      }
+    }
+    fence_async_smem();
+    __syncthreads();  // h, both layouts, all channels
+    // -- P2^T: W^T = W2^T h^T (this warpgroup's 64 filters); the tile's g_i at
+    // this thread's (filter, edge) positions, gathered behind its last k-steps
+    float gq[16];
+    {
+      float acc[16];
+      weight_chain<F / 8>(acc, w2r, 1, WS2, r0, d_eb, d_es, F / 8, t4, [&] {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int o = r0 + 8 * ((i >> 1) & 1), e = 8 * (i >> 2) + 2 * t4 + (i & 1);
+          gq[i] = load_feat1(gout, ((size_t)gidx * n + E[e].y) * F + o, dtype);
+        }
+      });
+      // the message (W + b2) gate g_i, split: P0's A operand
+      const float* b2r = opaque(b2) + r0;
+      const float b2a = __ldg(b2r), b2b = __ldg(b2r + 8);
+      uint32_t mb[4][4], ms[4][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int e = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const float gate = __int_as_float(E[e].w);
+        split_tf32((acc[i] + (((i >> 1) & 1) ? b2b : b2a)) * gate * gq[i], mb[i >> 2][afrag_slot(i & 3)],
+                   ms[i >> 2][afrag_slot(i & 3)]);
+      }
+      // -- P0: the item's dx rows += message S (S exact: the small and big parts)
+      const uint64_t ds = opaque(d_sel);
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < ET / 8; ++s) {
+        wgmma_rs(dxacc, ms[s], ds + 16 * s);
+        wgmma_rs(dxacc, mb[s], ds + 16 * s);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dxacc);
+    }
+    __syncthreads();  // both warpgroups' P2 are done with h (k = c)
+    // -- dW^T = gate g_i x_j: P4's A operand, and P3's B (k = o) in h's place;
+    // the RBF again, k = e, for P5
+    uint32_t wb[4][4], wsm[4][4];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int o = r0 + 8 * ((i >> 1) & 1), e = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int4 r = E[e];
+      const float gg = __int_as_float(r.w) * gq[i];
+      const float dw = gg * xs[min(r.x - key0, KEYS - 1) * XS + o];
+      db2[(i >> 1) & 1] += dw;
+      uint32_t& big = wb[i >> 2][afrag_slot(i & 3)];
+      uint32_t& small = wsm[i >> 2][afrag_slot(i & 3)];
+      split_tf32(dw, big, small);
+      heb[bofs(e, o, F)] = big;
+      hes[bofs(e, o, F)] = small;
+    }
+    {
+      const int wq = T >> 5;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // core matrix (g group wq, k group j): g = 8 wq + g8, k = 4 j + t4
+        const int g = 8 * wq + g8, pk = 4 * j + t4;
+        uint32_t big, small;
+        split_tf32(rbf_fast(g, __int_as_float(E[kinv(pk)].z), gs, cutoff, step, coeff), big, small);
+        rbb[bofs(g, pk, ET)] = big;
+        rbs[bofs(g, pk, ET)] = small;
+      }
+    }
+    fence_async_smem();
+    __syncthreads();  // dW (k = o) and the RBF (k = e), all rows
+    // -- P4^T: dW2^T (this warpgroup's 64 filters x 32 channels a chunk) += dW^T h,
+    // straight into the block's partial, in flight while P3's weights load
+    {
+      const uint64_t ab = opaque(d_cb), as = opaque(d_cs);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < F / 32; ++j)
+#pragma unroll
+        for (int s = 0; s < ET / 8; ++s)  // h's rows (channels) 32 j .., k-step s
+          mma3<false>(dw2p[j], wb[s], wsm[s], ab + 32 * j * ET / 4 + 16 * s,
+                      as + 32 * j * ET / 4 + 16 * s);
+      wg_commit();
+    }
+    // -- P3^T: dh^T = W2 dW^T (this warpgroup's 64 channels); dpre^T = dh^T
+    // ssp'(pre)^T, ssp'(pre) = sigmoid(pre) = 1 - exp(-h) / 2 from h (k = e),
+    // so that no register holds it across the tile (absolute error about
+    // 4e-7 where it cancels, at pre << 0; ops/cuda/cfconv.py::
+    // sigmoid_from_ssp restates it)
+    uint32_t pb[4][4], ps[4][4];
+    {
+      float acc[16];
+      weight_chain<F / 8>(acc, w2r, WS2, 1, r0, d_eb, d_es, F / 8, t4, [] {});
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = r0 + 8 * ((i >> 1) & 1), e = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int o = bofs(c, kperm(e), ET);
+        const float h = __uint_as_float(hcb[o]) + __uint_as_float(hcs[o]);
+        const float dp = acc[i] * (1.f - 0.5f * ex2_approx(-h * LOG2E_F));
+        db1[(i >> 1) & 1] += dp;
+        split_tf32(dp, pb[i >> 2][afrag_slot(i & 3)], ps[i >> 2][afrag_slot(i & 3)]);
+      }
+    }
+    // -- P5^T: dW1^T (this warpgroup's 64 channels x KG Gaussians) += dpre^T rbf
+    {
+      float acc[32];
+      const uint64_t bb = opaque(d_pb), bs = opaque(d_ps);
+      wg_fence();
+      mma3<true>(acc, pb[0], ps[0], bb, bs);
+#pragma unroll
+      for (int s = 1; s < ET / 8; ++s) mma3<false>(acc, pb[s], ps[s], bb + 16 * s, bs + 16 * s);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        p1s[(r0 + 8 * ((i >> 1) & 1)) * KG + 8 * (i >> 2) + 2 * t4 + (i & 1)] += acc[i];
+    }
+  }
+  if (cur >= 0) put_dx();
+
+  // the block's partials: dW2[c][o], dW1[g][c], db1[c], db2[o]
+  float* out = partial + (size_t)blockIdx.x * C::PARTIAL;
+#pragma unroll
+  for (int j = 0; j < F / 32; ++j)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      out[(32 * j + 8 * (i >> 2) + 2 * t4 + (i & 1)) * F + r0 + 8 * ((i >> 1) & 1)] = dw2p[j][i];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float a = db1[h], b = db2[h];
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+    b += __shfl_xor_sync(0xffffffffu, b, 2);
+    if (t4 == 0) {
+      out[F * F + KG * F + r0 + 8 * h] = a;
+      out[F * F + KG * F + F + r0 + 8 * h] = b;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < KG * F; i += blockDim.x) {
+    const int g = i / F, c = i % F;
+    out[F * F + i] = p1s[c * KG + g];
+  }
+}
+
+// dx rows of the items that runs share: block p of this kernel takes the
+// item that begins in run p and goes on past it, and sums its parts in
+// block order (run p's slot 1, the later runs' slot 0). KEYS x F threads.
+template <int F, int KG>
+__global__ void cfconv_bwd128_split_kernel(const float* __restrict__ partial, int* scratch, int G,
+                                           int n, float* __restrict__ dx) {
+  using C = Bwd128Cfg<F, KG>;
+  const Lists l = lists_of(scratch, G, n);
+  const int T = total_tiles(l), P = gridDim.x, p = blockIdx.x;
+  auto lo = [&](int q) { return (int)((long long)q * T / P); };
+  const int hi = lo(p + 1);
+  if (lo(p) >= hi) return;
+  const int item = l.tile_item[hi - 1], start = l.item_start[item], end = start + l.item_tiles[item];
+  if (end <= hi || start < lo(p)) return;  // not split, or begun in an earlier run
+  const float* slots = partial + (size_t)P * C::PARTIAL;
+  const int key = threadIdx.x / F, o = threadIdx.x % F;
+  float acc = slots[(size_t)p * C::SPLIT + KEYS * F + key * F + o];
+  for (int q = p + 1; q < P && lo(q) < end; ++q)
+    if (lo(q) < lo(q + 1)) acc += slots[(size_t)q * C::SPLIT + key * F + o];
+  const int g = item / l.per_graph, k = (item % l.per_graph) * KEYS + key;
+  if (k < n) dx[((size_t)g * n + k) * F + o] = acc;
+}
+
+// Sums the blocks' partials of K2 at F = 128 in block order. One thread an
+// element of dW2 (F x F), dW1 (gs x F), db1 and db2.
+template <int F, int KG>
+__global__ void cfconv_bwd128_reduce_kernel(const float* __restrict__ partial, int blocks, int gs,
+                                            float* __restrict__ dw1, float* __restrict__ db1,
+                                            float* __restrict__ dw2, float* __restrict__ db2) {
+  using C = Bwd128Cfg<F, KG>;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= F * F + gs * F + 2 * F) return;
+  int at;
+  float* dst;
+  if (idx < F * F) at = idx, dst = dw2 + idx;
+  else if (idx < F * F + gs * F) at = idx, dst = dw1 + idx - F * F;
+  else if (idx < F * F + gs * F + F) at = idx - gs * F + KG * F, dst = db1 + idx - F * F - gs * F;
+  else at = idx - gs * F + KG * F, dst = db2 + idx - F * F - gs * F - F;
+  float acc = 0.f;
+  for (int b = 0; b < blocks; ++b) acc += partial[(size_t)b * C::PARTIAL + at];
+  *dst = acc;
+}
+
 // ------------------------------------------------------------ launches
-template <bool SOURCE_MAJOR>
+template <bool SOURCE_MAJOR, int ET = WET>
 int build_edges_wg(const float* pos, const float* mask, int G, int N, float cutoff, int cap,
                    int cap_mode, int* scratch, int4* edges, float* gstate, cudaStream_t st) {
   const bool smem = graph_in_smem(N);
   const size_t bytes = smem ? graph_floats(N) * sizeof(float) : 0;
   float* state = smem ? nullptr : gstate;
-  int code = set_smem(cfconv_edge_count_kernel<SOURCE_MAJOR>, GRAPH_SMEM);
+  int code = set_smem(cfconv_edge_count_kernel<SOURCE_MAJOR, ET>, GRAPH_SMEM);
   if (code != 0) return code;
-  cfconv_edge_count_kernel<SOURCE_MAJOR><<<G, THREADS, bytes, st>>>(pos, mask, N, cutoff, cap,
-                                                                    cap_mode, state, scratch, G);
+  cfconv_edge_count_kernel<SOURCE_MAJOR, ET><<<G, THREADS, bytes, st>>>(
+      pos, mask, N, cutoff, cap, cap_mode, state, scratch, G);
   cudaError_t err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((code = set_smem(cfconv_edge_write_kernel<SOURCE_MAJOR>, GRAPH_SMEM)) != 0) return code;
-  cfconv_edge_write_kernel<SOURCE_MAJOR><<<G, THREADS, bytes, st>>>(pos, mask, N, cutoff, state,
-                                                                    scratch, G, edges);
+  if ((code = set_smem(cfconv_edge_write_kernel<SOURCE_MAJOR, ET>, GRAPH_SMEM)) != 0) return code;
+  cfconv_edge_write_kernel<SOURCE_MAJOR, ET><<<G, THREADS, bytes, st>>>(pos, mask, N, cutoff,
+                                                                        state, scratch, G, edges);
   return (int)cudaGetLastError();
 }
 
@@ -1021,6 +1497,36 @@ int bwd_wg(const float* pos, const float* mask, const void* x, const float* w1, 
   return round_out(acc, count, dx, dtype, st);
 }
 
+// K2 at F = 128: dx summed in f32 (dx itself, or dx32 for bf16 and f16),
+// zeroed first (an item without edges writes no rows), the edge lists in
+// tiles of ET, the kernel, the reduce, then dx rounded.
+template <int F, int KG>
+int bwd128_wg(const float* pos, const float* mask, const void* x, const float* w1,
+              const float* b1, const float* w2, const float* b2, const void* gout, void* dx,
+              float* dx32, float* dw1, float* db1, float* dw2, float* db2, float* partial,
+              int* scratch, int4* edges, float* gstate, int G, int N, int Gs, float cutoff,
+              int cap, int cap_mode, int blocks, int dtype, cudaStream_t st) {
+  using C = Bwd128Cfg<F, KG>;
+  float* acc = dtype == 0 ? static_cast<float*>(dx) : dx32;
+  const size_t count = (size_t)G * N * F;
+  cudaError_t err;
+  if ((err = cudaMemsetAsync(acc, 0, count * sizeof(float), st)) != cudaSuccess) return (int)err;
+  int code = build_edges_wg<true, C::ET>(pos, mask, G, N, cutoff, cap, cap_mode, scratch, edges,
+                                         gstate, st);
+  if (code != 0) return code;
+  if ((code = set_smem(cfconv_bwd_wgmma_kernel<F, KG>, C::SMEM)) != 0) return code;
+  cfconv_bwd_wgmma_kernel<F, KG><<<blocks, TEAMS2 * WG, C::SMEM, st>>>(
+      edges, scratch, G, x, gout, dtype, w1, b1, w2, b2, acc, partial, N, Gs, cutoff);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cfconv_bwd128_split_kernel<F, KG><<<blocks, KEYS * F, 0, st>>>(partial, scratch, G, N, acc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int total = F * F + Gs * F + 2 * F;
+  cfconv_bwd128_reduce_kernel<F, KG><<<(total + 255) / 256, 256, 0, st>>>(partial, blocks, Gs, dw1,
+                                                                          db1, dw2, db2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return round_out(acc, count, dx, dtype, st);
+}
+
 // The plan of one call: its work items, a bound on its edge tiles (a row
 // keeps at most cap + 1 neighbours under the index rule, cap under the
 // nearest, N - 1 at most; each item's last tile adds at most one), the
@@ -1028,38 +1534,36 @@ int bwd_wg(const float* pos, const float* mask, const void* x, const float* w1, 
 // one by tile), the edge records (4 ints a slot), a graph's state scratch
 // where 5 N floats exceed GRAPH_SMEM (G 5 N floats, else 0), the grids
 // (the message kernel's about one block an SM, a multiple of its output
-// slabs; the weight-gradient kernel's BLOCKS an SM, a multiple of its
-// block types) and the weight-gradient partials. The wrapper sizes its
-// buffers by it (cfconv_wgmma_plan) and the launches cut their grids by it.
+// slabs; K2's weight-gradient kernel at F = 256 BLOCKS an SM, a multiple
+// of its block types; K2's kernel at F = 128, as dw_blocks, one block an
+// SM) and the weight-gradient partials (at F = 128, with its blocks' slots
+// of shared items' dx rows). Tiles are of WET edges, and of
+// Bwd128Cfg::ET for K2 at F = 128. The wrapper sizes its buffers by it
+// (cfconv_wgmma_plan) and the launches cut their grids by it.
 struct Plan {
   long long items, tiles, scratch_ints, edge_ints, state_floats, msg_blocks, dw_blocks,
       partial_floats;
 };
 
-template <class M, class C>
-Plan plan_for(int G, int N, int cap, int cap_mode, int sms, bool bwd) {
-  Plan p;
+// K1 and K2 at both widths: the compiled configurations.
+bool plan_of(int G, int N, int F, int Gs, int cap, int cap_mode, int sms, bool bwd, Plan& p) {
+  if (!compiled(F, Gs) || G < 1 || N < 1 || cap < 0 || sms < 1 || cap_mode < 0 || cap_mode > 1)
+    return false;
+  using B = Bwd128Cfg<128, 64>;
+  const bool fused = bwd && F == 128;  // K2 at F = 128: one kernel, tiles of B::ET
+  const int et = fused ? B::ET : WET;
   const long long per_graph = (N + KEYS - 1) / KEYS;
   const long long per_row = std::max(0, std::min(cap + (cap_mode == 0), N - 1));
   p.items = G * per_graph;
-  p.tiles = (long long)G * N * per_row / WET + p.items + 1;
+  p.tiles = (long long)G * N * per_row / et + p.items + 1;
   p.scratch_ints = (long long)G * N * words_of(N) + (long long)G * N + 2 * p.items + p.tiles;
-  p.edge_ints = 4LL * WET * p.tiles;
+  p.edge_ints = 4LL * et * p.tiles;
   p.state_floats = graph_in_smem(N) ? 0 : (long long)G * graph_floats(N);
-  p.msg_blocks = M::NS * std::max(1, sms / M::NS);
-  p.dw_blocks = bwd ? C::NT * std::max(1, sms * C::BLOCKS / C::NT) : 0;
-  p.partial_floats = p.dw_blocks * C::PARTIAL;
-  return p;
-}
-
-// K1 at both widths, K2 at F = 256 (bwd): the compiled configurations.
-bool plan_of(int G, int N, int F, int Gs, int cap, int cap_mode, int sms, bool bwd, Plan& p) {
-  if (!compiled(F, Gs) || (bwd && F != 256) || G < 1 || N < 1 || cap < 0 || sms < 1 ||
-      cap_mode < 0 || cap_mode > 1)
-    return false;
+  const int slabs = F == 128 ? MsgCfg<128, 64>::NS : MsgCfg<256, 16>::NS;
+  p.msg_blocks = fused ? 0 : slabs * std::max(1, sms / slabs);
   using C = GradCfg<256, 16>;
-  p = F == 128 ? plan_for<MsgCfg<128, 64>, C>(G, N, cap, cap_mode, sms, false)
-               : plan_for<MsgCfg<256, 16>, C>(G, N, cap, cap_mode, sms, bwd);
+  p.dw_blocks = fused ? sms : bwd ? C::NT * std::max(1, sms * C::BLOCKS / C::NT) : 0;
+  p.partial_floats = p.dw_blocks * (fused ? B::PARTIAL + B::SPLIT : C::PARTIAL);
   return true;
 }
 
@@ -1068,10 +1572,10 @@ bool plan_of(int G, int N, int F, int Gs, int cap, int cap_mode, int sms, bool b
 extern "C" {
 
 // The plan of a call (Plan's eight counts, in its order, into out): K1
-// (bwd 0) at F = 128 or 256, or K2 (bwd 1) at F = 256, for G graphs of N
-// atoms, Gs Gaussians, the neighbour cap and its mode, on a card of `sms`
-// SMs. Returns 0, or cudaErrorInvalidValue for a configuration the route
-// does not take.
+// (bwd 0) or K2 (bwd 1) at F = 128 or 256, for G graphs of N atoms, Gs
+// Gaussians, the neighbour cap and its mode, on a card of `sms` SMs.
+// Returns 0, or cudaErrorInvalidValue for a configuration the route does
+// not take.
 int cfconv_wgmma_plan(int G, int N, int F, int Gs, int cap, int cap_mode, int sms, int bwd,
                       long long* out) {
   Plan p;
@@ -1104,10 +1608,10 @@ int cfconv_fwd_wgmma(const float* pos, const float* mask, const void* x, const f
                          cutoff, cap, cap_mode, blocks, dtype, st);
 }
 
-// K2 above 128 atoms at F = 256: cfconv_bwd's arguments with an f32
-// (G, N, F) scratch dx32 for the bf16 and f16 variants (else null), the
-// partials and K1's scratches, each of the size cfconv_wgmma_plan(G, N,
-// 256, Gs, cap, cap_mode, sms, 1) gives; the grids are the plan's.
+// K2 above 128 atoms: cfconv_bwd's arguments with an f32 (G, N, F)
+// scratch dx32 for the bf16 and f16 variants (else null), the partials and
+// K1's scratches, each of the size cfconv_wgmma_plan(G, N, F, Gs, cap,
+// cap_mode, sms, 1) gives; the grids are the plan's.
 int cfconv_bwd_wgmma(const float* pos, const float* mask, const void* x, const float* w1,
                      const float* b1, const float* w2, const float* b2, const void* gout, void* dx,
                      float* dx32, float* dw1, float* db1, float* dw2, float* db2, float* partial,
@@ -1117,10 +1621,15 @@ int cfconv_bwd_wgmma(const float* pos, const float* mask, const void* x, const f
   if (!plan_of(G, N, F, Gs, cap, cap_mode, sms, true, p) || !valid_modes(dtype, cap_mode) ||
       (p.state_floats > 0 && gstate == nullptr))
     return (int)cudaErrorInvalidValue;
+  int4* e = reinterpret_cast<int4*>(edges);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F == 128)
+    return bwd128_wg<128, 64>(pos, mask, x, w1, b1, w2, b2, gout, dx, dx32, dw1, db1, dw2, db2,
+                              partial, scratch, e, gstate, G, N, Gs, cutoff, cap, cap_mode,
+                              (int)p.dw_blocks, dtype, st);
   return bwd_wg<256, 16>(pos, mask, x, w1, b1, w2, b2, gout, dx, dx32, dw1, db1, dw2, db2, partial,
-                         scratch, reinterpret_cast<int4*>(edges), gstate, G, N, Gs, cutoff, cap,
-                         cap_mode, (int)p.msg_blocks, (int)p.dw_blocks, dtype,
-                         (cudaStream_t)stream);
+                         scratch, e, gstate, G, N, Gs, cutoff, cap, cap_mode, (int)p.msg_blocks,
+                         (int)p.dw_blocks, dtype, st);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ from conan_fgw_tpu_torch.utils.filelock import locked
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cfconv.cu", "cfconv_wgmma.cu", "cfconv_large.cu", "fgw.cu", "fgw_team.cu")
+SOURCES = ("cfconv.cu", "cfconv_wgmma.cu", "fgw.cu", "fgw_team.cu")
 # headers the sources include: their bytes go into the library's hash too
 HEADERS = ("wgmma_tf32.cuh",)
 NVCC_FLAGS = (
@@ -48,8 +48,6 @@ SIGNATURES = {
     "cfconv_fwd_wgmma": (_I, [_P] * 12 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "cfconv_bwd_wgmma": (_I, [_P] * 18 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "cfconv_wgmma_plan": (_I, [_I] * 8 + [_P]),
-    "cfconv_bwd_large": (_I, [_P] * 17 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
-    "cfconv_large_scratch_floats": (_Z, [_I, _I, _I]),
     "fgw_couplings": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),
     "fgw_smem": (_Z, [_I, _I]),
     "fgw_couplings_large": (_I, [_P] * 10 + [_I, _I, _I, _F, _F, _I, _F, _I, _F, _P]),

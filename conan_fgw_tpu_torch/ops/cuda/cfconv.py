@@ -4,17 +4,16 @@ Replaces ``conan_fgw_tpu/ops/pallas/cfconv.py::fused_cfconv`` (the Pallas
 ``_kernel`` of ``_fused_fwd_impl`` and ``_bwd_kernel`` of
 ``_fused_bwd_impl``). The kernels live in ``csrc/cfconv.cu``; its header
 says what bounds them on this card and how the design answers it. Graphs
-above ``LARGEST_TEMPLATE`` (128) atoms take one of two routes, for any N
-(``route``): K1 at both widths and K2 at F = 256 take
-``csrc/cfconv_wgmma.cu``'s (edge lists built once a call in whole tiles of
-64 edges, the filter MLP's products on warpgroup ``wgmma`` in 3xTF32 with
-the weights split once as they are staged, K2 as a dx kernel, K1's body
-over the source-major list, and a weight-gradient kernel; its header has
-the design; ``wgmma_plan`` asks the library for a call's grids and
-buffers), K2 at F = 128 ``csrc/cfconv_large.cu``'s (``cfconv.cu``'s
-pipeline with the graph's state sized at run time), which the wgmma
-route's K2 did not beat at that width. Their launches count under their
-own names (``kernel_name(..., large=True)``).
+above ``LARGEST_TEMPLATE`` (128) atoms take ``csrc/cfconv_wgmma.cu``'s
+route, for any N (``route``): edge lists built once a call in whole tiles,
+the filter MLP's products on warpgroup ``wgmma`` in 3xTF32; K1 and K2 at
+F = 256 with the weights split once as they are staged (K2 as a dx kernel,
+K1's body over the source-major list, and a weight-gradient kernel), K2 at
+F = 128 as one kernel that takes dx and the weight gradients from one pass
+of layer 1, the weights the products' A operand split as they are loaded
+and the tile's activations the B operand; its header has the design;
+``wgmma_plan`` asks the library for a call's grids and buffers. Their
+launches count under their own names (``kernel_name(..., large=True)``).
 
 ``cfconv(pos, mask, x, w1, b1, w2, b2, ...)`` computes per conformer graph
 ``m_i = sum_j W(d_ij) gate_ij x_j`` with the filter MLP ``W = ssp(rbf @ w1 +
@@ -211,11 +210,13 @@ def cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=
 WG_PAD_KEY = 2**31 - 1  # the key of a padding record
 
 
-def wgmma_edge_tiles(pos, mask, cutoff, max_neighbors, source_major=False, cap_mode="index"):
+def wgmma_edge_tiles(pos, mask, cutoff, max_neighbors, source_major=False, cap_mode="index",
+                     tile=WG_EDGES):
     """csrc/cfconv_wgmma.cu's edge tiles, as its edge kernels write them:
     ``(key, other, dist, gate, tile_item, item_start, item_tiles)``, the
-    first four ``(T, WG_EDGES)``. The work items are runs of ``WG_KEYS``
-    keys of a graph in graph-major order (keys are K1's targets i, or for
+    first four ``(T, tile)`` (``WG_EDGES``, or K2 at F = 128's
+    ``WG_BWD128_EDGES``). The work items are runs of ``WG_KEYS`` keys of a
+    graph in graph-major order (keys are K1's targets i, or for
     ``source_major`` K2's sources j), each item's edges in ``edge_list``'s
     order in whole tiles, its last tile padded with records of key
     ``WG_PAD_KEY``, other 0 and gate 0."""
@@ -227,17 +228,17 @@ def wgmma_edge_tiles(pos, mask, cutoff, max_neighbors, source_major=False, cap_m
     per_graph = -(-N // WG_KEYS)
     item = g * per_graph + torch.div(key, WG_KEYS, rounding_mode="floor")
     counts = torch.bincount(item, minlength=G * per_graph)
-    item_tiles = -(-counts // WG_EDGES)
+    item_tiles = -(-counts // tile)
     item_start = torch.cumsum(item_tiles, 0) - item_tiles
     T = int(item_tiles.sum())
     first = torch.cumsum(counts, 0) - counts  # each item's first edge in the list
-    slot = item_start[item] * WG_EDGES + torch.arange(len(item)) - first[item]
-    keys = torch.full((T * WG_EDGES,), WG_PAD_KEY, dtype=torch.int64)
-    others = torch.zeros(T * WG_EDGES, dtype=torch.int64)
-    dist, gates = torch.zeros(T * WG_EDGES), torch.zeros(T * WG_EDGES)
+    slot = item_start[item] * tile + torch.arange(len(item)) - first[item]
+    keys = torch.full((T * tile,), WG_PAD_KEY, dtype=torch.int64)
+    others = torch.zeros(T * tile, dtype=torch.int64)
+    dist, gates = torch.zeros(T * tile), torch.zeros(T * tile)
     keys[slot], others[slot], dist[slot], gates[slot] = key, other, d, gate
     tile_item = torch.repeat_interleave(torch.arange(G * per_graph), item_tiles)
-    return (*(t.view(T, WG_EDGES) for t in (keys, others, dist, gates)), tile_item, item_start,
+    return (*(t.view(T, tile) for t in (keys, others, dist, gates)), tile_item, item_start,
             item_tiles)
 
 
@@ -251,6 +252,21 @@ LOG2E_F = torch.tensor(1.44269504088896340736, dtype=torch.float32)
 LOG2_F = torch.tensor(0.69314718055994530942, dtype=torch.float32)
 
 
+def rbf_approx(d: torch.Tensor, num_gaussians: int, cutoff: float) -> torch.Tensor:
+    """K2 at F = 128's Gaussian RBF in f32: ``2^((coeff log2 e) (d - mu_k)^2)``
+    with the kernels' centres (``mu_k = k step`` below the middle, ``cutoff -
+    (Gs - 1 - k) step`` above it, as ``torch.linspace`` places them) and
+    ``coeff = -0.5 / step^2`` (the kernel's ex2.approx errs by at most 2^-22
+    of its result)."""
+    step = torch.tensor(cutoff / (num_gaussians - 1), dtype=torch.float32)
+    coeff = -0.5 / (step * step)
+    k = torch.arange(num_gaussians)
+    mu = torch.where(k < num_gaussians // 2, step * k,
+                     cutoff - step * (num_gaussians - 1 - k)).to(torch.float32)
+    diff = d[..., None] - mu
+    return torch.exp2((coeff * LOG2E_F) * (diff * diff))
+
+
 def ssp_approx(pre: torch.Tensor) -> torch.Tensor:
     """csrc/cfconv_wgmma.cu's softplus(x) - log 2 in f32: ``max(x, 0) +
     (log2(1 + t) - 1) ln 2`` with ``t = 2^(-|x| log2 e)``, each step rounded
@@ -260,11 +276,110 @@ def ssp_approx(pre: torch.Tensor) -> torch.Tensor:
     return pre.clamp(min=0) + (torch.log2(1 + t) - 1) * LOG2_F
 
 
+def sigmoid_from_ssp(h: torch.Tensor) -> torch.Tensor:
+    """K2 at F = 128's sigmoid (ssp'), from ``h = ssp(pre)`` as its split
+    parts hold it: ``sigmoid(pre) = 1 - 2^(-h log2 e) / 2`` in f32 (the
+    kernel's ex2.approx errs by at most 2^-22 of its result); where it
+    cancels, at ``pre << 0``, its error is absolute, near 4e-7."""
+    big = round_bits(h, 13)
+    return 1 - 0.5 * torch.exp2(-(big + round_bits(h - big, 13)) * LOG2E_F)
+
+
 # csrc/cfconv_wgmma.cu's split of the work: K1's output slabs by width,
-# and the weight-gradient kernel's (K2 at F = 256) block types and blocks
-# an SM
+# the weight-gradient kernel's (K2 at F = 256) block types and blocks an
+# SM, and K2 at F = 128's edges a tile (one block an SM)
 WG_SLABS = {128: 1, 256: 4}
 WG_TYPES, WG_DW_PER_SM = 16, 2
+WG_BWD128_EDGES = 32
+
+
+def _split2(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as its two TF32 parts add up (big + small, each rounded)."""
+    big = round_bits(t, 13)
+    return big + round_bits(t - big, 13)
+
+
+def _bwd128_emulated(pos, mask, x, w1, b1, w2, b2, gout, cutoff, max_neighbors, cap_mode, sms,
+                     mm):
+    """K2 at F = 128 above 128 atoms as ``cfconv_bwd_wgmma_kernel`` computes
+    it: tiles of ``WG_BWD128_EDGES`` source-major edges, ``sms`` blocks on
+    even runs of tiles; per tile ``rbf_approx``, layer 1 once (``pre``,
+    ``ssp_approx``, ``sigmoid_from_ssp``), the filter W and its message
+    (W + b2) gate g_i in its two TF32 parts summed by key (the kernel's exact
+    key selector) over an item's tiles in a run; an item wholly in a run
+    written as it is, an item runs share summed from its parts in block
+    order (the kernel's slots and split kernel); dW = (gate g_i) x_j, dh,
+    dpre; the tile's P4 (dW^T h) and P5 (rbf^T dpre) added to the block's
+    partials in tile order, the blocks' partials summed in block order."""
+    G, N, F = x.shape
+    Gs = w1.shape[0]
+    key, other, d, gate, tile_item, item_start, item_tiles = wgmma_edge_tiles(
+        pos, mask, cutoff, max_neighbors, True, cap_mode, WG_BWD128_EDGES)
+    graph = torch.div(tile_item, -(-N // WG_KEYS), rounding_mode="floor")[:, None]
+    real = (key != WG_PAD_KEY).view(-1)
+    rows = (graph * N + key.clamp(max=N - 1)).view(-1)
+    g_i = gout.reshape(G * N, F)[(graph * N + other).view(-1)].view(*key.shape, F)
+    dwf = (gate[..., None] * g_i) * x.reshape(G * N, F)[rows].view(*key.shape, F)
+    rbf = rbf_approx(d, Gs, cutoff)
+    h = ssp_approx(mm(rbf, w1) + b1)
+    msg = ((mm(h, w2) + b2) * gate[..., None]) * g_i
+    # per tile, the message's two parts summed by the item's key (KEYS of them)
+    per_graph = -(-N // WG_KEYS)
+    key0 = (tile_item % per_graph)[:, None] * WG_KEYS
+    select = torch.nn.functional.one_hot((key - key0).clamp(0, WG_KEYS), WG_KEYS + 1)[..., :WG_KEYS]
+    tile_rows = torch.einsum("tek,tef->tkf", select.float(), _split2(msg))
+    T = key.shape[0]
+    runs = [range(p * T // sms, (p + 1) * T // sms) for p in range(sms)]
+    dx = torch.zeros(G * N, F)
+    slots = torch.zeros(sms, 2, WG_KEYS, F)
+
+    def put(item, part):
+        k = (item % per_graph) * WG_KEYS + torch.arange(WG_KEYS)
+        keep = k < N
+        dx[(item // per_graph) * N + k[keep]] = part[keep]
+
+    for p, run in enumerate(runs):
+        t = run.start
+        while t < run.stop:  # the run's items, each its tiles in this run
+            item = int(tile_item[t])
+            start, end = int(item_start[item]), int(item_start[item] + item_tiles[item])
+            part = torch.zeros(WG_KEYS, F)
+            for u in range(t, min(end, run.stop)):
+                part += tile_rows[u]
+            if start >= run.start and end <= run.stop:
+                put(item, part)
+            else:
+                slots[p, 0 if start < run.start else 1] = part
+            t = min(end, run.stop)
+    for p, run in enumerate(runs):  # an item runs share, from the run it begins in
+        if not len(run):
+            continue
+        item = int(tile_item[run.stop - 1])
+        start, end = int(item_start[item]), int(item_start[item] + item_tiles[item])
+        if end <= run.stop or start < run.start:
+            continue
+        part = slots[p, 1].clone()
+        for q in range(p + 1, sms):
+            if runs[q].start >= end:
+                break
+            if len(runs[q]):
+                part += slots[q, 0]
+        put(item, part)
+    dpre = mm(dwf, w2.t()) * sigmoid_from_ssp(h)
+    p4 = mm(dwf.transpose(1, 2), h)    # per tile: dW2^T
+    p5 = mm(dpre.transpose(1, 2), rbf)  # per tile: dW1^T
+    dw1, db1 = torch.zeros(Gs, F), torch.zeros(F)
+    dw2, db2 = torch.zeros(F, F), torch.zeros(F)
+    for run in runs:
+        part2, part1 = torch.zeros(F, F), torch.zeros(F, Gs)
+        for t in run:
+            part2 += p4[t]
+            part1 += p5[t]
+        dw2 += part2.t()
+        dw1 += part1.t()
+        db1 += dpre[list(run)].sum((0, 1))
+        db2 += dwf[list(run)].sum((0, 1))
+    return dx.view(G, N, F), dw1, db1, dw2, db2
 
 
 def cfconv_wgmma_emulated(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_neighbors=32,
@@ -275,11 +390,11 @@ def cfconv_wgmma_emulated(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_n
     filter MLP's products by ``mm`` (``split_mm`` for the tensor cores'
     3xTF32), its softplus (``ssp_approx``), layer 1 in passes of 64
     channels and layer 2 of each output slab summed over them, the row sums
-    in edge order, and K2's weight gradients by blocks of 64 channels of h
-    by 64 filters, each block's share of the tiles summed tile by tile, the
-    partials in the reduce kernel's order. K2 at F = 128 as
-    csrc/cfconv_large.cu does (``cfconv_edges``). Returns ``out`` and
-    ``(dx, dw1, db1, dw2, db2)``; the sigmoid is PyTorch's."""
+    in edge order, and K2's weight gradients at F = 256 by blocks of 64
+    channels of h by 64 filters, each block's share of the tiles summed tile
+    by tile, the partials in the reduce kernel's order (the sigmoid
+    PyTorch's); K2 at F = 128 as ``_bwd128_emulated``. Returns ``out`` and
+    ``(dx, dw1, db1, dw2, db2)``."""
     G, N, F = x.shape
     Gs = w1.shape[0]
     x, gout = x.float(), gout.float()
@@ -304,8 +419,8 @@ def cfconv_wgmma_emulated(pos, mask, x, w1, b1, w2, b2, gout, cutoff=10.0, max_n
 
     out = messages(False, x)
     if F == 128:
-        return out, cfconv_edges(pos, mask, x, w1, b1, w2, b2, gout, cutoff, max_neighbors, mm=mm,
-                                 cap_mode=cap_mode)[1]
+        return out, _bwd128_emulated(pos, mask, x, w1, b1, w2, b2, gout, cutoff, max_neighbors,
+                                     cap_mode, sms, mm)
     dx = messages(True, gout)
     # the weight-gradient kernel over the source-major tiles
     key, other, d, gate, tile_item, _, _ = wgmma_edge_tiles(
@@ -389,12 +504,9 @@ def _on(device: torch.device):
 
 def route(N: int, F: int = 128, bwd: bool = False) -> str:
     """The kernels of graphs of ``N`` atoms at width ``F``, K2's if ``bwd``:
-    ``"small"`` (csrc/cfconv.cu) up to ``LARGEST_TEMPLATE``; above it
-    ``"large"`` (csrc/cfconv_large.cu) for K2 at F = 128 and ``"wgmma"``
-    (csrc/cfconv_wgmma.cu) for K1 and for K2 at F = 256."""
-    if N <= LARGEST_TEMPLATE:
-        return "small"
-    return "large" if bwd and F == 128 else "wgmma"
+    ``"small"`` (csrc/cfconv.cu) up to ``LARGEST_TEMPLATE``, ``"wgmma"``
+    (csrc/cfconv_wgmma.cu) above it, at both widths."""
+    return "small" if N <= LARGEST_TEMPLATE else "wgmma"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,8 +519,8 @@ class WgmmaPlan:
     scratch_ints: int    # neighbour bits, counts by key, tiles and first tile by item, item by tile
     edge_ints: int       # 4 ints an edge record, WG_EDGES a tile
     state_floats: int    # a graph's state where it leaves shared memory, else 0
-    msg_blocks: int      # K1's and the dx kernel's grid
-    dw_blocks: int       # the weight-gradient kernel's grid (K2), else 0
+    msg_blocks: int      # K1's and K2's dx kernel's grid (0 for K2 at F = 128)
+    dw_blocks: int       # K2's weight-gradient kernel's grid (at F = 128 its one kernel's), else 0
     partial_floats: int  # the weight-gradient partials (K2), else 0
 
 
@@ -430,13 +542,6 @@ def _wgmma_scratch(plan: WgmmaPlan, device):
     edges = torch.empty(plan.edge_ints, dtype=torch.int32, device=device)
     state = torch.empty(plan.state_floats, device=device) if plan.state_floats else None
     return scratch, edges, state
-
-
-def _large_scratch(lib, G, N, blocks, device):
-    """csrc/cfconv_large.cu's device scratch, which holds a graph's state
-    where it does not fit in shared memory; None where it all fits."""
-    floats = lib.cfconv_large_scratch_floats(G, N, blocks)
-    return torch.empty(floats, device=device) if floats else None
 
 
 def _ptr(t):
@@ -479,8 +584,7 @@ def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors, cap_
     """Launch K2: ``(dx, dw1, db1, dw2, db2)`` for the cotangent ``g`` of
     ``x``'s type, ``dx`` of that type, the weight gradients f32 and summed
     over all graphs; above ``LARGEST_TEMPLATE`` atoms, csrc/cfconv_wgmma.cu's
-    dx and weight-gradient kernels at F = 256 and csrc/cfconv_large.cu's
-    K2 at F = 128 (``route``)."""
+    K2 (``route``)."""
     G, N, F, Gs = _check(pos, mask, x, w1, b1, w2, b2)
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
             or not g.is_contiguous() or g.data_ptr() % 16):
@@ -514,14 +618,9 @@ def cfconv_backward(pos, mask, x, w1, b1, w2, b2, g, cutoff, max_neighbors, cap_
             dx_parts = torch.empty((slabs, *x.shape), device=x.device) if slabs > 1 or narrow else dx
             partial = torch.empty((blocks, lib.cfconv_partial_floats(F, Gs)), device=x.device)
             item_tiles = torch.empty(G * -(-N // K2_ROWS), dtype=torch.int32, device=x.device)
-            args = (*head, dx_parts.data_ptr(), *(t.data_ptr() for t in grads[1:]),
-                    partial.data_ptr(), item_tiles.data_ptr())
-            if way == "large":
-                scratch = _large_scratch(lib, G, N, blocks, x.device)
-                code = lib.cfconv_bwd_large(*args, _ptr(scratch), G, N, F, Gs, *tail, blocks,
-                                            DTYPES[x.dtype], stream)
-            else:
-                code = lib.cfconv_bwd(*args, G, N, F, Gs, *tail, blocks, DTYPES[x.dtype], stream)
+            code = lib.cfconv_bwd(*head, dx_parts.data_ptr(), *(t.data_ptr() for t in grads[1:]),
+                                  partial.data_ptr(), item_tiles.data_ptr(), G, N, F, Gs, *tail,
+                                  blocks, DTYPES[x.dtype], stream)
     name = kernel_name("cfconv_bwd", F, x.dtype, way != "small")
     _build.check(code, name)
     launches[name] += 1

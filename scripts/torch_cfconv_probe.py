@@ -20,14 +20,14 @@ N = 64, F = 128, 50 Gaussians). Prints, per shape:
 
 With ``--big``: the route above 128 atoms at the N it names (by default
 192), on ``chip_smoke.py`` phase 18a's inputs (G = 90 graphs, F = 128 with
-50 Gaussians and F = 256 with 10, the index cap): the CUDA-event ms of the
-package's ``cfconv_forward`` and ``cfconv_backward`` and the cycles by phase
-of a ``clock64`` copy of each large source the package has, one counter set
-a team (``csrc/cfconv_wgmma.cu``: K1's and the dx kernel's body, and the
-weight-gradient kernel; ``csrc/cfconv_large.cu``: its K2, and in a checkout
-from before the wgmma route its K1 too), each call measured through the
-source its route takes, the share of the slowest team's cycles in the
-mean's. ``--pkg`` takes the package (kernel sources and wrapper) from
+50 Gaussians and F = 256 with 10, the index cap; K2 at F = 128 also with
+the nearest cap and in bf16 and f16): the CUDA-event ms of the package's
+``cfconv_forward`` and ``cfconv_backward`` and the cycles by phase of a
+``clock64`` copy of ``csrc/cfconv_wgmma.cu``, one counter set a team
+(K1's and the F = 256 dx kernel's body, the F = 256 weight-gradient
+kernel, and K2 at F = 128's kernel, a team its warpgroup: layer 1, the
+softplus and h's stores, layer 2, the message's dx sums, dW's stores, P4,
+P3, P5), the share of the slowest team's cycles in the mean's. ``--pkg`` takes the package (kernel sources and wrapper) from
 another checkout, e.g. the parent commit unpacked with ``git archive <rev>
 conan_fgw_tpu_torch`` into ``outputs/parent/``; the inputs always come
 from this checkout's ``chip_smoke.py``, so two runs in one chip call
@@ -57,10 +57,12 @@ def _tick(k: int) -> str:
 
 
 _INIT = "  long long ph_[10] = {}; long long tc_ = clock64();\n"
-_DECLS = (f"namespace {{\n__device__ long long g_phase[{MAX_TEAMS}][10], g_phase2[{MAX_TEAMS}][10];\n")
-_DUMPS = ('extern "C" {\n', 'extern "C" {\n'
-          "int phase_dump(void* dst) { return (int)cudaMemcpyFromSymbol(dst, g_phase, sizeof(g_phase)); }\n"
-          "int phase_dump2(void* dst) { return (int)cudaMemcpyFromSymbol(dst, g_phase2, sizeof(g_phase2)); }\n")
+# one counter array a kernel (g_phase, g_phase2, g_phase3), read by phase_dump<k>
+_ARRAYS = ("g_phase", "g_phase2", "g_phase3")
+_DECLS = "namespace {\n" + "".join(f"__device__ long long {a}[{MAX_TEAMS}][10];\n" for a in _ARRAYS)
+_DUMPS = ('extern "C" {\n', 'extern "C" {\n' + "".join(
+    f"int {a.replace('g_phase', 'phase_dump')}(void* dst) {{ return (int)cudaMemcpyFromSymbol(dst, {a},"
+    f" sizeof({a})); }}\n" for a in _ARRAYS))
 
 
 def _dump(arr: str, team: str, tiles: str, first: str = "threadIdx.x == 0") -> str:
@@ -68,54 +70,13 @@ def _dump(arr: str, team: str, tiles: str, first: str = "threadIdx.x == 0") -> s
             f" {arr}[{team}][9] = {tiles}; }}\n")
 
 
-# The large kernels' phases, by source: (kernel, phase names, edits). Every
-# edit goes to the first copy of its anchor after the kernel's first line.
-BIG_PHASES = {
-    "cfconv_large.cu": [
-        ("cfconv_fwd_large_kernel(", ["item set-up (graph, bits, edge list)", "stage+gather+rbf+sync",
-                                      "layer 1+ssp+sync", "layer 2+message+sync", "row sums", "row store"], [
-            ("  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, members, member);\n\n",
-             "  const TileRun run = plan_tiles(s.cnt, item_tiles, G * per_graph, members, member);\n" + _INIT
-             + "  int tiles_ = 0;\n"),
-            ("    const int E = build_edges_large<false, R1>(s, n, cutoff, i0);\n",
-             "    const int E = build_edges_large<false, R1>(s, n, cutoff, i0);\n    " + _tick(0)),
-            ("      rbf_tile<C>(v, 0, ne, gs, cutoff, step, coeff);\n      team_sync();\n",
-             "      rbf_tile<C>(v, 0, ne, gs, cutoff, step, coeff);\n      team_sync();\n      " + _tick(1)
-             + "      ++tiles_;\n"),
-            ("        store_h<C>(v, acc);\n      }\n      team_sync();\n",
-             "        store_h<C>(v, acc);\n      }\n      team_sync();\n      " + _tick(2)),
-            ("      team_sync();\n      scatter_rows<FO, C::SX>(v.xs, v.ei, i0, 0, ne, rows);\n",
-             "      team_sync();\n      " + _tick(3) + "      scatter_rows<FO, C::SX>(v.xs, v.ei, i0, 0, ne, rows);\n      "
-             + _tick(4)),
-            ("first > 0 || last < tiles);\n  }\n}\n",
-             "first > 0 || last < tiles);\n    " + _tick(5) + "  }\n" + _dump("g_phase", "blockIdx.x", "tiles_") + "}\n"),
-        ]),
-        ("cfconv_bwd_large_kernel(", ["item set-up (graph, bits, edge list)", "stage+gathers+rbf+sync",
-                                      "layer 1+sig+dW+sync", "layer 2+message+sync", "row sums+db2",
-                                      "P3+P4+sync", "dpre+sync", "P5+db1+sync"], [
-            ("member);  // orders the weights too\n",
-             "member);  // orders the weights too\n" + _INIT + "  int tiles_ = 0;\n"),
-            ("    const int E = build_edges_large<true, R2>(s, n, cutoff, j0);\n",
-             "    const int E = build_edges_large<true, R2>(s, n, cutoff, j0);\n    " + _tick(0)),
-            ("      rbf_tile<C>(v, 0, ne, gs, cutoff, step, coeff);\n      __syncthreads();\n",
-             "      rbf_tile<C>(v, 0, ne, gs, cutoff, step, coeff);\n      __syncthreads();\n      " + _tick(1)
-             + "      ++tiles_;\n"),
-            ("      if constexpr (late_dw) put_dw<C>(v, 0, ne, gv, xv);\n      __syncthreads();\n",
-             "      if constexpr (late_dw) put_dw<C>(v, 0, ne, gv, xv);\n      __syncthreads();\n      " + _tick(2)),
-            ("      __syncthreads();\n      scatter_rows<F, C::SX>(v.xs, v.ej, j0, 0, ne, rows);\n",
-             "      __syncthreads();\n      " + _tick(3) + "      scatter_rows<F, C::SX>(v.xs, v.ej, j0, 0, ne, rows);\n"),
-            ("      zero(acc);\n      warp_mma<1, SC / 32, F>(", "      " + _tick(4) + "      zero(acc);\n      warp_mma<1, SC / 32, F>("),
-            ("      __syncthreads();  // the dx sums are done with the message tile\n",
-             "      __syncthreads();  // the dx sums are done with the message tile\n      " + _tick(5)),
-            ("      warp_mma<1, KW / 8, ET>(dw1t,", "      " + _tick(6) + "      warp_mma<1, KW / 8, ET>(dw1t,"),
-            ("      __syncthreads();  // rbf and the dpre tile are rewritten by the next tile\n",
-             "      __syncthreads();  // rbf and the dpre tile are rewritten by the next tile\n      " + _tick(7)),
-            ("  float* p = partial + (size_t)blockIdx.x * C::partial_floats(gs);\n",
-             _dump("g_phase2", "blockIdx.x", "tiles_") + "  float* p = partial + (size_t)blockIdx.x * C::partial_floats(gs);\n"),
-        ]),
-    ],
-    "cfconv_wgmma.cu": [
-        ("msg_body(", ["ring wait+barrier", "item switch+records", "gathers issued", "rbf+layer 1 (wgmma)",
+# csrc/cfconv_wgmma.cu's phases: (kernel, the calls it serves, its counter
+# array, phase names, edits); a call is "K1" or "K2", or with its width
+# ("K2@128"). Every edit goes to the first copy of its anchor after the
+# kernel's first line.
+BIG_SOURCE = "cfconv_wgmma.cu"
+BIG_PHASES = [
+        ("msg_body(", ("K1", "K2@256"), "g_phase", ["ring wait+barrier", "item switch+records", "gathers sent", "rbf+layer 1 (wgmma)",
                        "ssp+split", "layer 2 (wgmma)", "message+row sums", "last rows"], [
             ("  if (run.lo < run.hi) fetch_tile(ring, edges, run.lo);\n",
              "  if (run.lo < run.hi) fetch_tile(ring, edges, run.lo);\n" + _INIT),
@@ -133,7 +94,7 @@ BIG_PHASES = {
              "  if (cur >= 0) put_rows<F, FO, MC>(out, rows, gidx, key0 + w, n, o0, lane);\n  " + _tick(7)
              + _dump("g_phase", "blockIdx.x * 2 + wg()", "run.hi - run.lo", "(threadIdx.x & 127) == 0") + "}\n"),
         ]),
-        ("cfconv_dw_wgmma_kernel(", ["top: barrier, records, gathers", "dW+P3 (wgmma)",
+        ("cfconv_dw_wgmma_kernel(", ("K2@256",), "g_phase2", ["top: barrier, records, gathers", "dW+P3 (wgmma)",
                                      "rbf+P1 (wgmma)+h, dpre+sync", "P4 (wgmma)+db2",
                                      "dpre^T+sync", "P5 (wgmma)+db1"], [
             ("  for (int t = lo; t < hi; ++t) {\n",
@@ -148,62 +109,65 @@ BIG_PHASES = {
             ("  float* out = partial + (size_t)blockIdx.x * C::PARTIAL;\n",
              _dump("g_phase2", "blockIdx.x", "hi - lo") + "  float* out = partial + (size_t)blockIdx.x * C::PARTIAL;\n"),
         ]),
-    ],
-}
+        ("cfconv_bwd_wgmma_kernel(", ("K2@128",), "g_phase3", [
+            "tile top: barrier, records, item switch, RBF and S stores, barrier", "layer 1 (P1, wgmma)",
+            "softplus and h's split stores, barrier", "layer 2 (P2, wgmma), g gathers behind it",
+            "message, P0 (dx sums, wgmma)", "barrier, dW's split stores, RBF again, barrier", "P4 (wgmma)",
+            "P3 (wgmma)", "dpre, P5 (wgmma), dW1 partial adds"], [
+            ("  int next = run.lo < run.hi ? l.tile_item[run.lo] : -1;\n",
+             "  int next = run.lo < run.hi ? l.tile_item[run.lo] : -1;\n" + _INIT + "  int tiles_ = 0;\n"),
+            ("    // -- P1^T: pre^T", "    " + _tick(0) + "    ++tiles_;\n    // -- P1^T: pre^T"),
+            ("(gs + 7) / 8, t4, [] {});\n", "(gs + 7) / 8, t4, [] {});\n      " + _tick(1)),
+            ("    // -- P2^T: W^T", "    " + _tick(2) + "    // -- P2^T: W^T"),
+            ("      });\n      // the message", "      });\n      " + _tick(3) + "      // the message"),
+            ("      fence_regs(dxacc);\n", "      fence_regs(dxacc);\n      " + _tick(4)),
+            ("    // -- P4^T:", "    " + _tick(5) + "    // -- P4^T:"),
+            ("    // -- P3^T:", "    " + _tick(6) + "    // -- P3^T:"),
+            ("      weight_chain<F / 8>(acc, w2r, WS2, 1, r0, d_eb, d_es, F / 8, t4, [] {});\n",
+             "      weight_chain<F / 8>(acc, w2r, WS2, 1, r0, d_eb, d_es, F / 8, t4, [] {});\n      " + _tick(7)),
+            ("(i & 1)] += acc[i];\n    }\n", "(i & 1)] += acc[i];\n    }\n    " + _tick(8)),
+            ("  if (cur >= 0) put_dx();\n",
+             _dump("g_phase3", "blockIdx.x * 2 + wg()", "tiles_", "(threadIdx.x & 127) == 0")
+             + "  if (cur >= 0) put_dx();\n"),
+        ]),
+]
 
 
-def instrument_big(src: str, name: str) -> str:
-    """The large kernels' source with the phase counters (a kernel of
-    ``BIG_PHASES`` that the source does not hold is left out)."""
-    src = src.replace("namespace {\n", _DECLS, 1).replace(*_DUMPS, 1) if "extern \"C\" {\n" in src else src
-    for kernel, _, edits in BIG_PHASES[name]:
+def instrument_big(src: str) -> str:
+    """``BIG_SOURCE`` with the phase counters (a kernel of ``BIG_PHASES``
+    that the source does not hold is left out)."""
+    src = src.replace("namespace {\n", _DECLS, 1).replace(*_DUMPS, 1)
+    for kernel, _, _, _, edits in BIG_PHASES:
         if kernel not in src:
             continue
         at = src.index(kernel)
         for old, new in edits:
             k = src.find(old, at)
             if k < 0:
-                raise SystemExit(f"{name}: {kernel} no longer holds {old[:60]!r}")
+                raise SystemExit(f"{BIG_SOURCE}: {kernel} no longer holds {old[:60]!r}")
             src = src[:k] + new + src[k + len(old):]
     return src
 
 
-def build_big(build, csrc: Path) -> dict:
-    """Each large source the package has, instrumented and built (all at
-    once) into a library of its own with csrc/cfconv.cu: ``{name: lib}``."""
+def build_big(build, csrc: Path):
+    """``BIG_SOURCE`` instrumented and built into a library of its own with
+    csrc/cfconv.cu."""
     out = build.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in BIG_PHASES:
-        if not (csrc / name).exists():
-            continue
-        cu, so = out / f"phases_{name}", out / f"phases_{Path(name).stem}.so"
-        cu.write_text(instrument_big((csrc / name).read_text(), name))
-        procs[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-shared", str(cu),
-             str(csrc / "cfconv.cu"), "-o", str(so)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"the instrumented {name} failed to build:\n{report}")
-        lib = ctypes.CDLL(str(so))
-        for fn, (restype, argtypes) in build.SIGNATURES.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
-        lib.phase_dump.argtypes = lib.phase_dump2.argtypes = [ctypes.c_void_p]
-        libs[name] = lib
-    return libs
-
-
-def big_source(libs: dict, k12, kind: str, N: int, F: int) -> str:
-    """The large source that ``kind`` (K1 or K2) takes at N and F: the
-    package's ``route`` where it has one, else its one large source."""
-    if len(libs) == 1:
-        return next(iter(libs))
-    way = k12.route(N, F, bwd=kind == "K2")
-    return {"wgmma": "cfconv_wgmma.cu", "large": "cfconv_large.cu"}[way]
+    cu, so = out / f"phases_{BIG_SOURCE}", out / f"phases_{Path(BIG_SOURCE).stem}.so"
+    cu.write_text(instrument_big((csrc / BIG_SOURCE).read_text()))
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-shared", str(cu),
+                           str(csrc / "cfconv.cu"), "-o", str(so)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"the instrumented {BIG_SOURCE} failed to build:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(so))
+    for fn, (restype, argtypes) in build.SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+    for array in _ARRAYS:
+        getattr(lib, array.replace("g_phase", "phase_dump")).argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def print_split(label, buf, teams, names):
@@ -223,8 +187,9 @@ def probe_big(smoke, torch, sizes):
     from conan_fgw_tpu_torch.ops.cuda import _build
     from conan_fgw_tpu_torch.ops.cuda import cfconv as k12
 
-    libs = build_big(_build, _build.CSRC_DIR)
-    print(f"[big] instrumented {', '.join(libs)}")
+    lib = build_big(_build, _build.CSRC_DIR)
+    print(f"[big] instrumented {BIG_SOURCE}")
+    held = (_build.CSRC_DIR / BIG_SOURCE).read_text()
     shapes = {n: (label, heavy) for label, heavy, n in smoke.BIG_SHAPES}
     package = _build.load_library
     gen = torch.Generator().manual_seed(smoke.SEED + 18)
@@ -240,6 +205,15 @@ def probe_big(smoke, torch, sizes):
             bwd = smoke.cuda_ms(lambda: k12.cfconv_backward(*args, cot, smoke.CUTOFF, smoke.CAP), reps=20)
             print(f"[{tag}] G={pos.shape[0]} edges={smoke.count_edges(pos, mask, smoke.CAP)}: K1 {fwd:.4f} ms,"
                   f" K2 {bwd:.4f} ms (events, the package's wrappers)")
+            if F == smoke.F:  # phase 18a's other K2 rows at this width
+                extra = {"nearest": smoke.cuda_ms(lambda: k12.cfconv_backward(
+                    *args, cot, smoke.CUTOFF, smoke.CAP, "nearest"), reps=20)}
+                for dtype in (torch.bfloat16, torch.float16):
+                    narrow = (pos, maskf, x.to(dtype), *args[3:])
+                    extra[str(dtype).split(".")[1]] = smoke.cuda_ms(lambda: k12.cfconv_backward(
+                        *narrow, cot.to(dtype), smoke.CUTOFF, smoke.CAP), reps=20)
+                print(f"[{tag}] K2 at the nearest cap, in bf16, in f16: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in extra.items()) + " (events, the package's wrappers)")
             leaves = [t.clone().requires_grad_(True) for t in args[2:]]
             ref = k12._cfconv_plain(pos, maskf, *leaves, smoke.CUTOFF, Gs, smoke.CAP)
             refs = (ref.detach(), *torch.autograd.grad(ref, leaves, cot))
@@ -261,21 +235,16 @@ def probe_big(smoke, torch, sizes):
             try:
                 for kind, call in (("K1", lambda: k12.cfconv_forward(*args, smoke.CUTOFF, smoke.CAP)),
                                    ("K2", lambda: k12.cfconv_backward(*args, cot, smoke.CUTOFF, smoke.CAP))):
-                    name = big_source(libs, k12, kind, N, F)
-                    lib = libs[name]
                     k12._build.load_library = lambda: lib
                     call()
                     torch.cuda.synchronize()
-                    for (kernel, names, _), dump in zip(BIG_PHASES[name], (lib.phase_dump, lib.phase_dump2)):
-                        # cfconv_large.cu's K1 and K2 are one kernel each; the
-                        # wgmma route's K2 is the message body (dx) and the
-                        # weight-gradient kernel
-                        if kind == "K1" and dump is lib.phase_dump2:
-                            continue
-                        if kind == "K2" and name == "cfconv_large.cu" and dump is lib.phase_dump:
+                    for kernel, serves, array, names, _ in BIG_PHASES:
+                        # the kernels this call ran: at F=256 the wgmma route's K2
+                        # is the message body (dx) and the weight-gradient kernel
+                        if kernel not in held or not {kind, f"{kind}@{F}"} & set(serves):
                             continue
                         buf = np.zeros((MAX_TEAMS, 10), np.int64)
-                        if dump(buf.ctypes.data) != 0:
+                        if getattr(lib, array.replace("g_phase", "phase_dump"))(buf.ctypes.data) != 0:
                             raise SystemExit("reading the phase counters failed")
                         print_split(f"{tag} {kind} {kernel.rstrip('(')}", buf, MAX_TEAMS, names)
             finally:

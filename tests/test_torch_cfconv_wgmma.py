@@ -1,25 +1,31 @@
-"""K1/K2 above 128 atoms (``csrc/cfconv_wgmma.cu``'s route, and
-``csrc/cfconv_large.cu``'s K2 at F=128), on the CPU.
+"""K1/K2 above 128 atoms (``csrc/cfconv_wgmma.cu``'s route), on the CPU.
 
 - The route's edge tiles (``wgmma_edge_tiles``): every edge of the capped
-  radius graph once, in the kernels' order, in whole tiles of 64 edges per
-  work item of 4 keys; the plan's tile bound (``plan_sizes``, the
-  library's ``cfconv_wgmma_plan`` restated) holds them.
+  radius graph once, in the kernels' order, in whole tiles of 64 edges (32
+  for K2 at F=128) per work item of 4 keys; the plan's tile bound
+  (``plan_sizes``, the library's ``cfconv_wgmma_plan`` restated) holds
+  them.
 - The route's arithmetic (``cfconv_wgmma_emulated``: the tiles, the items
   and the partition of the tiles among the weight-gradient kernel's
   blocks as the kernels cut them, the 3xTF32 products with both split
   parts rounded to nearest, the kernels' softplus, F=256's output slabs
   over layer 1's passes of 64 channels, the partials in the reduce
-  kernel's order; K2 at F=128 as csrc/cfconv_large.cu's kernel) at N=160
-  and N=192, both widths and both cap modes: ``out`` and all five
-  gradients within a tenth of the kernels' 5e-4 gate of the plain version.
+  kernel's order; K2 at F=128 as ``cfconv_bwd_wgmma_kernel``: tiles of 32
+  edges, even runs of tiles a block, layer 1 once, its RBF and sigmoid,
+  dx summed in the message's two TF32 parts, an item that runs share
+  summed from its parts in block order, the tiles' weight-gradient
+  products added in run and block order) at N=160 and
+  N=192, both widths and both cap modes: ``out`` and all five gradients
+  within a tenth of the kernels' 5e-4 gate of the plain version.
 - The kernels' softplus (ex2/lg2 on the special-function unit) within
   3.5e-7 of the exact function, with those instructions' errors at their
-  bounds.
+  bounds; K2 at F=128's RBF and sigmoid on ex2.approx within their bounds
+  too.
 - The plain version at N=160 against the JAX package's XLA cfconv.
 - The wrapper's choice of route and the buffers it allocates for a plan,
   in Python.
-- Marked ``card``: the kernels against the plain version, and the
+- Marked ``card``: the kernels against the plain version (K2 at F=128
+  also with the nearest cap, twice bit for bit, and in bf16), and the
   library's plans against ``plan_sizes``, on the card (skipped without
   one; ``python -m pytest tests/test_torch_cfconv_wgmma.py -m card`` on the
   machine with the card).
@@ -41,7 +47,9 @@ from conan_fgw_tpu_torch.ops.cuda.cfconv import (
     _wgmma_scratch,
     cfconv_wgmma_emulated,
     edge_list,
+    rbf_approx,
     route,
+    sigmoid_from_ssp,
     ssp_approx,
     wgmma_edge_tiles,
     wgmma_plan,
@@ -93,27 +101,36 @@ def plan_sizes(G, N, F, cap, mode, sms, bwd):
     leave shared memory above 11,571 atoms; the message kernel's grid is
     a multiple of its output slabs (1 at F=128, 4 at 256), the weight-
     gradient kernel's (K2 at F=256) two blocks an SM of its 16 block types,
-    each with a 64 x 64 block of dW2, a 16 x 64 one of dW1, db1 and db2."""
+    each with a 64 x 64 block of dW2, a 16 x 64 one of dW1, db1 and db2;
+    K2 at F=128 one kernel of a block an SM on tiles of 32 edges, each
+    block with all of dW2, dW1 (64 rows), db1, db2 and two slots of an
+    item's dx rows (4 keys) that runs share."""
     words, per_graph = math.ceil(N / 32), math.ceil(N / 4)
     items = G * per_graph
     per_row = max(0, min(cap + (mode == "index"), N - 1))
-    tiles = G * N * per_row // 64 + items + 1
+    fused = bwd and F == 128
+    tile = 32 if fused else 64
+    tiles = G * N * per_row // tile + items + 1
     slabs = 1 if F == 128 else 4
-    dw = 16 * max(1, 2 * sms // 16) if bwd else 0
+    if fused:
+        msg, dw, partial = 0, sms, sms * (128 * 128 + 64 * 128 + 2 * 128 + 2 * 4 * 128)
+    else:
+        msg, dw = slabs * max(1, sms // slabs), 16 * max(1, 2 * sms // 16) if bwd else 0
+        partial = dw * (64 * 64 + 16 * 64 + 128)
     return WgmmaPlan(items=items, tiles=tiles,
                      scratch_ints=G * N * words + G * N + 2 * items + tiles,
-                     edge_ints=4 * 64 * tiles,
+                     edge_ints=4 * tile * tiles,
                      state_floats=G * 5 * N if 20 * N > 232_448 - 1024 else 0,
-                     msg_blocks=slabs * max(1, sms // slabs), dw_blocks=dw,
-                     partial_floats=dw * (64 * 64 + 16 * 64 + 128))
+                     msg_blocks=msg, dw_blocks=dw, partial_floats=partial)
 
 
+@pytest.mark.parametrize("tile", [64, 32])
 @pytest.mark.parametrize("source_major", [False, True])
 @pytest.mark.parametrize("cap_mode", ["index", "nearest"])
-def test_edge_tiles_hold_every_edge_once_in_order(source_major, cap_mode):
+def test_edge_tiles_hold_every_edge_once_in_order(source_major, cap_mode, tile):
     pos, mask, _, _ = _graphs(192, seed=3, f=8, gauss=4)
     key, other, d, gate, tile_item, item_start, item_tiles = wgmma_edge_tiles(
-        pos, mask, CUTOFF, CAP, source_major, cap_mode)
+        pos, mask, CUTOFF, CAP, source_major, cap_mode, tile)
     g, i, j = edge_list(pos, mask, CUTOFF, CAP, source_major, cap_mode)
     real = key != WG_PAD_KEY
     want_key, want_other = (j, i) if source_major else (i, j)
@@ -128,10 +145,11 @@ def test_edge_tiles_hold_every_edge_once_in_order(source_major, cap_mode):
     assert torch.equal(item_start, torch.cumsum(item_tiles, 0) - item_tiles)
     pads = (~real).sum(1)
     last = torch.cat([tile_item[1:] != tile_item[:-1], torch.tensor([True])])
-    assert bool((pads[~last] == 0).all()) and bool((pads < WG_EDGES).all())
+    assert key.shape[1] == tile
+    assert bool((pads[~last] == 0).all()) and bool((pads < tile).all())
     # keys ascend within a tile, and the padding sorts last
     assert bool((key[:, 1:] >= key[:, :-1]).all())
-    plan = plan_sizes(2, 192, 128, CAP, cap_mode, 132, bwd=False)
+    plan = plan_sizes(2, 192, 128, CAP, cap_mode, 132, bwd=tile == 32)
     assert key.shape[0] <= plan.tiles and plan.items == len(item_tiles)
 
 
@@ -176,9 +194,9 @@ def test_plain_cfconv_at_n160_matches_jax(cap):
 def test_route_by_atom_count():
     assert route(1) == route(128) == "small"
     assert route(129) == route(192) == route(4096) == "wgmma"
-    # K2 at F=128 above 128 atoms: csrc/cfconv_large.cu's kernel
+    # K2 at both widths above 128 atoms: csrc/cfconv_wgmma.cu's kernels
     assert route(128, 128, bwd=True) == route(128, 256, bwd=True) == "small"
-    assert route(129, 128, bwd=True) == route(4096, 128, bwd=True) == "large"
+    assert route(129, 128, bwd=True) == route(4096, 128, bwd=True) == "wgmma"
     assert route(129, 256, bwd=True) == route(192, 256) == "wgmma"
 
 
@@ -201,8 +219,50 @@ def test_kernel_softplus_within_its_bound(x0, x1):
             assert bool(((worst - exact).abs() <= slack).all()), (et, el)
 
 
+def test_kernel_rbf_within_its_bound():
+    """``rbf_approx`` (K2 at F=128's Gaussians on ex2.approx), with
+    ex2.approx's error (2^-22 of its result) at either bound, within 4e-7 of
+    the same centres through an accurate exp, and within 2e-6 of
+    ``gaussian_smearing`` in f32 (the values lie in [0, 1]; the kernels
+    compute a centre above the middle as ``cutoff - step (Gs - 1 - k)`` in
+    f32, an ulp from ``torch.linspace``'s at some k, as their accurate route
+    does too), over distances past the cutoff, at 50 Gaussians and at 2."""
+    from conan_fgw_tpu_torch.ops.rbf import gaussian_smearing
+
+    d = torch.linspace(0.0, 12.0, 20_001, dtype=torch.float32)
+    for gs in (50, 2):
+        smeared = gaussian_smearing(d, gs, 0.0, CUTOFF).double()
+        approx = rbf_approx(d, gs, CUTOFF).double()
+        step = torch.tensor(CUTOFF / (gs - 1))
+        k = torch.arange(gs)
+        mu = torch.where(k < gs // 2, step * k, CUTOFF - step * (gs - 1 - k))
+        accurate = torch.exp((-0.5 / (step * step)).double() * (d[:, None] - mu).double() ** 2)
+        for err in (-1, 0, 1):
+            worst = approx * (1 + err * 2.0**-22)
+            assert float((worst - accurate).abs().max()) <= 4e-7, (gs, err)
+            assert float((worst - smeared).abs().max()) <= 2e-6, (gs, err)
+
+
+def test_kernel_sigmoid_within_its_bound():
+    """``sigmoid_from_ssp`` (K2 at F=128's ssp' from the split h of
+    ``ssp_approx``) within 1e-6 of the exact sigmoid over the
+    pre-activations' range, with ex2.approx's error (2^-22 of its result)
+    at either bound: at pre << 0 it cancels to an absolute error, far
+    inside the 5e-4 gate of dpre = dh ssp'(pre) against its largest."""
+    x = torch.linspace(-30.0, 30.0, 600_001, dtype=torch.float32)
+    exact = torch.sigmoid(x.double())
+    h = ssp_approx(x)
+    assert float((sigmoid_from_ssp(h).double() - exact).abs().max()) <= 1e-6
+    e = torch.exp(-h.double())
+    for err in (-1, 1):
+        worst = 1 - 0.5 * e * (1 + err * 2.0**-22)
+        assert float((worst - exact).abs().max()) <= 1e-6, err
+
+
 PLAN_CASES = [
     (90, 192, 128, 32, "index", 132, False),
+    (90, 192, 128, 32, "nearest", 132, True),
+    (10, 544, 128, 32, "index", 114, True),
     (90, 192, 256, 32, "nearest", 132, True),
     (18, 1000, 256, 1000, "index", 114, True),
     (3, 12000, 128, 32, "index", 132, False),
@@ -221,8 +281,10 @@ def test_plan_sizes_the_grids_and_scratch(G, N, F, cap, mode, sms, bwd):
     assert scratch.numel() == plan.scratch_ints and edges.numel() == plan.edge_ints
     assert (state is None) == (N <= 11571)
     assert state is None or state.numel() == plan.state_floats == G * 5 * N
-    assert plan.msg_blocks % (1 if F == 128 else 4) == 0 and plan.dw_blocks % 16 == 0
+    assert plan.msg_blocks % (1 if F == 128 else 4) == 0
+    assert plan.dw_blocks == ((sms if F == 128 else 16 * max(1, 2 * sms // 16)) if bwd else 0)
     assert plan.items == G * math.ceil(N / 4) and (plan.dw_blocks > 0) == bwd
+    assert (plan.msg_blocks > 0) == (not bwd or F == 256)
 
 
 def test_the_tile_bound_holds_a_dense_graph():
@@ -257,6 +319,35 @@ def test_kernels_match_the_plain_version_on_the_card(f, gauss):
     for name, a, b, c in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, refs, again):
         assert _rel(a, b) <= GATE, name
         assert torch.equal(a, c), name
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cap_mode", ["index", "nearest"])
+def test_bwd_f128_kernel_on_the_card(cap_mode):
+    """K2 at F=128 above 128 atoms (``cfconv_bwd_wgmma_kernel``) against the
+    plain version at N=192, two launches bit for bit, and its bf16 variant
+    the f32 kernel's result on the widened inputs, rounded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from conan_fgw_tpu_torch.device import pin_full_f32
+
+    pin_full_f32()
+    pos, mask, params, cot = (t.cuda() if torch.is_tensor(t) else tuple(a.cuda() for a in t)
+                              for t in _graphs(192, seed=7, f=128, gauss=50, g=8))
+    grads = k12.cfconv_backward(pos, mask, *params, cot, CUTOFF, CAP, cap_mode)
+    again = k12.cfconv_backward(pos, mask, *params, cot, CUTOFF, CAP, cap_mode)
+    leaves = [a.clone().requires_grad_(True) for a in params]
+    ref = _cfconv_plain(pos, mask, *leaves, CUTOFF, 50, CAP, cap_mode)
+    refs = torch.autograd.grad(ref, leaves, cot)
+    for name, a, b, c in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, refs, again):
+        assert _rel(a, b) <= GATE, name
+        assert torch.equal(a, c), name
+    x16, cot16 = params[0].to(torch.bfloat16), cot.to(torch.bfloat16)
+    narrow = k12.cfconv_backward(pos, mask, x16, *params[1:], cot16, CUTOFF, CAP, cap_mode)
+    wide = k12.cfconv_backward(pos, mask, x16.float(), *params[1:], cot16.float(), CUTOFF, CAP,
+                               cap_mode)
+    assert torch.equal(narrow[0], wide[0].to(torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(narrow[1:], wide[1:]))
 
 
 @pytest.mark.card
