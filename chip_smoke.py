@@ -952,12 +952,12 @@ def check_fgw(label, args, rows, kw=FGW_KW, rel=False):
     plan's move from T0 (``fgw_limit``)."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain, launch_name
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _couplings, fgw_couplings_plain, launch_name
 
     S, N, _ = args[0].shape
     name = launch_name("fgw_couplings", N)
-    T_k, div_k, sk_iters = _launch(*args, **kw)
-    T_p, div_p = fgw_couplings_plain(*args, **kw)
+    T_k, (div_k, sk_iters) = _couplings(*args, **kw)
+    T_p, (div_p, _) = fgw_couplings_plain(*args, **kw)
     torch.cuda.synchronize()
     err = float((T_k - T_p).abs().max())
     limit, moved = fgw_limit(T_p, args[5], rel)
@@ -972,8 +972,8 @@ def check_fgw(label, args, rows, kw=FGW_KW, rel=False):
     # eager calls leave the card waiting for the host between launches once
     # the kernel is shorter than the wrapper's host time: graph replays give
     # the kernel's own time beside the eager one
-    ms = cuda_ms(lambda: _launch(*args, **kw))
-    replay_ms = graph_ms(lambda: _launch(*args, **kw))
+    ms = cuda_ms(lambda: _couplings(*args, **kw))
+    replay_ms = graph_ms(lambda: _couplings(*args, **kw))
     plain_ms = cuda_ms(lambda: fgw_couplings_plain(*args, **kw), reps=3, warmup=1)
     tc, f32 = fgw_bound(S, N, sk_run, kw)
     print(f"[fgw {label}] S={S} N={N}: kernel {ms:.4f} ms (eager calls; graph replays"
@@ -992,13 +992,13 @@ def check_fgw_nan(args, label="N32-nan", rel=False):
     within ``fgw_limit``'s gate."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings_plain
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _couplings, fgw_couplings_plain
 
     T0 = args[5].clone()
     T0.view(torch.int32)[0, 0, 0] = 0x7FFFFFFF
     args = (*args[:5], T0)
-    T_k, div_k, _ = _launch(*args, **FGW_KW)
-    T_p, div_p = fgw_couplings_plain(*args, **FGW_KW)
+    T_k, (div_k, _) = _couplings(*args, **FGW_KW)
+    T_p, (div_p, _) = fgw_couplings_plain(*args, **FGW_KW)
     torch.cuda.synchronize()
     same_nan = bool(torch.equal(T_k.isnan(), T_p.isnan()))
     err = float((T_k - T_p).nan_to_num(0.0).abs().max())
@@ -3004,7 +3004,7 @@ def check_fgw_mol(n, device, rows, kw=FGW_KW):
     import torch
 
     from conan_fgw_tpu_torch.ops.cuda import launches, reset_launches
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch, fgw_couplings, launch_name
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _couplings, fgw_couplings, launch_name
     from conan_fgw_tpu_torch.ops.fgw.coupling import fgw_coupling
 
     name = launch_name("fgw_couplings_mol", n + (-n % 32))
@@ -3012,14 +3012,15 @@ def check_fgw_mol(n, device, rows, kw=FGW_KW):
     Ms, _, Cs, p, ps, T0 = args
     N = n + (-n % 32)
     # the Sinkhorn iterations K3 runs on the wrapper's padded input, for the bound
-    _, _, iters = _launch(*padded, n=n, count="uncounted", **kw)
+    _, (_, iters) = _couplings(*padded, n=n, count="uncounted", **kw)
     sk_run = int(iters.sum())
     reset_launches()
-    T_k, count_k = fgw_couplings(*args, **kw)
+    T_k, (count_k, _) = fgw_couplings(*args, **kw)
     torch.cuda.synchronize()
     counted = {k: v for k, v in launches.items() if v}
     Ms_c, Cb_c, Cs_c, p_c, ps_c, T0_c = (t.cpu() for t in args)
-    T_p, div_p = fgw_coupling(Ms_c, Cb_c.expand(K, n, n), Cs_c, p_c.expand(K, n), ps_c, T0_c, **kw)
+    T_p, div_p, _ = fgw_coupling(Ms_c, Cb_c.expand(K, n, n), Cs_c, p_c.expand(K, n), ps_c, T0_c,
+                                 **kw)
     err = float((T_k.cpu() - T_p).abs().max())
     print(f"[fgw mol N{n}] K3 on {N} rows (n={n}) against the unpadded plain solve on the CPU:"
           f" T max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel {int(count_k)} plain"
@@ -3122,7 +3123,7 @@ def check_batched_barycenter(device):
     Cs = torch.stack([m[1] for m in mols])
     cfg = FGWConfig()
     reset_launches()
-    Y_b, C_b, n_b = fgw_barycenter_batch(Ys, Cs, config=cfg)
+    Y_b, C_b, (n_b, _) = fgw_barycenter_batch(Ys, Cs, config=cfg)
     lam = torch.full((K,), 1.0 / K, device=device)
     per = [fgw_barycenter(m[0], m[1], m[2], m[3], lam, cfg, return_diverged=True) for m in mols]
     torch.cuda.synchronize()
@@ -4190,13 +4191,13 @@ def check_flat(tag, args, rows, label):
     N = n + (-n % 32)
     name = k3.launch_name("fgw_couplings", N)
     before = collections.Counter(launches)
-    T_k, div_k = k3.fgw_couplings_flat(*args, **FGW_KW)
+    T_k, (div_k, _) = k3.fgw_couplings_flat(*args, **FGW_KW)
     grew = {k: v - before[k] for k, v in launches.items() if v != before[k]}
-    T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
+    T_p, (div_p, _) = k3.fgw_couplings_plain(*args, **FGW_KW)
     torch.cuda.synchronize()
     err = float((T_k - T_p).abs().max())
     pad = lambda x: Fn.pad(x, (0, N - n) if x.dim() == 2 else (0, N - n, 0, N - n)).contiguous()  # noqa: E731
-    _, _, iters = k3._launch(*map(pad, args), n=n, count="uncounted", **FGW_KW)
+    _, (_, iters) = k3._couplings(*map(pad, args), n=n, count="uncounted", **FGW_KW)
     sk_run = int(iters.sum())
     print(f"[fgw {tag}] K3 on {N} rows (n={n}) against the plain unpadded solve: T"
           f" max_abs_err {err:.3e} (tol {FGW_ATOL}); diverged kernel {int(div_k.sum())} plain"
@@ -4228,12 +4229,12 @@ def check_fgw_anyn(device, rows):
     for label, S, n in ANYN_CASES:
         check_flat(f"anyn {label}", anyn_problem(S, n, SEED + 1700 + n, device), rows, label)
     # a bucket size takes the unpadded launch (n unset), as on the runner's path
-    seen, launch = [], k3._launch
-    k3._launch = lambda *a, **kw: seen.append((tuple(a[0].shape), kw.get("n"))) or launch(*a, **kw)
+    seen, launch = [], k3._couplings
+    k3._couplings = lambda *a, **kw: seen.append((tuple(a[0].shape), kw.get("n"))) or launch(*a, **kw)
     try:
         k3.fgw_couplings_flat(*anyn_problem(120, 32, SEED + 1732, device), **FGW_KW)
     finally:
-        k3._launch = launch
+        k3._couplings = launch
     print(f"[fgw anyn N32] a bucket size reaches K3 as {seen} (shape, n): unpadded")
     require(seen == [((120, 32, 32), None)], f"fgw anyn N32: K3 saw {seen}")
 
@@ -4898,7 +4899,7 @@ def check_global_beside(label, args, rows, rel=False):
         return T, flags[0]
 
     T_g, div_g = launch()
-    T_p, div_p = k3.fgw_couplings_plain(*args, **FGW_KW)
+    T_p, (div_p, _) = k3.fgw_couplings_plain(*args, **FGW_KW)
     torch.cuda.synchronize()
     err = float((T_g - T_p).abs().max())
     limit, _ = fgw_limit(T_p, args[5], rel)
@@ -4918,10 +4919,10 @@ def check_fgw_bits(label, args):
     the cluster's reductions run in rank order)."""
     import torch
 
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _couplings
 
-    first = _launch(*args, count="uncounted", **FGW_KW)
-    second = _launch(*args, count="uncounted", **FGW_KW)
+    first = _couplings(*args, count="uncounted", **FGW_KW)
+    second = _couplings(*args, count="uncounted", **FGW_KW)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     print(f"[fgw {label}] two launches on one input: T, flags and iterations bit for bit equal {same}")
@@ -4977,10 +4978,10 @@ def check_big_batch(device, n, batch):
     Cs = torch.stack([m[1] for m in mols])
     cfg = FGWConfig()
     reset_launches()
-    Y_k, C_k, nd_k = fgw_barycenter_batch(Ys.to(device), Cs.to(device), config=cfg)
+    Y_k, C_k, (nd_k, _) = fgw_barycenter_batch(Ys.to(device), Cs.to(device), config=cfg)
     torch.cuda.synchronize()
     grew = {k: v for k, v in launches.items() if v}
-    Y_c, C_c, nd_c = fgw_barycenter_batch(Ys, Cs, config=cfg)
+    Y_c, C_c, (nd_c, _) = fgw_barycenter_batch(Ys, Cs, config=cfg)
     err_y = float((Y_k.cpu() - Y_c).abs().max())
     err_c = float((C_k.cpu() - C_c).abs().max())
     print(f"[big batch] {batch} molecules of n={n}, K={K}: Y max_abs_err"

@@ -10,6 +10,13 @@ caller asks for ``shuffle``: then ``rng`` permutes the records as the JAX
 loader's does, drawing in the same order (the record indices; with buckets
 the bucket order, then each bucket's records in first-seen order), so the
 same generator gives the same batches molecule by molecule.
+
+Each batch's packing is the span ``pack``, its seconds added to
+``pipeline.pack_s`` and one to ``pipeline.packs`` (``utils/profiling.py``'s
+counters; on a prefetch thread no profiler records, so there they are
+counters alone); the consumer's waits for
+the prefetch thread are the span ``queue_wait`` (``pipeline.queue_wait_s``),
+and the thread's end in ``close`` the span ``epoch_end``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from conan_fgw_tpu_torch.data.packing import (
     bucket_for,
     pack_batch,
 )
+from conan_fgw_tpu_torch.utils.profiling import add, span
 
 DEPTH = 2  # batches a Prefetcher's queue holds ahead of its consumer
 _DONE = object()  # the end of a prefetch queue
@@ -48,6 +56,15 @@ def pack(records: Sequence[MoleculeRecord], *, native: bool = True, **kw) -> Pac
     return (pack_batch_native if native else pack_batch)(records, **kw)
 
 
+def _packed(pack: Callable, records: list, max_atoms: int, batch_size: int) -> PackedBatch:
+    """``pack(records, ...)``, counted in ``pipeline.pack_s`` and
+    ``pipeline.packs``."""
+    with span("pack", counter="pipeline.pack_s"):
+        pb = pack(records, max_atoms=max_atoms, batch_size=batch_size)
+    add("pipeline.packs", 1)
+    return pb
+
+
 def batches(records: Sequence[MoleculeRecord], batch_size: int, max_atoms: int, *,
             shuffle: bool = False, rng: np.random.Generator | None = None,
             pack: Callable = pack) -> Iterator[PackedBatch]:
@@ -58,8 +75,7 @@ def batches(records: Sequence[MoleculeRecord], batch_size: int, max_atoms: int, 
     if shuffle:
         (rng or np.random.default_rng()).shuffle(idx)
     for s in range(0, len(idx), batch_size):
-        yield pack([records[i] for i in idx[s : s + batch_size]], max_atoms=max_atoms,
-                   batch_size=batch_size)
+        yield _packed(pack, [records[i] for i in idx[s : s + batch_size]], max_atoms, batch_size)
 
 
 def _groups(records: Sequence[MoleculeRecord], buckets) -> dict[int, list[int]]:
@@ -91,8 +107,7 @@ def bucketed_batches(records: Sequence[MoleculeRecord], batch_size: int,
     for b in order:
         idx = groups[b]
         for s in range(0, len(idx), batch_size):
-            yield pack([records[i] for i in idx[s : s + batch_size]], max_atoms=b,
-                       batch_size=batch_size)
+            yield _packed(pack, [records[i] for i in idx[s : s + batch_size]], b, batch_size)
 
 
 def bucket_order(records: Sequence[MoleculeRecord], buckets=DEFAULT_BUCKETS) -> list[int]:
@@ -132,7 +147,8 @@ class Prefetcher:
     def __iter__(self):
         try:
             while True:
-                item = self._queue.get()
+                with span("queue_wait", counter="pipeline.queue_wait_s"):
+                    item = self._queue.get()
                 if item is _DONE:
                     if self._err is not None:
                         raise self._err
@@ -145,11 +161,12 @@ class Prefetcher:
         """Stop the thread and wait for it to end. After the stop flag is
         set the thread makes at most one more put, which the emptied queue
         takes without blocking."""
-        self._stop.set()
-        with contextlib.suppress(queue.Empty):
-            while True:
-                self._queue.get_nowait()
-        self._thread.join()
+        with span("epoch_end"):
+            self._stop.set()
+            with contextlib.suppress(queue.Empty):
+                while True:
+                    self._queue.get_nowait()
+            self._thread.join()
 
 
 def prefetched_batches(records, batch_size, max_atoms, *, shuffle=False, rng=None,

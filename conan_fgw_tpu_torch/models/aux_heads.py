@@ -6,7 +6,7 @@ The reference model zoo's simpler heads (``ScalarsAggregation``,
 ``AttentionEmbeddingsAggregation``, ``EmbeddingsWithGAT``) and a regression
 head over an ESAN variant. Each keeps the port's model contract:
 ``forward(batch, use_barycenter=False)`` returns ``(pred (B, 1), n_div)``,
-``n_div`` an int64 zero (no head has a barycenter branch), so each drops into
+``n_div`` two int64 zeros (no head has a barycenter branch), so each drops into
 ``train/loop.py`` as ``ConanModel`` does. Each is initialised as the flax
 model is (``init_like_flax``) from a generator seeded with ``seed`` and
 moved to ``device``. The runner builds them from ``ExperimentSpec.model``
@@ -37,7 +37,7 @@ class _Head(nn.Module):
 
     @staticmethod
     def _no_div(batch) -> torch.Tensor:
-        return torch.zeros((), dtype=torch.int64, device=batch.pos.device)
+        return torch.zeros((2,), dtype=torch.int64, device=batch.pos.device)
 
 
 class ScalarsAggregation(_Head):

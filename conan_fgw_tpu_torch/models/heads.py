@@ -91,8 +91,9 @@ class ConanModel(nn.Module):
     """Conformer aggregation network with an optional FGW-barycenter branch.
 
     ``forward(batch, use_barycenter)`` returns ``(pred (B, 1), n_div)``:
-    ``n_div`` counts the coupling solves that rolled back a Sinkhorn
-    numerical failure (0 without the barycenter branch). ``task``
+    ``n_div`` is ``(2,)`` int64, the coupling solves that rolled back a
+    Sinkhorn numerical failure and the Sinkhorn iterations of the
+    barycenter's solves (0 and 0 without the barycenter branch). ``task``
     "regression" predicts with one Linear; "classification" returns logits
     of a three-layer head, with self-attention per conformer in stage 1.
 
@@ -206,7 +207,7 @@ class ConanModel(nn.Module):
         else:
             h3 = self.backbone(zf, posf, maskf)
             x_bary = None
-            n_div = torch.zeros((), dtype=torch.int64, device=posf.device)
+            n_div = torch.zeros((2,), dtype=torch.int64, device=posf.device)
         return masked_sum(h3, maskf).reshape(B, K, -1), x_bary, n_div
 
     def embeddings(self, batch) -> dict:

@@ -194,23 +194,25 @@ def launch_name(count: str, N: int) -> str:
 
 
 def fgw_couplings_plain(Ms, C1s, C2s, ps, qs, T0s, n=None, **solver):
-    """Plain PyTorch version: ``(T (S, N, N), diverged (S,) int32)``. With
-    ``n`` < N, the solve of the leading ``n x n`` block, its plan zero on
-    the padding, as the kernel computes it."""
+    """Plain PyTorch version: ``(T (S, N, N), flags (2, S) int32)``, the
+    diverged flags and each solve's Sinkhorn iterations, as the kernel
+    returns them. With ``n`` < N, the solve of the leading ``n x n`` block,
+    its plan zero on the padding, as the kernel computes it."""
     N = Ms.shape[-1]
-    if n is None or n == N:
-        T, div = fgw_coupling(Ms, C1s, C2s, ps, qs, T0s, **solver)
-        return T, div.to(torch.int32)
-    T, div = fgw_coupling(Ms[:, :n, :n], C1s[:, :n, :n], C2s[:, :n, :n], ps[:, :n], qs[:, :n],
-                          T0s[:, :n, :n], **solver)
-    return F.pad(T, (0, N - n, 0, N - n)), div.to(torch.int32)
+    n = N if n is None else n
+    if n < N:
+        Ms, C1s, C2s, T0s = (x[:, :n, :n] for x in (Ms, C1s, C2s, T0s))
+        ps, qs = ps[:, :n], qs[:, :n]
+    T, div, iters = fgw_coupling(Ms, C1s, C2s, ps, qs, T0s, **solver)
+    return F.pad(T, (0, N - n, 0, N - n)), torch.stack([div.to(torch.int32), iters])
 
 
 def fgw_couplings_banded(Ms, C1s, C2s, ps, qs, T0s, *, rows, n=None, streamed=False, alpha,
                          epsilon, pgd_iters, pgd_tol, sinkhorn_iters, sinkhorn_thr):
     """The cluster route's decomposition in plain PyTorch (for the CPU
     tests; nothing on the main path calls it): ``(T (S, N, N), diverged
-    (S,) int32)`` as ``fgw_couplings_plain``. The N rows fall into bands of
+    (S,) int32)``, the plan and the first row of ``fgw_couplings_plain``'s
+    flags. The N rows fall into bands of
     ``rows`` rows (the last one short where ``rows`` does not divide N, as
     on the global route), one a CTA of the cluster or team, in rank order.
     Product 1 sums the bands' k-slices from the own band on, as the cluster
@@ -375,13 +377,12 @@ def _complaint(name, t, dev, want):
     return f"{name} must start on a 16-byte boundary"
 
 
-def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
-            sinkhorn_iters, sinkhorn_thr, n=None, count="fgw_couplings"):
-    """Launch K3: ``(T, diverged, sinkhorn_iters_run)``, the last an ``(S,)``
-    int32 count of the Sinkhorn iterations each solve ran over all its PGD
-    steps (a frozen solve leaves its Sinkhorn loop early). ``N`` must be a
-    multiple of 32; rows and columns ``>= n`` (default N) are padding. The
-    route is ``route(N, S)``'s on the card's SMs, and ``launches[launch_name(count, N)]`` grows
+def _couplings(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
+               sinkhorn_iters, sinkhorn_thr, n=None, count="fgw_couplings"):
+    """Launch K3: ``(T, flags)``, ``flags`` the ``(2, S)`` int32 buffer the
+    kernel writes: each solve's diverged flag, and its Sinkhorn iterations
+    over all its PGD steps. ``N`` must be a multiple of 32; rows and
+    columns ``>= n`` (default N) are padding. The route is ``route(N, S)``'s on the card's SMs, and ``launches[launch_name(count, N)]`` grows
     by one: up to ``LARGEST_TEMPLATE`` the templates, up to
     ``LARGEST_CLUSTER`` the cluster route (``count + "_cluster"``), up to
     ``LARGEST_STREAM`` the stream route (``count + "_stream"``; a size it
@@ -405,10 +406,10 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
         raise ValueError(f"fgw kernel: n={n} atoms outside [1, N={N}]")
     if way.size != N:  # the padding is left out of the solve, as n's
         args = tuple(_padded(x, way.size - N) for x in (Ms, C1s, C2s, ps, qs, T0s))
-        T, div, iters = _launch(*args, alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters,
-                                pgd_tol=pgd_tol, sinkhorn_iters=sinkhorn_iters,
-                                sinkhorn_thr=sinkhorn_thr, n=n, count=count)
-        return T[:, :N, :N], div, iters
+        T, flags = _couplings(*args, alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters,
+                              pgd_tol=pgd_tol, sinkhorn_iters=sinkhorn_iters,
+                              sinkhorn_thr=sinkhorn_thr, n=n, count=count)
+        return T[:, :N, :N], flags
     lib = _build.load_library()
     T = torch.empty_like(Ms)
     flags = torch.empty((2, S), dtype=torch.int32, device=dev)
@@ -435,17 +436,16 @@ def _launch(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
     count = launch_name(count, N)
     _build.check(code, count)
     launches[count] += 1
-    return T, div, iters
+    return T, flags
 
 
 def _solve(args, n, count, solver):
     """CUDA tensors to the kernel, CPU tensors to ``fgw_couplings_plain``;
-    a mix of the two raises."""
+    a mix of the two raises. Returns ``(T, flags)`` (``_couplings``)."""
     if all(t.device.type == "cpu" for t in args):
         return fgw_couplings_plain(*args, n=n, **solver)
     if args[0].is_cuda:
-        T, div, _ = _launch(*args, n=n, count=count, **solver)
-        return T, div
+        return _couplings(*args, n=n, count=count, **solver)
     devices = sorted({str(t.device) for t in args})
     raise ValueError(f"fgw couplings: unsupported device {', '.join(devices)}")
 
@@ -461,7 +461,8 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
 
     Args: ``Ms``/``C1s``/``C2s``/``T0s`` ``(S, N, N)``, ``ps``/``qs`` ``(S, N)``
     for any ``N``, as JAX's flat solver takes any ``n``.
-    Returns ``(T (S, N, N) f32, diverged (S,) int32 per-solve flags)``.
+    Returns ``(T (S, N, N) f32, flags (2, S) int32)``: each solve's
+    diverged flag and Sinkhorn iterations (``_couplings``).
     CUDA tensors go to the kernel (counted as ``fgw_couplings`` up to 128
     atoms, ``fgw_couplings_cluster`` from 129 to 256, ``fgw_couplings_stream``
     from 257 to 512, ``fgw_couplings_large`` above: ``launch_name``), CPU
@@ -476,10 +477,12 @@ def fgw_couplings_flat(Ms, C1s, C2s, ps, qs, T0s, *, alpha, epsilon, pgd_iters, 
     args = (Ms, C1s, C2s, ps, qs, T0s)
     N = Ms.shape[-1]
     pad = -N % 32
-    if not pad:
-        return _solve(args, None, "fgw_couplings", solver)
-    T, div = _solve(tuple(_padded(x, pad) for x in args), N, "fgw_couplings", solver)
-    return T[:, :N, :N], div
+    if pad:
+        T, flags = _solve(tuple(_padded(x, pad) for x in args), N, "fgw_couplings", solver)
+        T = T[:, :N, :N]
+    else:
+        T, flags = _solve(args, None, "fgw_couplings", solver)
+    return T, flags
 
 
 def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol,
@@ -488,10 +491,11 @@ def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol
 
     Args: ``Ms``/``Cks``/``T0s`` ``(K, n, n)``, ``Cb`` ``(n, n)`` (the
     shared barycenter structure), ``p`` ``(n,)``, ``qs`` ``(K, n)``, for any
-    ``n``. Returns ``(T (K, n, n), count)``, ``count``
-    an int32 0-d tensor: how many of the K solves hit a Sinkhorn numerical
-    failure and rolled back. The solves are padded to the next multiple of
-    32 with zero structure, mass and plan, and K3 (counted as
+    ``n``. Returns ``(T (K, n, n), totals)``, ``totals`` ``(2,)`` int32:
+    how many of the K solves hit a Sinkhorn numerical failure and rolled
+    back, and the K solves' Sinkhorn iterations. The solves are padded to
+    the next multiple of 32 with zero structure, mass and plan, and K3
+    (counted as
     ``fgw_couplings_mol``, ``fgw_couplings_mol_cluster`` from 129 to 256
     atoms, ``fgw_couplings_mol_stream`` from 257 to 512,
     ``fgw_couplings_mol_large`` above) leaves the padding out; on the
@@ -503,5 +507,5 @@ def fgw_couplings(Ms, Cb, Cks, p, qs, T0s, *, alpha, epsilon, pgd_iters, pgd_tol
     args = tuple(_padded(x, pad) for x in (Ms, Cb.expand(K, n, n), Cks, p.expand(K, n), qs, T0s))
     solver = dict(alpha=alpha, epsilon=epsilon, pgd_iters=pgd_iters, pgd_tol=pgd_tol,
                   sinkhorn_iters=sinkhorn_iters, sinkhorn_thr=sinkhorn_thr)
-    T, div = _solve(args, n, "fgw_couplings_mol", solver)
-    return T[:, :n, :n], div.sum(dtype=torch.int32)
+    T, flags = _solve(args, n, "fgw_couplings_mol", solver)
+    return T[:, :n, :n], flags.sum(1, dtype=torch.int32)

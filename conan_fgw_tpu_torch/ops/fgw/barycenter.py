@@ -24,6 +24,12 @@ Two routes, as the JAX package gates its Pallas solver
 - ``loss_fun="kl_loss"`` or ``stop_grad_couplings=False`` run the plain
   solver (``ops/fgw/coupling.py``, JAX's XLA route) on any device; without
   stop-gradient, autograd runs through every solve.
+
+The descent counts, as a ``(2,)`` int64 ``n_div``, the solves that rolled
+back a Sinkhorn failure while their molecule was not yet frozen, and the
+Sinkhorn iterations of all solves (every solve of every outer iteration, a
+frozen molecule's too, as both routes solve them all): K3 returns both per
+solve in one buffer, and one reduction sums them.
 """
 
 from __future__ import annotations
@@ -95,14 +101,15 @@ def _frob(x: torch.Tensor) -> torch.Tensor:
 
 def _plain_solve(config, p, ps):
     """The plain solver over ``(B, K)`` solves: ``solve(Ms, C, Cs, T0) ->
-    (T (B, K, N, N), diverged (B, K))``."""
+    (T (B, K, N, N), flags (2, B, K))``, the diverged flags and Sinkhorn
+    iterations."""
 
     def solve(Ms, C, Cs, T0):
         B, K, N, _ = Ms.shape
-        T, div = fgw_coupling(Ms, C[:, None].expand(B, K, N, N), Cs, p[:, None].expand(B, K, N),
-                              ps, T0, loss_fun=config.loss_fun, symmetric=True,
-                              **config.solver())
-        return T, div.to(torch.int64)
+        T, div, iters = fgw_coupling(Ms, C[:, None].expand(B, K, N, N), Cs,
+                                     p[:, None].expand(B, K, N), ps, T0,
+                                     loss_fun=config.loss_fun, symmetric=True, **config.solver())
+        return T, torch.stack([div.to(torch.int64), iters.to(torch.int64)])
 
     return solve
 
@@ -111,9 +118,12 @@ def _descent(Ys, Cs, ps, p, lambdas, config, C, Y, solve):
     """The block-coordinate descent over ``B`` molecules: ``Ys (B, K, N, D)``,
     ``Cs (B, K, N, N)``, ``ps (B, K, N)``, ``p (B, N)``, ``lambdas (B, K)``,
     the initial barycenter ``C (B, N, N)``, ``Y (B, N, D)``. ``solve(Ms, C,
-    Cs, T0)`` solves the couplings of one outer iteration. Returns ``(Y, C,
-    n_div)``, ``n_div`` the count (int64) of solves that rolled back a
-    Sinkhorn numerical failure while their molecule was not yet frozen."""
+    Cs, T0)`` solves the couplings of one outer iteration: ``(T (B, K, N,
+    N), flags (2, B, K))``, each solve's diverged flag and Sinkhorn
+    iterations. Returns ``(Y, C, n_div)``, ``n_div`` ``(2,)`` int64: the
+    solves that rolled back a Sinkhorn numerical failure while their
+    molecule was not yet frozen, and the Sinkhorn iterations of all
+    solves."""
     B, K, N, D = Ys.shape
     has_mass = p > 0
     inv_p = torch.where(has_mass, 1.0 / torch.where(has_mass, p, torch.ones_like(p)), 0.0)
@@ -129,11 +139,14 @@ def _descent(Ys, Cs, ps, p, lambdas, config, C, Y, solve):
         T_indep = p[:, None, :, None] * ps[:, :, None, :]  # (B, K, N, N)
         T = T_indep
         Ms = sqdist(Y[:, None], Ys_ng)
-        frozen = torch.zeros((B,), dtype=torch.bool, device=Ys.device)
-        n_div = torch.zeros((), dtype=torch.int64, device=Ys.device)
+        # row 0: each molecule's freeze flag; row 1 stays False, so that the
+        # iterations row sums every solve
+        masks = torch.zeros((2, B), dtype=torch.bool, device=Ys.device)
+        frozen = masks[0]
+        n_div = torch.zeros((2,), dtype=torch.int64, device=Ys.device)
         for _ in range(config.outer_iters):
-            T_new, div = solve(Ms, C, Cs_ng, T if config.warmstart else T_indep)
-            n_div = n_div + torch.where(frozen, 0, div.sum(1)).sum()
+            T_new, flags = solve(Ms, C, Cs_ng, T if config.warmstart else T_indep)
+            n_div = n_div + torch.where(masks, 0, flags.sum(2)).sum(1)
             settled = []  # per molecule: an update moved by at most outer_tol
             if config.fixed_features:
                 Y_new, Ms_new = Y, Ms
@@ -164,7 +177,11 @@ def _descent(Ys, Cs, ps, p, lambdas, config, C, Y, solve):
             C = torch.where(m3, C, C_new)
             T = torch.where(m4, T, T_new)
             Ms = torch.where(m4, Ms, Ms_new)
-            frozen = frozen | newly_frozen
+            if sg:  # in place: under no_grad nothing keeps the old flags
+                frozen.logical_or_(newly_frozen)
+            else:  # autograd keeps them
+                frozen = frozen | newly_frozen
+                masks = torch.stack([frozen, torch.zeros_like(frozen)])
     if sg and not config.fixed_features:
         # re-apply the last feature update differentiably w.r.t. Ys; T holds
         # each molecule's couplings of its last applied update
@@ -205,14 +222,14 @@ def fgw_barycenter(
     Y = torch.zeros((N, D), dtype=Ys.dtype, device=Ys.device) if init_Y is None else init_Y
     if config.uses_kernel():
         def solve(Ms, Cb, Cks, T0):
-            T, count = k3.fgw_couplings(Ms[0], Cb[0], Cks[0], p, ps, T0[0], **config.solver())
-            return T[None], count.to(torch.int64).reshape(1, 1)
+            T, totals = k3.fgw_couplings(Ms[0], Cb[0], Cks[0], p, ps, T0[0], **config.solver())
+            return T[None], totals.to(torch.int64).reshape(2, 1, 1)
     else:
         solve = _plain_solve(config, p[None], ps[None])
     Y, C, n_div = _descent(Ys[None], Cs[None], ps[None], p[None], lambdas[None], config,
                            C[None], Y[None], solve)
     if return_diverged:
-        return Y[0], C[0], n_div
+        return Y[0], C[0], n_div[0]
     return Y[0], C[0]
 
 
@@ -231,9 +248,10 @@ def fgw_barycenter_batch(
     zero features. On the K3 route (``config.uses_kernel()``) any ``N``
     (``fgw_couplings_flat`` pads it to a multiple of 32; from 129 to 256
     atoms K3's cluster route solves it, above 256 its global route).
-    Returns ``(Y (B, N, D), C (B, N, N), n_div)``: ``n_div`` is the batch-total count (an int64
-    tensor) of coupling solves that rolled back a Sinkhorn numerical
-    failure while their molecule was not yet frozen.
+    Returns ``(Y (B, N, D), C (B, N, N), n_div)``: ``n_div`` is ``(2,)``
+    int64, the batch-total count of coupling solves that rolled back a
+    Sinkhorn numerical failure while their molecule was not yet frozen,
+    and the Sinkhorn iterations of all solves.
     """
     B, K, N, D = Ys.shape
     S = B * K
@@ -252,9 +270,10 @@ def fgw_barycenter_batch(
         ps_flat = flat(ps.detach())
 
         def solve(Ms, Cb, Cks, T0):
-            T, div = k3.fgw_couplings_flat(flat(Ms), flat(Cb[:, None].expand(B, K, N, N)), flat(Cks),
-                                        p_flat, ps_flat, flat(T0), **config.solver())
-            return T.reshape(B, K, N, N), div.reshape(B, K).to(torch.int64)
+            T, flags = k3.fgw_couplings_flat(flat(Ms), flat(Cb[:, None].expand(B, K, N, N)),
+                                             flat(Cks), p_flat, ps_flat, flat(T0),
+                                             **config.solver())
+            return T.reshape(B, K, N, N), flags.reshape(2, B, K).to(torch.int64)
     else:
         # JAX vmaps its per-molecule solver here: the same descent, batched
         solve = _plain_solve(config, p, ps)

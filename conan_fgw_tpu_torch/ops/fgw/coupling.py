@@ -76,8 +76,11 @@ def fgw_coupling(
     structures; ``solver="PPA"`` (proximal point) adds ``-eps log T`` to
     each step's cost. Differentiable: autograd runs through every step.
 
-    Returns ``(T (..., N1, N2), diverged (...) bool)``: diverged is True
-    where an inner Sinkhorn solve hit non-finite values and rolled back.
+    Returns ``(T (..., N1, N2), diverged (...) bool, iters (...) int32)``:
+    diverged is True where an inner Sinkhorn solve hit non-finite values and
+    rolled back; ``iters`` counts the Sinkhorn iterations each solve ran
+    over all its PGD steps, as K3 counts them: every PGD step runs its
+    Sinkhorn solve, up to its freeze.
     ``mm`` computes the two products of each step, ``(hC1 T) hC2^T``; the
     CPU tests pass ``ops/cuda/cfconv.py::split_mm`` to emulate the kernel's
     tensor-core arithmetic.
@@ -91,6 +94,7 @@ def fgw_coupling(
     batch = M.shape[:-2]
     frozen = torch.zeros(batch, dtype=torch.bool, device=M.device)
     diverged = torch.zeros_like(frozen)
+    iters = torch.zeros(batch, dtype=torch.int32, device=M.device)
     for it in range(pgd_iters):
         if symmetric:
             tens = alpha * gw_grad(*consts[0], T, mm) + (1.0 - alpha) * M
@@ -100,9 +104,10 @@ def fgw_coupling(
             ) * M
         if solver == "PPA":
             tens = tens - epsilon * torch.log(torch.clamp(T, min=1e-30))
-        T_new, div = sinkhorn_log(
+        T_new, div, run = sinkhorn_log(
             p, q, tens, epsilon, num_iters=sinkhorn_iters, stop_thr=sinkhorn_thr
         )
+        iters = iters + run
         # a non-finite plan also counts as a numerical failure
         bad = div | ~torch.isfinite(T_new).flatten(-2).all(-1)
         newly_frozen = bad
@@ -112,4 +117,4 @@ def fgw_coupling(
         T = torch.where((frozen | bad)[..., None, None], T, T_new)
         frozen = frozen | newly_frozen
         diverged = diverged | bad
-    return T, diverged
+    return T, diverged, iters

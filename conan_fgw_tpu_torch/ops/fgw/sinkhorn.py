@@ -6,6 +6,8 @@ Same policy as the JAX solver: a fixed iteration budget; on iterations with
 the column-marginal error of the would-be plan is checked and a solve whose
 error is below ``stop_thr`` freezes; an update that produces non-finite
 potentials is rolled back, the solve freezes and is flagged as diverged.
+A solve's iterations count those that began before it froze, as the CUDA
+kernel K3 counts the iterations it runs (``ops/cuda/fgw.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ def sinkhorn_log(
       return_potentials: also return the final log potentials.
 
     Returns:
-      ``(T (..., N, M), diverged (...) bool)``, or with ``return_potentials``
-      ``(T, (u, v), diverged)``.
+      ``(T (..., N, M), diverged (...) bool, iters (...) int32)``, ``iters``
+      each solve's iterations run before it froze, or with
+      ``return_potentials`` ``(T, (u, v), diverged, iters)``.
     """
     mr = -cost / epsilon
     logp = torch.log(torch.clamp(p, min=LOG_EPS))
@@ -52,7 +55,9 @@ def sinkhorn_log(
     v = torch.zeros(q.shape, dtype=cost.dtype, device=cost.device) if v0 is None else v0
     frozen = torch.zeros(batch, dtype=torch.bool, device=cost.device)
     diverged = torch.zeros_like(frozen)
+    iters = torch.zeros(batch, dtype=torch.int32, device=cost.device)
     for it in range(num_iters):
+        iters = iters + (~frozen).to(torch.int32)
         v_new = logq - torch.logsumexp(mr + u[..., :, None], dim=-2)
         u_new = logp - torch.logsumexp(mr + v_new[..., None, :], dim=-1)
         finite = torch.isfinite(u_new).all(-1) & torch.isfinite(v_new).all(-1)
@@ -69,5 +74,5 @@ def sinkhorn_log(
         diverged = diverged | newly_diverged
     T = torch.exp(mr + u[..., :, None] + v[..., None, :])
     if return_potentials:
-        return T, (u, v), diverged
-    return T, diverged
+        return T, (u, v), diverged, iters
+    return T, diverged, iters

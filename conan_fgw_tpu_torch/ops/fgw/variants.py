@@ -77,10 +77,9 @@ def sinkhorn_epsilon_scaling(p, q, cost, epsilon, *, num_iters=100, num_outer=10
     v = torch.zeros_like(q)
     for it in range(num_outer):
         eps_it = max(float(epsilon), float(eps0 * (epsilon / eps0) ** ((it + 1) / num_outer)))
-        _, (u, v), _ = sinkhorn_log(p, q, cost, eps_it, num_iters=num_iters // num_outer + 1,
-                                    u0=u, v0=v, return_potentials=True)
-    T, _, _ = sinkhorn_log(p, q, cost, epsilon, num_iters=num_iters, u0=u, v0=v,
-                           return_potentials=True)
+        _, (u, v), _, _ = sinkhorn_log(p, q, cost, eps_it, num_iters=num_iters // num_outer + 1,
+                                       u0=u, v0=v, return_potentials=True)
+    T, _, _ = sinkhorn_log(p, q, cost, epsilon, num_iters=num_iters, u0=u, v0=v)
     return T
 
 

@@ -60,6 +60,13 @@ shape.
 
 On the CPU the same object runs the step eagerly through the same static
 buffers: there are no graphs and no pinned slots there.
+
+Spans and counters (``utils/profiling.py``): ``slot_wait`` around a wait
+for a pinned slot's copy (``graphs.slot_wait_s``), ``replay`` around a
+graph's replay, its launch counts and the output clones
+(``graphs.replay_s``; ``graphs.replays`` counts them), ``capture`` and ``warm_up`` around a shape's capture
+and eager first step (``graphs.captures``, ``graphs.warm_ups``, counts);
+the step's spans carry its bucket N.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ from conan_fgw_tpu_torch.data.packing import (
     bucket_for,
 )
 from conan_fgw_tpu_torch.ops.cuda import launches
+from conan_fgw_tpu_torch.utils.profiling import add, span
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PackedBatch))
 # pinned host batches a pass over the data may hold besides the copies in
@@ -224,7 +232,8 @@ class PinnedSlots:
         while self._in_flight:
             i, event = self._in_flight[0]
             if len(self._in_flight) > limit:
-                event.synchronize()
+                with span("slot_wait", counter="graphs.slot_wait_s"):
+                    event.synchronize()
             elif not event.query():
                 return
             self._in_flight.popleft()
@@ -331,12 +340,14 @@ class StepGraphs:
         else:
             if step.graph is None:
                 self._capture(step, fn, kind)
-            step.graph.replay()
-            if step.after is not None:
-                self.reduce()
-                step.after.replay()
-            step.counts.replayed()
-            out = tuple(t.clone() for t in step.out)
+            with span("replay", pb.z.shape[-1], counter="graphs.replay_s"):
+                step.graph.replay()
+                if step.after is not None:
+                    self.reduce()
+                    step.after.replay()
+                step.counts.replayed()
+                out = tuple(t.clone() for t in step.out)
+            add("graphs.replays", 1)
         if kind != "eval":
             self.grads = step.grads if step.graph is not None else [p.grad for p in self.params]
         return out
@@ -371,12 +382,14 @@ class StepGraphs:
     def _warm_up(self, step: _Step, fn) -> tuple:
         """The shape's first batch, eagerly on a side stream, which waits
         for the current stream's work: the batch's copy too."""
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = self._eager(step, fn)
-        current.wait_stream(side)
+        add("graphs.warm_ups", 1)
+        with span("warm_up", step.batch.z.shape[-1]):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                out = self._eager(step, fn)
+            current.wait_stream(side)
         step.warm = True
         return out
 
@@ -389,7 +402,8 @@ class StepGraphs:
         graph."""
         split = isinstance(fn, tuple)
         graph = torch.cuda.CUDAGraph()
-        with step.counts.capturing():
+        add("graphs.captures", 1)
+        with span("capture", step.batch.z.shape[-1]), step.counts.capturing():
             with torch.cuda.graph(graph):
                 out = (fn[0] if split else fn)(*self._args(step))
             if split:

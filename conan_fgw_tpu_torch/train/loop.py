@@ -61,6 +61,7 @@ from conan_fgw_tpu_torch.parallel import collectives
 from conan_fgw_tpu_torch.parallel import mesh as mesh_lib
 from conan_fgw_tpu_torch.train import metrics as metrics_lib
 from conan_fgw_tpu_torch.train.graphs import StepGraphs
+from conan_fgw_tpu_torch.utils import profiling
 
 log = logging.getLogger("conan_fgw_tpu_torch")
 
@@ -70,6 +71,16 @@ log = logging.getLogger("conan_fgw_tpu_torch")
 GUARD_SIGMAS = 50.0
 # monitors for which a higher value is better
 MAXIMIZED = ("val_auroc", "val_mean", "val_prc")
+# fit's history columns of an epoch's change in the program's counters
+COUNTER_COLUMNS = {
+    "fgw_sinkhorn_iters": "fgw.sinkhorn_iters",
+    "queue_wait_s": "pipeline.queue_wait_s",
+    "pack_s": "pipeline.pack_s",
+    "slot_wait_s": "graphs.slot_wait_s",
+    "replay_s": "graphs.replay_s",
+    "graph_captures": "graphs.captures",
+    "graph_warm_ups": "graphs.warm_ups",
+}
 
 
 @dataclasses.dataclass
@@ -244,10 +255,13 @@ def _apply(model, optimizer, settings: TrainSettings, accumulation, update: bool
 
 def train_step(model, optimizer, batch, settings: TrainSettings,
                accumulation: Accumulation | None = None, update: bool = True):
-    """One optimisation step; returns ``(loss, n_div)`` as device tensors.
-    Gradients are set to None first, so under capture backward allocates
-    them in the graph's memory pool. With an ``accumulation`` it is a
-    mini-step, which updates the weights only where ``update``."""
+    """One optimisation step; returns ``(loss, n_div)`` as device tensors,
+    ``n_div`` the model's ``(2,)`` int64 count of the step's FGW solves that
+    rolled back a Sinkhorn failure and of their Sinkhorn iterations
+    (``ops/fgw/barycenter.py``). Gradients are set to None first, so under
+    capture backward allocates them in the graph's memory pool. With an
+    ``accumulation`` it is a mini-step, which updates the weights only where
+    ``update``."""
     optimizer.zero_grad(set_to_none=True)
     pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
     loss = task_loss(pred, batch, settings)
@@ -258,7 +272,7 @@ def train_step(model, optimizer, batch, settings: TrainSettings,
 
 def eval_step(model, batch, settings: TrainSettings, rows: torch.Tensor | None = None):
     """One forward without gradient: ``(loss, pred, n_div)`` device tensors
-    (``rows`` as in ``masked_mse``)."""
+    (``n_div`` as in ``train_step``, ``rows`` as in ``masked_mse``)."""
     with torch.no_grad():
         pred, n_div = model(batch, use_barycenter=settings.use_barycenter)
         return task_loss(pred, batch, settings, rows), pred, n_div
@@ -272,9 +286,10 @@ class SplitStep:
     global batch's ``rows`` real molecules (so the ranks' losses sum to the
     global batch's mean, as JAX's ``sum(masked loss) / max(sum(mol_mask),
     1)`` over the sharded batch), backward, and the gradients, the loss and
-    ``n_div`` copied into ``flat``. ``reduce()``: ``all_reduce_`` of
-    ``flat`` over the mesh. ``after()``: the summed gradients copied back,
-    the global-norm clip and Adam; returns the summed ``(loss, n_div)``.
+    ``n_div`` (``(2,)``: divergences and Sinkhorn iterations) copied into
+    ``flat``. ``reduce()``: ``all_reduce_`` of ``flat`` over the mesh.
+    ``after()``: the summed gradients copied back, the global-norm clip and
+    Adam; returns the summed ``(loss, n_div)``.
     ``flat`` is one f32 buffer, made at the first step (when the gradients
     the stage produces are known) and addressed by every later step, so
     that both halves can be CUDA graphs (``train/graphs.py``). With an
@@ -289,7 +304,7 @@ class SplitStep:
         self.accumulation = accumulation
         self.params = list(model.parameters())
         self.flat: torch.Tensor | None = None
-        self._views: list = []  # one view of flat per gradient, then loss and n_div
+        self._views: list = []  # one view of flat per gradient, then loss and n_div (2,)
 
     def _grads(self) -> list:
         return [p.grad for p in self.params if p.grad is not None]
@@ -301,10 +316,10 @@ class SplitStep:
         loss.backward()
         grads = self._grads()
         if self.flat is None:
-            sizes = [g.numel() for g in grads] + [1, 1]
+            sizes = [g.numel() for g in grads] + [1, 2]
             self.flat = torch.empty(sum(sizes), dtype=torch.float32, device=loss.device)
             self._views = [v.view_as(g) for v, g in zip(self.flat.split(sizes), grads)]
-            self._views += [self.flat[-2], self.flat[-1]]
+            self._views += [self.flat[-3], self.flat[-2:]]
         if len(grads) + 2 != len(self._views):
             raise RuntimeError(f"{len(grads)} gradients, the all-reduce buffer holds"
                                f" {len(self._views) - 2}")
@@ -316,7 +331,7 @@ class SplitStep:
     def after(self, update: bool = True) -> tuple:
         torch._foreach_copy_(self._grads(), self._views[:-2])
         _apply(self.model, self.optimizer, self.settings, self.accumulation, update)
-        return self.flat[-2].clone(), self.flat[-1].to(torch.int64)
+        return self.flat[-3].clone(), self.flat[-2:].to(torch.int64)
 
 
 def step_graphs(model, optimizer, settings: TrainSettings, device, mesh=None,
@@ -386,17 +401,20 @@ def step_batches(records, settings: TrainSettings, max_atoms: int, graphs=None, 
     (``StepGraphs.stage``); otherwise the numpy packer. With a ``mesh``
     the batches are the global ones, and each is packed only in the rank's
     row block (``mesh.rank_packer``: ``batch_size // world`` rows at the
-    global batch's bucket, its ``global_rows`` set)."""
+    global batch's bucket, its ``global_rows`` set). The set-up, the slots
+    readied and the prefetch thread started, is the span ``epoch_start``;
+    the thread's end, the span ``epoch_end`` (``data/loader.py``)."""
     rows = settings.batch_size if mesh is None else settings.batch_size // mesh.world
-    pack = functools.partial(loader_lib.pack, native=native)
-    if native and graphs is not None:
-        # the batch shapes: every bucket, or max_atoms alone without buckets
-        buckets = bucket_boundaries(max_atoms) if settings.bucketed else (max_atoms,)
-        pack = graphs.stage(records, rows, buckets) or pack
-    if mesh is not None:
-        pack = mesh_lib.rank_packer(pack, mesh)
-    it = batch_iterator(records, settings.batch_size, max_atoms, shuffle=rng is not None, rng=rng,
-                        prefetch=prefetch, bucketed=settings.bucketed, pack=pack)
+    with profiling.span("epoch_start"):
+        pack = functools.partial(loader_lib.pack, native=native)
+        if native and graphs is not None:
+            # the batch shapes: every bucket, or max_atoms alone without buckets
+            buckets = bucket_boundaries(max_atoms) if settings.bucketed else (max_atoms,)
+            pack = graphs.stage(records, rows, buckets) or pack
+        if mesh is not None:
+            pack = mesh_lib.rank_packer(pack, mesh)
+        it = batch_iterator(records, settings.batch_size, max_atoms, shuffle=rng is not None,
+                            rng=rng, prefetch=prefetch, bucketed=settings.bucketed, pack=pack)
     with contextlib.closing(it):
         yield it
 
@@ -434,7 +452,7 @@ def evaluate(model, records, settings: TrainSettings, max_atoms: int, device, gr
                 rows = None if mesh is None else torch.tensor(float(pb.global_rows), device=device)
                 loss, pred, n_div = eval_step(model, pb.to(device), settings, rows)
             losses.append(loss)
-            divs.append(n_div)
+            divs.append(n_div[0])
             preds.append(pred.reshape(-1))
     # (rows, batches); with a mesh every rank's rows in rank order, so that
     # column j holds global batch j's rows in order
@@ -499,9 +517,12 @@ class FitResult:
 def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, max_atoms: int, dev,
                  epoch: int, **pipeline):
     """Epoch ``epoch``'s train steps through ``graphs``: ``(losses, n_divs,
-    timing)``. A bucket's batches come one after another; ``timing`` holds
-    each bucket's steps (``steps_n32``) and host seconds up to a
-    synchronise at its end (``train_s_n32``). ``pipeline``:
+    timing)``, ``n_divs`` each step's ``(2,)`` ``n_div``. A bucket's batches
+    come one after another; ``timing`` holds each bucket's steps
+    (``steps_n32``) and host seconds up to a synchronise at its end
+    (``train_s_n32``; the span ``bucket_sync``). Then the epoch's Sinkhorn
+    iterations are read from the idle card in one copy (the span
+    ``epoch_end``) into the counter ``fgw.sinkhorn_iters``. ``pipeline``:
     ``step_batches``' ``prefetch``, ``native`` and ``mesh``."""
     losses, divs, timing = [], [], {}
     with step_batches(records, settings, max_atoms, graphs, rng=epoch_rng(settings, epoch),
@@ -514,9 +535,14 @@ def _train_epoch(graphs: StepGraphs, records, settings: TrainSettings, max_atoms
                 divs.append(n_div)
                 steps += 1
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                with profiling.span("bucket_sync", n):
+                    torch.cuda.synchronize(dev)
             timing[f"steps_n{n}"] = steps
             timing[f"train_s_n{n}"] = time.perf_counter() - t0
+    if divs:
+        with profiling.span("epoch_end"):
+            iters = int(torch.stack(divs).cpu()[:, 1].sum())
+        profiling.add("fgw.sinkhorn_iters", iters)
     return losses, divs, timing
 
 
@@ -544,7 +570,15 @@ def fit(settings: TrainSettings,
 
     Each history row carries ``train_steps`` and ``train_s``, the host time
     of the epoch's training steps ending in a device synchronise, and the
-    same by bucket (``steps_n32``, ``train_s_n32``, ...).
+    same by bucket (``steps_n32``, ``train_s_n32``, ...); and the epoch's
+    change, its evaluation included, in the program's counters
+    (``utils/profiling.py``): ``fgw_sinkhorn_iters`` (the training steps'
+    Sinkhorn iterations, ``fgw.sinkhorn_iters``), the host seconds
+    ``queue_wait_s`` (waiting for the prefetch thread), ``pack_s`` (packing,
+    on that thread), ``slot_wait_s`` (waiting for a pinned slot's copy) and
+    ``replay_s`` (graph replays), and ``graph_captures`` and
+    ``graph_warm_ups`` (new batch shapes). ``evaluate`` and the checkpoint
+    writes are the spans ``evaluate`` and ``checkpoint``.
 
     The steps go through one ``StepGraphs``, created after a resume has
     restored Adam's state; it is returned in ``FitResult.graphs``. Their
@@ -601,6 +635,7 @@ def fit(settings: TrainSettings,
 
     for epoch in range(start_epoch, settings.num_epochs):
         t0 = time.perf_counter()
+        before = profiling.counters.copy()
         if epoch != 0 and callable(train_records):
             # keyed on the epoch, so a resumed run redraws any epoch's subsets
             epoch_records = train_records(epoch)
@@ -609,12 +644,13 @@ def fit(settings: TrainSettings,
                                             epoch, **pipeline)
         train_s = time.perf_counter() - t_train
         train_loss = float(torch.stack(losses).mean())
-        epoch_divs = int(torch.stack(divs).sum())
+        epoch_divs = int(torch.stack(divs)[:, 0].sum())
         if epoch_divs:
             log.warning("FGW solver: %d Sinkhorn-diverged coupling solves rolled back "
                         "in epoch %d", epoch_divs, epoch)
-        val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev, graphs,
-                                     **pipeline)
+        with profiling.span("evaluate"):
+            val_metrics, _, _ = evaluate(model, val_records, settings, max_atoms, dev, graphs,
+                                         **pipeline)
         val_loss = val_metrics["loss"]
         row = {
             "epoch": epoch,
@@ -624,6 +660,7 @@ def fit(settings: TrainSettings,
             "train_steps": len(losses),
             "train_s": train_s,
             **timing,
+            **{col: profiling.counters[key] - before[key] for col, key in COUNTER_COLUMNS.items()},
             "epoch_time_s": time.perf_counter() - t0,
             **{f"val_{k}": v for k, v in val_metrics.items() if k != "loss"},
             "val_loss": val_loss,
@@ -637,21 +674,24 @@ def fit(settings: TrainSettings,
         if monitored is not None and (monitored > best if maximize else monitored < best):
             best, best_epoch = monitored, epoch
             if checkpointer is not None:
-                checkpointer.save_best(model, epoch, {settings.monitor: monitored})
+                with profiling.span("checkpoint"):
+                    checkpointer.save_best(model, epoch, {settings.monitor: monitored})
         set_learning_rate(optimizer, plateau.step(val_loss))
         should_stop = stopper.step(val_loss)
         if checkpointer is not None:
-            checkpointer.save_last(model, epoch)
-            checkpointer.save_state(model, optimizer, epoch, accumulation=accumulation, loop_state={
-                "lr": plateau.lr,
-                "plateau_best": plateau.best,
-                "plateau_num_bad": plateau.num_bad,
-                "stopper_best": stopper.best,
-                "stopper_num_bad": stopper.num_bad,
-                "best": float(best),
-                "best_epoch": best_epoch,
-                "history": history,
-            })
+            with profiling.span("checkpoint"):
+                checkpointer.save_last(model, epoch)
+                checkpointer.save_state(model, optimizer, epoch, accumulation=accumulation,
+                                        loop_state={
+                                            "lr": plateau.lr,
+                                            "plateau_best": plateau.best,
+                                            "plateau_num_bad": plateau.num_bad,
+                                            "stopper_best": stopper.best,
+                                            "stopper_num_bad": stopper.num_bad,
+                                            "best": float(best),
+                                            "best_epoch": best_epoch,
+                                            "history": history,
+                                        })
         if should_stop:
             log.info("early stopping at epoch %d", epoch)
             break

@@ -378,7 +378,7 @@ def probe_big(smoke, lib, plib, torch, sizes):
         routes = [("global", 0)] + [("cluster", R) for R in (32, 64) if lib.fgw_cluster_smem(N, R)]
         if hasattr(lib, "fgw_couplings_stream"):
             routes += [("stream", R) for R in (48, 64, 96) if lib.fgw_stream_smem(N, R)]
-        T_p, div_p = fgw_couplings_plain(*args, n=n, **kw)
+        T_p, (div_p, _) = fgw_couplings_plain(*args, n=n, **kw)
         for kind, R in routes:
             name = kind if kind == "global" else f"{kind} R={R}"
             T, div, iters = big_launch(lib, kind, R, args, kw, n=n)
@@ -461,7 +461,7 @@ def probe_faults(smoke, build, lib, torch) -> int:
         for label, args, n in big_sets(smoke, (smoke.GLOBAL_N, smoke.GLOBAL_BIG), torch):
             if not label.endswith("-later"):
                 continue
-            T_p, div_p = fgw_couplings_plain(*args, n=n, **kw)
+            T_p, (div_p, _) = fgw_couplings_plain(*args, n=n, **kw)
             for name, flib in libs.items():
                 T, div, _ = big_launch(flib, "global", 0, args, kw, n=n, fill=0.0)
                 err = float((T - T_p).abs().max())
@@ -492,7 +492,7 @@ def main() -> int:
     import conan_fgw_tpu_torch
     from conan_fgw_tpu_torch.device import pin_full_f32
     from conan_fgw_tpu_torch.ops.cuda import _build
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _couplings
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -523,24 +523,24 @@ def main() -> int:
             sets.append((f"{label}-outer2", smoke.second_outer_inputs(args, Ys, Cs)))
     for label, args in sets:
         S, N, _ = args[0].shape
-        _, _, iters = _launch(*args, **kw)
+        _, (_, iters) = _couplings(*args, **kw)
         for _ in range(3):
-            _launch(*args, **kw)
+            _couplings(*args, **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
-                _launch(*args, **kw)
+                _couplings(*args, **kw)
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and "fgw_couplings_kernel" in e.key]
         dev_ms = sum(e.self_device_time_total for e in dev) / max(1, sum(e.count for e in dev)) / 1e3
-        ev_ms = smoke.cuda_ms(lambda: _launch(*args, **kw), reps=50, warmup=5)
+        ev_ms = smoke.cuda_ms(lambda: _couplings(*args, **kw), reps=50, warmup=5)
         batches = []
         for _ in range(20):
             torch.cuda._sleep(SPIN_CYCLES)
             t0 = time.perf_counter()
             for _ in range(20):
-                _launch(*args, **kw)
+                _couplings(*args, **kw)
             batches.append((time.perf_counter() - t0) / 20 * 1e6)
             torch.cuda.synchronize()
         host_us, host_min = float(np.median(batches)), min(batches)

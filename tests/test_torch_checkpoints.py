@@ -22,7 +22,7 @@ from conan_fgw_tpu_torch.train.config import load_config
 from test_torch_model import SMALL, make_pair
 from test_torch_runner import tiny_dataset, write_config
 
-TIMES = ("train_s", "epoch_time_s")
+TIMES = ("train_s", "epoch_time_s", "queue_wait_s", "pack_s", "slot_wait_s", "replay_s")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -216,7 +216,8 @@ def test_fixed_structure_barycenter_matches_jax():
     jcfg = JFGWConfig(**FIXED)
     Y_j, C_j, n_j = j_bary(jnp.asarray(Ys), jnp.asarray(Cs), config=jcfg, return_diverged=True)
     Ys_t = torch.from_numpy(Ys).requires_grad_(True)
-    Y_t, C_t, n_t = fgw_barycenter_batch(Ys_t, torch.from_numpy(Cs), config=FGWConfig(**FIXED))
+    Y_t, C_t, (n_t, _) = fgw_barycenter_batch(Ys_t, torch.from_numpy(Cs),
+                                              config=FGWConfig(**FIXED))
     np.testing.assert_allclose(Y_t.detach().numpy(), np.asarray(Y_j), atol=BARY_ATOL)
     np.testing.assert_array_equal(C_t.numpy(), Cs[:, 0])
     np.testing.assert_array_equal(np.asarray(C_j), Cs[:, 0])
@@ -288,7 +289,7 @@ def test_model_matches_flax(stage):
         out_t, n_div = tmodel(tbatch, use_barycenter=bary)
     _close(out_t, out_j, rtol=STAGE2_RTOL if bary else RTOL)
     n_j = int(np.sum(np.asarray(muts["diagnostics"]["fgw_diverged"][0]))) if bary else 0
-    assert int(n_div) == n_j
+    assert int(n_div[0]) == n_j
 
 
 def test_stage2_loss_and_gradients_match_flax():
@@ -321,7 +322,7 @@ def test_stage2_prediction_with_small_outputs_matches_flax():
     with torch.no_grad():
         out_t, n_div = tmodel(tbatch, use_barycenter=True)
     np.testing.assert_allclose(out_t.numpy(), out_j, rtol=STAGE2_RTOL, atol=ATOL)
-    assert int(n_div) == int(np.sum(np.asarray(muts["diagnostics"]["fgw_diverged"][0])))
+    assert int(n_div[0]) == int(np.sum(np.asarray(muts["diagnostics"]["fgw_diverged"][0])))
 
 
 def test_stage2_gradients_with_small_outputs_match_flax():

@@ -56,7 +56,7 @@ def test_sinkhorn_matches(masked):
     T_j, div_j = jax.vmap(
         lambda p, q, c: j_sinkhorn(p, q, c, 0.1, num_iters=5, return_diverged=True)
     )(jnp.asarray(ps), jnp.asarray(qs), jnp.asarray(cost))
-    T_t, div_t = sinkhorn_log(*_t(ps, qs, cost), 0.1, num_iters=5)
+    T_t, div_t, _ = sinkhorn_log(*_t(ps, qs, cost), 0.1, num_iters=5)
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=T_ATOL)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_j))
 
@@ -69,7 +69,7 @@ def test_sinkhorn_rollback_flags_divergence():
     T_j, div_j = jax.vmap(
         lambda p, q, c: j_sinkhorn(p, q, c, 0.1, num_iters=5, return_diverged=True)
     )(jnp.asarray(ps), jnp.asarray(qs), jnp.asarray(cost))
-    T_t, div_t = sinkhorn_log(*_t(ps, qs, cost), 0.1, num_iters=5)
+    T_t, div_t, _ = sinkhorn_log(*_t(ps, qs, cost), 0.1, num_iters=5)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_j))
     assert bool(div_t[0]) and not bool(div_t[1:].any())
     np.testing.assert_allclose(T_t.numpy()[1:], np.asarray(T_j)[1:], atol=T_ATOL)
@@ -81,7 +81,7 @@ def test_fgw_coupling_matches(masked):
     T_j, div_j = jax.vmap(
         lambda M, a, b, p, q, t0: j_coupling(M, a, b, p, q, t0, return_diverged=True, **KW)
     )(*map(jnp.asarray, (Ms, C1, C2, ps, qs, T0)))
-    T_t, div_t = fgw_coupling(*_t(Ms, C1, C2, ps, qs, T0), **KW)
+    T_t, div_t, _ = fgw_coupling(*_t(Ms, C1, C2, ps, qs, T0), **KW)
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=T_ATOL)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_j))
 
@@ -91,7 +91,7 @@ def test_couplings_flat_plain_matches_pallas_interpret():
     Ms, C1, C2, ps, qs, T0 = _solves(s=2, n=8, seed=4)
     T_p, div_p = pallas_fgw_couplings_flat(*map(jnp.asarray, (Ms, C1, C2, ps, qs, T0)),
                                            interpret=True, **KW)
-    T_t, div_t = fgw_couplings_flat(*_t(Ms, C1, C2, ps, qs, T0), **KW)
+    T_t, (div_t, _) = fgw_couplings_flat(*_t(Ms, C1, C2, ps, qs, T0), **KW)
     assert div_t.dtype == torch.int32
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_p), atol=T_ATOL)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_p))
@@ -141,7 +141,7 @@ def test_barycenter_values_and_grad(masked):
 
     (_, (Y_j, C_j, n_j)), g_j = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(Ys))
     Ys_t = torch.from_numpy(Ys).requires_grad_(True)
-    Y_t, C_t, n_t = fgw_barycenter_batch(
+    Y_t, C_t, (n_t, _) = fgw_barycenter_batch(
         Ys_t, torch.from_numpy(Cs), ps=None if ps is None else torch.from_numpy(ps),
         p=None if p is None else torch.from_numpy(p), config=FGWConfig(),
     )
@@ -159,13 +159,13 @@ def test_barycenter_values_and_grad(masked):
 def test_kernel_refuses_what_is_not_on_the_card(where):
     """No tensor off the card reaches the kernel's launch, and the wrapper
     sends nothing but CPU tensors to the plain solver: a bad input raises."""
-    from conan_fgw_tpu_torch.ops.cuda.fgw import _launch
+    from conan_fgw_tpu_torch.ops.cuda.fgw import _couplings
 
     args = _t(*_solves(s=2, n=32, seed=7))
     args = [t.to("meta" if where == "meta" or (where == "mixed" and i == 2) else "cpu")
             for i, t in enumerate(args)]
     with pytest.raises(ValueError, match="fgw kernel"):
-        _launch(*args, **KW)
+        _couplings(*args, **KW)
     if where != "cpu":
         with pytest.raises(ValueError, match="unsupported device"):
             fgw_couplings_flat(*args, **KW)

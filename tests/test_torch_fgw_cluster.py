@@ -46,7 +46,7 @@ def _both(args, rows, n=None, **kw):
     """The banded and the plain solve of the same input."""
     solver = dict(KW, **kw)
     T_b, div_b = k3.fgw_couplings_banded(*args, rows=rows, n=n, **solver)
-    T_p, div_p = k3.fgw_couplings_plain(*args, n=n, **solver)
+    T_p, (div_p, _) = k3.fgw_couplings_plain(*args, n=n, **solver)
     return T_b, div_b, T_p, div_p
 
 

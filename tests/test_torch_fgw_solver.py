@@ -91,7 +91,7 @@ def test_sinkhorn_check_every(check_every, num_iters, stop_thr):
     kw = dict(num_iters=num_iters, stop_thr=stop_thr, check_every=check_every)
     T_j, div_j = jax.vmap(lambda p, q, c: jfgw.sinkhorn_log(p, q, c, 0.1, return_diverged=True,
                                                             **kw))(*_j(ps, qs, cost))
-    T_t, div_t = tfgw.sinkhorn_log(*_t(ps, qs, cost), 0.1, **kw)
+    T_t, div_t, _ = tfgw.sinkhorn_log(*_t(ps, qs, cost), 0.1, **kw)
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=T_ATOL)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_j))
 
@@ -108,9 +108,9 @@ def test_sinkhorn_warm_start_and_potentials():
         lambda p, q, c, u, v: jfgw.sinkhorn_log(p, q, c, 0.05, num_iters=6, u0=u, v0=v,
                                                 return_potentials=True, return_diverged=True)
     )(*_j(ps, qs, cost, u0, v0))
-    T_t, (u_t, v_t), div_t = tfgw.sinkhorn_log(*_t(ps, qs, cost), 0.05, num_iters=6,
-                                               u0=torch.from_numpy(u0), v0=torch.from_numpy(v0),
-                                               return_potentials=True)
+    T_t, (u_t, v_t), div_t, _ = tfgw.sinkhorn_log(*_t(ps, qs, cost), 0.05, num_iters=6,
+                                                  u0=torch.from_numpy(u0), v0=torch.from_numpy(v0),
+                                                  return_potentials=True)
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=T_ATOL)
     # potentials are logs of O(1/n) scalings: held relative to their size
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=T_ATOL * 10, rtol=T_ATOL)
@@ -134,7 +134,7 @@ def test_fgw_coupling_options(opts):
     kw = dict(KW, **opts)
     args = _pairs(seed=4, dense=kw.get("loss_fun") == "kl_loss")
     T_j, div_j = jax.vmap(lambda *a: jfgw.fgw_coupling(*a, return_diverged=True, **kw))(*_j(*args))
-    T_t, div_t = tfgw.fgw_coupling(*_t(*args), **kw)
+    T_t, div_t, _ = tfgw.fgw_coupling(*_t(*args), **kw)
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=T_ATOL)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_j))
 
@@ -153,7 +153,7 @@ def test_fgw_coupling_gradient_matches_jax():
 
     g_j = np.asarray(jax.grad(jloss)(jnp.asarray(Ms)))
     M_t = torch.from_numpy(Ms).requires_grad_(True)
-    T_t, _ = tfgw.fgw_coupling(M_t, *_t(C1, C2, ps, qs), **kw)
+    T_t, _, _ = tfgw.fgw_coupling(M_t, *_t(C1, C2, ps, qs), **kw)
     (T_t * torch.from_numpy(R)).sum().backward()
     assert np.linalg.norm(M_t.grad.numpy() - g_j) <= GRAD_RTOL * np.linalg.norm(g_j)
 
@@ -187,7 +187,7 @@ def _molecule(k=4, n=16, d=3, seed=0):
 def test_couplings_match_pallas_interpret(n):
     args = _molecule(n=n, seed=n)
     T_p, div_p = pallas_fgw_couplings(*_j(*args), interpret=True, **KW)
-    T_t, div_t = fgw_couplings(*_t(*args), **KW)
+    T_t, (div_t, _) = fgw_couplings(*_t(*args), **KW)
     assert T_t.shape == (4, n, n) and div_t.dtype == torch.int32 and div_t.dim() == 0
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_p), atol=PALLAS_ATOL, rtol=PALLAS_RTOL)
     assert int(div_t) == int(div_p)
@@ -202,8 +202,8 @@ def test_padded_solve_is_the_unpadded_solve(n, alpha, epsilon):
     unpadded plain solve, and is zero on the padding of the padded call."""
     Ms, Cb, Cs, p, qs, T0 = _t(*_molecule(k=5, n=n, seed=100 + n))
     kw = dict(KW, alpha=alpha, epsilon=epsilon)
-    T_ref, div_ref = tfgw.fgw_coupling(Ms, Cb.expand(5, n, n), Cs, p.expand(5, n), qs, T0, **kw)
-    T, count = fgw_couplings(Ms, Cb, Cs, p, qs, T0, **kw)
+    T_ref, div_ref, _ = tfgw.fgw_coupling(Ms, Cb.expand(5, n, n), Cs, p.expand(5, n), qs, T0, **kw)
+    T, (count, _) = fgw_couplings(Ms, Cb, Cs, p, qs, T0, **kw)
     np.testing.assert_allclose(T.numpy(), T_ref.numpy(), atol=T_ATOL)
     assert int(count) == int(div_ref.sum())
     N = n + (-n % 32)
@@ -218,9 +218,9 @@ def test_couplings_refuse_more_than_the_largest_bucket():
     largest bucket, is padded to 160 and solved; the
     plan equals the unpadded plain solve's, as at any n."""
     Ms, Cb, Cs, p, qs, T0 = _t(*_molecule(k=2, n=130, seed=9))
-    T_ref, div_ref = tfgw.fgw_coupling(Ms, Cb.expand(2, 130, 130), Cs, p.expand(2, 130), qs, T0,
-                                       **KW)
-    T, count = fgw_couplings(Ms, Cb, Cs, p, qs, T0, **KW)
+    T_ref, div_ref, _ = tfgw.fgw_coupling(Ms, Cb.expand(2, 130, 130), Cs, p.expand(2, 130), qs,
+                                          T0, **KW)
+    T, (count, _) = fgw_couplings(Ms, Cb, Cs, p, qs, T0, **KW)
     assert T.shape == (2, 130, 130)
     np.testing.assert_allclose(T.numpy(), T_ref.numpy(), atol=T_ATOL)
     assert int(count) == int(div_ref.sum())
@@ -366,8 +366,8 @@ def test_barycenter_batch_matches_jax(case):
 
     (_, (Y_j, C_j, n_j)), g_j = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(Ys))
     Ys_t = torch.from_numpy(Ys).requires_grad_(True)
-    Y_t, C_t, n_t = tfgw.fgw_barycenter_batch(Ys_t, torch.from_numpy(Cs),
-                                              config=tfgw.FGWConfig(**opts))
+    Y_t, C_t, (n_t, _) = tfgw.fgw_barycenter_batch(Ys_t, torch.from_numpy(Cs),
+                                                   config=tfgw.FGWConfig(**opts))
     np.testing.assert_allclose(Y_t.detach().numpy(), np.asarray(Y_j), atol=BARY_ATOL)
     np.testing.assert_allclose(C_t.detach().numpy(), np.asarray(C_j), atol=BARY_ATOL)
     assert int(n_t) == int(n_j)

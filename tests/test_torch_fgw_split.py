@@ -60,7 +60,7 @@ def _solve(kind, passes):
     f32 (``passes=0``) or through ``split_mm`` with ``passes`` TF32 passes."""
     args = [torch.from_numpy(x) for x in _problem(kind)]
     mm = torch.matmul if passes == 0 else functools.partial(split_mm, passes=passes, drop=TF32_DROP)
-    T, div = fgw_coupling(*args, **KW, mm=mm)
+    T, div, _ = fgw_coupling(*args, **KW, mm=mm)
     return T.numpy(), div.numpy()
 
 

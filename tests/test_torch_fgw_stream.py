@@ -49,7 +49,7 @@ def _both(args, n=None, **kw):
     solver = dict(KW, **kw)
     rows = k3.route(args[0].shape[-1]).rows
     T_b, div_b = k3.fgw_couplings_banded(*args, rows=rows, n=n, streamed=True, **solver)
-    T_p, div_p = k3.fgw_couplings_plain(*args, n=n, **solver)
+    T_p, (div_p, _) = k3.fgw_couplings_plain(*args, n=n, **solver)
     return T_b, div_b, T_p, div_p
 
 

@@ -54,7 +54,7 @@ def _both(args, S=2, n=None, **kw):
     solver = dict(KW, **kw)
     rows = k3.route(args[0].shape[-1], S).rows
     T_b, div_b = k3.fgw_couplings_banded(*args, rows=rows, n=n, streamed=True, **solver)
-    T_p, div_p = k3.fgw_couplings_plain(*args, n=n, **solver)
+    T_p, (div_p, _) = k3.fgw_couplings_plain(*args, n=n, **solver)
     return T_b, div_b, T_p, div_p
 
 
@@ -159,8 +159,8 @@ def test_team_kernel_matches_plain_on_the_card():
         x = _solves(s=S, n=n, seed=seed)
         args = [t.cuda() for t in _t(*_padded(x, 544 - n))]
         k3._team_ready(544, S, 0)
-        T_k, div_k, _ = k3._launch(*args, n=n, count="test", **KW)
-        T_p, div_p = k3.fgw_couplings_plain(*args, n=n, **KW)
+        T_k, (div_k, _) = k3._couplings(*args, n=n, count="test", **KW)
+        T_p, (div_p, _) = k3.fgw_couplings_plain(*args, n=n, **KW)
         torch.cuda.synchronize()
         np.testing.assert_allclose(T_k.cpu().numpy(), T_p.cpu().numpy(), atol=FGW_ATOL, rtol=0)
         np.testing.assert_array_equal(div_k.cpu().numpy(), div_p.cpu().numpy())

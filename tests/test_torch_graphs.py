@@ -39,7 +39,7 @@ from conan_fgw_tpu_torch.train.graphs import LaunchReplays, StepGraphs
 from test_torch_runner import FIRST_RTOL, LATER_RTOL, tiny_dataset, write_config
 
 SMALL = dict(hidden_channels=32, num_filters=32, num_gaussians=10, num_interactions=2)
-TIMES = ("train_s", "epoch_time_s")
+TIMES = ("train_s", "epoch_time_s", "queue_wait_s", "pack_s", "slot_wait_s", "replay_s")
 
 
 @pytest.fixture(autouse=True, scope="module")

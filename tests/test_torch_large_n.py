@@ -71,7 +71,7 @@ def _rel(a, b):
 def test_flat_solve_above_the_largest_bucket_matches_jax(n):
     args = _solves(s=2, n=n, seed=n)
     T_j, div_j = pallas_fgw_couplings_flat(*map(jnp.asarray, args), interpret=True, **KW)
-    T_t, div_t = k3.fgw_couplings_flat(*_t(*args), **KW)
+    T_t, (div_t, _) = k3.fgw_couplings_flat(*_t(*args), **KW)
     assert T_t.shape == (2, n, n)
     np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=FGW_ATOL, rtol=0)
     np.testing.assert_array_equal(div_t.numpy(), np.asarray(div_j))
@@ -86,7 +86,7 @@ def test_barycenter_batch_above_the_largest_bucket_matches_jax():
     Cs = np.maximum(a, a.transpose(0, 1, 3, 2))
     Y_j, C_j, n_j = j_bary(jnp.asarray(Ys), jnp.asarray(Cs), config=JFGWConfig(),
                            return_diverged=True)
-    Y_t, C_t, n_t = fgw_barycenter_batch(*_t(Ys, Cs), config=FGWConfig())
+    Y_t, C_t, (n_t, _) = fgw_barycenter_batch(*_t(Ys, Cs), config=FGWConfig())
     np.testing.assert_allclose(Y_t.numpy(), np.asarray(Y_j), atol=BARY_ATOL)
     np.testing.assert_allclose(C_t.numpy(), np.asarray(C_j), atol=BARY_ATOL)
     assert int(n_t) == int(n_j)

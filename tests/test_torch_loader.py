@@ -28,7 +28,7 @@ from conan_fgw_tpu_torch.train import loop as tloop
 
 SMALL = dict(hidden_channels=32, num_filters=32, num_gaussians=10, num_interactions=2)
 FIELDS = [f.name for f in dataclasses.fields(PackedBatch)]
-TIMES = ("train_s", "epoch_time_s")
+TIMES = ("train_s", "epoch_time_s", "queue_wait_s", "pack_s", "slot_wait_s", "replay_s")
 
 
 @pytest.fixture(autouse=True, scope="module")

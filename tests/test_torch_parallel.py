@@ -113,13 +113,14 @@ def ranks(pair):
 
 def _grads(flat: np.ndarray, model) -> dict:
     """The per-parameter gradients in a ``SplitStep`` buffer: the
-    parameters with a gradient, in order, then the loss and ``n_div``."""
+    parameters with a gradient, in order, then the loss and ``n_div`` (two
+    numbers: divergences and Sinkhorn iterations)."""
     named = [(k, p) for k, p in model.named_parameters() if p.grad is not None]
     out, at = {}, 0
     for k, p in named:
         out[k] = flat[at: at + p.numel()].reshape(p.shape)
         at += p.numel()
-    assert at + 2 == flat.size
+    assert at + 3 == flat.size
     return out
 
 
@@ -177,7 +178,7 @@ def test_two_ranks_match_the_jax_mesh_step(pair, ranks, case):
     bary, n_real = CASES[case]
     model = _single_step(pair, bary, n_real)[0]
     flat, weights = ranks[0][case]
-    _hold(float(flat[-2]), _grads(flat, model), weights[0], *_jax_step(pair, bary, n_real))
+    _hold(float(flat[-3]), _grads(flat, model), weights[0], *_jax_step(pair, bary, n_real))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -188,7 +189,7 @@ def test_two_ranks_match_one_process(pair, ranks, case):
     bary, n_real = CASES[case]
     model, loss, grads, weights = _single_step(pair, bary, n_real)
     flat, rank_weights = ranks[0][case]
-    _hold(float(flat[-2]), _grads(flat, model), rank_weights[0], loss, grads, weights)
+    _hold(float(flat[-3]), _grads(flat, model), rank_weights[0], loss, grads, weights)
     flat1, rank1_weights = ranks[1][case]
     assert flat.tobytes() == flat1.tobytes()
     for a, b in zip(rank_weights, rank1_weights, strict=True):

@@ -2,7 +2,7 @@
 package on the CPU: ``data/conformers.py::generate_store``, the
 ``tools/prepare_data.py`` sources (``--builtin`` sol250/sol1k and the
 derived sets, ``--download`` from a ``file://`` URL), ``run_experiment``'s
-``datasets=`` and ``records_provider=``, ``merge_params``, ``StepTimer``,
+``datasets=`` and ``records_provider=``, ``merge_params``,
 ``shard_range``, ``models/registry.py::get_model``,
 ``tools/summarize_protocol.py``, ``tools/eval_geom_scale.py`` (one process
 and a two-rank gloo mesh) and ``tools/synthetic_e2e.py``.
@@ -33,7 +33,6 @@ from conan_fgw_tpu.models import registry as jregistry
 from conan_fgw_tpu.train import checkpoints as jcheckpoints
 from conan_fgw_tpu.train import runner as jrunner
 from conan_fgw_tpu.train.config import ExperimentConfig as JConfig
-from conan_fgw_tpu.utils import profiling as jprofiling
 from conan_fgw_tpu_torch.convert import params_from_flax, state_dict_from_flax_checkpoint
 from conan_fgw_tpu_torch.data import conformers as tconf
 from conan_fgw_tpu_torch.data import loader as tloader
@@ -46,7 +45,6 @@ from conan_fgw_tpu_torch.train.checkpoints import RunCheckpointer
 from conan_fgw_tpu_torch.train.config import ExperimentConfig as TConfig
 from conan_fgw_tpu_torch.tools import eval_geom_scale, summarize_protocol, synthetic_e2e
 from conan_fgw_tpu_torch.tools import prepare_data as tprep
-from conan_fgw_tpu_torch.utils import profiling as tprofiling
 
 ROOT = Path(__file__).resolve().parents[1]
 SOL250 = ROOT / "data" / "sol250"
@@ -345,33 +343,6 @@ def test_merge_params_matches_jax():
     merged = tcheckpoints.merge_params(stage2, part)
     assert list(merged) == list(stage2)
     assert all(merged[k] is (part[k] if k in part else stage2[k]) for k in merged)
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    ticks = iter([0.0, 0.5, 1.0, 1.25, 2.0, 2.75, 3.0, 3.125] * 2)
-    fake = lambda: next(ticks)  # noqa: E731
-    summaries = []
-    for module in (jprofiling, tprofiling):
-        monkeypatch.setattr(module.time, "perf_counter", fake)
-        timer = module.StepTimer()
-        for _ in range(4):
-            with timer:
-                pass
-        summaries.append(timer.summary())
-    assert summaries[1] == summaries[0]
-    assert summaries[1]["steps"] == 3 and summaries[1]["max_s"] == 0.75
-
-
-def test_step_timer_synchronises_the_card(monkeypatch):
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: calls.append(device))
-    timer = tprofiling.StepTimer(device="cuda:0")
-    with timer:
-        pass
-    assert calls == [torch.device("cuda:0")] * 2
-    with tprofiling.StepTimer(device="cpu"):
-        pass
-    assert len(calls) == 2
 
 
 @pytest.mark.parametrize("n,count", [(10, 3), (7, 7), (5, 8), (96, 4), (0, 2)])

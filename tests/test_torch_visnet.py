@@ -219,7 +219,7 @@ def test_model_matches_flax(stage):
         out_t, n_div = tmodel(tbatch, use_barycenter=bary)
     _close(out_t, out_j, rtol=STAGE2_RTOL if bary else RTOL)
     n_j = int(np.sum(np.asarray(muts["diagnostics"]["fgw_diverged"][0]))) if bary else 0
-    assert int(n_div) == n_j
+    assert int(n_div[0]) == n_j
 
 
 def test_stage2_loss_and_gradients_match_flax():
